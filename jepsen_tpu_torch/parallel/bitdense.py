@@ -1,0 +1,229 @@
+"""Bit-packed dense linearizability engine, in PyTorch.
+
+A port of `jepsen_tpu.parallel.bitdense` (single history). The whole
+configuration space of one history is a bitset
+
+    B: int32[S, W],  W = 2^C / 32
+
+where bit b of word w of row s says that (model state s + state_lo,
+linearized-slot mask w*32 + b) is reachable. Per return event:
+
+  * compute_sel: the model step over every (slot, state) gives the
+    transition selects sel[j, s, t] (FULL where slot j's op steps s -> t);
+  * the closure fixpoint (K1, `closure_kernels.closure_fixpoint`) adds
+    every configuration reachable by linearizing open calls;
+  * filter_at: the returning call must have linearized, so keep the
+    masks with its slot's bit set and clear that bit (an intra-word
+    shift for slots < 5, a word gather for the others);
+  * an empty B is a failure at this event.
+
+The carry (B, ok, fail_r) stays on the device; the host walks the
+events, which it knows from the encoding, and reads the device once, at
+the end. After a failure the kernel skips its work by reading `ok`
+itself.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from jepsen_tpu_torch.parallel import closure_kernels as ck
+from jepsen_tpu_torch.parallel.encode import EncodedHistory, fail_op_fields
+from jepsen_tpu_torch.parallel.steps import STEPS
+
+MAX_C = 24  # 2^24 masks = 512k words per state row
+MAX_S = 128  # sel is [C, S, S] per event; cost O(C*S^2*W) per expansion
+
+_I32 = torch.int32
+FULL = -1  # 0xFFFFFFFF as an int32 bit pattern
+
+# events whose [C, S, S] selects are built in one batch: at most this
+# many int32 elements of sel at once
+SEL_CHUNK_ELEMS = 1 << 24
+
+
+def fits_bitdense(n_states: int, n_slots: int,
+                  budget_words: int = 1 << 22) -> bool:
+    if n_slots > MAX_C or n_states > MAX_S:
+        return False
+    W = max(1, (1 << n_slots) // 32)
+    # bound both the reachable-set tensor and the per-round work
+    return n_states * W <= budget_words \
+        and n_slots * n_states * n_states * W <= (1 << 26)
+
+
+def n_states(e: EncodedHistory) -> int:
+    return e.n_states
+
+
+def _intra_clear(j: int) -> int:
+    """32-bit constant with 1s at bit-positions whose mask-bit j is 0."""
+    out = 0
+    for p in range(32):
+        if (p >> j) & 1 == 0:
+            out |= 1 << p
+    return out
+
+
+def _plan(C: int):
+    """Static per-slot tables for shift/filter/select, as numpy (the
+    same tables as the reference's `_plan`, words as uint32)."""
+    W = max(1, (1 << C) // 32)
+    widx = np.arange(W, dtype=np.int32)
+    plan = []
+    for j in range(C):
+        if j < 5:
+            plan.append({
+                "intra": True,
+                "clear": np.uint32(_intra_clear(j)),
+                "shift": np.int32(1 << j),
+            })
+        else:
+            jb = 1 << (j - 5)
+            clear_words = ((widx >> (j - 5)) & 1) == 0
+            plan.append({
+                "intra": False,
+                "clearw": np.where(clear_words, 0xFFFFFFFF, 0).astype(np.uint32),
+                "fwd_idx": (widx ^ jb).astype(np.int32),
+                "setw": np.where(~clear_words, 0xFFFFFFFF, 0).astype(np.uint32),
+            })
+    return W, plan
+
+
+def _xs_dense(e: EncodedHistory, C: int) -> dict:
+    """The event tables padded to C slot columns (empty slots: f = -1,
+    unoccupied), as numpy."""
+    def padc(a, fill):
+        out = np.full((a.shape[0], C), fill, a.dtype)
+        out[:, : a.shape[1]] = a
+        return out
+
+    return {
+        "slot_f": padc(e.slot_f, -1),
+        "slot_a0": padc(e.slot_a0, -1),
+        "slot_a1": padc(e.slot_a1, -1),
+        "slot_wild": padc(e.slot_wild, False),
+        "slot_occ": padc(e.slot_occ, False),
+        "ev_slot": np.asarray(e.ev_slot),
+    }
+
+
+def resolve_device(device) -> torch.device:
+    """None means the card. There is no silent CPU run: without CUDA the
+    caller must ask for the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "jepsen_tpu_torch: no CUDA device is available; pass "
+            "device=\"cpu\" to run the plain PyTorch path on the CPU")
+    return dev
+
+
+class _Scan:
+    """The per-event state of one history's scan on one device."""
+
+    def __init__(self, e: EncodedHistory, S: int, C: int, device):
+        self.step = STEPS[e.step_name]
+        self.S, self.C, self.lo = S, C, e.state_lo
+        self.device = device
+        W, plan = _plan(C)
+        xs = _xs_dense(e, C)
+        self.ev_slot = xs["ev_slot"]
+        self.xs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                   for k, v in xs.items() if k != "ev_slot"}
+        self.states = torch.arange(S, dtype=_I32, device=device) + self.lo
+        self.t_idx = torch.arange(S, dtype=_I32, device=device)
+        # filter tables for word-level slots: word w (mask bit s clear)
+        # takes word w ^ jb (the same mask with bit s set); words with
+        # bit s set are cleared
+        self.fidx = {s: torch.from_numpy(plan[s]["fwd_idx"].astype(np.int64))
+                     .to(device) for s in range(5, C)}
+        self.fclear = {s: torch.from_numpy(plan[s]["clearw"].view(np.int32))
+                       .to(device) for s in range(5, C)}
+        self.B = torch.zeros((S, W), dtype=_I32, device=device)
+        self.B[e.state0 - self.lo, 0] = 1
+        self.ok = torch.ones((), dtype=torch.bool, device=device)
+        self.fail_r = torch.full((), -1, dtype=_I32, device=device)
+
+    def compute_sel(self, r0: int, r1: int):
+        """sel[e, j, s, t] = FULL where slot j's op is legal from state
+        s and steps it to t, for events r0..r1-1: [E, C, S, S]."""
+        x = {k: v[r0:r1, :, None] for k, v in self.xs.items()}   # [E, C, 1]
+        nxt, okj = self.step(self.states[None, None, :], x["slot_f"],
+                             x["slot_a0"], x["slot_a1"], x["slot_wild"])
+        legal = okj & x["slot_occ"]                               # [E, C, S]
+        hit = legal[..., None] & ((nxt - self.lo)[..., None] == self.t_idx)
+        return torch.where(hit, torch.tensor(FULL, dtype=_I32,
+                                             device=self.device),
+                           torch.tensor(0, dtype=_I32, device=self.device))
+
+    def filter_at(self, s: int, B):
+        """Keep the configurations in which slot s has linearized, with
+        its bit cleared (the slot is free after its return)."""
+        if s < 5:
+            return (B >> (1 << s)) & _intra_clear(s)
+        return torch.index_select(B, 1, self.fidx[s]) & self.fclear[s]
+
+    def run(self, n_events: int):
+        """Scan events 0..n_events-1; the carry stays on the device."""
+        C = self.C
+        per_event = C * self.S * self.S
+        chunk = max(1, SEL_CHUNK_ELEMS // per_event)
+        for r0 in range(0, n_events, chunk):
+            r1 = min(n_events, r0 + chunk)
+            sel = self.compute_sel(r0, r1)
+            for r in range(r0, r1):
+                s = int(self.ev_slot[r])
+                # in place; skipped by the kernel once ok is False
+                B2 = ck.closure_fixpoint(sel[r - r0], self.B, C,
+                                         run=self.ok, out=self.B)
+                B3 = self.filter_at(s, B2)
+                alive = B3.any()
+                # while ok holds no event has failed, so the first
+                # event that empties B is the failing one
+                self.fail_r = torch.where(self.ok & ~alive, r, self.fail_r)
+                self.B = torch.where(self.ok, B3, B2)
+                self.ok = self.ok & alive
+        return self
+
+
+def check_encoded_bitdense(e: EncodedHistory, device=None) -> dict:
+    """Single-key bit-packed check, the result schema of
+    `jepsen_tpu.parallel.bitdense.check_encoded_bitdense`. `closure`
+    says which closure ran: "cuda" when the scan launched K1, "torch"
+    when the plain version ran (on the CPU)."""
+    if e.n_returns == 0:
+        return {"valid?": True, "engine": "bitdense"}
+    dev = resolve_device(device)
+    S = n_states(e)
+    C = max(5, e.n_slots)  # at least one full word
+    before = ck.launches
+    sc = _Scan(e, S, C, dev).run(e.n_returns)
+    valid = sc.ok & (sc.B != 0).any()
+    # the one device read of the whole check
+    valid_i, fail_r = torch.stack([valid.to(_I32), sc.fail_r]).tolist()
+    out = {"valid?": bool(valid_i), "engine": "bitdense",
+           "states": S, "slots": C,
+           # the dense reachable-set tensor is a complete visited set
+           "dedupe": "dense",
+           "closure": "cuda" if ck.launches > before else "torch"}
+    if not out["valid?"]:
+        out.update(fail_op_fields(e, int(fail_r)))
+    return out
+
+
+def frontier_rows(e: EncodedHistory, start_ev: int, device=None) -> list:
+    """The live configurations after return events [0, start_ev), as
+    (state code, mask_lo, mask_hi) rows sorted by (state, mask) — the
+    order the reference's sparse re-scan leaves them in after its sort
+    dedupe. C <= 24, so mask_hi is always 0."""
+    dev = resolve_device(device)
+    S = n_states(e)
+    C = max(5, e.n_slots)
+    sc = _Scan(e, S, C, dev).run(start_ev)
+    words = sc.B.cpu().numpy().astype("<i4", copy=False)
+    bits = np.unpackbits(words.view(np.uint8).reshape(S, -1),
+                         axis=1, bitorder="little")       # [S, 32*W]
+    ss, ms = np.nonzero(bits)
+    return [(int(s) + e.state_lo, int(m), 0) for s, m in zip(ss, ms)]

@@ -1,0 +1,272 @@
+"""The port's linearizability engine: routing and counterexamples.
+
+A port of the single-history part of `jepsen_tpu.parallel.engine`:
+`analysis` encodes the history on the host and checks it with the
+bit-packed dense engine on the device (`parallel.bitdense`, whose
+closure is kernel K1); a failure is then explained on the host by
+`extract_final_paths`, a WGL re-search of the failing prefix — or, for
+histories over 500 calls, of a window before the failure, seeded from
+the device's reachable set at the window's start.
+
+Routes, as in the reference:
+  * a history the encoder cannot pack (EncodeError) goes to the host
+    WGL engine, with a `fallback` note;
+  * a history that fits the dense engine (fits_bitdense) runs on it;
+  * any other history needs the sparse frontier engine, which is not
+    ported yet: NotImplementedError, never a silent host run.
+
+A device fault is not caught here: it surfaces to the caller.
+"""
+
+from __future__ import annotations
+
+import logging
+import time as _time
+
+from jepsen_tpu_torch import models as model_ns
+from jepsen_tpu_torch.checker import wgl
+from jepsen_tpu_torch.history import Call, History
+from jepsen_tpu_torch.parallel import bitdense
+from jepsen_tpu_torch.parallel import encode as enc_mod
+from jepsen_tpu_torch.parallel.encode import EncodedHistory, EncodeError
+
+_log = logging.getLogger(__name__)
+
+
+def analysis(model, history, device=None) -> dict:
+    """knossos-style (model, history) -> result on the device engine.
+
+    `device` None means the card and raises RuntimeError when there is
+    none; the tests pass "cpu"."""
+    dev = bitdense.resolve_device(device)
+    h = history if isinstance(history, History) else History.wrap(history)
+    try:
+        e = enc_mod.encode(model, h)
+    except EncodeError as err:
+        _log.warning(
+            "history not device-checkable (%s) — using the host WGL "
+            "engine; expect it to be orders of magnitude slower", err)
+        r = wgl.analysis(model, h)
+        r["fallback"] = str(err)
+        return r
+    S = bitdense.n_states(e)
+    if not bitdense.fits_bitdense(S, e.n_slots):
+        raise NotImplementedError(
+            f"history needs the sparse frontier engine ({S} states, "
+            f"{e.n_slots} open-call slots exceed the dense engine's "
+            f"limits); the sparse engine is not ported to "
+            f"jepsen_tpu_torch yet")
+    r = bitdense.check_encoded_bitdense(e, device=dev)
+    if r["valid?"] is False:
+        apply_final_paths(r, model, e, device=dev)
+    return r
+
+
+# --------------------------------------- counterexample extraction
+
+# Host re-search window for long histories: events before the failure
+# covered by the seeded re-search (the reference emits full paths but
+# truncates to 10 — checker.clj:203-213; for histories the host could
+# never search whole, a window ending at the failure is the useful part)
+PATHS_WINDOW_EVENTS = 64
+PATHS_MAX_SEEDS = 8
+
+# Bounds for the full-host recheck run when the host path re-search
+# CONTRADICTS a device-invalid (below).
+DISAGREEMENT_RECHECK_MAX_STATES = 5_000_000
+DISAGREEMENT_RECHECK_SECS = 30.0
+
+
+def _disagreement_recheck(model, e: EncodedHistory, note: str) -> dict:
+    """The host re-search contradicted a device-invalid. Before shipping
+    "invalid, no paths", re-check the WHOLE key host-side under a
+    bounded budget: a device false-invalid must not become the verdict
+    when the host can decide the key. Decisive host verdicts win; an
+    over-budget recheck keeps the device verdict, tagged."""
+    n_history = max(c.complete_index for c in e.calls) + 1
+    host = wgl.check_calls(
+        model, list(e.calls), n_history,
+        max_states=DISAGREEMENT_RECHECK_MAX_STATES,
+        deadline=_time.monotonic() + DISAGREEMENT_RECHECK_SECS)
+    if host.get("valid?") is False:
+        out = {"final-paths": host.get("final-paths", []),
+               "configs": host.get("configs", []),
+               "engine-disagreement": note + "; full-host recheck "
+                                             "confirms invalid"}
+        if host.get("op"):
+            out["op"] = host["op"]
+        return out
+    if host.get("valid?") is True:
+        _log.error("device engine false-invalid: %s, and the bounded "
+                   "full-host recheck says VALID — overriding the device "
+                   "verdict (this may hide a device-engine bug; please "
+                   "report the history)", note)
+        return {"valid?": True, "final-paths": [], "configs": [],
+                "engine-disagreement": note + "; full-host recheck says "
+                                              "valid — device verdict "
+                                              "overridden"}
+    _log.warning("final-paths: %s; the bounded full-host recheck was "
+                 "indecisive (%s) — keeping the device verdict",
+                 note, host.get("error", "?"))
+    return {"final-paths": [], "configs": [],
+            "final-paths-note": note + "; bounded full-host recheck "
+                                       "indecisive — device verdict "
+                                       "kept"}
+
+
+def apply_final_paths(r: dict, model, e: EncodedHistory,
+                      device=None) -> dict:
+    """Merge extract_final_paths into a device-invalid result `r`, in
+    place. When the disagreement recheck OVERRIDES the verdict to
+    valid, the device's stale counterexample fields are dropped — a
+    valid result must not carry a phantom failing op."""
+    fp = extract_final_paths(model, e, int(r["fail-event"]), device=device)
+    if fp.get("valid?") is True:
+        for k in ("op", "fail-event"):
+            r.pop(k, None)
+    r.update(fp)
+    return r
+
+
+def extract_final_paths(model, e: EncodedHistory, fail_r: int,
+                        window: int = PATHS_WINDOW_EVENTS,
+                        max_seeds: int = PATHS_MAX_SEEDS,
+                        device=None) -> dict:
+    """knossos-style :final-paths / :configs for a failing return event.
+
+    Short histories (<= 500 calls) re-search the whole failing prefix on
+    the host. Longer ones re-run the device scan up to `window` return
+    events before the failure, read the reachable set there as
+    (model state, linearized-open-calls) seeds, and host-search only the
+    window from the first `max_seeds` of them."""
+    fail_idx = e.calls[int(e.ret_call[fail_r])].complete_index
+    if e.n_calls <= 500:
+        host = wgl.check_calls(model, _prefix_calls(e.calls, fail_idx),
+                               fail_idx + 1)
+        if host.get("valid?") is False:
+            return {"final-paths": host.get("final-paths", []),
+                    "configs": host.get("configs", [])}
+        return _disagreement_recheck(
+            model, e, "host re-search of the failing prefix came back "
+                      "valid while the device said invalid")
+
+    # the encoded history carries its *prepared* spec — for models with
+    # history-dependent packing (gset lanes, queue widths) a fresh
+    # pack_spec could not unpack device states
+    spec = e.spec or model_ns.pack_spec(model, e.intern)
+    if spec is None or spec.unpack_state is None:
+        note = "model has no unpack_state; cannot seed a window re-search"
+        _log.warning("final-paths extraction returned nothing for an "
+                     "invalid history: %s", note)
+        return {"final-paths": [], "configs": [], "final-paths-note": note}
+    start_ev = max(0, fail_r - window)
+    if start_ev == 0:
+        seeds = [(e.state0, frozenset())]
+    else:
+        rows = _frontier_at(e, start_ev, device=device)
+        occupants = _slot_occupants_before(e, start_ev)
+        seeds = []
+        for stc, ml, mh in rows[:max_seeds]:
+            mask = ml | (mh << 32)
+            seeds.append((stc, frozenset(
+                cid for s, cid in occupants.items() if (mask >> s) & 1)))
+
+    boundary = (e.calls[int(e.ret_call[start_ev])].complete_index
+                if start_ev > 0 else -1)
+    paths: list = []
+    configs: list = []
+    # Every sampled seed runs BEFORE any paths are trusted: a failing
+    # seed may just be a dead-end config, while a seed that linearizes
+    # through the failure contradicts the device's verdict.
+    for seed_i, (stc, linearized) in enumerate(seeds):
+        seed_model = spec.unpack_state(stc, e.intern)
+        cs = _window_calls(e.calls, boundary, fail_idx, linearized)
+        host = wgl.check_calls(seed_model, cs, fail_idx + 1)
+        if host.get("valid?") is True:
+            return _disagreement_recheck(
+                model, e, "window re-search from device seed %d "
+                          "linearized through the failure "
+                          "(window [%d, %d])"
+                          % (seed_i, start_ev, fail_r))
+        if host.get("valid?") is False:
+            paths.extend(host.get("final-paths", []))
+            configs.extend(host.get("configs", []))
+    if not paths:
+        return _disagreement_recheck(
+            model, e, "none of the %d window re-searches from device "
+                      "seeds produced a verdict (window [%d, %d])"
+                      % (len(seeds), start_ev, fail_r))
+    out = {"final-paths": paths[:10], "configs": configs[:10]}
+    if start_ev > 0:
+        out["final-paths-window"] = [start_ev, fail_r]
+    return out
+
+
+def _frontier_at(e: EncodedHistory, start_ev: int, device=None) -> list:
+    """Re-run the bitdense scan over return events [0, start_ev) and read
+    the live configurations as (state, mask_lo, mask_hi) rows, in the
+    reference's order (sorted by state, then mask)."""
+    return bitdense.frontier_rows(e, start_ev, device=device)
+
+
+def _slot_occupants_before(e: EncodedHistory, r_target: int) -> dict:
+    """slot -> call id of the snapshot taken just before return event
+    r_target — the same walk encode() performs (same heap discipline,
+    so slot numbers match the device masks)."""
+    import heapq
+    events = []
+    for c in e.calls:
+        events.append((c.invoke_index, 0, c.index))
+        if not c.crashed:
+            events.append((c.complete_index, 1, c.index))
+    events.sort()
+    free: list = []
+    n_slots = 0
+    slot_of: dict = {}
+    occ: dict = {}
+    r = 0
+    for _, kind, cid in events:
+        if kind == 0:
+            s = heapq.heappop(free) if free else n_slots
+            if s == n_slots:
+                n_slots += 1
+            slot_of[cid] = s
+            occ[s] = cid
+        else:
+            if r == r_target:
+                return dict(occ)
+            s = slot_of[cid]
+            del occ[s]
+            heapq.heappush(free, s)
+            r += 1
+    return dict(occ)
+
+
+def _window_calls(cs, boundary: int, fail_idx: int, linearized):
+    """Calls active in the window (boundary, fail_idx]: drops calls
+    fully completed before the boundary and calls the seed already
+    linearized; clamps completions past fail_idx to still-open."""
+    out = []
+    for c in cs:
+        if c.invoke_index > fail_idx:
+            continue
+        if (not c.crashed) and c.complete_index < boundary:
+            continue  # returned before the window: effect is in the seed
+        if c.index in linearized:
+            continue  # already applied in the seed state
+        if c.complete_index > fail_idx:
+            c2 = Call(c.index, c.process, c.f, c.value, None,
+                      c.invoke_index, fail_idx + 1, True)
+        else:
+            c2 = Call(c.index, c.process, c.f, c.value, c.result,
+                      c.invoke_index, c.complete_index, c.crashed)
+        out.append(c2)
+    for j, c in enumerate(out):
+        c.index = j
+    return out
+
+
+def _prefix_calls(cs, fail_idx):
+    """Calls restricted to the failing prefix: everything invoked up to
+    fail_idx, with completions after it treated as still-open (crashed)."""
+    return _window_calls(cs, -1, fail_idx, frozenset())

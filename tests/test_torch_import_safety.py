@@ -1,0 +1,76 @@
+"""The port stands alone: no module of jepsen_tpu_torch, and not
+chip_smoke.py, imports JAX or anything of the JAX package (jepsen_tpu).
+Checked twice: by importing everything in a fresh interpreter and
+reading sys.modules, and by scanning the sources' import statements."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "jepsen_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import jepsen_tpu_torch
+names = ["jepsen_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(jepsen_tpu_torch.__path__,
+                                          "jepsen_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke  # imported, not run
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.startswith("jaxlib.")
+             or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
+print("MODULES", len(names))
+print("BAD", bad)
+"""
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "jepsen_tpu")
+
+
+def test_port_and_smoke_import_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
+    assert int(lines["MODULES"]) >= 14, proc.stdout
+    assert lines["BAD"] == "[]", proc.stdout
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_or_reference_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)) in (
+                "__import__", "import_module"):
+            for a in node.args:
+                if isinstance(a, ast.Constant) and isinstance(a.value, str) \
+                        and _forbidden(a.value):
+                    bad.append(a.value)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_prefix_check_tells_port_from_reference():
+    assert _forbidden("jepsen_tpu.parallel.engine")
+    assert _forbidden("jax.numpy")
+    assert not _forbidden("jepsen_tpu_torch.parallel.engine")
