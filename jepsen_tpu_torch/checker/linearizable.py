@@ -3,8 +3,9 @@
 A port of `jepsen_tpu.checker.linearizable` with two arms (the
 reference's algorithm dispatch, jepsen/src/jepsen/checker.clj:182-213):
 
-    "torch"  the device engine (jepsen_tpu_torch.parallel.engine): the
-             bit-packed dense check on the card, closure kernel K1
+    "torch"  the device engine (jepsen_tpu_torch.parallel.engine) on the
+             card: the bit-packed dense check (closure kernel K1), or
+             the sparse frontier check (hash closure kernels K2, K4)
     "wgl"    host depth-first WGL search (jepsen_tpu_torch.checker.wgl)
 
 Results mirror knossos: {"valid?", "op", "final-paths", "configs",
@@ -29,12 +30,18 @@ def _truncate(result: dict, n: int = 10) -> dict:
 
 class Linearizable(Checker):
     """`device` None means the card (RuntimeError when there is none);
-    "cpu" runs the plain PyTorch path."""
+    "cpu" runs the plain PyTorch path. `capacity`, `max_capacity` and
+    `dedupe` go to the sparse engine (engine.analysis)."""
 
-    def __init__(self, model=None, algorithm: str = "torch", device=None):
+    def __init__(self, model=None, algorithm: str = "torch", device=None,
+                 capacity: int = 1024, max_capacity: int = 1 << 20,
+                 dedupe=None):
         self.model = model
         self.algorithm = algorithm
         self.device = device
+        self.capacity = capacity
+        self.max_capacity = max_capacity
+        self.dedupe = dedupe
 
     def check(self, test, history, opts=None):
         model = self.model or (test or {}).get("model")
@@ -55,7 +62,10 @@ class Linearizable(Checker):
 
         if algo == "torch":
             from jepsen_tpu_torch.parallel import engine
-            r = engine.analysis(model, h, device=self.device)
+            r = engine.analysis(model, h, device=self.device,
+                                capacity=self.capacity,
+                                max_capacity=self.max_capacity,
+                                dedupe=self.dedupe)
         elif algo == "wgl":
             from jepsen_tpu_torch.checker import wgl
             r = wgl.analysis(model, h)
@@ -66,6 +76,6 @@ class Linearizable(Checker):
         return _truncate(r)
 
 
-def linearizable(model=None, algorithm: str = "torch",
-                 device=None) -> Linearizable:
-    return Linearizable(model, algorithm, device)
+def linearizable(model=None, algorithm: str = "torch", device=None,
+                 **kw) -> Linearizable:
+    return Linearizable(model, algorithm, device, **kw)

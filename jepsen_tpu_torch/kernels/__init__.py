@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one `.cu` file in this directory with a plain C interface.
-On first use it is compiled with `nvcc` for Hopper (`sm_90a`) into a
-shared library under `build/torch_kernels/` at the repository root,
-named by a hash of its source and flags, and loaded with ctypes. Nothing
+Each kernel is one `.cu` file in this directory with a plain C interface
+(the sparse kernels share `sparse_common.cuh`). On first use it is
+compiled with `nvcc` for Hopper (`sm_90a`) into a shared library under
+`build/torch_kernels/` at the repository root, named by a hash of its
+source, the directory's headers and the flags, and loaded with ctypes. Nothing
 here runs at import: the CPU tests import every module of the port, and
 the CPU has neither nvcc nor a card.
 """
@@ -21,7 +22,9 @@ from pathlib import Path
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[1] / "build" / "torch_kernels"
-SOURCES = {"closure": "closure.cu"}
+SOURCES = {"closure": "closure.cu",
+           "frontier_closure": "frontier_closure.cu",
+           "tiled_insert": "tiled_insert.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -41,6 +44,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (KERNEL_DIR / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(KERNEL_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -1,19 +1,21 @@
 """The port's linearizability engine: routing and counterexamples.
 
 A port of the single-history part of `jepsen_tpu.parallel.engine`:
-`analysis` encodes the history on the host and checks it with the
-bit-packed dense engine on the device (`parallel.bitdense`, whose
-closure is kernel K1); a failure is then explained on the host by
-`extract_final_paths`, a WGL re-search of the failing prefix — or, for
-histories over 500 calls, of a window before the failure, seeded from
-the device's reachable set at the window's start.
+`analysis` encodes the history on the host and checks it on the device
+— with the bit-packed dense engine (`parallel.bitdense`, whose closure
+is kernel K1) when the history fits it, else with the sparse frontier
+engine (`parallel.sparse`, whose hash closure is kernel K2, or the
+tiled insert K4 past K2's shared-memory gate). A failure is then
+explained on the host by `extract_final_paths`, a WGL re-search of the
+failing prefix — or, for histories over 500 calls, of a window before
+the failure, seeded from the device's configurations at the window's
+start.
 
 Routes, as in the reference:
   * a history the encoder cannot pack (EncodeError) goes to the host
     WGL engine, with a `fallback` note;
   * a history that fits the dense engine (fits_bitdense) runs on it;
-  * any other history needs the sparse frontier engine, which is not
-    ported yet: NotImplementedError, never a silent host run.
+  * any other history runs on the sparse engine.
 
 A device fault is not caught here: it surfaces to the caller.
 """
@@ -26,18 +28,21 @@ import time as _time
 from jepsen_tpu_torch import models as model_ns
 from jepsen_tpu_torch.checker import wgl
 from jepsen_tpu_torch.history import Call, History
-from jepsen_tpu_torch.parallel import bitdense
+from jepsen_tpu_torch.parallel import bitdense, sparse
 from jepsen_tpu_torch.parallel import encode as enc_mod
 from jepsen_tpu_torch.parallel.encode import EncodedHistory, EncodeError
 
 _log = logging.getLogger(__name__)
 
 
-def analysis(model, history, device=None) -> dict:
+def analysis(model, history, device=None, capacity: int = 1024,
+             max_capacity: int = 1 << 20, dedupe=None) -> dict:
     """knossos-style (model, history) -> result on the device engine.
 
     `device` None means the card and raises RuntimeError when there is
-    none; the tests pass "cpu"."""
+    none; the tests pass "cpu". `capacity`, `max_capacity` and `dedupe`
+    go to the sparse engine (`sparse.check_encoded`): past
+    `max_capacity` the verdict is "unknown"."""
     dev = bitdense.resolve_device(device)
     h = history if isinstance(history, History) else History.wrap(history)
     try:
@@ -49,14 +54,12 @@ def analysis(model, history, device=None) -> dict:
         r = wgl.analysis(model, h)
         r["fallback"] = str(err)
         return r
-    S = bitdense.n_states(e)
-    if not bitdense.fits_bitdense(S, e.n_slots):
-        raise NotImplementedError(
-            f"history needs the sparse frontier engine ({S} states, "
-            f"{e.n_slots} open-call slots exceed the dense engine's "
-            f"limits); the sparse engine is not ported to "
-            f"jepsen_tpu_torch yet")
-    r = bitdense.check_encoded_bitdense(e, device=dev)
+    if bitdense.fits_bitdense(bitdense.n_states(e), e.n_slots):
+        r = bitdense.check_encoded_bitdense(e, device=dev)
+    else:
+        r = sparse.check_encoded(e, capacity=capacity,
+                                 max_capacity=max_capacity, dedupe=dedupe,
+                                 device=dev)
     if r["valid?"] is False:
         apply_final_paths(r, model, e, device=dev)
     return r
@@ -164,6 +167,12 @@ def extract_final_paths(model, e: EncodedHistory, fail_r: int,
         seeds = [(e.state0, frozenset())]
     else:
         rows = _frontier_at(e, start_ev, device=device)
+        if rows is None:
+            note = "seed-frontier re-scan overflowed max capacity"
+            _log.warning("final-paths extraction returned nothing for an "
+                         "invalid history: %s", note)
+            return {"final-paths": [], "configs": [],
+                    "final-paths-note": note}
         occupants = _slot_occupants_before(e, start_ev)
         seeds = []
         for stc, ml, mh in rows[:max_seeds]:
@@ -202,11 +211,15 @@ def extract_final_paths(model, e: EncodedHistory, fail_r: int,
     return out
 
 
-def _frontier_at(e: EncodedHistory, start_ev: int, device=None) -> list:
-    """Re-run the bitdense scan over return events [0, start_ev) and read
-    the live configurations as (state, mask_lo, mask_hi) rows, in the
-    reference's order (sorted by state, then mask)."""
-    return bitdense.frontier_rows(e, start_ev, device=device)
+def _frontier_at(e: EncodedHistory, start_ev: int, device=None):
+    """The live configurations after return events [0, start_ev) as
+    (state, mask_lo, mask_hi) rows, in the reference's order, or None
+    when the re-scan overflows: the bitdense scan (sorted by state, then
+    mask) for a history that fits it, else the sparse engine's sort-path
+    re-scan (its carry order)."""
+    if bitdense.fits_bitdense(bitdense.n_states(e), e.n_slots):
+        return bitdense.frontier_rows(e, start_ev, device=device)
+    return sparse.frontier_at(e, start_ev, device=device)
 
 
 def _slot_occupants_before(e: EncodedHistory, r_target: int) -> dict:

@@ -29,6 +29,7 @@ bad = sorted(m for m in sys.modules
              or m.startswith("jaxlib.")
              or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
 print("MODULES", len(names))
+print("SPARSE", sorted(n for n in names if "sparse" in n))
 print("BAD", bad)
 """
 
@@ -45,7 +46,10 @@ def test_port_and_smoke_import_without_jax():
                           env=env)
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
-    assert int(lines["MODULES"]) >= 14, proc.stdout
+    assert int(lines["MODULES"]) >= 16, proc.stdout
+    assert lines["SPARSE"] == str(["jepsen_tpu_torch.parallel.sparse",
+                                   "jepsen_tpu_torch.parallel."
+                                   "sparse_kernels"]), proc.stdout
     assert lines["BAD"] == "[]", proc.stdout
 
 

@@ -1,10 +1,12 @@
-"""The port's checker end to end on the CPU (plain closure) against the
-reference's `algorithm="jax"` checker: the golden corpus, a long invalid
-history whose counterexample is seeded from the device's reachable set
-(the > 500-call window branch), the routes (EncodeError -> host WGL,
-too wide for the dense engine -> NotImplementedError), the device
-contract (no card and no device="cpu" -> RuntimeError) and the checker
-combinators. Every field but `analyzer`/`closure` must match."""
+"""The port's checker end to end on the CPU (plain closures) against the
+reference's `algorithm="jax"` checker: the golden corpus (the queue and
+set files through the sparse engine, against the reference's hash
+dedupe), long invalid histories whose counterexamples are seeded from
+the device's configurations (the > 500-call window branch, on the dense
+and on the sparse engine), the routes (EncodeError -> host WGL, too wide
+for the dense engine -> the sparse engine), the device contract (no card
+and no device="cpu" -> RuntimeError) and the checker combinators. Every
+field but `analyzer`/`closure` must match."""
 
 import json
 import pathlib
@@ -19,6 +21,7 @@ from jepsen_tpu.checker.linearizable import Linearizable as RefLinearizable
 from jepsen_tpu.history import History as RefHistory
 from jepsen_tpu.parallel import bitdense as ref_bd
 from jepsen_tpu.parallel import encode as ref_enc
+from jepsen_tpu.parallel import engine as ref_engine
 from jepsen_tpu_torch import histories, models
 from jepsen_tpu_torch.checker import core
 from jepsen_tpu_torch.checker.linearizable import Linearizable
@@ -56,20 +59,17 @@ def _fits_dense(model, h) -> bool:
 
 
 @pytest.mark.parametrize("entry", MANIFEST, ids=[e["file"] for e in MANIFEST])
-def test_golden_corpus_matches_reference(entry):
-    """Histories that fit the dense engine must give the reference's
-    whole result. The queue and set files pack to more than 128 model
-    states: the reference sends them to its sparse engine, which the
-    port does not have yet, so the port must refuse them loudly."""
+def test_golden_corpus_matches_reference(entry, monkeypatch):
+    """Every golden history gives the reference's whole result. The queue
+    and set files pack to more than 128 model states, so both packages
+    send them to the sparse engine; the port's default dedupe is "hash",
+    so the reference runs with its hash dedupe too."""
     rm, rh, pm, ph = _golden(entry)
+    if not _fits_dense(rm, rh):
+        monkeypatch.setenv("JEPSEN_TPU_DEDUPE", "hash")
     want = RefLinearizable(rm, "jax").check({}, rh)
     assert want["valid?"] is entry["valid"]
-    checker = Linearizable(pm, "torch", device="cpu")
-    if not _fits_dense(rm, rh):
-        with pytest.raises(NotImplementedError, match="sparse"):
-            checker.check({}, ph)
-        return
-    got = checker.check({}, ph)
+    got = Linearizable(pm, "torch", device="cpu").check({}, ph)
     assert got["analyzer"] == "torch" and got["closure"] == "torch"
     assert _strip(got) == _strip(want)
 
@@ -122,10 +122,43 @@ def test_default_device_without_cuda_raises(monkeypatch):
         Linearizable(models.CASRegister(None)).check({}, h)
 
 
+def test_long_invalid_sparse_history_window_counterexample(monkeypatch):
+    """An invalid unordered-queue history of 550 calls: the sparse engine
+    finds the failure, and the counterexample is searched in a window
+    before it from the first 8 rows of the sparse sort re-scan — the
+    reference's window, seeds, paths and configs."""
+    monkeypatch.setenv("JEPSEN_TPU_DEDUPE", "hash")
+    kw = {"n_ops": 550, "n_processes": 8, "crash_p": 0.005, "seed": 1}
+    rh = ref_histories.corrupt_history(
+        ref_histories.rand_queue_history(**kw), seed=1)
+    ph = histories.corrupt_history(histories.rand_queue_history(**kw),
+                                   seed=1)
+    want = RefLinearizable(ref_models.UnorderedQueue(), "jax").check({}, rh)
+    got = Linearizable(models.UnorderedQueue(), "torch",
+                       device="cpu").check({}, ph)
+    assert got["valid?"] is False and want["valid?"] is False
+    assert not _fits_dense(ref_models.UnorderedQueue(), rh)
+    assert got["final-paths-window"] == want["final-paths-window"]
+    assert got["final-paths"] == want["final-paths"]
+    assert got["configs"] == want["configs"]
+    assert _strip(got) == _strip(want)
+
+
 def test_too_wide_for_the_dense_engine_raises_not_implemented():
-    h = histories.adversarial_register_history(n_ops=60, k_crashed=25)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        Linearizable(models.CASRegister(None), device="cpu").check({}, h)
+    """26 open-call slots are past the dense engine's 24: the history
+    runs on the sparse engine, which — as the reference's does — runs
+    out of frontier capacity and says "unknown"."""
+    kw = {"n_ops": 60, "k_crashed": 25}
+    want = ref_engine.analysis(
+        ref_models.CASRegister(None),
+        ref_histories.adversarial_register_history(**kw),
+        max_capacity=1024, dedupe="hash")
+    got = Linearizable(models.CASRegister(None), device="cpu",
+                       max_capacity=1024).check(
+        {}, histories.adversarial_register_history(**kw))
+    assert want["valid?"] == "unknown"
+    assert got["closure"] == "torch"
+    assert _strip(got) == want
 
 
 def test_unencodable_history_falls_back_to_host_wgl():
