@@ -41,6 +41,26 @@ down both of its engines:
        check with the plain closure;
      * timing of K2 and K4 per launch, beside their plain versions, the
        sort closure, and their bound.
+  4. K3 (the sharded engine's visited-set transaction, kernels/
+     hash_insert.cu), on a one-rank NCCL mesh (`meshplan.local_mesh()`):
+     * main path, small shapes: 60-op register histories and their
+       corrupted twins, a wide frontier that climbs capacity tiers, and
+       two golden queue histories through `check_encoded_sharded`, each
+       equal field for field to the reference's results recorded on the
+       CPU at one device (below);
+     * main path, full width: the bench's sharded shape,
+       `adversarial_register_history(10000, 12)` through
+       `sharded.analysis` at capacity 2^17 (K3's table in device
+       memory), cold and warm, and its impossible-read twin through
+       `check_encoded_sharded`, each with the dense engine's verdict, op
+       and fail-event on the card;
+     * parity against its plain version, bit for bit, on inputs recorded
+       from those checks at both table layouts, and once at
+       probe_limit=2 with the probe overflow raised; a short check
+       through the plain insert on the card equals the K3 check;
+     * timing per launch at both layouts, beside the plain insert and the
+       bound; the kernels line has one K3 entry per table layout, with
+       K3's launches in that layout (the wrapper counts them per layout).
   Launch counts are zeroed just before each main-path check and read just
   after; each check must have launched the kernel of its route.
 
@@ -725,6 +745,324 @@ def phase_sparse_timing(dev, rec) -> list:
     return out
 
 
+# ---------------------------------------------------------- sharded engine
+
+SHARDED_KEYS = ("valid?", "op", "fail-event", "max-frontier", "capacity",
+                "devices", "configs-stepped")
+# The reference's results (jepsen_tpu.parallel.sharded.check_encoded_sharded
+# with dedupe="hash" on a one-device CPU mesh), the fields of SHARDED_KEYS.
+REF_SHARDED = {
+    "register-60 seed 77": {"valid?": True, "max-frontier": 256,
+                            "capacity": 512, "devices": 1,
+                            "configs-stepped": 2644},
+    "register-60 seed 77 corrupted": {
+        "valid?": False, "op": {"process": 0, "f": "read", "value": 1000,
+                                "index": 61},
+        "fail-event": 23, "max-frontier": 144, "capacity": 512,
+        "devices": 1, "configs-stepped": 932},
+    "register-60 seed 78": {"valid?": True, "max-frontier": 36,
+                            "capacity": 512, "devices": 1,
+                            "configs-stepped": 446},
+    "register-60 seed 78 corrupted": {
+        "valid?": False, "op": {"process": 5, "f": "read", "value": 1000,
+                                "index": 60},
+        "fail-event": 24, "max-frontier": 36, "capacity": 512, "devices": 1,
+        "configs-stepped": 273},
+    "register-60 seed 79": {"valid?": True, "max-frontier": 56,
+                            "capacity": 512, "devices": 1,
+                            "configs-stepped": 612},
+    "register-60 seed 79 corrupted": {
+        "valid?": False, "op": {"process": 2, "f": "read", "value": 1000,
+                                "index": 18},
+        "fail-event": 8, "max-frontier": 20, "capacity": 512, "devices": 1,
+        "configs-stepped": 112},
+    "wide-10 valid": {"valid?": True, "max-frontier": 7937, "capacity": 8192,
+                      "devices": 1, "configs-stepped": 7937},
+    "wide-10 invalid": {
+        "valid?": False, "op": {"process": 0, "f": "read", "value": 99,
+                                "index": 20},
+        "fail-event": 0, "max-frontier": 5121, "capacity": 8192,
+        "devices": 1, "configs-stepped": 5121},
+    "uqueue-valid.edn": {"valid?": True, "max-frontier": 128,
+                         "capacity": 1024, "devices": 1,
+                         "configs-stepped": 1632},
+    "fifo-invalid.edn": {
+        "valid?": False, "op": {"process": 2, "f": "dequeue", "value": 1000,
+                                "index": 7},
+        "fail-event": 2, "max-frontier": 5, "capacity": 1024, "devices": 1,
+        "configs-stepped": 10},
+}
+FULL_OPS = 10000        # the bench's sharded shape (bench.py:617-694)
+FULL_CAPACITY = 1 << 17
+K3_KEEP = 6             # K3 inputs recorded per table size
+
+
+def _wide_history(n_crashed: int, read_value: int):
+    """n_crashed concurrent crashed writes, then one ok read: the closure
+    at the read explores every subset of the writes."""
+    from jepsen_tpu_torch.history import History
+    ops = [{"type": "invoke", "process": v, "f": "write", "value": v}
+           for v in range(1, n_crashed + 1)]
+    ops += [{"type": "info", "process": v, "f": "write", "value": v}
+            for v in range(1, n_crashed + 1)]
+    ops += [{"type": "invoke", "process": 0, "f": "read", "value": None},
+            {"type": "ok", "process": 0, "f": "read", "value": read_value}]
+    return History.wrap(ops).index()
+
+
+def _sharded_small_cases():
+    """(name, encoded history, capacity) of the small sharded checks."""
+    from jepsen_tpu_torch import histories, models
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.parallel import encode as enc
+    reg = models.CASRegister()
+    out = []
+    for seed in (77, 78, 79):
+        h = histories.rand_register_history(
+            n_ops=60, n_processes=5, crash_p=0.06, fail_p=0.06, seed=seed)
+        out.append((f"register-60 seed {seed}", enc.encode(reg, h), 512))
+        out.append((f"register-60 seed {seed} corrupted",
+                    enc.encode(reg, histories.corrupt_history(h, seed=seed)),
+                    512))
+    out.append(("wide-10 valid", enc.encode(reg, _wide_history(10, 3)), 512))
+    out.append(("wide-10 invalid", enc.encode(reg, _wide_history(10, 99)),
+                512))
+    for f, model in (("uqueue-valid.edn", models.UnorderedQueue()),
+                     ("fifo-invalid.edn", models.FIFOQueue())):
+        h = History.from_edn((GOLDEN / f).read_text()).index()
+        out.append((f, enc.encode(model, h), 1024))
+    return out
+
+
+class _K3Recorder:
+    """Wraps sk.hash_insert and keeps copies of the inputs of every
+    `stride`-th call of table size T, up to K3_KEEP per T."""
+
+    def __init__(self, stride: int):
+        self.stride, self.seen, self.kept = stride, {}, {}
+
+    def __enter__(self):
+        from jepsen_tpu_torch.parallel import sparse_kernels as sk
+        self.real = real = sk.hash_insert
+
+        def recording(c_rows, c_live, f_rows, count, table, pl, N):
+            T = table[1].shape[0]
+            n = self.seen[T] = self.seen.get(T, 0) + 1
+            if n % self.stride == 0 and len(self.kept.get(T, ())) < K3_KEEP:
+                self.kept.setdefault(T, []).append((tuple(r.clone() for r in c_rows), c_live.clone(),
+                             tuple(r.clone() for r in f_rows), count.clone(),
+                             (tuple(r.clone() for r in table[0]),
+                              table[1].clone()), pl, N))
+            return real(c_rows, c_live, f_rows, count, table, pl, N)
+        sk.hash_insert = recording
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.parallel import sparse_kernels as sk
+        sk.hash_insert = self.real
+
+
+def _sharded_check(e, mesh, **kw):
+    """check_encoded_sharded on the card, K3's count zeroed just before
+    and read just after."""
+    from jepsen_tpu_torch.parallel import sharded
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    r = sharded.check_encoded_sharded(e, mesh, **kw)
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0, sk.launches["hash_insert"]
+
+
+def phase_sharded_small(dev, mesh) -> dict:
+    """The small sharded checks against the reference's results; returns
+    K3's launches of these checks per table layout (each check's counts
+    zeroed just before it and read just after) and the inputs recorded
+    per table size."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    out = {"shared": 0, "device": 0}
+    with _K3Recorder(stride=7) as rec:
+        for name, e, cap in _sharded_small_cases():
+            r, secs, n = _sharded_check(e, mesh, capacity=cap,
+                                        dedupe="hash")
+            want = REF_SHARDED[name]
+            print(f"sharded: {name}: valid?={r['valid?']} capacity="
+                  f"{r['capacity']} max-frontier={r.get('max-frontier')} "
+                  f"configs-stepped={r.get('configs-stepped')} wall "
+                  f"{secs:.3f} s, K3 launches {n}")
+            _require(r["closure"] == "cuda" and n > 0,
+                     f"{name}: closure {r['closure']}, K3 launches {n}")
+            _require({k: r.get(k) for k in SHARDED_KEYS}
+                     == {k: want.get(k) for k in SHARDED_KEYS},
+                     f"{name}: {r} != reference {want}")
+            for layout, k in sk.hash_insert_launches.items():
+                out[layout] += k
+    out["recorded"] = rec.kept
+    return out
+
+
+def phase_sharded_full(dev, mesh) -> dict:
+    """The bench's shape at full width: the valid history through
+    `sharded.analysis` cold (recording K3 inputs) and warm (counted),
+    its impossible-read twin through check_encoded_sharded; each against
+    the dense engine on the card."""
+    from jepsen_tpu_torch import histories, models
+    from jepsen_tpu_torch.parallel import bitdense, sharded
+    from jepsen_tpu_torch.parallel import encode as enc
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    model = models.CASRegister(None)
+    h = histories.adversarial_register_history(n_ops=FULL_OPS, k_crashed=12)
+    kw = {"capacity": FULL_CAPACITY, "max_capacity": 1 << 20,
+          "dedupe": "hash"}
+    _require(sk.k3_layout(FULL_CAPACITY, dev) == "device",
+             "the full-width tier does not take the device layout")
+    out = {}
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        if label == "cold":
+            # a prime stride: a check makes about four inserts per event
+            # (the seed and the expansions), and every kind is recorded
+            with _K3Recorder(stride=997) as rec:
+                r = sharded.analysis(model, h, mesh, **kw)
+        else:
+            r = sharded.analysis(model, h, mesh, **kw)
+        torch.cuda.synchronize()
+        out[label] = time.perf_counter() - t0
+        out[f"{label}_launches"] = sk.launches["hash_insert"]
+        out[f"{label}_by_layout"] = dict(sk.hash_insert_launches)
+        print(f"sharded: adv-{FULL_OPS}-k12 ({label}): valid?="
+              f"{r['valid?']} capacity={r['capacity']} max-frontier="
+              f"{r['max-frontier']} configs-stepped={r['configs-stepped']} "
+              f"wall {out[label]:.3f} s, K3 launches "
+              f"{out[f'{label}_launches']}")
+    out["recorded"] = rec.kept
+    out["valid"] = r
+    dense = bitdense.check_encoded_bitdense(enc.encode(model, h), device=dev)
+    keys = ("valid?", "op", "fail-event")
+    _require(r["closure"] == "cuda" and r["valid?"] is True,
+             f"full width: {r}")
+    _require({k: r.get(k) for k in keys} == {k: dense.get(k) for k in keys},
+             f"full width: sharded {r} != dense {dense}")
+    e_bad = enc.encode(model, histories.with_impossible_read(h))
+    rb, secs, n = _sharded_check(e_bad, mesh, **kw)
+    dense_b = bitdense.check_encoded_bitdense(e_bad, device=dev)
+    print(f"sharded: adv-{FULL_OPS}-k12 impossible read: valid?="
+          f"{rb['valid?']} fail-event={rb.get('fail-event')} op="
+          f"{rb.get('op')} max-frontier={rb.get('max-frontier')} wall "
+          f"{secs:.3f} s, K3 launches {n}")
+    _require(rb["valid?"] is False and n > 0, f"impossible read: {rb}")
+    _require({k: rb.get(k) for k in keys}
+             == {k: dense_b.get(k) for k in keys},
+             f"impossible read: sharded {rb} != dense {dense_b}")
+    out["twin"], out["twin_launches"] = secs, n
+    return out
+
+
+def _max_err_k3(got, want) -> int:
+    g = [*got[0], *got[1][0], got[1][1], got[2].reshape(1),
+         got[3].reshape(1), got[4].reshape(1)]
+    w = [*want[0], *want[1][0], want[1][1], want[2].reshape(1),
+         want[3].reshape(1), want[4].reshape(1)]
+    return _max_err(g, w)
+
+
+def phase_k3_parity(dev, mesh, recorded: dict) -> int:
+    """K3 against the plain insert on the card, bit for bit, on the
+    recorded inputs of both layouts and at probe_limit=2 with the probe
+    overflow raised; a short check through the plain insert equals the
+    K3 check. Returns the largest |difference| (0: bit-identical)."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    lib = sk._lib("hash_insert")
+    for T in (1024, 8192):
+        _require(lib.jt_hash_insert_smem(T, 0) == sk.k3_smem_bytes(T // 2),
+                 f"K3 layout at T={T}")
+    worst = 0
+    for T, inputs in sorted(recorded.items()):
+        layout = sk.k3_layout(T // 2, dev)
+        for args in inputs:
+            err = _max_err_k3(sk.hash_insert(*args),
+                              sk.hash_insert_reference(*args))
+            torch.cuda.synchronize()
+            worst = max(worst, err)
+            _require(err == 0, f"K3 differs from the plain insert at T={T} "
+                               f"({layout} layout)")
+        print(f"parity: K3 == plain insert on {len(inputs)} recorded inputs "
+              f"at T={T} ({layout} layout, M={inputs[0][1].shape[0]}, "
+              f"live {[int(a[1].sum()) for a in inputs]})")
+    _require({sk.k3_layout(T // 2, dev) for T in recorded}
+             == {"shared", "device"}, "K3 parity missed a layout")
+    fired = None
+    for T, inputs in sorted(recorded.items()):
+        for args in inputs:
+            a = args[:5] + (2,) + args[6:]
+            got, want = sk.hash_insert(*a), sk.hash_insert_reference(*a)
+            err = _max_err_k3(got, want)
+            _require(err == 0, f"K3 differs at probe_limit=2, T={T}")
+            if bool(want[4]) and int(want[2]) < a[6]:
+                fired = (T, int(want[3]))
+                break
+        if fired:
+            break
+    _require(fired is not None, "probe_limit=2 never overflowed")
+    print(f"parity: K3 == plain insert at probe_limit=2 with the probe "
+          f"overflow raised (T={fired[0]}, {fired[1]} fresh)")
+    # the plain insert through a whole check on the card
+    name, e, cap = _sharded_small_cases()[1]
+    r, _, n = _sharded_check(e, mesh, capacity=cap, dedupe="hash")
+    real = sk.hash_insert
+    sk.hash_insert = sk.hash_insert_reference
+    try:
+        p, secs, pn = _sharded_check(e, mesh, capacity=cap, dedupe="hash")
+    finally:
+        sk.hash_insert = real
+    _require(pn == 0 and n > 0 and _strip(p) == _strip(r),
+             f"{name}: K3 and plain-insert results differ: {r} {p}")
+    print(f"parity: {name}: the plain insert on the card agrees field for "
+          f"field, {secs:.3f} s")
+    return worst
+
+
+def phase_k3_timing(dev, recorded: dict) -> list:
+    """K3 per launch with CUDA events at both layouts, beside the plain
+    insert on the card and the bound."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    out = []
+    for T, inputs in sorted(recorded.items()):
+        if T not in (1024, 1 << 18):
+            continue
+        # the expansion inserts (M = n_dev * B_cand candidates; a seed
+        # insert has M = N)
+        inputs = [a for a in inputs if a[1].shape[0] > a[2][0].shape[0]]
+        _require(len(inputs) > 0, f"no expansion insert recorded at T={T}")
+        M, N = inputs[0][1].shape[0], inputs[0][2][0].shape[0]
+        ms = _time_launches(sk.hash_insert, inputs, reps=3)
+        plain_ms = _time_host(sk.hash_insert_reference, inputs[:2])
+        # bytes these inserts need: every live flag, the live candidates'
+        # rows, the table (rows and occupancy) in and out, the fresh rows
+        # appended after `count`, the count and meta; operations: the live
+        # test of every candidate, and for the live ones the hash, probes
+        # and claim (~24)
+        live = float(np.mean([int(a[1].sum()) for a in inputs]))
+        fresh = float(np.mean([int(sk.hash_insert(*a)[2]) - int(a[3])
+                               for a in inputs]))
+        nbytes = M + 12 * live + 2 * 13 * T + 12 * fresh + 16
+        ops = M + 24 * live
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT32_OPS_PER_S * 1e3
+        t = {"T": T, "M": M, "N": N, "layout": sk.k3_layout(T // 2, dev),
+             "inputs": len(inputs), "mean_live": live, "mean_fresh": fresh,
+             "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print("timing: " + json.dumps(t))
+        out.append(t)
+    _require(len(out) == 2, f"K3 timed at {[t['T'] for t in out]}")
+    return out
+
+
 def _phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -759,6 +1097,13 @@ def main() -> int:
     sworst = _phase("K2/K4 parity", phase_sparse_parity, dev, rec)
     slaunches = _phase("sparse main path", phase_sparse_main, dev, cases)
     stimed = _phase("K2/K4 timing", phase_sparse_timing, dev, rec)
+    from jepsen_tpu_torch.parallel import meshplan
+    mesh = meshplan.local_mesh()
+    small = _phase("sharded small", phase_sharded_small, dev, mesh)
+    full = _phase("sharded full width", phase_sharded_full, dev, mesh)
+    k3_inputs = {**small["recorded"], **full["recorded"]}
+    k3_worst = _phase("K3 parity", phase_k3_parity, dev, mesh, k3_inputs)
+    k3_timed = _phase("K3 timing", phase_k3_timing, dev, k3_inputs)
     # K1: one entry per timed shape, with the launches of the main-path
     # check at that shape (the invalid twin's, at S=19, print above);
     # K2 and K4: the launches of the whole sparse main path
@@ -782,6 +1127,23 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    # K3: one entry per table layout, timed at the shape it names; its
+    # launches in that layout over the small checks and the warm
+    # full-width check
+    for t in k3_timed:
+        layout = t["layout"]
+        n = small[layout] + full["warm_by_layout"][layout]
+        _require(n > 0, f"K3's {layout} layout never launched")
+        kernels.append({
+            "name": f"hash_insert[{layout},T{t['T']},M{t['M']}]",
+            "route": "cuda",
+            "source": "jepsen_tpu_torch/kernels/hash_insert.cu",
+            "replaces": "jepsen_tpu/parallel/sparse_kernels.py:282",
+            "launches": n, "max_abs_err": k3_worst,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "layout": t["layout"]})
+    torch.distributed.destroy_process_group()
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -24,6 +24,7 @@ KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[1] / "build" / "torch_kernels"
 SOURCES = {"closure": "closure.cu",
            "frontier_closure": "frontier_closure.cu",
+           "hash_insert": "hash_insert.cu",
            "tiled_insert": "tiled_insert.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -27,17 +27,12 @@
 //     rebuilt from delta row n and slot j (the model step runs here,
 //     sparse_common.cuh) whenever it is needed, and only a probe offset
 //     and a flag byte per candidate are kept.
-//   * Probing is round-synchronous, as in the reference's while loop:
-//     every pending candidate reads its slot; an equal occupant drops it,
-//     a different one advances it, an empty slot takes an atomicMin of
-//     its candidate index. After __syncthreads the lowest index writes
-//     the slot; the losers re-check the same slot next round (the winner
-//     may hold an equal row). Reads of a round all precede its writes,
-//     so the table, the offsets and the winners are those of the
-//     reference, whatever order the threads run in.
-//   * The append is a block-wide prefix sum of the fresh flags in
-//     candidate order, so rows land where the reference's cumsum puts
-//     them.
+//   * Each pass is one visited-set transaction, sparse_common.cuh's
+//     insert_pass (shared with K3): round-synchronous probing with
+//     atomicMin claims, so the table, the offsets and the winners are
+//     the reference's whatever order the threads run in, and an append
+//     by a block-wide prefix sum in candidate order, so rows land where
+//     the reference's cumsum puts them.
 //   * A device-side run flag (the scan's `ok`) makes the kernel write an
 //     empty result at once once the history has failed or overflowed:
 //     the scan discards that event's result, and the host never waits.
@@ -125,98 +120,29 @@ __device__ __forceinline__ bool candidate(const Event& ev, const Shared& s,
   return ok && s.occ[j] != 0 && ((ml0 & blo) | (mh0 & bhi)) == 0;
 }
 
-// One visited-set transaction over the M candidates of a pass, appending
-// the fresh ones after `count`. Returns the number of fresh candidates;
-// *probe_ovf says whether some candidate exhausted its probes. Uniform:
-// every thread gets the same values.
+// Candidate li of a pass, as insert_pass asks for it.
+struct PassCand {
+  Event ev;
+  Shared s;
+  bool seed;
+  int n_old;
+  __device__ __forceinline__ bool operator()(int li, int32_t& st,
+                                             uint32_t& ml,
+                                             uint32_t& mh) const {
+    return candidate(ev, s, seed, n_old, li, st, ml, mh);
+  }
+};
+
+// One visited-set transaction over the M candidates of a pass
+// (sparse_common.cuh insert_pass), appending the fresh ones to the
+// frontier after `count`.
 __device__ int insert_pass(const Event& ev, const Shared& s, bool seed,
                            int n_old, int count, int M, bool* probe_ovf) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int base = seed ? 0 : n_old * ev.C;  // candidate index of li = 0
-  int local = 0;
-  for (int li = tid; li < M; li += nt) {
-    int32_t st;
-    uint32_t ml, mh;
-    const bool live = candidate(ev, s, seed, n_old, li, st, ml, mh);
-    s.flags[li] = live ? kPending : 0;
-    s.off[li] = 0;
-    local |= live;
-  }
-  int active = __syncthreads_or(local);
-  while (active) {
-    // read the slots, drop, advance or claim
-    for (int li = tid; li < M; li += nt) {
-      if (!(s.flags[li] & kPending) || s.off[li] >= ev.probe_limit) continue;
-      int32_t st;
-      uint32_t ml, mh;
-      candidate(ev, s, seed, n_old, li, st, ml, mh);
-      const int slot = (int)((table_hash(st, ml, mh) + s.off[li]) &
-                             (uint32_t)(ev.T - 1));
-      if (s.tocc[slot]) {
-        if (s.tst[slot] == st && (uint32_t)s.tml[slot] == ml &&
-            (uint32_t)s.tmh[slot] == mh) {
-          s.flags[li] = 0;  // already visited
-        } else {
-          s.off[li] += 1;
-        }
-      } else {
-        atomicMin(&s.claim[slot], base + li);
-        s.flags[li] = kPending | kTry;
-      }
-    }
-    __syncthreads();
-    // the lowest claimant of each slot writes it and frees the claim
-    local = 0;
-    for (int li = tid; li < M; li += nt) {
-      uint8_t fl = s.flags[li];
-      if (fl & kTry) {
-        int32_t st;
-        uint32_t ml, mh;
-        candidate(ev, s, seed, n_old, li, st, ml, mh);
-        const int slot = (int)((table_hash(st, ml, mh) + s.off[li]) &
-                               (uint32_t)(ev.T - 1));
-        if (s.claim[slot] == base + li) {
-          s.tst[slot] = st;
-          s.tml[slot] = (int32_t)ml;
-          s.tmh[slot] = (int32_t)mh;
-          s.tocc[slot] = 1;
-          s.claim[slot] = kClaimFree;
-          s.flags[li] = kFresh;
-          continue;
-        }
-        fl = kPending;
-        s.flags[li] = fl;
-      }
-      if ((fl & kPending) && s.off[li] < ev.probe_limit) local = 1;
-    }
-    active = __syncthreads_or(local);
-  }
-
-  // append the fresh candidates after `count`, in candidate order
-  const int per = (M + nt - 1) / nt;
-  const int lo = min(M, tid * per), hi = min(M, lo + per);
-  int mine = 0, pend = 0;
-  for (int li = lo; li < hi; ++li) {
-    mine += (s.flags[li] & kFresh) != 0;
-    pend |= (s.flags[li] & kPending) != 0;
-  }
-  int n_fresh;
-  int pos = count + block_exclusive_scan(mine, s.scan, &n_fresh);
-  *probe_ovf = __syncthreads_or(pend) != 0;
-  for (int li = lo; li < hi; ++li) {
-    if (!(s.flags[li] & kFresh)) continue;
-    if (pos < ev.N) {
-      int32_t st;
-      uint32_t ml, mh;
-      candidate(ev, s, seed, n_old, li, st, ml, mh);
-      s.st[pos] = st;
-      s.ml[pos] = (int32_t)ml;
-      s.mh[pos] = (int32_t)mh;
-    }
-    ++pos;
-  }
-  __syncthreads();
-  return n_fresh;
+  const TableView t{s.tst, s.tml, s.tmh, s.claim, s.tocc,
+                    (uint32_t)(ev.T - 1)};
+  return jt::insert_pass(PassCand{ev, s, seed, n_old}, t, s.off, s.flags,
+                         s.scan, M, ev.probe_limit, s.st, s.ml, s.mh,
+                         count, ev.N, probe_ovf);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)

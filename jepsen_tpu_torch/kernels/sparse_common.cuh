@@ -1,7 +1,8 @@
-// Device helpers shared by the sparse engine's kernels (K2
-// frontier_closure.cu, K4 tiled_insert.cu): the visited-set hash, the
-// five model-step families of jepsen_tpu_torch/parallel/steps.py, and a
-// block-wide exclusive prefix sum. Integers are 32-bit two's complement;
+// Device helpers shared by the sparse engines' kernels (K2
+// frontier_closure.cu, K3 hash_insert.cu, K4 tiled_insert.cu): the
+// visited-set hash, the five model-step families of
+// jepsen_tpu_torch/parallel/steps.py, a block-wide exclusive prefix sum,
+// and the one-block visited-set transaction of K2 and K3 (insert_pass). Integers are 32-bit two's complement;
 // shifts follow steps.py's _shl/_sar (0 past the word for a left shift,
 // sign fill for a right shift), and wrapping arithmetic goes through
 // uint32_t so that it is defined.
@@ -139,6 +140,128 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
   *total = warp_sums[n_warps - 1];
   __syncthreads();  // warp_sums may be reused right after
   return before;
+}
+
+// An open-addressed visited set of T slots (T a power of two, mask =
+// T - 1): rows, occupancy and one claim word per slot (kClaimFree between
+// rounds), in shared or device memory alike.
+struct TableView {
+  int32_t *st, *ml, *mh;
+  int32_t* claim;
+  uint8_t* occ;
+  uint32_t mask;
+};
+
+// One visited-set transaction of the M candidates of a pass, run by one
+// whole block: sparse._hash_insert_append, bit for bit. `cand(li, st,
+// ml, mh)` rebuilds candidate li and returns whether it is live; off and
+// flags hold one byte each per candidate; scan is 32 ints of shared
+// memory. The fresh candidates are appended after `count` to out_*, in
+// candidate order, those past N dropped. Returns the number of fresh
+// candidates; *probe_ovf says whether one exhausted its probes. Uniform:
+// every thread gets the same values.
+//
+// Probing is round-synchronous, as in the reference's while loop: every
+// pending candidate reads its slot; an equal occupant drops it, a
+// different one advances it, an empty slot takes an atomicMin of its
+// candidate index. After a barrier the lowest index writes the slot and
+// frees its claim word; the losers re-check the same slot next round
+// (the winner may hold an equal row). All reads of a round precede its
+// writes, so the table, the offsets and the winners are the reference's
+// whatever order the threads run in. The append is a block prefix sum
+// of the fresh flags in candidate order, so the rows land where the
+// reference's cumsum puts them. A candidate is read again (or rebuilt)
+// wherever it is needed, so out_* may be the rows the candidates come
+// from, as long as the appended rows lie past those.
+template <class Cand>
+__device__ int insert_pass(const Cand& cand, const TableView& t,
+                           uint8_t* off, uint8_t* flags, int* scan, int M,
+                           int probe_limit, int32_t* out_st,
+                           int32_t* out_ml, int32_t* out_mh, int count,
+                           int N, bool* probe_ovf) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int local = 0;
+  for (int li = tid; li < M; li += nt) {
+    int32_t st;
+    uint32_t ml, mh;
+    const bool live = cand(li, st, ml, mh);
+    flags[li] = live ? kPending : 0;
+    off[li] = 0;
+    local |= live;
+  }
+  int active = __syncthreads_or(local);
+  while (active) {
+    // read the slots, drop, advance or claim
+    for (int li = tid; li < M; li += nt) {
+      if (!(flags[li] & kPending) || off[li] >= probe_limit) continue;
+      int32_t st;
+      uint32_t ml, mh;
+      cand(li, st, ml, mh);
+      const int slot = (int)((table_hash(st, ml, mh) + off[li]) & t.mask);
+      if (t.occ[slot]) {
+        if (t.st[slot] == st && (uint32_t)t.ml[slot] == ml &&
+            (uint32_t)t.mh[slot] == mh) {
+          flags[li] = 0;  // already visited
+        } else {
+          off[li] += 1;
+        }
+      } else {
+        atomicMin(&t.claim[slot], li);
+        flags[li] = kPending | kTry;
+      }
+    }
+    __syncthreads();
+    // the lowest claimant of each slot writes it and frees the claim
+    local = 0;
+    for (int li = tid; li < M; li += nt) {
+      uint8_t fl = flags[li];
+      if (fl & kTry) {
+        int32_t st;
+        uint32_t ml, mh;
+        cand(li, st, ml, mh);
+        const int slot = (int)((table_hash(st, ml, mh) + off[li]) & t.mask);
+        if (t.claim[slot] == li) {
+          t.st[slot] = st;
+          t.ml[slot] = (int32_t)ml;
+          t.mh[slot] = (int32_t)mh;
+          t.occ[slot] = 1;
+          t.claim[slot] = kClaimFree;
+          flags[li] = kFresh;
+          continue;
+        }
+        fl = kPending;
+        flags[li] = fl;
+      }
+      if ((fl & kPending) && off[li] < probe_limit) local = 1;
+    }
+    active = __syncthreads_or(local);
+  }
+
+  // append the fresh candidates after `count`, in candidate order
+  const int per = (M + nt - 1) / nt;
+  const int lo = min(M, tid * per), hi = min(M, lo + per);
+  int mine = 0, pend = 0;
+  for (int li = lo; li < hi; ++li) {
+    mine += (flags[li] & kFresh) != 0;
+    pend |= (flags[li] & kPending) != 0;
+  }
+  int n_fresh;
+  int pos = count + block_exclusive_scan(mine, scan, &n_fresh);
+  *probe_ovf = __syncthreads_or(pend) != 0;
+  for (int li = lo; li < hi; ++li) {
+    if (!(flags[li] & kFresh)) continue;
+    if (pos < N) {
+      int32_t st;
+      uint32_t ml, mh;
+      cand(li, st, ml, mh);
+      out_st[pos] = st;
+      out_ml[pos] = (int32_t)ml;
+      out_mh[pos] = (int32_t)mh;
+    }
+    ++pos;
+  }
+  __syncthreads();
+  return n_fresh;
 }
 
 }  // namespace jt

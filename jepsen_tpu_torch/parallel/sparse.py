@@ -124,6 +124,19 @@ def table_hash_u32(st, ml, mh):
     return h ^ (h >> 13)
 
 
+def owner_hash_u32(st, ml, mh):
+    """The sharded engine's ownership mix of three uint32 values (int64
+    tensors in [0, 2^32)); the reference's `_UnpackedRep.owner_hash`,
+    bit for bit. A different mix from `table_hash_u32`: a rank's owned
+    rows share their owner hash modulo the ranks, and must not share
+    their table slots too."""
+    h = _mul32(st, 0x9E3779B1) ^ _mul32(ml, 0x85EBCA77) \
+        ^ _mul32(mh, 0xC2B2AE3D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x2C1B3C6D)
+    return h ^ (h >> 12)
+
+
 class _UnpackedRep:
     """The (state, mask_lo, mask_hi) row layout: three int32 lanes."""
 
@@ -147,6 +160,10 @@ class _UnpackedRep:
     def table_hash(self, rows):
         """[n] int64 slot hash in [0, 2^32)."""
         return table_hash_u32(*(_u32(r) for r in rows))
+
+    def owner_hash(self, rows):
+        """[n] int64 ownership hash in [0, 2^32)."""
+        return owner_hash_u32(*(_u32(r) for r in rows))
 
     def mask_test(self, rows):
         """[N, C] bool: slot j already linearized in row n."""

@@ -1,5 +1,5 @@
-"""The sparse engine's kernels: K2's and K4's wrappers, plain versions
-and shared-memory gates.
+"""The sparse engines' kernels: K2's, K3's and K4's wrappers, plain
+versions and shared-memory gates.
 
   * K2, `frontier_closure` — one return event's whole delta-frontier
     hash closure in one launch (`kernels/frontier_closure.cu`; replaces
@@ -11,6 +11,13 @@ and shared-memory gates.
     `jepsen_tpu.parallel.sparse_kernels.tiled_insert_call`). Its plain
     version is `tiled_insert_reference`. The closure around it
     (`tiled_event_closure`) is the plain closure with K4 as its insert.
+  * K3, `hash_insert` — one visited-set transaction of the sharded
+    engine's closure iterations: probe, claim, loser re-check and the
+    append of the fresh rows (`kernels/hash_insert.cu`; replaces
+    `jepsen_tpu.parallel.sparse_kernels.hash_insert_call`). Its plain
+    version is `sparse._hash_insert_append`. Its table lives in shared
+    memory while it fits the opt-in (`k3_layout`), else in device
+    memory, so it takes every shape.
 
 The gates come from each kernel's own shared-memory layout: K2 keeps
 the frontier (12 bytes a row), the table (T = next_pow2(2N) slots of 12
@@ -24,8 +31,10 @@ would.
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version, which the tests and `chip_smoke.py`
 hold the kernel against. Each wrapper counts its launches, and nothing
-else, in a plain integer: `launches["frontier_closure"]` and
-`launches["tiled_insert"]`.
+else, in a plain integer: `launches["frontier_closure"]`,
+`launches["hash_insert"]` and `launches["tiled_insert"]`; K3 also counts
+them per table layout, in `hash_insert_launches["shared"]` and
+`hash_insert_launches["device"]`.
 """
 
 from __future__ import annotations
@@ -45,7 +54,9 @@ HOPPER_SMEM_OPTIN = 232_448
 STEP_CODES = {"register": 0, "mutex": 1, "gset": 2, "uqueue": 3, "fifo": 4}
 
 # kernel launches since the last reset, per wrapper
-launches = {"frontier_closure": 0, "tiled_insert": 0}
+launches = {"frontier_closure": 0, "hash_insert": 0, "tiled_insert": 0}
+# K3's launches since the last reset, per table layout
+hash_insert_launches = {"shared": 0, "device": 0}
 
 MAX_C = 64
 # K2: the slot tables (3 int32 + 2 bytes per slot, for 64 slots) and 40
@@ -55,6 +66,9 @@ K4_FIXED_BYTES = 16
 K4_SLOT_BYTES = 17    # rows 12, claim 4, occupancy 1
 K4_ENTRY_BYTES = 10   # index 4, start 4, offset 1, flags 1
 TILE_MIN = CHUNK_MIN = 512
+# K3: 40 words of scan scratch, and in the shared layout the table
+K3_FIXED_BYTES = 40 * 4
+K3_SLOT_BYTES = 17    # rows 12, claim 4, occupancy 1
 
 
 def k2_smem_bytes(N: int, C: int) -> int:
@@ -65,6 +79,23 @@ def k2_smem_bytes(N: int, C: int) -> int:
 
 def k4_smem_bytes(tile: int, chunk: int) -> int:
     return K4_SLOT_BYTES * tile + K4_ENTRY_BYTES * chunk + K4_FIXED_BYTES
+
+
+def k3_smem_bytes(Nd: int) -> int:
+    """K3's dynamic shared memory with the table of per-rank capacity Nd
+    (Td = next_pow2(2 Nd) slots) in shared memory. The candidates and
+    their probe state stay in device memory, so M does not enter."""
+    return K3_SLOT_BYTES * sp._next_pow2(2 * Nd) + K3_FIXED_BYTES
+
+
+def k3_layout(Nd: int, device=None) -> str:
+    """Where K3 keeps the visited set at per-rank capacity Nd: "shared"
+    while `k3_smem_bytes(Nd)` fits the block's opt-in (the card's on a
+    card, Hopper's elsewhere: Nd <= 4,096 on the H100), else "device"."""
+    device = torch.device("cpu" if device is None else device)
+    budget = _device_optin("hash_insert", device) \
+        if device.type == "cuda" else HOPPER_SMEM_OPTIN
+    return "shared" if k3_smem_bytes(Nd) <= budget else "device"
 
 
 def supported(N: int, C: int, budget: int = HOPPER_SMEM_OPTIN) -> bool:
@@ -116,6 +147,15 @@ def _lib(name: str):
             lib.jt_frontier_closure_launch.restype = _I
             lib.jt_frontier_closure_smem.argtypes = [_I, _I]
             lib.jt_frontier_closure_smem.restype = ctypes.c_longlong
+        elif name == "hash_insert":
+            lib.jt_hash_insert_launch.argtypes = \
+                [_P] * 4 + [_I] + [_P] * 3 + [_I, _P] + [_P] * 4 + [_I] \
+                + [_P] * 8 + [_P, _I, _I, _P]
+            lib.jt_hash_insert_launch.restype = _I
+            lib.jt_hash_insert_scratch.argtypes = [_I, _I, _I]
+            lib.jt_hash_insert_scratch.restype = ctypes.c_longlong
+            lib.jt_hash_insert_smem.argtypes = [_I, _I]
+            lib.jt_hash_insert_smem.restype = ctypes.c_longlong
         else:
             lib.jt_tiled_insert_launch.argtypes = \
                 [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_P]
@@ -155,8 +195,9 @@ def smem_budget(device) -> int:
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, hash_insert_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _ptr(t) -> int:
@@ -258,6 +299,85 @@ def frontier_closure(step_name: str, ev: dict, rows, live, run,
                            f"error {err}")
     launches["frontier_closure"] += 1
     return tuple(out), meta
+
+
+# --------------------------------------------------------------------- K3
+
+def hash_insert_reference(c_rows, c_live, f_rows, count, table,
+                          probe_limit: int, N: int):
+    """K3's plain version, on any device: `sparse._hash_insert_append`."""
+    return sp._hash_insert_append(c_rows, c_live, f_rows, count, table,
+                                  probe_limit, N,
+                                  sp._rep((), 1, c_live.device))
+
+
+def hash_insert(c_rows, c_live, f_rows, count, table, probe_limit: int,
+                N: int):
+    """K3: one visited-set transaction — insert the live candidates into
+    the open-addressed table by bounded linear probing (racing claims go
+    to the lowest candidate index; losers re-check the slot), then append
+    the fresh ones, in candidate order, after the first `count` frontier
+    rows.
+
+    c_rows  candidates, three int32 lanes [M]; c_live bool [M]
+    f_rows  the frontier, three int32 lanes [N]
+    count   integer tensor, one value: the frontier rows in use
+    table   (three int32 lanes [T], occupancy bool [T]), T a power of two
+    ->      (rows2, table2, count2, n_fresh, ovf): count2 = min(count +
+            n_fresh, N), ovf a probe run past `probe_limit` or an append
+            past N (the rows past N are dropped).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel on the current stream, with the table in shared or device
+    memory as `k3_layout` says."""
+    t_rows, t_occ = table
+    M, T = c_live.shape[0], t_occ.shape[0]
+    _check(M >= 1 and N >= 1 and T >= 2 and T & (T - 1) == 0,
+           f"hash_insert: M={M} N={N} T={T} (T a power of two)")
+    _check(1 <= probe_limit <= sp.MAX_PROBE_LIMIT,
+           f"hash_insert: probe_limit={probe_limit} outside "
+           f"1..{sp.MAX_PROBE_LIMIT}")
+    _check(len(c_rows) == 3 and len(f_rows) == 3 and len(t_rows) == 3
+           and all(r.dtype == _I32 and tuple(r.shape) == (n,)
+                   for rows, n in ((c_rows, M), (f_rows, N), (t_rows, T))
+                   for r in rows)
+           and c_live.dtype == torch.bool and t_occ.dtype == torch.bool
+           and count.numel() == 1 and not count.is_floating_point(),
+           "hash_insert: rows must be three int32 lanes, flags bool, "
+           "count one integer")
+    devs = {t.device for t in (*c_rows, c_live, *f_rows, count, *t_rows,
+                               t_occ)}
+    _check(len(devs) == 1, f"hash_insert: tensors on {devs}")
+    dev = _dev(c_live)
+    if dev.type == "cpu":
+        return hash_insert_reference(c_rows, c_live, f_rows, count, table,
+                                     probe_limit, N)
+    lib = _lib("hash_insert")
+    layout_name = k3_layout(T // 2, dev)
+    layout = 0 if layout_name == "shared" else 1
+    scratch = torch.empty(lib.jt_hash_insert_scratch(M, T, layout),
+                          dtype=torch.uint8, device=dev)
+    ins = [r.contiguous() for r in c_rows] + [c_live.contiguous()]
+    fins = [r.contiguous() for r in f_rows]
+    tins = [r.contiguous() for r in t_rows] + [t_occ.contiguous()]
+    out = [torch.empty(N, dtype=_I32, device=dev) for _ in range(3)]
+    t_out = [torch.empty(T, dtype=_I32, device=dev) for _ in range(3)]
+    occ_out = torch.empty(T, dtype=torch.bool, device=dev)
+    meta = torch.empty(3, dtype=_I32, device=dev)
+    cnt = count.reshape(1).to(_I32)
+    with torch.cuda.device(dev):
+        err = lib.jt_hash_insert_launch(
+            *map(_ptr, ins), M, *map(_ptr, fins), N, _ptr(cnt),
+            *map(_ptr, tins), T, *map(_ptr, out), *map(_ptr, t_out),
+            _ptr(occ_out), _ptr(meta), _ptr(scratch), probe_limit, layout,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hash_insert kernel launch failed: CUDA "
+                           f"error {err}")
+    launches["hash_insert"] += 1
+    hash_insert_launches[layout_name] += 1
+    return (tuple(out), (tuple(t_out), occ_out), meta[0], meta[1],
+            meta[2] != 0)
 
 
 # --------------------------------------------------------------------- K4
