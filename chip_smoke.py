@@ -11,8 +11,11 @@ down both of its engines:
      prints the build seconds and each kernel's registers;
   2. K1 (the dense engine's closure, kernels/closure.cu):
      * parity against its plain PyTorch version, bit for bit, at the main
-       path's shape (S=18, C=13: B in shared memory) and a wide shape
-       (S=22, C=17: B in device memory);
+       path's shape (S=18, C=13), a wide shape (S=22, C=17) and one with
+       more than 32 states (S=40, C=12), in every layout the kernel can
+       run each in: the gate's (a thread-block cluster at all three)
+       through the wrapper, and one block ("shared", where B fits it)
+       and B in device memory ("global") forced;
      * main path: the 10k-op adversarial cas-register history (valid),
        its twin with an impossible read (invalid; the counterexample
        re-scans the device to a window before the failure) and a 1k-op
@@ -22,7 +25,8 @@ down both of its engines:
        from `closure`. Small seeded histories are held against the host
        WGL search;
      * timing, per launch with CUDA events, on closure inputs recorded
-       from the main path's own scans;
+       from the main path's own scans, in the gate's layout and in each
+       other layout the shape can take;
   3. K2 and K4 (the sparse engine's hash closure, kernels/
      frontier_closure.cu, and its tiled visited-set insert, kernels/
      tiled_insert.cu):
@@ -51,15 +55,19 @@ down both of its engines:
      * main path, full width: the bench's sharded shape,
        `adversarial_register_history(10000, 12)` through
        `sharded.analysis` at capacity 2^17 (K3's table in device
-       memory), cold and warm, and its impossible-read twin through
-       `check_encoded_sharded`, each with the dense engine's verdict, op
-       and fail-event on the card;
+       memory, its insert a cooperative grid), cold and warm, and its
+       impossible-read twin through `check_encoded_sharded`, each with
+       the dense engine's verdict, op and fail-event on the card;
      * parity against its plain version, bit for bit, on inputs recorded
-       from those checks at both table layouts, and once at
-       probe_limit=2 with the probe overflow raised; a short check
-       through the plain insert on the card equals the K3 check;
-     * timing per launch at both layouts, beside the plain insert and the
-       bound; the kernels line has one K3 entry per table layout, with
+       from those checks at both table layouts, through the wrapper and
+       through the cooperative grid forced (on the one-block layout's
+       tables too), at probe_limit=2 with the probe overflow raised, on
+       an append past N, and on more live candidates than the grid has
+       threads; a short check through the plain insert on the card
+       equals the K3 check;
+     * timing per launch at both layouts (and the grid forced at
+       T=1,024), beside the plain insert and the bound; the kernels line
+       has one K3 entry per insert ("shared": one block; "grid"), with
        K3's launches in that layout (the wrapper counts them per layout).
   Launch counts are zeroed just before each main-path check and read just
   after; each check must have launched the kernel of its route.
@@ -85,6 +93,7 @@ import torch
 SEED = 20261017
 MAIN_SHAPE = (18, 13)   # (S, C) of adversarial_register_history(10000, 12)
 WIDE_SHAPE = (22, 17)   # (S, C) of adversarial_register_history(1000, 16)
+S_WIDE_SHAPE = (40, 12)  # more than 32 states: two source words a mask
 TIMED_PAIRS = 200       # closure inputs recorded per shape for timing
 PLAIN_TIMED_PAIRS = 20
 
@@ -146,39 +155,58 @@ def phase_build() -> float:
 
 
 def phase_parity(dev) -> dict:
-    """K1 against the plain closure; returns per (S, C) the largest
+    """K1 against the plain closure, in every layout the kernel can run
+    each shape in (`closure_plans`: the gate's choice through the
+    wrapper, the others forced): at the main path's two shapes and at a
+    shape with two source words (S > 32). Returns per (S, C) the largest
     |difference| over every word compared (0: bit-identical)."""
     from jepsen_tpu_torch.parallel import closure_kernels as ck
     rng = np.random.default_rng(SEED)
+    limits = ck.card_limits(dev)
     worst = {}
-    for S, C in (MAIN_SHAPE, WIDE_SHAPE):
+    for S, C in (MAIN_SHAPE, WIDE_SHAPE, S_WIDE_SHAPE):
         layout = ck.kernel_layout(S, C)
+        plans = ck.closure_plans(S, C, *limits)
+        _require(plans[layout] == ck.device_plan(S, C, dev),
+                 f"K1 plans at S={S} C={C}")
         worst[(S, C)] = 0
         for kind in ("sparse", "register"):
             for _ in range(3):
                 sel, B = _rand_case(rng, S, C, kind, dev)
                 want = ck.closure_fixpoint_reference(sel, B, C)
                 got = ck.closure_fixpoint(sel, B, C)
-                inplace = B.clone()
-                ck.closure_fixpoint(sel, inplace, C, out=inplace,
-                                    run=torch.ones((), dtype=torch.bool,
-                                                   device=dev))
-                skipped = B.clone()
-                ck.closure_fixpoint(sel, skipped, C, out=skipped,
-                                    run=torch.zeros((), dtype=torch.bool,
-                                                    device=dev))
                 torch.cuda.synchronize()
                 err = int((got.long() - want.long()).abs().max())
                 worst[(S, C)] = max(worst[(S, C)], err)
                 _require(torch.equal(got, want),
                          f"K1 differs from the plain closure at S={S} "
                          f"C={C} ({kind}, {layout} layout)")
-                _require(torch.equal(inplace, want),
-                         f"in-place K1 differs at S={S} C={C}")
-                _require(torch.equal(skipped, B),
-                         f"K1 with run=False changed B at S={S} C={C}")
-        print(f"parity: K1 == plain closure at S={S} C={C} "
-              f"({layout} layout), 6 random cases, in place and skipped")
+                for name, plan in plans.items():
+                    out = torch.empty_like(B)
+                    ck._launch(sel, B, out, C, plan=plan)
+                    inplace = B.clone()
+                    ck._launch(sel, inplace, inplace, C, plan=plan,
+                               run=torch.ones((), dtype=torch.bool,
+                                              device=dev))
+                    skipped = B.clone()
+                    ck._launch(sel, skipped, skipped, C, plan=plan,
+                               run=torch.zeros((), dtype=torch.bool,
+                                               device=dev))
+                    torch.cuda.synchronize()
+                    err = int((out.long() - want.long()).abs().max())
+                    worst[(S, C)] = max(worst[(S, C)], err)
+                    _require(torch.equal(out, want),
+                             f"K1 ({name} layout) differs at S={S} C={C}")
+                    _require(torch.equal(inplace, want),
+                             f"in-place K1 ({name}) differs at S={S} C={C}")
+                    _require(torch.equal(skipped, B),
+                             f"K1 ({name}) with run=False changed B at "
+                             f"S={S} C={C}")
+        ran = ", ".join(f"{n} k={p['cluster']} Wb={p['block_words']}"
+                        for n, p in plans.items())
+        print(f"parity: K1 == plain closure at S={S} C={C} (gate: "
+              f"{layout}; {ran}), 6 random cases each, in place and "
+              f"skipped")
     return worst
 
 
@@ -344,6 +372,14 @@ def phase_timing(dev, shape, h, stride: int) -> dict:
 
     ms = _time_launches(kernel, [(sel, B, torch.empty_like(B))
                                  for sel, B, _ in pairs], reps=3)
+    # every layout the shape can take (the gate's too), forced
+    layout_ms = {}
+    for name, plan in ck.closure_plans(S, C, *ck.card_limits(dev)).items():
+        def forced(sel, B, out, plan=plan):
+            ck._launch(sel, B, out, C, plan=plan)
+        layout_ms[name] = _time_launches(
+            forced, [(sel, B, torch.empty_like(B)) for sel, B, _ in pairs],
+            reps=3)
     plain_ms = _time_launches(ck.closure_fixpoint_reference,
                               pairs[:PLAIN_TIMED_PAIRS], reps=1)
     # the least time: each input read once and B' written once; and the
@@ -364,6 +400,7 @@ def phase_timing(dev, shape, h, stride: int) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = float(np.mean(ops)) / INT32_OPS_PER_S * 1e3
     out = {"S": S, "C": C, "W": W, "layout": ck.kernel_layout(S, C),
+           "plan": ck.device_plan(S, C, dev), "layout_ms": layout_ms,
            "pairs": len(pairs), "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -969,46 +1006,112 @@ def _max_err_k3(got, want) -> int:
     return _max_err(g, w)
 
 
+K3_NAMES = {"shared": "shared", "device": "grid"}   # layout -> its insert
+
+
+def _k3_forced(layout: str):
+    """K3 on CUDA tensors with its insert in `layout` ("shared": one
+    block; "device": the cooperative grid), whatever the gate says."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+
+    def run(c_rows, c_live, f_rows, count, table, pl, N):
+        return sk._hash_insert_launch(c_rows, c_live, f_rows, count, table,
+                                      pl, N, layout)
+    return run
+
+
 def phase_k3_parity(dev, mesh, recorded: dict) -> int:
-    """K3 against the plain insert on the card, bit for bit, on the
-    recorded inputs of both layouts and at probe_limit=2 with the probe
-    overflow raised; a short check through the plain insert equals the
-    K3 check. Returns the largest |difference| (0: bit-identical)."""
+    """K3 against the plain insert on the card, bit for bit: on every
+    recorded input through the wrapper (both layouts) and through the
+    cooperative grid forced (on the shared layout's tables too), at
+    probe_limit=2 in both with the probe overflow raised, on an input
+    whose append passes N, and on more live candidates than the grid
+    has threads; a short check through the plain insert equals the K3
+    check. Returns the largest |difference| (0: bit-identical)."""
     from jepsen_tpu_torch.parallel import sparse_kernels as sk
     lib = sk._lib("hash_insert")
     for T in (1024, 8192):
         _require(lib.jt_hash_insert_smem(T, 0) == sk.k3_smem_bytes(T // 2),
                  f"K3 layout at T={T}")
+    grid = _k3_forced("device")
     worst = 0
     for T, inputs in sorted(recorded.items()):
         layout = sk.k3_layout(T // 2, dev)
         for args in inputs:
-            err = _max_err_k3(sk.hash_insert(*args),
-                              sk.hash_insert_reference(*args))
-            torch.cuda.synchronize()
-            worst = max(worst, err)
-            _require(err == 0, f"K3 differs from the plain insert at T={T} "
-                               f"({layout} layout)")
+            want = sk.hash_insert_reference(*args)
+            for fn, name in ((sk.hash_insert, layout), (grid, "grid")):
+                err = _max_err_k3(fn(*args), want)
+                torch.cuda.synchronize()
+                worst = max(worst, err)
+                _require(err == 0, f"K3 ({name}) differs from the plain "
+                                   f"insert at T={T}")
         print(f"parity: K3 == plain insert on {len(inputs)} recorded inputs "
-              f"at T={T} ({layout} layout, M={inputs[0][1].shape[0]}, "
-              f"live {[int(a[1].sum()) for a in inputs]})")
+              f"at T={T} ({layout} layout, and the grid forced; "
+              f"M={inputs[0][1].shape[0]}, live "
+              f"{[int(a[1].sum()) for a in inputs]})")
     _require({sk.k3_layout(T // 2, dev) for T in recorded}
              == {"shared", "device"}, "K3 parity missed a layout")
-    fired = None
+    fired = {}
     for T, inputs in sorted(recorded.items()):
+        layout = sk.k3_layout(T // 2, dev)
         for args in inputs:
             a = args[:5] + (2,) + args[6:]
-            got, want = sk.hash_insert(*a), sk.hash_insert_reference(*a)
-            err = _max_err_k3(got, want)
-            _require(err == 0, f"K3 differs at probe_limit=2, T={T}")
-            if bool(want[4]) and int(want[2]) < a[6]:
-                fired = (T, int(want[3]))
-                break
-        if fired:
-            break
-    _require(fired is not None, "probe_limit=2 never overflowed")
-    print(f"parity: K3 == plain insert at probe_limit=2 with the probe "
-          f"overflow raised (T={fired[0]}, {fired[1]} fresh)")
+            want = sk.hash_insert_reference(*a)
+            for fn, name in ((sk.hash_insert, "wrapper"), (grid, "grid")):
+                err = _max_err_k3(fn(*a), want)
+                worst = max(worst, err)
+                _require(err == 0, f"K3 ({name}) differs at probe_limit=2, "
+                                   f"T={T} ({layout} layout)")
+                if bool(want[4]) and int(want[2]) < a[6]:
+                    fired.setdefault(name, (T, int(want[3])))
+    _require(set(fired) == {"wrapper", "grid"},
+             f"probe_limit=2 overflowed only in {sorted(fired)}")
+    print(f"parity: K3 == plain insert at probe_limit=2 on every recorded "
+          f"input, the probe overflow raised (first at (T, fresh): "
+          f"{fired})")
+    # an append past N: the largest recorded insert, its frontier all
+    # but a few rows full
+    T, inputs = max(recorded.items())
+    args = max(inputs, key=lambda a: int(a[1].sum()))
+    fresh = int(sk.hash_insert_reference(*args)[3])
+    N = args[6]
+    a = args[:3] + (torch.full_like(args[3], N - fresh // 2),) + args[4:]
+    want = sk.hash_insert_reference(*a)
+    _require(bool(want[4]) and int(want[2]) == N,
+             f"the append past N did not overflow: {want[2:]}")
+    err = _max_err_k3(sk.hash_insert(*a), want)
+    worst = max(worst, err)
+    _require(err == 0, f"K3 differs on the append past N at T={T}")
+    print(f"parity: K3 == plain insert on an append past N (T={T}, "
+          f"count {N - fresh // 2} + {fresh} fresh > N={N}, overflow "
+          f"raised)")
+    # the grid past its threads: more live candidates than the grid has
+    # threads, so their probe state lives in the scratch, not in
+    # registers (random rows, many repeated, a table of 2^19 slots)
+    threads = sk.k3_grid(dev) * 1024
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    M = threads * 3 // 2
+    pick = torch.randint(0, M // 4, (M,), device=dev, generator=g)
+    pool = [torch.randint(-2**31, 2**31 - 1, (M // 4,), device=dev,
+                          dtype=torch.int32, generator=g) for _ in range(3)]
+    T, N = 1 << 19, 1 << 18
+    a = (tuple(r[pick] for r in pool),
+         torch.rand(M, device=dev, generator=g) < 0.8,
+         tuple(torch.zeros(N, dtype=torch.int32, device=dev)
+               for _ in range(3)),
+         torch.tensor(5, dtype=torch.int32, device=dev),
+         (tuple(torch.zeros(T, dtype=torch.int32, device=dev)
+                for _ in range(3)),
+          torch.zeros(T, dtype=torch.bool, device=dev)), 32, N)
+    live = int(a[1].sum())
+    _require(live > threads and sk.k3_layout(T // 2, dev) == "device",
+             f"the scratch-path input has {live} live for {threads} threads")
+    want = sk.hash_insert_reference(*a)
+    err = _max_err_k3(sk.hash_insert(*a), want)
+    worst = max(worst, err)
+    _require(err == 0, "K3's grid differs past its threads")
+    print(f"parity: K3 == plain insert with {live} live candidates past "
+          f"the grid's {threads} threads ({int(want[3])} fresh)")
     # the plain insert through a whole check on the card
     name, e, cap = _sharded_small_cases()[1]
     r, _, n = _sharded_check(e, mesh, capacity=cap, dedupe="hash")
@@ -1027,7 +1130,9 @@ def phase_k3_parity(dev, mesh, recorded: dict) -> int:
 
 def phase_k3_timing(dev, recorded: dict) -> list:
     """K3 per launch with CUDA events at both layouts, beside the plain
-    insert on the card and the bound."""
+    insert on the card and the bound; at T=1,024 also the cooperative
+    grid forced onto the shared layout's table (the measurement that
+    keeps the one-block insert there)."""
     from jepsen_tpu_torch.parallel import sparse_kernels as sk
     out = []
     for T, inputs in sorted(recorded.items()):
@@ -1038,7 +1143,10 @@ def phase_k3_timing(dev, recorded: dict) -> list:
         inputs = [a for a in inputs if a[1].shape[0] > a[2][0].shape[0]]
         _require(len(inputs) > 0, f"no expansion insert recorded at T={T}")
         M, N = inputs[0][1].shape[0], inputs[0][2][0].shape[0]
+        layout = sk.k3_layout(T // 2, dev)
         ms = _time_launches(sk.hash_insert, inputs, reps=3)
+        grid_ms = _time_launches(_k3_forced("device"), inputs, reps=3) \
+            if layout == "shared" else ms
         plain_ms = _time_host(sk.hash_insert_reference, inputs[:2])
         # bytes these inserts need: every live flag, the live candidates'
         # rows, the table (rows and occupancy) in and out, the fresh rows
@@ -1052,9 +1160,10 @@ def phase_k3_timing(dev, recorded: dict) -> list:
         ops = M + 24 * live
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / INT32_OPS_PER_S * 1e3
-        t = {"T": T, "M": M, "N": N, "layout": sk.k3_layout(T // 2, dev),
+        t = {"T": T, "M": M, "N": N, "layout": layout,
+             "insert": K3_NAMES[layout], "grid_blocks": sk.k3_grid(dev),
              "inputs": len(inputs), "mean_live": live, "mean_fresh": fresh,
-             "ms": ms, "plain_ms": plain_ms,
+             "ms": ms, "grid_ms": grid_ms, "plain_ms": plain_ms,
              "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         print("timing: " + json.dumps(t))
@@ -1127,22 +1236,23 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
-    # K3: one entry per table layout, timed at the shape it names; its
-    # launches in that layout over the small checks and the warm
-    # full-width check
+    # K3: one entry per table layout (insert "shared": one block; "grid":
+    # the cooperative grid over the table in device memory), timed at
+    # the shape it names; its launches in that layout over the small
+    # checks and the warm full-width check
     for t in k3_timed:
         layout = t["layout"]
         n = small[layout] + full["warm_by_layout"][layout]
         _require(n > 0, f"K3's {layout} layout never launched")
         kernels.append({
-            "name": f"hash_insert[{layout},T{t['T']},M{t['M']}]",
+            "name": f"hash_insert[{t['insert']},T{t['T']},M{t['M']}]",
             "route": "cuda",
             "source": "jepsen_tpu_torch/kernels/hash_insert.cu",
             "replaces": "jepsen_tpu/parallel/sparse_kernels.py:282",
             "launches": n, "max_abs_err": k3_worst,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "layout": t["layout"]})
+            "library_ms": None, "layout": t["insert"]})
     torch.distributed.destroy_process_group()
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,11 @@
 // frontier_closure.cu, K3 hash_insert.cu, K4 tiled_insert.cu): the
 // visited-set hash, the five model-step families of
 // jepsen_tpu_torch/parallel/steps.py, a block-wide exclusive prefix sum,
-// and the one-block visited-set transaction of K2 and K3 (insert_pass). Integers are 32-bit two's complement;
-// shifts follow steps.py's _shl/_sar (0 past the word for a left shift,
+// the two phases of a visited-set probe round (probe_a, probe_b, on a
+// candidate's state in registers or, through probe_read and
+// claim_settle, in memory: K2's and K3's one-block insert_pass, and K3's
+// cooperative grid) and insert_pass itself. Integers are 32-bit two's
+// complement; shifts follow steps.py's _shl/_sar (0 past the word for a left shift,
 // sign fill for a right shift), and wrapping arithmetic goes through
 // uint32_t so that it is defined.
 
@@ -152,6 +155,121 @@ struct TableView {
   uint32_t mask;
 };
 
+// Loads of table words. PlainLoads serve a table that one block owns
+// (K2, K3's shared layout); L2Loads (ld.global.cg) serve K3's grid,
+// whose table words other blocks write between grid-wide barriers, so
+// no read may come from a stale line of this SM's L1.
+struct PlainLoads {
+  template <class T>
+  __device__ __forceinline__ static T ld(const T* p) { return *p; }
+};
+struct L2Loads {
+  template <class T>
+  __device__ __forceinline__ static T ld(const T* p) { return __ldcg(p); }
+};
+
+// One candidate's probe state: its row and hash, its probe offset and
+// its flags (kPending, kTry, kFresh).
+struct Probe {
+  int32_t st;
+  uint32_t ml, mh, h;
+  int off;
+  uint8_t fl;
+};
+
+__device__ __forceinline__ void set_row(Probe& p, int32_t st, uint32_t ml,
+                                        uint32_t mh) {
+  p.st = st;
+  p.ml = ml;
+  p.mh = mh;
+  p.h = table_hash(st, ml, mh);
+}
+
+// Phase A of a probe round for candidate li: if it is still pending with
+// probes left, read its slot; an equal occupant drops it, a different
+// one advances it, an empty slot takes an atomicMin of li on the claim
+// word.
+template <class Ld>
+__device__ __forceinline__ void probe_a(Probe& p, const TableView& t,
+                                        int li, int probe_limit) {
+  if (!(p.fl & kPending) || p.off >= probe_limit) return;
+  const int slot = (int)((p.h + (uint32_t)p.off) & t.mask);
+  if (Ld::ld(&t.occ[slot])) {
+    if (Ld::ld(&t.st[slot]) == p.st &&
+        (uint32_t)Ld::ld(&t.ml[slot]) == p.ml &&
+        (uint32_t)Ld::ld(&t.mh[slot]) == p.mh) {
+      p.fl = 0;  // already visited
+    } else {
+      p.off += 1;
+    }
+  } else {
+    atomicMin(&t.claim[slot], li);
+    p.fl = kPending | kTry;
+  }
+}
+
+// Phase B, after every phase A of the round: the lowest claimant of a
+// slot writes it and frees the claim (a loser then reads kClaimFree or
+// the winner's index, never its own); a loser stays pending. Returns
+// whether li is still pending with probes left.
+template <class Ld>
+__device__ __forceinline__ bool probe_b(Probe& p, const TableView& t,
+                                        int li, int probe_limit) {
+  if (p.fl & kTry) {
+    const int slot = (int)((p.h + (uint32_t)p.off) & t.mask);
+    if (Ld::ld(&t.claim[slot]) == li) {
+      t.st[slot] = p.st;
+      t.ml[slot] = (int32_t)p.ml;
+      t.mh[slot] = (int32_t)p.mh;
+      t.occ[slot] = 1;
+      t.claim[slot] = kClaimFree;
+      p.fl = kFresh;
+      return false;
+    }
+    p.fl = kPending;
+  }
+  return (p.fl & kPending) && p.off < probe_limit;
+}
+
+// probe_a and probe_b for candidate li whose offset and flags live in
+// off[li] and flags[li] (one byte each) and whose row `cand` rebuilds.
+template <class Ld, class Cand>
+__device__ __forceinline__ void probe_read(const Cand& cand,
+                                           const TableView& t, uint8_t* off,
+                                           uint8_t* flags, int li,
+                                           int probe_limit) {
+  if (!(flags[li] & kPending) || off[li] >= probe_limit) return;
+  Probe p;
+  int32_t st;
+  uint32_t ml, mh;
+  cand(li, st, ml, mh);
+  set_row(p, st, ml, mh);
+  p.off = off[li];
+  p.fl = flags[li];
+  probe_a<Ld>(p, t, li, probe_limit);
+  off[li] = (uint8_t)p.off;
+  flags[li] = p.fl;
+}
+
+template <class Ld, class Cand>
+__device__ __forceinline__ bool claim_settle(const Cand& cand,
+                                             const TableView& t,
+                                             uint8_t* off, uint8_t* flags,
+                                             int li, int probe_limit) {
+  Probe p;
+  p.fl = flags[li];
+  p.off = off[li];
+  if (p.fl & kTry) {
+    int32_t st;
+    uint32_t ml, mh;
+    cand(li, st, ml, mh);
+    set_row(p, st, ml, mh);
+  }
+  const bool more = probe_b<Ld>(p, t, li, probe_limit);
+  flags[li] = p.fl;
+  return more;
+}
+
 // One visited-set transaction of the M candidates of a pass, run by one
 // whole block: sparse._hash_insert_append, bit for bit. `cand(li, st,
 // ml, mh)` rebuilds candidate li and returns whether it is live; off and
@@ -161,18 +279,16 @@ struct TableView {
 // candidates; *probe_ovf says whether one exhausted its probes. Uniform:
 // every thread gets the same values.
 //
-// Probing is round-synchronous, as in the reference's while loop: every
-// pending candidate reads its slot; an equal occupant drops it, a
-// different one advances it, an empty slot takes an atomicMin of its
-// candidate index. After a barrier the lowest index writes the slot and
-// frees its claim word; the losers re-check the same slot next round
-// (the winner may hold an equal row). All reads of a round precede its
-// writes, so the table, the offsets and the winners are the reference's
-// whatever order the threads run in. The append is a block prefix sum
-// of the fresh flags in candidate order, so the rows land where the
-// reference's cumsum puts them. A candidate is read again (or rebuilt)
-// wherever it is needed, so out_* may be the rows the candidates come
-// from, as long as the appended rows lie past those.
+// Probing is round-synchronous, as in the reference's while loop:
+// phase A (probe_read) for every pending candidate, a barrier, phase B
+// (claim_settle), a barrier; the losers re-check the same slot next
+// round (the winner may hold an equal row). All reads of a round
+// precede its writes, so the table, the offsets and the winners are the
+// reference's whatever order the threads run in. The append is a block
+// prefix sum of the fresh flags in candidate order, so the rows land
+// where the reference's cumsum puts them. A candidate is read again (or
+// rebuilt) wherever it is needed, so out_* may be the rows the
+// candidates come from, as long as the appended rows lie past those.
 template <class Cand>
 __device__ int insert_pass(const Cand& cand, const TableView& t,
                            uint8_t* off, uint8_t* flags, int* scan, int M,
@@ -191,48 +307,14 @@ __device__ int insert_pass(const Cand& cand, const TableView& t,
   }
   int active = __syncthreads_or(local);
   while (active) {
-    // read the slots, drop, advance or claim
     for (int li = tid; li < M; li += nt) {
-      if (!(flags[li] & kPending) || off[li] >= probe_limit) continue;
-      int32_t st;
-      uint32_t ml, mh;
-      cand(li, st, ml, mh);
-      const int slot = (int)((table_hash(st, ml, mh) + off[li]) & t.mask);
-      if (t.occ[slot]) {
-        if (t.st[slot] == st && (uint32_t)t.ml[slot] == ml &&
-            (uint32_t)t.mh[slot] == mh) {
-          flags[li] = 0;  // already visited
-        } else {
-          off[li] += 1;
-        }
-      } else {
-        atomicMin(&t.claim[slot], li);
-        flags[li] = kPending | kTry;
-      }
+      probe_read<PlainLoads>(cand, t, off, flags, li, probe_limit);
     }
     __syncthreads();
-    // the lowest claimant of each slot writes it and frees the claim
     local = 0;
     for (int li = tid; li < M; li += nt) {
-      uint8_t fl = flags[li];
-      if (fl & kTry) {
-        int32_t st;
-        uint32_t ml, mh;
-        cand(li, st, ml, mh);
-        const int slot = (int)((table_hash(st, ml, mh) + off[li]) & t.mask);
-        if (t.claim[slot] == li) {
-          t.st[slot] = st;
-          t.ml[slot] = (int32_t)ml;
-          t.mh[slot] = (int32_t)mh;
-          t.occ[slot] = 1;
-          t.claim[slot] = kClaimFree;
-          flags[li] = kFresh;
-          continue;
-        }
-        fl = kPending;
-        flags[li] = fl;
-      }
-      if ((fl & kPending) && off[li] < probe_limit) local = 1;
+      local |= claim_settle<PlainLoads>(cand, t, off, flags, li,
+                                        probe_limit);
     }
     active = __syncthreads_or(local);
   }

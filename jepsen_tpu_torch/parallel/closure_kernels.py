@@ -10,9 +10,11 @@ replaces (`jepsen_tpu.parallel.pallas_kernels.closure_fixpoint`):
 
 Words are int32 bit patterns (PyTorch's CPU build has no shifts on
 uint32). On a CUDA tensor the wrapper launches the hand-written kernel
-in `jepsen_tpu_torch/kernels/closure.cu` or raises; on a CPU tensor it
-runs `closure_fixpoint_reference`, the plain PyTorch version, which the
-tests and `chip_smoke.py` hold the kernel against.
+in `jepsen_tpu_torch/kernels/closure.cu` — over a thread-block cluster,
+one block or one block on device memory, as `closure_plan` says — or
+raises; on a CPU tensor it runs `closure_fixpoint_reference`, the plain
+PyTorch version, which the tests and `chip_smoke.py` hold the kernel
+against.
 """
 
 from __future__ import annotations
@@ -110,10 +112,91 @@ def closure_fixpoint_reference(sel, B, C: int):
 
 # ----------------------------------------------------------------- kernel
 
+# The kernel's layouts (kernels/closure.cu): "cluster" splits B's words
+# over a thread-block cluster, each block holding its share in shared
+# memory; "shared" is that kernel as one block; "global" is one block
+# updating B in device memory.
+HOPPER_SMEM_OPTIN = 232_448   # dynamic shared memory a Hopper block can use
+MAX_THREADS = 1024
+MAX_CLUSTER = 16              # with the non-portable cluster size allowed
+MIN_BLOCK_WORDS = 16          # no split leaves a block fewer words a state
+SPLIT_FIXED_WORDS = 2 * MAX_CLUSTER + 40   # sweep flags and scan words
+_LAYOUT_CODES = {"global": 0, "shared": 1, "cluster": 2}
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def k1_block_bytes(S: int, C: int, block_words: int) -> int:
+    """Shared memory of one block of the split kernel ("shared" or
+    "cluster") owning `block_words` words of each of the S states: its
+    words of B, the repacked sel (a mask over the sources per (j, t)),
+    the pair list (an item offset and a 2-byte entry per (j, t), padded
+    to 16 bytes), the sweep flags and the scan words. closure.cu's
+    split_smem lays out the same bytes."""
+    SW = (S + 31) // 32
+    pairs = C * S
+    head = 4 * (S * block_words + C * S * SW + pairs + 1)
+    head = (head + 2 * pairs + 15) // 16 * 16
+    return head + 4 * SPLIT_FIXED_WORDS
+
+
+def _split_plan(S: int, C: int, k: int) -> dict:
+    Wb = n_words(C) // k
+    return {"layout": "shared" if k == 1 else "cluster", "cluster": k,
+            "block_words": Wb,
+            "threads": min(MAX_THREADS, max(64, _pow2_ceil(S * Wb))),
+            "smem": k1_block_bytes(S, C, Wb)}
+
+
+def _global_plan(S: int, C: int) -> dict:
+    W = n_words(C)
+    return {"layout": "global", "cluster": 1, "block_words": W,
+            "threads": min(MAX_THREADS, max(32, -(-S * W // 32) * 32)),
+            "smem": C * S * ((S + 31) // 32) * 4}
+
+
+def closure_plan(S: int, C: int, optin: int = HOPPER_SMEM_OPTIN,
+                 max_cluster: int = MAX_CLUSTER) -> dict:
+    """K1's launch for an [S, W] B on a card whose block may opt in to
+    `optin` bytes of shared memory and which runs clusters of up to
+    `max_cluster` blocks: {"layout", "cluster" (blocks), "block_words"
+    (words of each state a block holds), "threads" (per block), "smem"
+    (bytes per block)}.
+
+    The cluster size is the least power of two that leaves each block at
+    most 1,024 words of B (a thread a word), raised until a block's share
+    fits `optin`; it never leaves a block fewer than 16 words a state
+    (C <= 9 never splits) nor passes `max_cluster`. One block is the
+    "shared" layout; a shape that no cluster holds is "global"."""
+    W = n_words(C)
+    k_max = max(1, min(max_cluster, W // MIN_BLOCK_WORDS))
+    k = min(k_max, _pow2_ceil(-(-S * W // MAX_THREADS)))
+    while k <= k_max and k1_block_bytes(S, C, W // k) > optin:
+        k *= 2
+    return _global_plan(S, C) if k > k_max else _split_plan(S, C, k)
+
+
+def closure_plans(S: int, C: int, optin: int = HOPPER_SMEM_OPTIN,
+                  max_cluster: int = MAX_CLUSTER) -> dict:
+    """Every layout the kernel can run this shape in -> its plan:
+    "global" always, "shared" when one block holds B, "cluster" when
+    `closure_plan` chooses it. The parity checks run each."""
+    out = {"global": _global_plan(S, C)}
+    if k1_block_bytes(S, C, n_words(C)) <= optin:
+        out["shared"] = _split_plan(S, C, 1)
+    chosen = closure_plan(S, C, optin, max_cluster)
+    out[chosen["layout"]] = chosen
+    return out
+
+
 _lib = None
-# device index -> the block's shared-memory opt-in there, in bytes, read
-# by jt_closure_init (which also grants it to the kernel on that device)
-_optin: dict = {}
+# device index -> (the block's shared-memory opt-in there, the largest
+# cluster the card runs there), read by jt_closure_init once
+_card: dict = {}
+# (device index, S, C) -> the plan, checked against the card once
+_plans: dict = {}
 
 
 def _kernel_lib():
@@ -123,40 +206,80 @@ def _kernel_lib():
         lib = kernels.load("closure")
         lib.jt_closure_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.jt_closure_launch.restype = ctypes.c_int
-        lib.jt_closure_init.argtypes = []
-        lib.jt_closure_init.restype = ctypes.c_int
+        for name, n_args in (("jt_closure_init", 0),
+                             ("jt_closure_max_cluster", 0),
+                             ("jt_closure_active_clusters", 5),
+                             ("jt_closure_split_smem", 3)):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_int] * n_args
+            fn.restype = ctypes.c_longlong \
+                if name == "jt_closure_split_smem" else ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _optin_bytes(index: int) -> int:
-    v = _optin.get(index)
+def _index(device) -> int:
+    index = torch.device("cuda" if device is None else device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def card_limits(device=None) -> tuple:
+    """(shared-memory opt-in in bytes, largest cluster) of the card, read
+    once per device by jt_closure_init."""
+    index = _index(device)
+    v = _card.get(index)
     if v is None:
+        lib = _kernel_lib()
         with torch.cuda.device(index):
-            v = _kernel_lib().jt_closure_init()
-        if v <= 0:
+            optin = lib.jt_closure_init()
+            max_cluster = lib.jt_closure_max_cluster()
+        if optin <= 0:
             raise RuntimeError(f"closure kernel: cannot set up device "
-                               f"{index}: CUDA error {-v}")
-        _optin[index] = v
+                               f"{index}: CUDA error {-optin}")
+        v = _card[index] = (optin, max_cluster)
     return v
 
 
+def device_plan(S: int, C: int, device=None) -> dict:
+    """`closure_plan` with the card's limits. A cluster the card cannot
+    keep resident at the plan's shared memory raises."""
+    index = _index(device)
+    plan = _plans.get((index, S, C))
+    if plan is None:
+        plan = closure_plan(S, C, *card_limits(index))
+        if plan["layout"] != "global":
+            lib = _kernel_lib()
+            log_wb = plan["block_words"].bit_length() - 1
+            smem = lib.jt_closure_split_smem(S, C, log_wb)
+            if smem != plan["smem"]:
+                raise RuntimeError(f"closure kernel: layout disagrees at "
+                                   f"S={S} C={C}: {smem} != {plan}")
+        if plan["layout"] == "cluster":
+            with torch.cuda.device(index):
+                n = lib.jt_closure_active_clusters(
+                    S, C, log_wb, plan["cluster"], plan["threads"])
+            if n <= 0:
+                raise RuntimeError(
+                    f"closure kernel: the card cannot run a cluster of "
+                    f"{plan['cluster']} blocks of {plan['threads']} threads "
+                    f"and {plan['smem']} bytes at S={S} C={C} (CUDA "
+                    f"{'error ' + str(-n) if n < 0 else 'occupancy 0'})")
+        _plans[(index, S, C)] = plan
+    return plan
+
+
 def kernel_layout(S: int, C: int, device=None) -> str:
-    """Where the kernel keeps B for this shape on `device` (default: the
-    current card): "shared" (dynamic shared memory) when B and the
-    repacked sel fit the block's opt-in, else "global" (device memory)."""
-    index = torch.device("cuda" if device is None else device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    sel_bytes = C * S * ((S + 31) // 32) * 4
-    fits = sel_bytes + S * n_words(C) * 4 <= _optin_bytes(index)
-    return "shared" if fits else "global"
+    """K1's layout for this shape on `device` (default: the current
+    card): "cluster", "shared" or "global" (`closure_plan`)."""
+    return device_plan(S, C, device)["layout"]
 
 
-def _launch(sel, B, out, C: int, run=None) -> None:
+def _launch(sel, B, out, C: int, run=None, plan=None) -> None:
+    """One launch of K1 on CUDA tensors, in `plan` (default: the card's
+    `device_plan`; chip_smoke.py also runs the other layouts a shape can
+    take). Raises on a launch the card refuses."""
     global launches
     if not (sel.is_contiguous() and B.is_contiguous()
             and out.is_contiguous()):
@@ -167,15 +290,19 @@ def _launch(sel, B, out, C: int, run=None) -> None:
     if run is not None and (run.dtype != torch.bool or run.numel() != 1
                             or run.device != B.device):
         raise ValueError("closure kernel: run must be one bool on B's device")
-    shared = kernel_layout(B.shape[0], C, B.device) == "shared"
+    S = B.shape[0]
+    if plan is None:
+        plan = device_plan(S, C, B.device)
     with torch.cuda.device(B.device):
         err = _kernel_lib().jt_closure_launch(
             sel.data_ptr(), B.data_ptr(), out.data_ptr(),
-            None if run is None else run.data_ptr(),
-            B.shape[0], C, int(shared),
+            None if run is None else run.data_ptr(), S, C,
+            _LAYOUT_CODES[plan["layout"]], plan["cluster"],
+            plan["block_words"].bit_length() - 1, plan["threads"],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"closure kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"closure kernel launch failed ({plan['layout']} "
+                           f"layout): CUDA error {err}")
     launches += 1
 
 

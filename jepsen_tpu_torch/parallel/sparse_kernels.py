@@ -16,8 +16,10 @@ versions and shared-memory gates.
     append of the fresh rows (`kernels/hash_insert.cu`; replaces
     `jepsen_tpu.parallel.sparse_kernels.hash_insert_call`). Its plain
     version is `sparse._hash_insert_append`. Its table lives in shared
-    memory while it fits the opt-in (`k3_layout`), else in device
-    memory, so it takes every shape.
+    memory, under one block, while it fits the opt-in (`k3_layout`
+    "shared"); else in device memory, under a cooperative grid of every
+    block the card keeps resident (`k3_layout` "device", `k3_grid_blocks`),
+    so it takes every shape.
 
 The gates come from each kernel's own shared-memory layout: K2 keeps
 the frontier (12 bytes a row), the table (T = next_pow2(2N) slots of 12
@@ -69,6 +71,9 @@ TILE_MIN = CHUNK_MIN = 512
 # K3: 40 words of scan scratch, and in the shared layout the table
 K3_FIXED_BYTES = 40 * 4
 K3_SLOT_BYTES = 17    # rows 12, claim 4, occupancy 1
+# K3's device layout: the blocks of its cooperative grid, at most (the
+# scratch keeps one count per block; hash_insert.cu kMaxGrid)
+K3_MAX_GRID = 1024
 
 
 def k2_smem_bytes(N: int, C: int) -> int:
@@ -90,12 +95,26 @@ def k3_smem_bytes(Nd: int) -> int:
 
 def k3_layout(Nd: int, device=None) -> str:
     """Where K3 keeps the visited set at per-rank capacity Nd: "shared"
-    while `k3_smem_bytes(Nd)` fits the block's opt-in (the card's on a
-    card, Hopper's elsewhere: Nd <= 4,096 on the H100), else "device"."""
+    (in one block's shared memory) while `k3_smem_bytes(Nd)` fits the
+    block's opt-in (the card's on a card, Hopper's elsewhere: Nd <= 4,096
+    on the H100), else "device" (in device memory, under the cooperative
+    grid)."""
     device = torch.device("cpu" if device is None else device)
     budget = _device_optin("hash_insert", device) \
         if device.type == "cuda" else HOPPER_SMEM_OPTIN
     return "shared" if k3_smem_bytes(Nd) <= budget else "device"
+
+
+def k3_grid_blocks(per_sm: int, n_sm: int) -> int:
+    """Blocks of K3's cooperative grid (the device layout): every block
+    the card keeps resident, `per_sm` of them on each of its `n_sm` SMs
+    (132 on the H100), at most K3_MAX_GRID. A cooperative launch needs
+    them all resident at once, so a card that keeps none raises."""
+    if per_sm < 1 or n_sm < 1:
+        raise RuntimeError(f"hash_insert: the card keeps {per_sm} blocks "
+                           f"of the grid insert per SM on {n_sm} SMs; its "
+                           f"cooperative launch needs at least one")
+    return min(per_sm * n_sm, K3_MAX_GRID)
 
 
 def supported(N: int, C: int, budget: int = HOPPER_SMEM_OPTIN) -> bool:
@@ -131,6 +150,8 @@ _libs: dict = {}
 # (kernel, device index) -> the block's shared-memory opt-in there, read
 # by the kernel's init (which also grants it to the kernel there)
 _optin: dict = {}
+# device index -> the blocks of K3's cooperative grid there
+_k3_grid: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -150,8 +171,11 @@ def _lib(name: str):
         elif name == "hash_insert":
             lib.jt_hash_insert_launch.argtypes = \
                 [_P] * 4 + [_I] + [_P] * 3 + [_I, _P] + [_P] * 4 + [_I] \
-                + [_P] * 8 + [_P, _I, _I, _P]
+                + [_P] * 8 + [_P, _I, _I, _I, _P]
             lib.jt_hash_insert_launch.restype = _I
+            lib.jt_hash_insert_grid_shape.argtypes = \
+                [ctypes.POINTER(_I), ctypes.POINTER(_I)]
+            lib.jt_hash_insert_grid_shape.restype = _I
             lib.jt_hash_insert_scratch.argtypes = [_I, _I, _I]
             lib.jt_hash_insert_scratch.restype = ctypes.c_longlong
             lib.jt_hash_insert_smem.argtypes = [_I, _I]
@@ -181,6 +205,26 @@ def _device_optin(name: str, device) -> int:
             raise RuntimeError(f"{name} kernel: cannot set up device "
                                f"{index}: CUDA error {-v}")
         _optin[(name, index)] = v
+    return v
+
+
+def k3_grid(device) -> int:
+    """The blocks of K3's cooperative grid on `device`, from what
+    jt_hash_insert_init read there once (blocks per SM and SMs)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    v = _k3_grid.get(index)
+    if v is None:
+        _device_optin("hash_insert", torch.device("cuda", index))
+        per_sm, n_sm = _I(0), _I(0)
+        with torch.cuda.device(index):
+            err = _lib("hash_insert").jt_hash_insert_grid_shape(
+                ctypes.byref(per_sm), ctypes.byref(n_sm))
+        if err != 0:
+            raise RuntimeError(f"hash_insert kernel: cannot read the grid "
+                               f"shape on device {index}: CUDA error {err}")
+        v = _k3_grid[index] = k3_grid_blocks(per_sm.value, n_sm.value)
     return v
 
 
@@ -328,8 +372,9 @@ def hash_insert(c_rows, c_live, f_rows, count, table, probe_limit: int,
             past N (the rows past N are dropped).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel on the current stream, with the table in shared or device
-    memory as `k3_layout` says."""
+    kernel on the current stream, with the table in shared memory under
+    one block or in device memory under a cooperative grid, as
+    `k3_layout` says."""
     t_rows, t_occ = table
     M, T = c_live.shape[0], t_occ.shape[0]
     _check(M >= 1 and N >= 1 and T >= 2 and T & (T - 1) == 0,
@@ -352,9 +397,22 @@ def hash_insert(c_rows, c_live, f_rows, count, table, probe_limit: int,
     if dev.type == "cpu":
         return hash_insert_reference(c_rows, c_live, f_rows, count, table,
                                      probe_limit, N)
+    return _hash_insert_launch(c_rows, c_live, f_rows, count, table,
+                               probe_limit, N, k3_layout(T // 2, dev))
+
+
+def _hash_insert_launch(c_rows, c_live, f_rows, count, table,
+                        probe_limit: int, N: int, layout_name: str):
+    """K3's launch on CUDA tensors in the table layout named (the
+    wrapper's is `k3_layout`'s; chip_smoke.py also times the grid on a
+    table the shared layout takes). Raises on a launch the card
+    refuses."""
+    t_rows, t_occ = table
+    M, T = c_live.shape[0], t_occ.shape[0]
+    dev = c_live.device
     lib = _lib("hash_insert")
-    layout_name = k3_layout(T // 2, dev)
-    layout = 0 if layout_name == "shared" else 1
+    layout = {"shared": 0, "device": 1}[layout_name]
+    grid = k3_grid(dev) if layout_name == "device" else 0
     scratch = torch.empty(lib.jt_hash_insert_scratch(M, T, layout),
                           dtype=torch.uint8, device=dev)
     ins = [r.contiguous() for r in c_rows] + [c_live.contiguous()]
@@ -370,10 +428,10 @@ def hash_insert(c_rows, c_live, f_rows, count, table, probe_limit: int,
             *map(_ptr, ins), M, *map(_ptr, fins), N, _ptr(cnt),
             *map(_ptr, tins), T, *map(_ptr, out), *map(_ptr, t_out),
             _ptr(occ_out), _ptr(meta), _ptr(scratch), probe_limit, layout,
-            torch.cuda.current_stream().cuda_stream)
+            grid, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"hash_insert kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"hash_insert kernel launch failed ({layout_name}"
+                           f" layout): CUDA error {err}")
     launches["hash_insert"] += 1
     hash_insert_launches[layout_name] += 1
     return (tuple(out), (tuple(t_out), occ_out), meta[0], meta[1],

@@ -149,17 +149,104 @@ def test_wrapper_has_no_fallback_for_other_devices():
         ck.closure_fixpoint(_t(sel).to("meta"), _t(B).to("meta"), 6)
 
 
-@pytest.mark.cuda
+# (S, C) -> (layout, cluster blocks, words of each state a block holds)
+# that closure_plan chooses with Hopper's opt-in and clusters of 16
+PLANS = {
+    (18, 13): ("cluster", 8, 32),     # the 10k-op main path: 18 KB of B
+    (22, 17): ("cluster", 16, 256),   # 360 KB of B, past one block
+    (40, 12): ("cluster", 8, 16),     # S > 32: two source words
+    (3, 5): ("shared", 1, 1),         # C <= 9 never splits
+    (128, 9): ("shared", 1, 16),
+    (2, 12): ("shared", 1, 128),      # 1,024 words or fewer: one block
+    (128, 20): ("global", 1, 32768),  # 16 MB: past any cluster
+    (128, 24): ("global", 1, 524288),
+}
+
+
+@pytest.mark.parametrize("S,C", sorted(PLANS))
+def test_closure_plan(S, C):
+    """The layout gate, held to the byte sums it is built on: the split
+    kernel's block bytes (B's share, the repacked sel, the pair list,
+    flags and scan words) against the opt-in, a thread a word up to
+    1,024 words a block, never fewer than 16 words a state a block."""
+    plan = ck.closure_plan(S, C)
+    assert (plan["layout"], plan["cluster"], plan["block_words"]) == \
+        PLANS[(S, C)]
+    W = ck.n_words(C)
+    SW = (S + 31) // 32
+    if plan["layout"] == "global":
+        assert plan["smem"] == C * S * SW * 4
+        # even 16 blocks of at least 16 words leave a block too much
+        k = min(16, W // 16)
+        assert ck.k1_block_bytes(S, C, W // k) > ck.HOPPER_SMEM_OPTIN
+        return
+    Wb = plan["block_words"]
+    assert Wb * plan["cluster"] == W
+    want = 4 * (S * Wb + C * S * SW + C * S + 1)
+    want = (want + 2 * C * S + 15) // 16 * 16 + 4 * (2 * 16 + 40)
+    assert plan["smem"] == ck.k1_block_bytes(S, C, Wb) == want
+    assert plan["smem"] <= ck.HOPPER_SMEM_OPTIN
+    assert plan["threads"] == min(1024, max(64, 1 << (S * Wb - 1)
+                                            .bit_length()))
+    if plan["cluster"] > 1:
+        assert Wb >= 16 and S * Wb <= 1024 or plan["cluster"] == 16
+        assert S * (2 * Wb) > 1024    # half the cluster would not do
+    else:
+        assert C <= 9 or S * W <= 1024
+
+
+def test_closure_plan_follows_the_cards_limits():
+    """Clusters of 8 only (no non-portable size): S22/C17 takes 8 blocks
+    of 512 words; a card that runs no cluster gets one block where B
+    fits it, else device memory; a small opt-in pushes S18/C13 apart."""
+    assert ck.closure_plan(22, 17, max_cluster=8)["block_words"] == 512
+    assert ck.closure_plan(18, 13, max_cluster=1)["layout"] == "shared"
+    assert ck.closure_plan(22, 17, max_cluster=1)["layout"] == "global"
+    assert ck.closure_plan(128, 17, max_cluster=8)["layout"] == "global"
+    assert ck.closure_plan(128, 17)["cluster"] == 16
+    tight = ck.k1_block_bytes(18, 13, 256) - 1
+    assert ck.closure_plan(18, 13, optin=tight, max_cluster=1)["layout"] \
+        == "global"
+
+
 @pytest.mark.parametrize("S,C", [(18, 13), (22, 17), (3, 5)])
+def test_closure_plans_lists_each_layout_a_shape_takes(S, C):
+    plans = ck.closure_plans(S, C)
+    assert plans[ck.closure_plan(S, C)["layout"]] == ck.closure_plan(S, C)
+    assert "global" in plans
+    assert ("shared" in plans) == (
+        ck.k1_block_bytes(S, C, ck.n_words(C)) <= ck.HOPPER_SMEM_OPTIN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C", [(18, 13), (22, 17), (3, 5), (40, 12)])
 def test_cuda_kernel_matches_plain(S, C):
+    """Every layout the kernel can run the shape in (the gate's choice
+    through the wrapper, the others forced), in place and skipped."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    plans = ck.closure_plans(S, C, *ck.card_limits(dev))
+    assert ck.kernel_layout(S, C, dev) in plans
     for seed in range(3):
         sel, B = _rand_case(seed, S, C, p_legal=0.1)
-        sel_d, B_d = _t(sel).cuda(), _t(B).cuda()
+        sel_d, B_d = _t(sel).to(dev), _t(B).to(dev)
+        want = ck.closure_fixpoint_reference(_t(sel), _t(B), C)
         before = ck.launches
         got = ck.closure_fixpoint(sel_d, B_d, C)
         torch.cuda.synchronize()
         assert ck.launches == before + 1
-        assert torch.equal(got.cpu(), ck.closure_fixpoint_reference(
-            _t(sel), _t(B), C))
+        assert torch.equal(got.cpu(), want)
+        for layout, plan in plans.items():
+            out = torch.empty_like(B_d)
+            ck._launch(sel_d, B_d, out, C, plan=plan)
+            inplace = B_d.clone()
+            ck._launch(sel_d, inplace, inplace, C, plan=plan,
+                       run=torch.ones((), dtype=torch.bool, device=dev))
+            skipped = B_d.clone()
+            ck._launch(sel_d, skipped, skipped, C, plan=plan,
+                       run=torch.zeros((), dtype=torch.bool, device=dev))
+            torch.cuda.synchronize()
+            assert torch.equal(out.cpu(), want), layout
+            assert torch.equal(inplace.cpu(), want), layout
+            assert torch.equal(skipped, B_d), layout

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of jepsen_tpu_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package (jepsen_tpu).
+"""The port stands alone: no module of jepsen_tpu_torch, and neither
+chip_smoke.py nor kernel_ab.py, imports JAX or anything of the JAX
+package (jepsen_tpu).
 Checked twice: by importing everything in a fresh interpreter and
 reading sys.modules, and by scanning the sources' import statements."""
 
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "jepsen_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "kernel_ab.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -24,6 +26,7 @@ names = ["jepsen_tpu_torch"] + [
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # imported, not run
+import kernel_ab
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.")

@@ -224,6 +224,23 @@ def test_k3_layout_gate():
     assert sk.k3_layout(1) == "shared"
 
 
+@pytest.mark.parametrize("per_sm,n_sm,want", [
+    (1, 132, 132),     # H100, one 1,024-thread block resident per SM
+    (2, 132, 264),
+    (1, 114, 114),     # H100 PCIe
+    (8, 132, 1024),    # capped: the scratch keeps a count per block
+])
+def test_k3_grid_blocks(per_sm, n_sm, want):
+    """K3's cooperative grid: every block the card keeps resident."""
+    assert sk.k3_grid_blocks(per_sm, n_sm) == want <= sk.K3_MAX_GRID
+
+
+@pytest.mark.parametrize("per_sm,n_sm", [(0, 132), (1, 0)])
+def test_k3_grid_blocks_refuses_a_card_that_keeps_none(per_sm, n_sm):
+    with pytest.raises(RuntimeError, match="cooperative launch"):
+        sk.k3_grid_blocks(per_sm, n_sm)
+
+
 def test_cpu_wrapper_runs_the_plain_version_and_counts_nothing():
     sk.reset_launches()
     got = _port_insert(_args("roomy")[0], 256, 32)
@@ -284,3 +301,51 @@ def test_cuda_k3_matches_plain(name, T):
         assert torch.equal(g.cpu(), w)
     assert (int(got[2]), int(got[3]), bool(got[4])) == \
         (int(want[2]), int(want[3]), bool(want[4]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["registers", "scratch"])
+@pytest.mark.parametrize("past_n", [False, True])
+def test_cuda_k3_grid_matches_plain_over_many_blocks(path, past_n):
+    """The grid insert at the sharded check's width: hundreds of
+    thousands of candidates, most live and many repeated, into a table of
+    2^19 slots already holding 20,000 rows, so every block of the grid
+    claims, loses and appends (a fifth of the table full at the end).
+    The live count sits below the grid's
+    threads (each thread keeps its candidate in registers) or above them
+    (the candidates' state lives in the scratch); with past_n the append
+    passes N and raises the overflow."""
+    dev = _cuda()
+    threads = sk.k3_grid(dev) * 1024
+    M = threads // 2 if path == "registers" else threads * 3 // 2
+    rng = np.random.default_rng(M + past_n)
+    pool, T, N = M // 4, 1 << 19, 1 << 18
+    c = _lanes(rng, M, pool)
+    live = rng.random(M) < 0.8
+    f = _lanes(rng, N, N)
+    d = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    table = (tuple(d(np.zeros(T, np.int32)) for _ in range(3)),
+             d(np.zeros(T, bool)))
+    frontier = tuple(d(a.view(np.int32)) for a in f)
+    _, table, _, _, _ = sk.hash_insert_reference(
+        tuple(d(a[:20_000].view(np.int32)) for a in c),
+        torch.ones(20_000, dtype=torch.bool, device=dev), frontier,
+        torch.tensor(0, dtype=torch.int32, device=dev), table, 32, N)
+    count = N - 1000 if past_n else 1000
+    args = (tuple(d(a.view(np.int32)) for a in c), d(live), frontier,
+            torch.tensor(count, dtype=torch.int32, device=dev), table, 32,
+            N)
+    assert sk.k3_layout(T // 2, dev) == "device"
+    assert (int(live.sum()) <= threads) == (path == "registers")
+    sk.reset_launches()
+    got = sk.hash_insert(*args)
+    want = sk.hash_insert_reference(*args)
+    torch.cuda.synchronize()
+    assert sk.hash_insert_launches == {"shared": 0, "device": 1}
+    for g, w in zip(got[0] + got[1][0] + (got[1][1],),
+                    want[0] + want[1][0] + (want[1][1],)):
+        assert torch.equal(g, w)
+    assert (int(got[2]), int(got[3]), bool(got[4])) == \
+        (int(want[2]), int(want[3]), bool(want[4]))
+    assert int(want[3]) > 1000
+    assert bool(want[4]) == past_n
