@@ -32,10 +32,17 @@ down both of its engines:
      tiled_insert.cu):
      * parity against their plain versions, bit for bit: K2 on closure
        inputs recorded from the main path's scans (a golden FIFO history,
-       a 400-op unordered queue, the 1000-op FIFO's K2 tiers) and once
-       with probe_limit=2, where the probes overflow; K4 on a random
-       insert over 4 tiles x 3 chunks and on inserts recorded from the
-       1000-op FIFO;
+       a 400-op unordered queue, the 1000-op FIFO's K2 tiers), once
+       with probe_limit=2, where the probes overflow, and on the seeded
+       cases of `tests/torch_parity_cases.py` (C = 33 and 64, N = 2,048,
+       passes of at most 32, more than 32 and more than 1,024
+       candidates, a frontier overflow past N, probe_limit 2); K4 on a
+       random insert over 4 tiles x 3 chunks, on inserts recorded from
+       the 1000-op FIFO and on the seeded cases (a tile with no live
+       candidate, all in one tile, equal rows across a chunk boundary,
+       probe_limit 1 and 2, M not a multiple of the chunk, a few live
+       candidates over many chunks), and its bin and insert launched
+       apart. K4 updates the table in place, so it gets a copy;
      * main path: the six golden queue and set histories, 400-op
        unordered-queue and set histories (the K2 route), a 1000-op FIFO
        history (the K4 route, at capacity 32,768) and its invalid twin,
@@ -44,7 +51,10 @@ down both of its engines:
        same check with dedupe="sort" on the card; a small one equals the
        check with the plain closure;
      * timing of K2 and K4 per launch, beside their plain versions, the
-       sort closure, and their bound.
+       sort closure, and their bound; K2 also cut short (run=False, its
+       closure loop cut to 0 and 1 passes: kernel_ab.py's breakdown),
+       K4's bin and insert also apart, each launch on its own copy of
+       the recorded table.
   4. K3 (the sharded engine's visited-set transaction, kernels/
      hash_insert.cu), on a one-rank NCCL mesh (`meshplan.local_mesh()`):
      * main path, small shapes: 60-op register histories and their
@@ -575,6 +585,17 @@ def _max_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
+def _parity_cases():
+    """tests/torch_parity_cases.py, the seeded K2 and K4 parity inputs the
+    cuda-marked tests use too, loaded by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_parity_cases", ROOT / "tests" / "torch_parity_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_sparse_parity(dev, rec) -> dict:
     """K2 and K4 against their plain versions on the card, bit for bit.
     Returns the largest |difference| of each (0: bit-identical)."""
@@ -583,13 +604,21 @@ def phase_sparse_parity(dev, rec) -> dict:
     for N, C in ((1024, 8), (2048, 12), (2048, 33)):
         _require(lib2.jt_frontier_closure_smem(N, C)
                  == sk.k2_smem_bytes(N, C), f"K2 layout at N={N} C={C}")
-    _require(lib4.jt_tiled_insert_smem(8192, 8192)
-             == sk.k4_smem_bytes(8192, 8192), "K4 layout")
+    # K4's shared memory has no term in M: the default top tier (N = 2^20,
+    # T = 2^21, 256 tiles of 8,192) fits at every C
+    for TS, bits, CH in ((8192, 3, 8192), (512, 3, 512), (512, 0, 128),
+                         (8192, 8, 8192), (2048, 0, 16384)):
+        _require(lib4.jt_tiled_insert_smem(TS, bits, CH)
+                 == sk.k4_smem_bytes(TS, CH, 1 << bits),
+                 f"K4 layout at TS={TS} tiles=2^{bits} CH={CH}")
+        _require(sk.k4_smem_bytes(TS, CH, 1 << bits) <= sk.smem_budget(dev),
+                 f"K4 at TS={TS} tiles=2^{bits} CH={CH} past the opt-in")
     print(f"parity: shared-memory opt-in {sk.smem_budget(dev)} bytes; K2 "
           f"needs {sk.k2_smem_bytes(1024, 8)} at N=1024 C=8 and "
           f"{sk.k2_smem_bytes(2048, 33)} at N=2048 C=33; K4's plan "
           f"{sk.tiled_plan(32768, 12)} needs "
-          f"{sk.k4_smem_bytes(8192, 8192)}")
+          f"{sk.k4_smem_bytes(8192, 8192, 8)} on 8 tiles and "
+          f"{sk.k4_smem_bytes(8192, 8192, 256)} on 256, at any M")
     worst = {"K2": 0, "K4": 0}
 
     def k2_pair(args, pl):
@@ -620,8 +649,9 @@ def phase_sparse_parity(dev, rec) -> dict:
           f"overflow raised (meta {fired})")
 
     def k4_pair(c_rows, c_live, table, pl, plan):
-        got = sk.tiled_insert(c_rows, c_live, table, pl, plan)
         want = sk.tiled_insert_reference(c_rows, c_live, table, pl, plan)
+        copy = (tuple(r.clone() for r in table[0]), table[1].clone())
+        got = sk.tiled_insert(c_rows, c_live, copy, pl, plan)
         torch.cuda.synchronize()
         err = max(_max_err(got[0][0], want[0][0]),
                   _max_err([got[0][1], got[1], got[2], got[3]],
@@ -652,6 +682,34 @@ def phase_sparse_parity(dev, rec) -> dict:
     print(f"parity: K4 == plain insert on {len(rec['k4'])} recorded "
           f"1000-op FIFO inserts (T=65536, plan {plan}: "
           f"{65536 // plan['tile']} tiles, M={rec['k4'][0][1].shape[0]})")
+    # the seeded cases, on the card, and K4's two launches apart
+    parity_cases = _parity_cases()
+    for name, c_rows, c_live, table, pl, plan in parity_cases.k4_cases():
+        args = (tuple(r.to(dev) for r in c_rows), c_live.to(dev),
+                (tuple(r.to(dev) for r in table[0]), table[1].to(dev)),
+                pl, plan)
+        err, ovf, n = k4_pair(*args)
+        _require(err == 0, f"K4 differs from the plain insert: {name}")
+        want = sk.tiled_insert_reference(*args)
+        work = sk._tiled_insert_launch(*args, stages=1)[-1]
+        got = sk._tiled_insert_launch(*args, stages=2, work=work)
+        torch.cuda.synchronize()
+        err = max(_max_err(got[0][0], want[0][0]),
+                  _max_err([got[0][1], got[1], got[2], got[3]],
+                           [want[0][1], want[1], want[2], want[3]]))
+        worst["K4"] = max(worst["K4"], err)
+        _require(err == 0, f"K4's bin and insert apart differ: {name}")
+        print(f"parity: K4 == plain insert ({name}): {n} fresh, probe "
+              f"overflow {ovf}; bin and insert apart agree")
+    for name, step_name, ev, rows, live, run, pl in \
+            parity_cases.k2_cases():
+        err, meta = k2_pair((step_name, {k: v.to(dev) for k, v in
+                                         ev.items()},
+                             tuple(r.to(dev) for r in rows), live.to(dev),
+                             run.to(dev)), pl)
+        _require(err == 0, f"K2 differs from the plain closure: {name}, "
+                           f"meta {meta}")
+        print(f"parity: K2 == plain closure ({name}): meta {meta}")
     return worst
 
 
@@ -725,14 +783,17 @@ def _time_host(fn, args: list) -> float:
 
 def phase_sparse_timing(dev, rec) -> list:
     """K2 on the 400-op unordered queue's events and K4 on the 1000-op
-    FIFO's inserts, per launch with CUDA events, beside the plain
-    versions, the sort closure of the same events and the bound."""
+    FIFO's inserts, per launch with CUDA events (kernel_ab.py's timers:
+    K2 also cut short, K4's bin and insert also apart, each K4 launch on
+    its own copy of the table), beside the plain versions, the sort
+    closure of the same events and the bound."""
+    import kernel_ab
     from jepsen_tpu_torch.parallel import sparse, sparse_kernels as sk
     out = []
     k2 = [a + (32,) for a in rec["uqueue-400"]]
     step_name, ev, rows, live, _ = rec["uqueue-400"][0]
     N, C = live.shape[0], ev["slot_f"].shape[0]
-    ms = _time_launches(sk.frontier_closure, k2, reps=3)
+    t2 = kernel_ab._time_k2(torch, sk, k2)
     plain_ms = _time_host(sk.frontier_closure_reference, k2[:10])
     rep = sparse._rep((), C, dev)
     step = sparse.STEPS[step_name]
@@ -750,7 +811,8 @@ def phase_sparse_timing(dev, rec) -> list:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t = {"name": f"frontier_closure[N{N},C{C}]", "N": N, "C": C,
-         "inputs": len(k2), "ms": ms, "plain_ms": plain_ms,
+         "inputs": len(k2), "ms": t2["ms"], "cut_ms": t2["cut_ms"],
+         "host_us": t2["host_us"], "plain_ms": plain_ms,
          "sort_closure_ms": sort_ms, "bound_ms": max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
          "mean_iters": float(np.mean([m[2] for m in metas])),
@@ -761,20 +823,27 @@ def phase_sparse_timing(dev, rec) -> list:
     k4 = rec["k4"]
     c_rows, c_live, table, pl, plan = k4[0]
     M, T = c_live.shape[0], table[1].shape[0]
-    ms = _time_launches(sk.tiled_insert, k4, reps=3)
+    t4 = kernel_ab._time_k4(torch, sk, k4)
     plain_ms = _time_host(sk.tiled_insert_reference, k4[:2])
-    # bytes these inserts need: every live flag, the live candidates'
-    # rows and the table read once; the table, fresh and off written
-    # once. operations: the live test of every candidate, and for the
-    # live ones the hash, the home tile and start, a probe and a claim
-    # (~24)
+    # bytes these inserts need: every live flag read and every fresh and
+    # off written once; the live candidates' rows read, each table slot
+    # they probe read (12 bytes of row, 1 of occupancy) and each one they
+    # claim written: the table is updated in place. operations: the live
+    # test of every candidate, and for the live ones the hash, the home
+    # tile and start, and a compare per probe (~24)
+    outs = [sk.tiled_insert_reference(*a) for a in k4]
     live = float(np.mean([int(a[1].sum()) for a in k4]))
-    nbytes = M + 12 * live + 13 * T + 13 * T + 5 * M
-    ops = M + live * 24
+    probes = float(np.mean([int((o[2][a[1]] + 1).sum())
+                            for a, o in zip(k4, outs)]))
+    fresh = float(np.mean([int(o[1].sum()) for o in outs]))
+    nbytes = M + 5 * M + 12 * live + 13 * probes + 13 * fresh
+    ops = M + live * 24 + probes * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t = {"name": f"tiled_insert[T{T},M{M}]", "T": T, "M": M,
-         "plan": plan, "inputs": len(k4), "mean_live": live, "ms": ms,
+         "plan": plan, "inputs": len(k4), "mean_live": live,
+         "mean_probes": probes, "mean_fresh": fresh, "ms": t4["ms"],
+         "bin_ms": t4.get("bin_ms"), "insert_ms": t4.get("insert_ms"),
          "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     print("timing: " + json.dumps(t))
@@ -1235,7 +1304,9 @@ def main() -> int:
             "launches": slaunches[key], "max_abs_err": sworst[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            **({"cut_ms": t["cut_ms"]} if key == "K2" else
+               {"bin_ms": t["bin_ms"], "insert_ms": t["insert_ms"]})})
     # K3: one entry per table layout (insert "shared": one block; "grid":
     # the cooperative grid over the table in device memory), timed at
     # the shape it names; its launches in that layout over the small

@@ -19,35 +19,48 @@
 //
 // Output: the frontier lanes and meta = (count, ovf, iters, stepped).
 //
-// Design (one thread block owns the event's closure, as K1 owns a
-// history's closure, so one of the H100's 132 SMs):
+// Design (one thread block of 512 threads owns the event's closure, as
+// K1 owns a history's closure, so one of the H100's 132 SMs):
 //   * The frontier, the table (rows, occupancy) and a claim word per
-//     table slot live in dynamic shared memory for the whole closure;
-//     the candidates are never materialised: candidate n*C + j is
-//     rebuilt from delta row n and slot j (the model step runs here,
-//     sparse_common.cuh) whenever it is needed, and only a probe offset
-//     and a flag byte per candidate are kept.
-//   * Each pass is one visited-set transaction, sparse_common.cuh's
-//     insert_pass (shared with K3): round-synchronous probing with
-//     atomicMin claims, so the table, the offsets and the winners are
-//     the reference's whatever order the threads run in, and an append
-//     by a block-wide prefix sum in candidate order, so rows land where
-//     the reference's cumsum puts them.
+//     table slot live in dynamic shared memory for the whole closure.
+//     A pass's candidates are never materialised in full: candidate
+//     n*C + j is built from delta row n and slot j (the model step runs
+//     here, sparse_common.cuh).
+//   * Each pass builds every candidate once, into the registers of the
+//     thread that probes it (row, hash, probe offset, flags; a contiguous
+//     run of at most 4 a thread, so thread order is candidate order):
+//     a probe round touches only pending candidates and never rebuilds
+//     one, and the seed's candidates (the input rows) are loaded before
+//     the prologue, so their latency overlaps it. Rounds are phase A,
+//     barrier, phase B with atomicMin claims, barrier; the append's
+//     places are one block prefix (warp shuffles, one barrier, every
+//     warp then scanning the warp totals itself) with the probe
+//     overflow folded into it. So the table, the offsets and the winners
+//     are the reference's whatever order the threads run in, and the
+//     fresh rows land where the reference's cumsum puts them.
+//   * A pass of at most 32 candidates runs in warp 0 alone: rounds
+//     separated by __syncwarp, a claim won by the lowest lane trying the
+//     slot (__match_any_sync), the append's places from a ballot: no
+//     block barrier until the pass ends.
+//   * A pass of more than 4 candidates a thread runs sparse_common.cuh's
+//     insert_pass (the offset and flags of every candidate in shared
+//     memory, the candidate rebuilt where needed), as before.
 //   * A device-side run flag (the scan's `ok`) makes the kernel write an
 //     empty result at once once the history has failed or overflowed:
 //     the scan discards that event's result, and the host never waits.
 //
 // Shared memory: 12N (frontier) + 17T (table rows, claim, occupancy) +
-// 2NC (candidate offsets and flags) + 1056 bytes; with T = 2N that is
-// N(46 + 2C) + 1056, so N = 1024 fits the H100's 227 KB opt-in for every
-// C <= 64 and N = 2048 for C <= 33 (sparse_kernels.supported).
+// 2NC (candidate offsets and flags, for insert_pass) + 1056 bytes; with
+// T = 2N that is N(46 + 2C) + 1056, so N = 1024 fits the H100's 227 KB
+// opt-in for every C <= 64 and N = 2048 for C <= 33
+// (sparse_kernels.supported).
 //
 // What bounds it: the bytes it must move are small (the frontier in and
 // out, the slot tables), and its operations are a few integer ops per
 // probe of each candidate; the least time is far below what one block
 // takes, since its probe rounds and closure passes run one after another
-// on one SM, each behind a barrier. chip_smoke.py measures both against
-// the bound on the card; PERF.md keeps the numbers.
+// on one SM. chip_smoke.py measures both against the bound on the card;
+// PERF.md keeps the numbers.
 //
 // Build: nvcc -gencode=arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC frontier_closure.cu   (see kernels/__init__.py)
@@ -61,7 +74,9 @@ namespace {
 
 using namespace jt;
 
-constexpr int kThreads = 1024;
+// 512 threads: barriers cost less than with 1,024, and a pass of up to
+// 2,048 candidates still fits the registers
+constexpr int kThreads = 512;
 constexpr int kMaxC = 64;
 
 int table_size(int N) {
@@ -93,56 +108,251 @@ struct Event {
   const uint8_t* live_in;
 };
 
-// Candidate li of a pass. The seed pass's candidates are the input rows;
-// an expansion pass's are the delta rows [n_old, count) times the C
-// slots, index n*C + j. Returns whether the candidate is live.
-__device__ __forceinline__ bool candidate(const Event& ev, const Shared& s,
-                                          bool seed, int n_old, int li,
-                                          int32_t& st, uint32_t& ml,
-                                          uint32_t& mh) {
-  if (seed) {
+// Candidate li of an expansion pass: delta row n_old + li / C through
+// slot li % C. Returns whether the candidate is live.
+struct ExpandCand {
+  Event ev;
+  Shared s;
+  int n_old;
+  __device__ __forceinline__ bool operator()(int li, int32_t& st,
+                                             uint32_t& ml,
+                                             uint32_t& mh) const {
+    const int d = li / ev.C;
+    const int j = li - d * ev.C;
+    const int n = n_old + d;
+    const uint32_t ml0 = (uint32_t)s.ml[n], mh0 = (uint32_t)s.mh[n];
+    const uint32_t blo = j < 32 ? (1u << j) : 0u;
+    const uint32_t bhi = j >= 32 ? (1u << (j - 32)) : 0u;
+    ml = ml0 | blo;
+    mh = mh0 | bhi;
+    bool ok;
+    st = step(ev.step_code, s.st[n], s.f[j], s.a0[j], s.a1[j],
+              s.wild[j] != 0, &ok);
+    return ok && s.occ[j] != 0 && ((ml0 & blo) | (mh0 & bhi)) == 0;
+  }
+};
+
+// Candidate li of the seed pass: input row li.
+struct SeedCand {
+  Event ev;
+  __device__ __forceinline__ bool operator()(int li, int32_t& st,
+                                             uint32_t& ml,
+                                             uint32_t& mh) const {
     st = ev.st_in[li];
     ml = (uint32_t)ev.ml_in[li];
     mh = (uint32_t)ev.mh_in[li];
     return ev.live_in[li] != 0;
   }
-  const int d = li / ev.C;
-  const int j = li - d * ev.C;
-  const int n = n_old + d;
-  const uint32_t ml0 = (uint32_t)s.ml[n], mh0 = (uint32_t)s.mh[n];
-  const uint32_t blo = j < 32 ? (1u << j) : 0u;
-  const uint32_t bhi = j >= 32 ? (1u << (j - 32)) : 0u;
-  ml = ml0 | blo;
-  mh = mh0 | bhi;
-  bool ok;
-  st = step(ev.step_code, s.st[n], s.f[j], s.a0[j], s.a1[j], s.wild[j] != 0,
-            &ok);
-  return ok && s.occ[j] != 0 && ((ml0 & blo) | (mh0 & bhi)) == 0;
-}
-
-// Candidate li of a pass, as insert_pass asks for it.
-struct PassCand {
-  Event ev;
-  Shared s;
-  bool seed;
-  int n_old;
-  __device__ __forceinline__ bool operator()(int li, int32_t& st,
-                                             uint32_t& ml,
-                                             uint32_t& mh) const {
-    return candidate(ev, s, seed, n_old, li, st, ml, mh);
-  }
 };
 
-// One visited-set transaction over the M candidates of a pass
-// (sparse_common.cuh insert_pass), appending the fresh ones to the
-// frontier after `count`.
-__device__ int insert_pass(const Event& ev, const Shared& s, bool seed,
-                           int n_old, int count, int M, bool* probe_ovf) {
+// Exclusive prefix sum of v over the block, in thread order, with one
+// barrier: each warp scans itself with shuffles and leaves its total in
+// ws[warp]; after the barrier every warp scans the warp totals itself.
+// *total gets the sum. Two calls must be separated by a barrier (the
+// second overwrites ws). Every thread must call it.
+__device__ __forceinline__ int scan_one_barrier(int v, int* ws, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) ws[warp] = x;
+  __syncthreads();
+  int w = lane < n_warps ? ws[lane] : 0;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, w, o);
+    if (lane >= o) w += y;
+  }
+  const int before = __shfl_sync(0xffffffffu, w, warp > 0 ? warp - 1 : 0);
+  *total = __shfl_sync(0xffffffffu, w, n_warps - 1);
+  return (warp > 0 ? before : 0) + x - v;
+}
+
+constexpr int kRegCands = 4;  // candidates a thread holds, at most
+
+struct PassOut {
+  int n_fresh;
+  bool ovf;  // a candidate exhausted its probes
+};
+
+// The candidates [lo, hi) of this thread (at most kRegCands, in order),
+// built into registers: row, hash, offset 0, kPending when live.
+template <class Cand>
+__device__ __forceinline__ void build(const Cand& cand, int lo, int hi,
+                                      Probe (&c)[kRegCands]) {
+#pragma unroll
+  for (int k = 0; k < kRegCands; ++k) {
+    c[k].fl = 0;
+    c[k].off = 0;
+    if (lo + k < hi) {
+      int32_t st;
+      uint32_t ml, mh;
+      const bool live = cand(lo + k, st, ml, mh);
+      set_row(c[k], st, ml, mh);
+      c[k].fl = live ? kPending : 0;
+    }
+  }
+}
+
+// One visited-set transaction of the whole block over its threads'
+// register candidates (thread t holds candidates [lo, hi), a contiguous
+// run, so thread order is candidate order): rounds (at least one) of
+// phase A, barrier, phase B (atomicMin claims on the slots' claim words,
+// the lowest index wins, losers re-check next round), barrier; then the
+// append of the fresh ones after `count` at the block's exclusive
+// prefix of the fresh counts (one barrier), rows past N dropped, and a
+// barrier before the next pass reads them. The frontier rows the candidates came from are
+// not written: the append starts at `count`.
+__device__ PassOut probe_append(const Shared& s, const TableView& t,
+                                Probe (&c)[kRegCands], int lo, int hi,
+                                int count, int N, int probe_limit) {
+  // the first round needs no barrier before it: the rows and slots the
+  // candidates were built from are only read, and the last pass (or the
+  // prologue) ended with one
+  int active = 1, local;
+  while (active) {
+#pragma unroll
+    for (int k = 0; k < kRegCands; ++k) {
+      if (lo + k < hi) probe_a<PlainLoads>(c[k], t, lo + k, probe_limit);
+    }
+    __syncthreads();
+    local = 0;
+#pragma unroll
+    for (int k = 0; k < kRegCands; ++k) {
+      if (lo + k < hi) {
+        local |= probe_b<PlainLoads>(c[k], t, lo + k, probe_limit);
+      }
+    }
+    active = __syncthreads_or(local);
+  }
+  // fresh counts in the low 16 bits, threads still pending above
+  int n_mine = 0, pend = 0;
+#pragma unroll
+  for (int k = 0; k < kRegCands; ++k) {
+    n_mine += (c[k].fl & kFresh) != 0;
+    pend |= (c[k].fl & kPending) != 0;
+  }
+  int sum;
+  int pos = count + (scan_one_barrier(n_mine | (pend << 16), s.scan, &sum) &
+                     0xFFFF);
+#pragma unroll
+  for (int k = 0; k < kRegCands; ++k) {
+    if (c[k].fl & kFresh) {
+      if (pos < N) {
+        s.st[pos] = c[k].st;
+        s.ml[pos] = (int32_t)c[k].ml;
+        s.mh[pos] = (int32_t)c[k].mh;
+      }
+      ++pos;
+    }
+  }
+  __syncthreads();
+  return {sum & 0xFFFF, (sum >> 16) != 0};
+}
+
+// A pass of at most 32 candidates in warp 0 alone: lane li builds
+// candidate li; rounds separated by __syncwarp, a claim won by the lowest
+// lane trying the slot (__match_any_sync: lanes are in candidate order,
+// so that is the lowest index), no claim words; the append's places from
+// a ballot. The outcome reaches the block through bc[0..1] and one
+// barrier.
+template <class Cand>
+__device__ PassOut warp_pass(const Shared& s, const TableView& t,
+                             const Cand& cand, int M, int count, int N,
+                             int probe_limit, int* bc) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    Probe p{};
+    if (lane < M) {
+      int32_t st;
+      uint32_t ml, mh;
+      const bool live = cand(lane, st, ml, mh);
+      set_row(p, st, ml, mh);
+      p.fl = live ? kPending : 0;
+    }
+    while (true) {
+      const bool act = (p.fl & kPending) && p.off < probe_limit;
+      if (!__any_sync(0xffffffffu, act)) break;
+      int slot = -1;
+      bool occ = false, same = false;
+      if (act) {
+        slot = (int)((p.h + (uint32_t)p.off) & t.mask);
+        occ = t.occ[slot] != 0;
+        same = occ && t.st[slot] == p.st && (uint32_t)t.ml[slot] == p.ml &&
+               (uint32_t)t.mh[slot] == p.mh;
+      }
+      __syncwarp();  // every read of the round before any write
+      const unsigned rivals =
+          __match_any_sync(0xffffffffu, act && !occ ? slot : -1 - lane);
+      if (act) {
+        if (same) {
+          p.fl = 0;  // already visited
+        } else if (occ) {
+          p.off += 1;
+        } else if (__ffs(rivals) - 1 == lane) {
+          t.st[slot] = p.st;
+          t.ml[slot] = (int32_t)p.ml;
+          t.mh[slot] = (int32_t)p.mh;
+          t.occ[slot] = 1;
+          p.fl = kFresh;
+        }
+      }
+      __syncwarp();  // the round's writes before the next round's reads
+    }
+    const unsigned fresh = __ballot_sync(0xffffffffu, p.fl & kFresh);
+    const unsigned pend = __ballot_sync(0xffffffffu, p.fl & kPending);
+    if (p.fl & kFresh) {
+      const int pos = count + __popc(fresh & lanemask_lt());
+      if (pos < N) {
+        s.st[pos] = p.st;
+        s.ml[pos] = (int32_t)p.ml;
+        s.mh[pos] = (int32_t)p.mh;
+      }
+    }
+    if (lane == 0) {
+      bc[0] = __popc(fresh);
+      bc[1] = pend != 0;
+    }
+  }
+  __syncthreads();
+  return {bc[0], bc[1] != 0};
+}
+
+// One visited-set transaction over the M candidates `cand` builds,
+// appending the fresh ones to the frontier after `count`:
+// sparse._hash_insert_append, bit for bit. At most 32 candidates: warp 0
+// alone (warp_pass). At most 4 a thread: each built once into the
+// registers of the thread that probes it (probe_append). More:
+// sparse_common.cuh's insert_pass (offset and flags of every candidate
+// in shared memory, the candidate rebuilt where needed). `pass` numbers
+// the passes of the launch: it picks which two spare scan words carry
+// warp 0's outcome to the block, so that one pass's words are never
+// rewritten while another thread may still read them. Uniform: every
+// thread gets the result.
+template <class Cand>
+__device__ PassOut k2_pass(const Event& ev, const Shared& s,
+                           const Cand& cand, int M, int count, int pass) {
+  const int tid = threadIdx.x, nt = blockDim.x;
   const TableView t{s.tst, s.tml, s.tmh, s.claim, s.tocc,
                     (uint32_t)(ev.T - 1)};
-  return jt::insert_pass(PassCand{ev, s, seed, n_old}, t, s.off, s.flags,
-                         s.scan, M, ev.probe_limit, s.st, s.ml, s.mh,
-                         count, ev.N, probe_ovf);
+  if (M <= 32) {
+    return warp_pass(s, t, cand, M, count, ev.N, ev.probe_limit,
+                     s.scan + 32 + 2 * (pass & 1));
+  }
+  if (M > nt * kRegCands) {
+    bool probe_ovf;
+    const int n_fresh =
+        insert_pass(cand, t, s.off, s.flags, s.scan, M, ev.probe_limit,
+                    s.st, s.ml, s.mh, count, ev.N, &probe_ovf);
+    return {n_fresh, probe_ovf};
+  }
+  const int per = (M + nt - 1) / nt;
+  const int lo = min(M, tid * per), hi = min(M, lo + per);
+  Probe c[kRegCands];
+  build(cand, lo, hi, c);
+  return probe_append(s, t, c, lo, hi, count, ev.N, ev.probe_limit);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -185,11 +395,18 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   s.wild = b; b += kMaxC;
   s.occ = b;
 
+  // the seed's candidates (this thread's input rows) are loaded first,
+  // so that their latency overlaps the prologue's; the frontier needs no
+  // clearing: rows are read only below `count`
+  const bool seed_regs = N > 32 && N <= nt * kRegCands;
+  const int s_per = (N + nt - 1) / nt;
+  const int s_lo = min(N, tid * s_per), s_hi = min(N, s_lo + s_per);
+  Probe seed[kRegCands];
+  if (seed_regs) build(SeedCand{ev}, s_lo, s_hi, seed);
   for (int i = tid; i < T; i += nt) {
     s.tocc[i] = 0;
     s.claim[i] = kClaimFree;
   }
-  for (int i = tid; i < N; i += nt) s.st[i] = s.ml[i] = s.mh[i] = 0;
   for (int j = tid; j < C; j += nt) {
     s.f[j] = f[j];
     s.a0[j] = a0[j];
@@ -199,27 +416,32 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   }
   __syncthreads();
 
-  bool p_ovf;
-  const int n0 = insert_pass(ev, s, true, 0, 0, N, &p_ovf);
-  int count = min(n0, N);
-  bool ovf = p_ovf || n0 > N;
+  int pass = 0;
+  const TableView tv{s.tst, s.tml, s.tmh, s.claim, s.tocc, (uint32_t)(T - 1)};
+  PassOut r = seed_regs
+      ? probe_append(s, tv, seed, s_lo, s_hi, 0, N, ev.probe_limit)
+      : k2_pass(ev, s, SeedCand{ev}, N, 0, pass);
+  ++pass;
+  int count = min(r.n_fresh, N);
+  bool ovf = r.ovf || r.n_fresh > N;
   int n_old = 0, iters = 0, stepped = 0;
   bool changed = true;
   while (changed && !ovf) {
-    const int n_fresh =
-        insert_pass(ev, s, false, n_old, count, (count - n_old) * C, &p_ovf);
+    r = k2_pass(ev, s, ExpandCand{ev, s, n_old}, (count - n_old) * C, count,
+                pass++);
     stepped += count - n_old;
-    ovf = ovf || p_ovf || count + n_fresh > N;
+    ovf = ovf || r.ovf || count + r.n_fresh > N;
     n_old = count;
-    count = min(count + n_fresh, N);
+    count = min(count + r.n_fresh, N);
     ++iters;
-    changed = n_fresh > 0;
+    changed = r.n_fresh > 0;
   }
 
   for (int i = tid; i < N; i += nt) {
-    st_out[i] = s.st[i];
-    ml_out[i] = s.ml[i];
-    mh_out[i] = s.mh[i];
+    const bool in = i < count;
+    st_out[i] = in ? s.st[i] : 0;
+    ml_out[i] = in ? s.ml[i] : 0;
+    mh_out[i] = in ? s.mh[i] : 0;
   }
   if (tid == 0) {
     meta[0] = count;

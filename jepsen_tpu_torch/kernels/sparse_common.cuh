@@ -1,6 +1,6 @@
 // Device helpers shared by the sparse engines' kernels (K2
 // frontier_closure.cu, K3 hash_insert.cu, K4 tiled_insert.cu): the
-// visited-set hash, the five model-step families of
+// visited-set hash, a warp's lane mask, the five model-step families of
 // jepsen_tpu_torch/parallel/steps.py, a block-wide exclusive prefix sum,
 // the two phases of a visited-set probe round (probe_a, probe_b, on a
 // candidate's state in registers or, through probe_read and
@@ -30,6 +30,13 @@ __device__ __forceinline__ uint32_t table_hash(int32_t st, uint32_t ml,
   h *= 0x165667B1u;
   h ^= h >> 13;
   return h;
+}
+
+// the lanes of the warp below this one, as a mask
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
 }
 
 __device__ __forceinline__ int32_t shl(int32_t x, int32_t n) {

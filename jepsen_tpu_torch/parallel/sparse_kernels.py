@@ -6,10 +6,12 @@ versions and shared-memory gates.
     `jepsen_tpu.parallel.sparse_kernels.frontier_closure_call`). Its
     plain version is `sparse._hash_event_closure`.
   * K4, `tiled_insert` — the probe/claim half of one visited-set
-    transaction over a table split into hash-range tiles, one block per
-    tile (`kernels/tiled_insert.cu`; replaces
-    `jepsen_tpu.parallel.sparse_kernels.tiled_insert_call`). Its plain
-    version is `tiled_insert_reference`. The closure around it
+    transaction over a table split into hash-range tiles
+    (`kernels/tiled_insert.cu`; replaces
+    `jepsen_tpu.parallel.sparse_kernels.tiled_insert_call`): a bin of
+    the live candidates by home tile over many blocks, then one block
+    per tile walking only its own. Its plain version is
+    `tiled_insert_reference`. The closure around it
     (`tiled_event_closure`) is the plain closure with K4 as its insert.
   * K3, `hash_insert` — one visited-set transaction of the sharded
     engine's closure iterations: probe, claim, loser re-check and the
@@ -21,14 +23,16 @@ versions and shared-memory gates.
     block the card keeps resident (`k3_layout` "device", `k3_grid_blocks`),
     so it takes every shape.
 
-The gates come from each kernel's own shared-memory layout: K2 keeps
-the frontier (12 bytes a row), the table (T = next_pow2(2N) slots of 12
-bytes of row, 4 of claim and 1 of occupancy) and two bytes per
-candidate (N*C of them) in one block; K4 keeps one tile (17 bytes a
-slot) and one chunk of gathered candidates (10 bytes each). The budget
-is the card's opt-in on a card (232,448 bytes on the H100) and that
-Hopper figure on the CPU, so the CPU tests take the routes the card
-would.
+The gates come from shared-memory layouts: K2 keeps the frontier (12
+bytes a row), the table (T = next_pow2(2N) slots of 12 bytes of row, 4
+of claim and 1 of occupancy) and two bytes per candidate (N*C of them)
+in one block; K4 keeps a claim word per tile slot, one chunk of
+gathered candidates and the bin's counters (`k4_smem_bytes`, whatever
+the number of candidates), and its plan (`tiled_plan`) sizes the tile
+and the chunk by a fixed split of the budget, which fixes each row's
+probe sequence and so the results. The budget is the
+card's opt-in on a card (232,448 bytes on the H100) and that Hopper
+figure on the CPU, so the CPU tests take the routes the card would.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version, which the tests and `chip_smoke.py`
@@ -64,9 +68,12 @@ MAX_C = 64
 # K2: the slot tables (3 int32 + 2 bytes per slot, for 64 slots) and 40
 # words of scan scratch
 K2_FIXED_BYTES = 3 * 4 * MAX_C + 40 * 4 + 2 * MAX_C
-K4_FIXED_BYTES = 16
-K4_SLOT_BYTES = 17    # rows 12, claim 4, occupancy 1
-K4_ENTRY_BYTES = 10   # index 4, start 4, offset 1, flags 1
+# K4's plan splits the budget as its first kernel's layout did (17 bytes
+# a tile slot, 10 a chunk entry, 16 more): the tile fixes where each row
+# probes, so the plan, and every result, stays what it was
+K4_PLAN_SLOT_BYTES = 17
+K4_PLAN_ENTRY_BYTES = 10
+K4_PLAN_FIXED_BYTES = 16
 TILE_MIN = CHUNK_MIN = 512
 # K3: 40 words of scan scratch, and in the shared layout the table
 K3_FIXED_BYTES = 40 * 4
@@ -82,8 +89,38 @@ def k2_smem_bytes(N: int, C: int) -> int:
     return 12 * N + 17 * T + 2 * N * C + K2_FIXED_BYTES
 
 
-def k4_smem_bytes(tile: int, chunk: int) -> int:
-    return K4_SLOT_BYTES * tile + K4_ENTRY_BYTES * chunk + K4_FIXED_BYTES
+# K4's bin: threads a block, candidates a thread at most, and the (tile,
+# group of 32) counters a block keeps at most (tiled_insert.cu)
+K4_BIN_THREADS = 256
+K4_BIN_MAX_K = 8
+K4_BIN_GROUPS = 8192
+
+
+def k4_bin_shape(tile_bits: int, chunk: int):
+    """(candidates per bin block R, bin blocks a chunk spans at most) of
+    K4 with 2^tile_bits tiles and chunk CH (tiled_insert.cu make_plan):
+    R is 256 * kb with kb <= 8 a power of two, shrunk while the block's
+    counters (R/32 per tile) pass 8,192 and until R divides the chunk
+    (for a chunk of at least 256)."""
+    n_tt = 1 << tile_bits
+    kb = max(1, min(K4_BIN_MAX_K, K4_BIN_GROUPS // (8 * n_tt)))
+    kb = _pow2_floor(kb)
+    if kb * K4_BIN_THREADS > chunk:
+        kb = max(1, chunk // K4_BIN_THREADS)
+    R = kb * K4_BIN_THREADS
+    return R, max(1, chunk // R)
+
+
+def k4_smem_bytes(tile: int, chunk: int, tiles: int) -> int:
+    """K4's dynamic shared memory with `tiles` tiles of `tile` slots and a
+    chunk of `chunk` candidates, the larger of its two launches (M does
+    not enter): the insert's claim words (4 a tile slot), a chunk's
+    candidates (10 bytes each) and the places of a chunk's bin segments
+    (8 a bin block it spans, and 8); or the bin's counters (4 a tile and
+    group of 32 candidates) and 40 words of scan."""
+    R, span = k4_bin_shape(tiles.bit_length() - 1, chunk)
+    return max(4 * tile + 10 * chunk + 8 * (span + 1),
+               4 * tiles * (R // 32) + 160)
 
 
 def k3_smem_bytes(Nd: int) -> int:
@@ -130,16 +167,20 @@ def _pow2_floor(n: int) -> int:
 
 def tiled_plan(N: int, C: int, budget: int = HOPPER_SMEM_OPTIN):
     """{"tile", "chunk"} of K4 at frontier capacity N, or None when no
-    tile and chunk of at least 512 fit `budget`. Up to 3/5 of the budget
-    goes to the tile (at most the whole table, T = next_pow2(2N)), the
-    rest to the chunk: on the H100 a tile of 8,192 slots and a chunk of
-    8,192 candidates. Fewer, larger tiles mean fewer blocks reading every
-    candidate; larger chunks, fewer rounds of barriers."""
+    tile and chunk of at least 512 come out of `budget` or the kernel's
+    shared memory (`k4_smem_bytes`) does not fit it. Up to 3/5 of the
+    budget at 17 bytes a slot goes to the tile (at most the whole table,
+    T = next_pow2(2N)), the rest at 10 bytes an entry to the chunk: on
+    the H100 a tile of 8,192 slots and a chunk of 8,192 candidates. The
+    tile fixes where each row probes, so the split stays the one every
+    result so far was computed with."""
     T = sp._next_pow2(2 * N)
-    tile = min(T, _pow2_floor((budget * 3 // 5) // K4_SLOT_BYTES))
-    chunk = _pow2_floor(max(1, (budget - K4_SLOT_BYTES * tile
-                                - K4_FIXED_BYTES) // K4_ENTRY_BYTES))
-    if tile < TILE_MIN or chunk < CHUNK_MIN:
+    tile = min(T, _pow2_floor((budget * 3 // 5) // K4_PLAN_SLOT_BYTES))
+    chunk = _pow2_floor(max(1, (budget - K4_PLAN_SLOT_BYTES * tile
+                                - K4_PLAN_FIXED_BYTES)
+                            // K4_PLAN_ENTRY_BYTES))
+    if tile < TILE_MIN or chunk < CHUNK_MIN or \
+            k4_smem_bytes(tile, chunk, T // tile) > budget:
         return None
     return {"tile": tile, "chunk": chunk}
 
@@ -182,10 +223,12 @@ def _lib(name: str):
             lib.jt_hash_insert_smem.restype = ctypes.c_longlong
         else:
             lib.jt_tiled_insert_launch.argtypes = \
-                [_P] * 4 + [_I] + [_P] * 11 + [_I] * 4 + [_P]
+                [_P] * 4 + [_I] + [_P] * 8 + [_I] * 5 + [_P]
             lib.jt_tiled_insert_launch.restype = _I
-            lib.jt_tiled_insert_smem.argtypes = [_I, _I]
+            lib.jt_tiled_insert_smem.argtypes = [_I] * 3
             lib.jt_tiled_insert_smem.restype = ctypes.c_longlong
+            lib.jt_tiled_insert_scratch.argtypes = [_I] * 3
+            lib.jt_tiled_insert_scratch.restype = ctypes.c_longlong
         init = getattr(lib, f"jt_{name}_init")
         init.argtypes = []
         init.restype = _I
@@ -484,9 +527,14 @@ def tiled_insert(c_rows, c_live, table, probe_limit: int, plan: dict):
     plan    {"tile", "chunk"} (tiled_plan)
     ->      (table2, fresh bool[M], off int32[M], probe_ovf bool [])
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel on the current stream, after checking that the plan fits the
-    card's opt-in."""
+    A CPU tensor runs the plain version, which leaves `table` as it is.
+    A CUDA tensor launches the kernel on the current stream, after
+    checking that its shared memory fits the card's opt-in; the kernel
+    updates the table in place, so `table` is consumed: table2 is the
+    same tensors (their copies, where a lane was not contiguous), and a
+    caller that needs the old table clones it first. The only caller,
+    `tiled_event_closure`, never reads a table after inserting into
+    it."""
     t_rows, t_occ = table
     M, T = c_live.shape[0], t_occ.shape[0]
     _check(M >= 1 and T >= 1 and T & (T - 1) == 0,
@@ -506,29 +554,47 @@ def tiled_insert(c_rows, c_live, table, probe_limit: int, plan: dict):
     if dev.type == "cpu":
         return tiled_insert_reference(c_rows, c_live, table, probe_limit,
                                       plan)
+    return _tiled_insert_launch(c_rows, c_live, table, probe_limit,
+                                plan)[:4]
+
+
+def _tiled_insert_launch(c_rows, c_live, table, probe_limit: int,
+                         plan: dict, stages: int = 3, work=None):
+    """K4's launches on CUDA tensors: `stages` 1 the bin alone, 2 the
+    insert alone (on `work` from an earlier bin of the same candidates),
+    3 both (the wrapper's). chip_smoke.py and kernel_ab.py time the two
+    apart. -> (table2, fresh, off, probe_ovf, work); one launch counted
+    per insert."""
+    t_rows, t_occ = table
+    M, T = c_live.shape[0], t_occ.shape[0]
+    dev = c_live.device
     n_tt, TS, tt_bits, CH = _tiling(T, M, plan)
-    smem = k4_smem_bytes(TS, CH)
+    smem = k4_smem_bytes(TS, CH, n_tt)
     if smem > _device_optin("tiled_insert", dev):
-        raise ValueError(f"tiled_insert: tile {TS} and chunk {CH} need "
-                         f"{smem} bytes of shared memory, past the "
-                         f"card's opt-in")
+        raise ValueError(f"tiled_insert: {n_tt} tiles of {TS} and chunk "
+                         f"{CH} need {smem} bytes of shared memory, past "
+                         f"the card's opt-in")
+    lib = _lib("tiled_insert")
     ins = [r.contiguous() for r in c_rows] + [c_live.contiguous()]
     tins = [r.contiguous() for r in t_rows] + [t_occ.contiguous()]
-    t_out = [torch.empty(T, dtype=_I32, device=dev) for _ in range(3)]
-    occ_out = torch.empty(T, dtype=torch.bool, device=dev)
-    fresh = torch.zeros(M, dtype=torch.bool, device=dev)
-    off = torch.zeros(M, dtype=_I32, device=dev)
-    pend = torch.zeros(1, dtype=_I32, device=dev)
+    if work is None:
+        work = (torch.empty(M, dtype=torch.bool, device=dev),
+                torch.empty(M, dtype=_I32, device=dev),
+                torch.empty((), dtype=torch.bool, device=dev),
+                torch.empty(lib.jt_tiled_insert_scratch(M, tt_bits, CH),
+                            dtype=torch.uint8, device=dev))
+    fresh, off, pend, scratch = work
     with torch.cuda.device(dev):
-        err = _lib("tiled_insert").jt_tiled_insert_launch(
-            *map(_ptr, ins), M, *map(_ptr, tins), *map(_ptr, t_out),
-            _ptr(occ_out), _ptr(fresh), _ptr(off), _ptr(pend), TS, tt_bits,
-            CH, probe_limit, torch.cuda.current_stream().cuda_stream)
+        err = lib.jt_tiled_insert_launch(
+            *map(_ptr, ins), M, *map(_ptr, tins), _ptr(fresh), _ptr(off),
+            _ptr(pend), _ptr(scratch), TS, tt_bits, CH, probe_limit,
+            stages, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"tiled_insert kernel launch failed: CUDA "
                            f"error {err}")
-    launches["tiled_insert"] += 1
-    return (tuple(t_out), occ_out), fresh, off, pend[0] != 0
+    if stages & 2:
+        launches["tiled_insert"] += 1
+    return (tuple(tins[:3]), tins[3]), fresh, off, pend, work
 
 
 def tiled_event_closure(rep, step, ev, rows, live, run, N: int, T: int,

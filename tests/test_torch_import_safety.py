@@ -1,5 +1,6 @@
 """The port stands alone: no module of jepsen_tpu_torch, and neither
-chip_smoke.py nor kernel_ab.py, imports JAX or anything of the JAX
+chip_smoke.py, kernel_ab.py nor the parity cases chip_smoke.py loads
+(tests/torch_parity_cases.py), imports JAX or anything of the JAX
 package (jepsen_tpu).
 Checked twice: by importing everything in a fresh interpreter and
 reading sys.modules, and by scanning the sources' import statements."""
@@ -14,8 +15,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "jepsen_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "kernel_ab.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
+    ROOT / "tests" / "torch_parity_cases.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys

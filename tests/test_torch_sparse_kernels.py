@@ -222,7 +222,8 @@ def test_hopper_gate_arithmetic():
     assert sk.supported(4096, 5) and not sk.supported(4096, 6)
     assert not sk.supported(8192, 1)
     assert sk.tiled_plan(32768, 12) == {"tile": 8192, "chunk": 8192}
-    assert sk.k4_smem_bytes(8192, 8192) == 221_200 <= sk.HOPPER_SMEM_OPTIN
+    assert sk.k4_smem_bytes(8192, 8192, 8) == \
+        4 * 8192 + 10 * 8192 + 8 * 5 <= sk.HOPPER_SMEM_OPTIN
     # a table smaller than the budget's tile is one tile
     assert sk.tiled_plan(1024, 40) == {"tile": 2048, "chunk": 16384}
     assert sk.tiled_plan(256, 8, budget=16384) == {"tile": 512,
@@ -234,7 +235,9 @@ def test_hopper_gate_arithmetic():
         for b in (16384, 65536, sk.HOPPER_SMEM_OPTIN):
             p = sk.tiled_plan(N, 8, b)
             if p is not None:
-                assert sk.k4_smem_bytes(p["tile"], p["chunk"]) <= b
+                T = 1 << (2 * N - 1).bit_length()
+                assert sk.k4_smem_bytes(p["tile"], p["chunk"],
+                                        T // p["tile"]) <= b
 
 
 def test_routes_follow_the_gate():
@@ -359,3 +362,262 @@ def test_cuda_k4_matches_plain(probe_limit):
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(got[2].cpu(), want[2])
     assert bool(got[3]) == bool(want[3])
+
+
+# --------------------------------------- the binned K4 and the new cases
+
+import torch_parity_cases as parity_cases  # noqa: E402
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_cases():
+    return {c[0]: c for c in parity_cases.k4_cases()}
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_cases():
+    return {c[0]: c for c in parity_cases.k2_cases()}
+
+
+def tiled_bin_reference(c_rows, c_live, T: int, plan: dict):
+    """The order K4's bin puts the live candidates in, as plain ops: their
+    indices sorted by home tile (h & (tiles - 1)), stably, so in index
+    order inside a tile; with each tile's count and offset into that
+    list. The kernel's per-block segments, read in block order, are
+    this list. -> (order int64[live], counts int64[tiles], offsets
+    int64[tiles])."""
+    M = c_live.shape[0]
+    n_tt = sk._tiling(T, M, plan)[0]
+    h = sparse.table_hash_u32(*(sparse._u32(r) for r in c_rows))
+    tile = h & (n_tt - 1)
+    live = torch.nonzero(c_live).flatten()
+    order = live[torch.sort(tile[live], stable=True).indices]
+    counts = torch.bincount(tile[live], minlength=n_tt)
+    return order, counts, torch.cumsum(counts, 0) - counts
+
+
+def tiled_insert_binned_reference(c_rows, c_live, table, probe_limit: int,
+                                  plan: dict):
+    """`tiled_insert_reference`'s function computed K4's way, as plain
+    ops: the bin (`tiled_bin_reference`), then each tile's list walked
+    chunk by chunk in order, a chunk with none of the tile's candidates
+    skipped, each one round-synchronous insert inside the tile. Every
+    field equals `tiled_insert_reference`'s, table layout and `off`
+    included. Returns (table2, fresh bool[M], off int32[M], probe_ovf
+    bool)."""
+    M, T = c_live.shape[0], table[1].shape[0]
+    dev = c_live.device
+    _, TS, tt_bits, CH = sk._tiling(T, M, plan)
+    order, counts, offsets = tiled_bin_reference(c_rows, c_live, T, plan)
+    h = sparse.table_hash_u32(*(sparse._u32(r) for r in c_rows))
+    start = (h >> tt_bits) & (TS - 1)
+    fresh = torch.zeros(M, dtype=torch.bool, device=dev)
+    off = torch.zeros(M, dtype=torch.int32, device=dev)
+    pend = torch.zeros((), dtype=torch.bool, device=dev)
+    for t, (o, n) in enumerate(zip(offsets.tolist(), counts.tolist())):
+        mine = order[o:o + n]
+        chunk = mine // CH
+        for c in torch.unique_consecutive(chunk).tolist():
+            idx = mine[chunk == c]
+            table, f, p, o_ = sparse._hash_insert(
+                tuple(r[idx] for r in c_rows),
+                torch.ones(idx.shape[0], dtype=torch.bool, device=dev),
+                table, probe_limit, h0=start[idx], base=t * TS, span=TS)
+            fresh[idx] = f
+            off[idx] = o_
+            pend = pend | p
+    return table, fresh, off, pend
+
+
+K4_CASES = ["no live candidate in one tile, M=1500",
+            "all live candidates in one tile",
+            "equal rows across chunk boundaries", "probe_limit 1",
+            "probe_limit 2", "40 live of 50,000 on a half-full table"]
+K2_CASES = ["register N2048 C33 overflow pl32",
+            "register N2048 C33 overflow pl2", "register N1024 C64 pl32",
+            "register N1024 C64 pl2", "gset N1024 C64",
+            "uqueue N1024 C8 small passes", "uqueue N1024 C8 wide seed",
+            "uqueue N4096 C5 wide seed"]
+
+
+def test_case_lists_name_every_case():
+    assert sorted(K4_CASES) == sorted(_k4_cases())
+    assert sorted(K2_CASES) == sorted(_k2_cases())
+
+
+@pytest.mark.parametrize("name", K4_CASES)
+def test_bin_order_matches_a_python_loop(name):
+    """K4's bin: every live candidate once, grouped by home tile in tile
+    order and in index order inside a tile; counts and offsets of each
+    tile's run."""
+    _, c_rows, c_live, table, _, plan = _k4_cases()[name]
+    T, M = table[1].shape[0], c_live.shape[0]
+    n_tt, TS, tt_bits, _ = sk._tiling(T, M, plan)
+    order, counts, offsets = tiled_bin_reference(c_rows, c_live, T, plan)
+    lanes = [r.numpy().view(np.uint32) for r in c_rows]
+    mine = [[] for _ in range(n_tt)]
+    for i in range(M):
+        if c_live[i]:
+            h = _hash_py(int(lanes[0][i]), int(lanes[1][i]),
+                         int(lanes[2][i]))
+            mine[h & (n_tt - 1)].append(i)
+    assert order.tolist() == [i for t in mine for i in t]
+    assert counts.tolist() == [len(t) for t in mine]
+    assert offsets.tolist() == list(np.cumsum([0] + counts.tolist())[:-1])
+
+
+def _hash_py(st, ml, mh):
+    """The visited-set hash on Python ints (sparse_common.cuh table_hash)."""
+    m = 0xFFFFFFFF
+    h = ((st * 0x85EBCA6B) ^ (ml * 0xC2B2AE35) ^ (mh * 0x27D4EB2F)) & m
+    h ^= h >> 16
+    h = (h * 0x165667B1) & m
+    return h ^ (h >> 13)
+
+
+def _assert_k4_equal(got, want):
+    for g, w in zip(got[0][0], want[0][0]):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got[0][1].cpu(), want[0][1])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
+    assert bool(got[3]) == bool(want[3])
+
+
+@pytest.mark.parametrize("name", K4_CASES)
+def test_binned_reference_equals_the_tiled_reference(name):
+    """The kernel's decomposition — bin by tile, then each tile's chunks in
+    order, empty ones skipped — is the reference's chunk-by-chunk insert,
+    field for field: table layout, fresh, off and the probe flag."""
+    _, c_rows, c_live, table, pl, plan = _k4_cases()[name]
+    want = sk.tiled_insert_reference(c_rows, c_live, table, pl, plan)
+    got = tiled_insert_binned_reference(c_rows, c_live, table, pl, plan)
+    _assert_k4_equal(got, want)
+    if name.startswith("probe_limit"):
+        assert bool(want[3])
+    if "one tile" in name:
+        n_tt = sk._tiling(table[1].shape[0], c_live.shape[0], plan)[0]
+        counts = tiled_bin_reference(c_rows, c_live, table[1].shape[0],
+                                        plan)[1]
+        assert int((counts == 0).sum()) == (1 if "no live" in name
+                                            else n_tt - 1)
+
+
+@pytest.mark.parametrize("name", K4_CASES[:5])
+def test_plain_k4_matches_interpret_pallas_on_the_new_cases(name):
+    _, c_rows, c_live, table, pl, plan = _k4_cases()[name]
+    np_rows = tuple(r.numpy() for r in c_rows)
+    np_table = (tuple(r.numpy() for r in table[0]), table[1].numpy())
+    want = _ref_tiled(np_rows, c_live.numpy(), np_table, pl, plan)
+    got = _port_tiled(np_rows, c_live.numpy(), np_table, pl, plan)
+    for g, w in zip(got[0], want[0]):
+        assert np.array_equal(g, w)
+    for g, w in zip(got[1:4], want[1:4]):
+        assert np.array_equal(g, w)
+    assert got[4] == want[4]
+
+
+def test_k4_bin_shape():
+    """A bin block takes R = 256 * kb candidates (kb <= 8, a power of
+    two), keeps at most 8,192 (tile, group) counters while it can, and
+    divides the chunk, so a chunk spans CH / R bin blocks; K4's shared
+    memory does not grow with the number of candidates M."""
+    assert sk.k4_bin_shape(3, 8192) == (2048, 4)
+    assert sk.k4_bin_shape(3, 512) == (512, 1)
+    assert sk.k4_bin_shape(0, 128) == (256, 1)
+    assert sk.k4_bin_shape(8, 8192) == (1024, 8)
+    assert sk.k4_bin_shape(12, 8192) == (256, 32)
+    for bits, CH in ((3, 8192), (3, 512), (7, 8192), (1, 1024), (8, 16384),
+                     (12, 512)):
+        R, span = sk.k4_bin_shape(bits, CH)
+        assert CH % R == 0 and span == CH // R
+        assert (1 << bits) * R // 32 <= max(8192, 8 << bits)
+    # the fifo-1000 tier's insert fits the H100 with room to spare, and
+    # so does the default top tier (N = 2^20: T = 2^21, 256 tiles) at any
+    # M: the shared memory has no term in M
+    assert sk.k4_smem_bytes(8192, 8192, 8) == \
+        4 * 8192 + 10 * 8192 + 8 * 5 <= sk.HOPPER_SMEM_OPTIN
+    assert sk.k4_smem_bytes(8192, 8192, 256) == \
+        4 * 8192 + 10 * 8192 + 8 * 9 <= sk.HOPPER_SMEM_OPTIN
+    for N, C in ((1 << 20, 15), (1 << 20, 64), (1 << 19, 58)):
+        assert sk.tiled_plan(N, C) == {"tile": 8192, "chunk": 8192}
+
+
+def test_k2_cases_reach_their_shapes():
+    """On the plain closure: the C=33 writes overflow the frontier, and
+    at probe_limit 2 its probes; the C=64 cases close without overflow
+    after passes of more than 1,024 candidates; the small-pass case
+    never has more than 32 candidates in a pass."""
+    got = {}
+    for name, step_name, ev, rows, live, run, pl in _k2_cases().values():
+        got[name] = sk.frontier_closure(step_name, ev, rows, live, run,
+                                        pl)[1].tolist()
+    assert got["register N2048 C33 overflow pl32"][:2] == [2048, 1]
+    assert got["register N2048 C33 overflow pl2"][1] == 1
+    count, ovf, iters, stepped = got["register N1024 C64 pl32"]
+    assert (count, ovf) == (648, 0) and stepped * 64 > 1024 * iters
+    assert got["gset N1024 C64"][1] == 0
+    count, ovf, iters, stepped = got["uqueue N1024 C8 small passes"]
+    assert ovf == 0 and count * 8 <= 32 * iters
+
+
+def _dev_tiled(dev, c_rows, c_live, table):
+    return (tuple(r.to(dev) for r in c_rows), c_live.to(dev),
+            (tuple(r.to(dev) for r in table[0]), table[1].to(dev)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K4_CASES)
+def test_cuda_k4_matches_plain_on_the_new_cases(name):
+    dev = _cuda()
+    _, c_rows, c_live, table, pl, plan = _k4_cases()[name]
+    want = sk.tiled_insert_reference(c_rows, c_live, table, pl, plan)
+    before = sk.launches["tiled_insert"]
+    got = sk.tiled_insert(*_dev_tiled(dev, c_rows, c_live, table), pl, plan)
+    torch.cuda.synchronize()
+    assert sk.launches["tiled_insert"] == before + 1
+    _assert_k4_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K4_CASES[:3])
+def test_cuda_k4_bin_and_insert_apart_equal_both(name):
+    """The bin and the insert launched one at a time (as the timings do)
+    give what one call gives; the insert updates the table in place."""
+    dev = _cuda()
+    _, c_rows, c_live, table, pl, plan = _k4_cases()[name]
+    want = sk.tiled_insert_reference(c_rows, c_live, table, pl, plan)
+    rows, live, dtable = _dev_tiled(dev, c_rows, c_live, table)
+    work = sk._tiled_insert_launch(rows, live, dtable, pl, plan,
+                                   stages=1)[-1]
+    got = sk._tiled_insert_launch(rows, live, dtable, pl, plan, stages=2,
+                                  work=work)
+    torch.cuda.synchronize()
+    _assert_k4_equal(got[:4], want)
+    assert got[0][1].data_ptr() == dtable[1].data_ptr()
+    assert torch.equal(dtable[1].cpu(), want[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", K2_CASES)
+def test_cuda_k2_matches_plain_on_the_new_cases(name):
+    dev = _cuda()
+    _, step_name, ev, rows, live, run, pl = _k2_cases()[name]
+    w_rows, w_meta = sk.frontier_closure(step_name, ev, rows, live, run, pl)
+    before = sk.launches["frontier_closure"]
+    g_rows, g_meta = sk.frontier_closure(
+        step_name, {k: v.to(dev) for k, v in ev.items()},
+        tuple(r.to(dev) for r in rows), live.to(dev), run.to(dev), pl)
+    torch.cuda.synchronize()
+    assert sk.launches["frontier_closure"] == before + 1
+    assert g_meta.cpu().tolist() == w_meta.tolist()
+    for g, w in zip(g_rows, w_rows):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("name", K2_CASES)
+def test_plain_k2_matches_interpret_pallas_on_the_new_cases(name):
+    _, step_name, ev, rows, live, run, pl = _k2_cases()[name]
+    rows2, meta = sk.frontier_closure(step_name, ev, rows, live, run, pl)
+    _assert_closure_equal((step_name, ev, rows, live, run, (rows2, meta)),
+                          pl)
