@@ -27,7 +27,30 @@ down both of its engines:
      * timing, per launch with CUDA events, on closure inputs recorded
        from the main path's own scans, in the gate's layout and in each
        other layout the shape can take;
-  3. K2 and K4 (the sparse engine's hash closure, kernels/
+  3. the per-key batch (jepsen.independent's shape) on the dense engine,
+     whose closure is K1 batched over keys (one launch per event row for
+     every key of a bucket, kernels/closure.cu):
+     * main path: the bench's 84 keys (`sec_multikey`: 120 ops, 14
+       processes) through `engine.check_batch`, cold and warm (median of
+       3), beside the same keys checked one by one through
+       `check_encoded_bitdense`; the 84 keys with two 1000-op keys with
+       16 crashed writes (one with an impossible read: a bucket of its
+       own, S=22/23, C=17) and six corrupted keys, through
+       `engine.check_batch` and through `independent.checker(
+       linearizable(CASRegister()))`. Every key's result equals the
+       reference's (REF_BATCH, recorded on the CPU) and the port's own
+       single-key dense check; the batch launches K1 once per event row
+       of each bucket, exactly;
+     * parity of the batched K1 against its plain version, bit for bit,
+       in every layout each bucket's shape can take, on inputs recorded
+       from the 92-key batch — among them rows where keys past their
+       last event and keys past their failure do not run — and on the
+       84-key batch's own rows (K84, S6, C15: the first, a middle one,
+       the first with a key past its last event, and the last), which
+       give its kernels-line entry its max_abs_err;
+     * timing per launch on every event row of the 84-key batch, beside
+       the plain version and the bound;
+  4. K2 and K4 (the sparse engine's hash closure, kernels/
      frontier_closure.cu, and its tiled visited-set insert, kernels/
      tiled_insert.cu):
      * parity against their plain versions, bit for bit: K2 on closure
@@ -41,7 +64,8 @@ down both of its engines:
        the 1000-op FIFO and on the seeded cases (a tile with no live
        candidate, all in one tile, equal rows across a chunk boundary,
        probe_limit 1 and 2, M not a multiple of the chunk, a few live
-       candidates over many chunks), and its bin and insert launched
+       candidates over many chunks, and a table of 16,384 tiles, where a
+       bin is a group of 4 tiles), and its bin and insert launched
        apart. K4 updates the table in place, so it gets a copy;
      * main path: the six golden queue and set histories, 400-op
        unordered-queue and set histories (the K2 route), a 1000-op FIFO
@@ -55,7 +79,7 @@ down both of its engines:
        closure loop cut to 0 and 1 passes: kernel_ab.py's breakdown),
        K4's bin and insert also apart, each launch on its own copy of
        the recorded table.
-  4. K3 (the sharded engine's visited-set transaction, kernels/
+  5. K3 (the sharded engine's visited-set transaction, kernels/
      hash_insert.cu), on a one-rank NCCL mesh (`meshplan.local_mesh()`):
      * main path, small shapes: 60-op register histories and their
        corrupted twins, a wide frontier that climbs capacity tiers, and
@@ -421,6 +445,374 @@ def phase_timing(dev, shape, h, stride: int) -> dict:
     return out
 
 
+# ------------------------------------------------------- the per-key batch
+
+BATCH_KEYS = 84        # the bench's multi-key shape (bench.py:80-83)
+BATCH_OPS = 120
+# The reference's per-key results (jepsen_tpu.parallel.engine.
+# check_batch_encoded on the CPU, its XLA closure) on the keys of
+# _batch_keys(): a digest of every field but `closure`, key by key in
+# input order (_batch_digest), and the invalid keys' failing op and event.
+REF_BATCH = {
+    "multikey-84": {"keys": 84, "digest": "3980498c79987a26", "invalid": {}},
+    "multikey-84+8": {
+        "keys": 92, "digest": "5671ea508e9716b3",
+        "invalid": {
+            85: {"fail-event": 984, "op": {"process": 90, "f": "read",
+                                           "value": 999, "index": 1984}},
+            86: {"fail-event": 51, "op": {"process": 0, "f": "read",
+                                          "value": 1003, "index": 151}},
+            87: {"fail-event": 14, "op": {"process": 11, "f": "read",
+                                          "value": 1001, "index": 45}},
+            88: {"fail-event": 11, "op": {"process": 11, "f": "read",
+                                          "value": 1000, "index": 33}},
+            89: {"fail-event": 41, "op": {"process": 11, "f": "read",
+                                          "value": 1002, "index": 117}},
+            90: {"fail-event": 25, "op": {"process": 11, "f": "read",
+                                          "value": 1001, "index": 89}},
+            91: {"fail-event": 77, "op": {"process": 5, "f": "read",
+                                          "value": 1002, "index": 191}}}},
+}
+
+
+def _batch_keys():
+    """(multikey, extra): the bench's 84 keys (`sec_multikey`: 120 ops,
+    14 processes, seeds 2024 + k), and 8 more — two
+    `adversarial_register_history(1000, 16)` keys (S=22/23, C=17: a bucket
+    of their own, K1 in a cluster of 16), the second with an impossible
+    read, and six corrupted 120-op keys."""
+    from jepsen_tpu_torch import histories
+    multikey = [histories.rand_register_history(
+        n_ops=BATCH_OPS, n_processes=14, n_values=5, crash_p=0.005,
+        fail_p=0.05, busy=0.8, seed=2024 + k) for k in range(BATCH_KEYS)]
+    adv = histories.adversarial_register_history(n_ops=1000, k_crashed=16)
+    extra = [adv, histories.with_impossible_read(adv)]
+    for k in range(6):
+        h = histories.rand_register_history(
+            n_ops=BATCH_OPS, n_processes=14, n_values=5, crash_p=0.005,
+            fail_p=0.05, busy=0.8, seed=3000 + k)
+        extra.append(histories.corrupt_history(h, seed=k))
+    return multikey, extra
+
+
+def _batch_digest(rs: list) -> dict:
+    import hashlib
+    strip = [{k: v for k, v in r.items() if k != "closure"} for r in rs]
+    return {"keys": len(rs),
+            "digest": hashlib.sha256(json.dumps(strip, sort_keys=True,
+                                                default=repr).encode())
+            .hexdigest()[:16],
+            "invalid": {i: {"fail-event": r["fail-event"], "op": r["op"]}
+                        for i, r in enumerate(rs) if r["valid?"] is False}}
+
+
+def _bucket_rows(encs) -> int:
+    """The event rows of every bucket of the batch: one batched K1 launch
+    each."""
+    from jepsen_tpu_torch.parallel import engine
+    rows: dict = {}
+    for e in encs:
+        b = engine.bucket_key(e.n_slots, "tier")
+        rows[b] = max(rows.get(b, 0), e.n_returns)
+    return sum(rows.values())
+
+
+def _batch_check(model, hs, dev):
+    """engine.check_batch on the card, the launch counts zeroed just
+    before and read just after."""
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    from jepsen_tpu_torch.parallel import engine
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    rs = engine.check_batch(model, hs, device=dev)
+    torch.cuda.synchronize()
+    return rs, time.perf_counter() - t0, ck.batch_launches, ck.launches
+
+
+def _record_batch_inputs(model, encs, dev, rows) -> list:
+    """Run the batch once and keep (sel, B, run) of the batched K1 calls
+    numbered in `rows` (every call when None), as the scan hands them to
+    the kernel."""
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    from jepsen_tpu_torch.parallel import engine
+    real = ck.closure_fixpoint_batch
+    kept, calls = [], [0]
+
+    def recording(sel, B, C, **kw):
+        if rows is None or calls[0] in rows:
+            kept.append((sel.clone(), B.clone(), kw["run"].clone(), C))
+        calls[0] += 1
+        return real(sel, B, C, **kw)
+
+    ck.closure_fixpoint_batch = recording
+    try:
+        engine.check_batch_encoded(model, encs, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        ck.closure_fixpoint_batch = real
+    return kept
+
+
+def phase_batch_main(dev) -> dict:
+    """The per-key batch (jepsen.independent's shape) through
+    `engine.check_batch` and the port's `independent` checker: the 84
+    keys alone (a cold run, then the warm wall, median of 3), the same
+    84 keys one by one through `check_encoded_bitdense`, and the 92-key
+    batch; each result equal to the reference's (REF_BATCH) and to the
+    port's own single-key dense check of that key; one batched K1 launch
+    per event row of each bucket, exactly."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.parallel import bitdense, closure_kernels as ck
+    from jepsen_tpu_torch.parallel import encode as enc
+    multikey, extra = _batch_keys()
+    model = CASRegister()
+    out = {}
+    t0 = time.perf_counter()
+    encs = [enc.encode(model, h) for h in multikey + extra]
+    print(f"batch: encoded {len(encs)} keys in "
+          f"{time.perf_counter() - t0:.3f} s")
+    singles = []
+    for e in encs:
+        r = bitdense.check_encoded_bitdense(e, device=dev)
+        singles.append({k: r.get(k) for k in ("valid?", "op",
+                                              "fail-event")})
+    for name, hs in (("multikey-84", multikey),
+                     ("multikey-84+8", multikey + extra)):
+        rows = _bucket_rows(encs[:len(hs)])
+        walls = []
+        for _ in range(4 if name == "multikey-84" else 1):
+            rs, secs, n, n1 = _batch_check(model, hs, dev)
+            walls.append(secs)
+            _require(n == rows, f"{name}: {n} batched K1 launches, "
+                                f"{rows} event rows in its buckets")
+            _require(n1 == 0, f"{name}: {n1} single-key K1 launches")
+        got = _batch_digest(rs)
+        _require(got == REF_BATCH[name],
+                 f"{name}: results differ from the reference's: {got}")
+        _require(all(r["closure"] == "cuda" and r["engine"] == "bitdense"
+                     for r in rs), f"{name}: closure or engine")
+        for i, r in enumerate(rs):
+            _require({k: r.get(k) for k in singles[i]} == singles[i],
+                     f"{name}: key {i} differs from its single check: "
+                     f"{r} {singles[i]}")
+        warm = sorted(walls[1:])[len(walls[1:]) // 2] if len(walls) > 1 \
+            else None
+        out[name] = {"launches": n, "rows": rows, "cold_s": walls[0],
+                     "warm_s": warm, "warm_runs": walls[1:],
+                     "invalid": len(got["invalid"])}
+        print(f"main: batch {name}: {len(hs)} keys, {len(got['invalid'])} "
+              f"invalid, == REF_BATCH and the single-key checks; batched "
+              f"K1 launches {n} (= event rows of its buckets); wall cold "
+              f"{walls[0]:.3f} s" + (f", warm median of 3 {warm:.3f} s "
+                                     f"{walls[1:]}" if warm else ""))
+    # the 84 keys one by one, as a caller without the batch would
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        for h in multikey:
+            bitdense.check_encoded_bitdense(enc.encode(model, h),
+                                            device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["one-by-one"] = {"wall_s": sorted(walls)[1], "runs": walls,
+                         "launches": ck.launches}
+    print(f"main: the 84 keys one by one (check_encoded_bitdense): wall "
+          f"median of 3 {sorted(walls)[1]:.3f} s {walls}, single-key K1 "
+          f"launches {ck.launches}")
+    # the same 92 keys through the port's jepsen.independent, as one
+    # history of keyed ops (key after key: each key's subhistory is its
+    # history above)
+    ops = []
+    for k, h in enumerate(multikey + extra):
+        for o in h:
+            o = dict(o)
+            o["value"] = independent.KV(k, o.get("value"))
+            ops.append(o)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    r = independent.checker(linearizable(model, device=dev)).check(
+        {}, History.wrap(ops).index())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rs = [{k: v for k, v in r["results"][k].items() if k != "analyzer"}
+          for k in range(len(encs))]
+    _require(_batch_digest(rs) == REF_BATCH["multikey-84+8"],
+             "independent: results differ from the reference's")
+    _require(ck.batch_launches == _bucket_rows(encs),
+             f"independent: {ck.batch_launches} batched K1 launches")
+    _require(r["failures"] == sorted(REF_BATCH["multikey-84+8"]["invalid"])
+             and r["valid?"] is False, f"independent: {r['failures']}")
+    _require("device-fallback" not in r, "independent: device fallback")
+    print(f"main: independent.checker(linearizable(CASRegister())) over "
+          f"{len(encs)} keys: failures {r['failures']}, == REF_BATCH, "
+          f"batched K1 launches {ck.batch_launches}, wall {secs:.3f} s")
+    out["independent"] = {"wall_s": secs, "launches": ck.batch_launches}
+    out["encs"] = encs
+    return out
+
+
+def phase_batch_parity(dev, encs) -> dict:
+    """The batched K1 against its plain version, bit for bit, in every
+    layout each bucket's shape can take (`closure_plans`), on inputs
+    recorded from the 92-key batch: its first rows, and its last rows,
+    where keys past their last event (pad events) and keys past their
+    failure do not run and must be left as they were. Returns per (S, C)
+    the largest |difference| (0: bit-identical)."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    from jepsen_tpu_torch.parallel import engine
+    rows: dict = {}
+    for e in encs:
+        b = engine.bucket_key(e.n_slots, "tier")
+        rows[b] = max(rows.get(b, 0), e.n_returns)
+    first = sorted(rows)
+    r16 = rows[first[0]]
+    picks = {0, 1, r16 // 2, r16 - 1, r16, r16 + 500, r16 + rows[first[1]] - 1}
+    kept = _record_batch_inputs(CASRegister(), encs, dev, picks)
+    _require(len(kept) == len(picks), f"recorded {len(kept)} inputs")
+    # at the first bucket's last row: which of its keys are past their
+    # last event (pads), which past their failure
+    bad = REF_BATCH["multikey-84+8"]["invalid"]
+    first_keys = [i for i, e in enumerate(encs)
+                  if engine.bucket_key(e.n_slots, "tier") == first[0]]
+    last = kept[sorted(picks).index(r16 - 1)][2].cpu().tolist()
+    pads = sum(1 for i, go in zip(first_keys, last)
+               if not go and encs[i].n_returns < r16)
+    fails = sum(1 for i, go in zip(first_keys, last)
+                if not go and i in bad and bad[i]["fail-event"] < r16 - 1)
+    _require(pads > 0 and fails > 0, f"the last row leaves out {pads} "
+                                     f"pad keys and {fails} failed keys")
+    limits = ck.card_limits(dev)
+    worst: dict = {}
+    for sel, B, run, C in kept:
+        K, S = B.shape[0], B.shape[1]
+        want = ck.closure_fixpoint_batch_reference(sel, B, C, run)
+        got = ck.closure_fixpoint_batch(sel, B, C, run=run)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        for name, plan in ck.closure_plans(S, C, *limits).items():
+            out = B.clone()
+            ck._launch_batch(sel, out, out, C, run=run, plan=plan)
+            torch.cuda.synchronize()
+            err = max(err, int((out.long() - want.long()).abs().max()))
+            _require(torch.equal(out, want), f"batched K1 ({name}) differs "
+                                             f"at K={K} S={S} C={C}")
+        _require(err == 0 and torch.equal(got[~run], B[~run]),
+                 f"batched K1 differs at K={K} S={S} C={C}")
+        worst[(S, C)] = max(worst.get((S, C), 0), err)
+        print(f"parity: batched K1 == plain closure at K={K} S={S} C={C} "
+              f"(layouts {sorted(ck.closure_plans(S, C, *limits))}; gate "
+              f"{ck.kernel_layout(S, C)}), {int((~run).sum())} keys not "
+              f"running")
+    print(f"parity: the first bucket's last row leaves out {pads} keys past "
+          f"their last event and {fails} past their failure, unchanged")
+    return worst
+
+
+def phase_batch_timing(dev, encs) -> dict:
+    """The batched K1 on every event row of the 84-key batch: per launch
+    (CUDA events) in the gate's layout and in every layout the shape can
+    take, beside its plain version and its bound; and held against the
+    plain version, bit for bit in every layout, on the first row, a
+    middle one, the first row where a key is past its last event and the
+    last row (keys past their last event must be left as they were)."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    kept = _record_batch_inputs(CASRegister(), encs, dev, None)
+    sel0, B0, _, C = kept[0]
+    K, S, W = B0.shape
+    R = len(kept)
+    _require((S, C) == (6, 15), f"84-key batch at S={S} C={C}")
+    _require(R == max(e.n_returns for e in encs),
+             f"{R} batched K1 calls for {max(e.n_returns for e in encs)} "
+             f"event rows")
+    first_pad = min(e.n_returns for e in encs)
+    picks = sorted({0, R // 2, first_pad, R - 1})
+    plans = ck.closure_plans(S, C, *ck.card_limits(dev))
+    # the plain version on the picked rows, timed on the host clock (it
+    # waits on the card), its results kept for the comparison
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wants = [ck.closure_fixpoint_batch_reference(*kept[r][:2], C,
+                                                 kept[r][2]) for r in picks]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / len(picks)
+    err, pads = 0, 0
+    for r, want in zip(picks, wants):
+        sel, B, run, _ = kept[r]
+        idle = ~run
+        _require(torch.equal(want[idle], B[idle]),
+                 f"row {r}: the plain version changed a key not running")
+        got = ck.closure_fixpoint_batch(sel, B, C, run=run)
+        outs = {"gate": got}
+        for name, plan in plans.items():
+            out = B.clone()
+            ck._launch_batch(sel, out, out, C, run=run, plan=plan)
+            outs[name] = out
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            e = int((out.long() - want.long()).abs().max())
+            err = max(err, e)
+            _require(e == 0, f"batched K1 ({name}) differs from the plain "
+                             f"version at K={K} S={S} C={C}, row {r}")
+        n_pad = sum(1 for k, go in enumerate(run.tolist())
+                    if not go and encs[k].n_returns <= r)
+        pads += n_pad
+        print(f"parity: batched K1 == plain closure at K={K} S={S} C={C}, "
+              f"row {r} of {R}, in layouts {sorted(outs)}; {n_pad} keys "
+              f"past their last event, unchanged")
+    _require(pads > 0, "no picked row has a key past its last event")
+
+    def kernel(sel, B, run, out):
+        ck.closure_fixpoint_batch(sel, B, C, run=run, out=out)
+
+    ms = _time_launches(kernel, [(sel, B, run, torch.empty_like(B))
+                                 for sel, B, run, _ in kept], reps=3)
+    # every layout the shape can take (the gate's too), forced
+    layout_ms = {}
+    for name, plan in plans.items():
+        def forced(sel, B, run, out, plan=plan):
+            ck._launch_batch(sel, B, out, C, run=run, plan=plan)
+        layout_ms[name] = _time_launches(
+            forced, [(sel, B, run, torch.empty_like(B))
+                     for sel, B, run, _ in kept], reps=3)
+    # bytes: each key's sel and B read and B' written once; operations,
+    # as K1's: one pass over sel, then per expansion (as many as the plain
+    # closure ran) one OR per selected (j, s, t) and target word, for the
+    # keys that run, on every 10th row
+    nbytes = K * (4 * C * S * S + 2 * 4 * S * W)
+    words = torch.tensor([W if j < 5 else W // 2 for j in range(C)],
+                         dtype=torch.float64)
+    ops = []
+    for sel, B, run, _ in kept[::10]:
+        n = 0.0
+        for k in torch.nonzero(run).flatten().tolist():
+            n_exp = ck.closure_reference_expansions(sel[k], B[k], C)[1]
+            n += C * S * S + n_exp * float(
+                ((sel[k] != 0).sum((1, 2)).double().cpu() * words).sum())
+        ops.append(n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = float(np.mean(ops)) / INT32_OPS_PER_S * 1e3
+    out = {"name": f"closure_fixpoint_batch[K{K},S{S},C{C}]", "K": K,
+           "S": S, "C": C, "W": W, "rows": len(kept),
+           "layout": ck.kernel_layout(S, C), "plan": ck.device_plan(S, C),
+           "layout_ms": layout_ms, "ms": ms, "plain_ms": plain_ms,
+           "plain_rows": picks, "max_abs_err": err,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes_ms": t_bytes, "ops_ms": t_ops, "mean_ops": float(
+               np.mean(ops))}
+    print("timing: " + json.dumps(out))
+    return out
+
+
 # ---------------------------------------------------------- sparse engine
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -701,6 +1093,23 @@ def phase_sparse_parity(dev, rec) -> dict:
         _require(err == 0, f"K4's bin and insert apart differ: {name}")
         print(f"parity: K4 == plain insert ({name}): {n} fresh, probe "
               f"overflow {ovf}; bin and insert apart agree")
+    # past 4,096 tiles a bin is a group of tiles: 16,384 tiles of 8,192
+    # (capacity 2^26's table), where a bin holds 4
+    for TS, bits, CH in ((8192, 12, 8192), (8192, 13, 8192),
+                         (8192, 14, 8192), (8192, 17, 8192)):
+        _require(lib4.jt_tiled_insert_smem(TS, bits, CH)
+                 == sk.k4_smem_bytes(TS, CH, 1 << bits)
+                 <= sk.smem_budget(dev),
+                 f"K4 layout at TS={TS} tiles=2^{bits} CH={CH}")
+    name, c_rows, c_live, table, pl, plan = parity_cases.k4_wide_case(16384)
+    args = (tuple(r.to(dev) for r in c_rows), c_live.to(dev),
+            (tuple(r.to(dev) for r in table[0]), table[1].to(dev)), pl, plan)
+    del table
+    err, ovf, n = k4_pair(*args)
+    _require(err == 0, f"K4 differs from the plain insert: {name}")
+    print(f"parity: K4 == plain insert ({name}, T={args[2][1].shape[0]}): "
+          f"{n} fresh of {int(c_live.sum())} live, probe overflow {ovf}")
+    del args
     for name, step_name, ev, rows, live, run, pl in \
             parity_cases.k2_cases():
         err, meta = k2_pair((step_name, {k: v.to(dev) for k, v in
@@ -1270,6 +1679,10 @@ def main() -> int:
         _phase("K1 timing S22", phase_timing, dev, WIDE_SHAPE,
                histories.adversarial_register_history(n_ops=1000,
                                                       k_crashed=16), 5)]
+    batch = _phase("batch main path", phase_batch_main, dev)
+    _phase("batched K1 parity", phase_batch_parity, dev, batch["encs"])
+    btimed = _phase("batched K1 timing", phase_batch_timing, dev,
+                    batch["encs"][:BATCH_KEYS])
     cases = _sparse_cases()
     rec = _phase("sparse record", _record_sparse, cases, dev)
     sworst = _phase("K2/K4 parity", phase_sparse_parity, dev, rec)
@@ -1294,6 +1707,18 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "layout": t["layout"]} for t in timed]
+    # the batched K1: timed and held against its plain version on the
+    # 84-key batch's rows, with the launches of the 84-key check (one per
+    # event row)
+    kernels.append({
+        "name": btimed["name"], "route": "cuda",
+        "source": "jepsen_tpu_torch/kernels/closure.cu",
+        "replaces": "jepsen_tpu/parallel/bitdense.py:368",
+        "launches": batch["multikey-84"]["launches"],
+        "max_abs_err": btimed["max_abs_err"], "ms": btimed["ms"],
+        "plain_ms": btimed["plain_ms"], "bound_ms": btimed["bound_ms"],
+        "bound_by": btimed["bound_by"], "library_ms": None,
+        "layout": btimed["layout"]})
     for t, key, src, line in (
             (stimed[0], "K2", "frontier_closure.cu", 205),
             (stimed[1], "K4", "tiled_insert.cu", 345)):

@@ -60,6 +60,18 @@
 //   * An optional device-side run flag (the scan's `ok`) makes the kernel
 //     a copy once the history has failed, so the host never waits for it.
 //
+// Batched over keys (jt_closure_launch with keys > 1; replaces the vmap
+// of the per-key scan in jepsen_tpu/parallel/bitdense.py
+// ::_check_bitdense_batch):
+// one launch closes K keys' reachable sets at once, sel [K, C, S, S] and
+// B [K, S, W]. The grid is K copies of the single key's: key
+// blockIdx.x / k owns blocks [key * k, (key + 1) * k), one cluster of k
+// blocks (a "shared" or "global" plan: one block), and offsets sel, B and
+// B' by its key. Each key reads its own run flag run[key]; every block of
+// a cluster reads the same flag and leaves before any cluster barrier, so
+// a key that does not run is left as it is. Clusters need no
+// co-residency: the card schedules them as SMs free up.
+//
 // What bounds it: the bytes it must move (sel and B read once, B' written
 // once: 54 KB at S=18 C=13, 754 KB at S=22 C=17). What is left above that
 // bound is the launch, the round trips to device memory for sel and B, the
@@ -125,8 +137,19 @@ closure_split(const int32_t* __restrict__ sel, const int32_t* b_in,
               int C, int log_w, int log_wb) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
-  int r = 0;  // this block's rank in the cluster
-  if constexpr (kCluster) r = (int)cg::this_cluster().block_rank();
+  int r = 0, k = 1;  // this block's rank in its cluster, the cluster size
+  if constexpr (kCluster) {
+    r = (int)cg::this_cluster().block_rank();
+    k = (int)cg::this_cluster().num_blocks();
+  }
+  {
+    // the key of this block's cluster, in a batched launch (0 alone)
+    const size_t key = blockIdx.x / k;
+    sel += key * C * S * S;
+    b_in += (key * S) << log_w;
+    b_out += (key * S) << log_w;
+    if (run != nullptr) run += key;
+  }
   const int Wb = 1 << log_wb;
   const int SW = (S + 31) >> 5;
   const int CS = C * S;
@@ -275,7 +298,6 @@ closure_split(const int32_t* __restrict__ sel, const int32_t* b_in,
       // the next write to them comes after the next cluster.sync(),
       // which no block reaches before reading them
       cg::cluster_group cluster = cg::this_cluster();
-      const int k = (int)cluster.num_blocks();
       int* f = flags + (sweep & 1) * kMaxCluster;
       if (tid < k) *cluster.map_shared_rank(f + r, tid) = changed;
       cluster.sync();
@@ -306,6 +328,14 @@ closure_global(const int32_t* __restrict__ sel, const int32_t* b_in,
   const int n = S * W;
   const int SW = (S + 31) >> 5;
   uint32_t* src = gsmem;  // [C][S(t)][SW]: bit s set iff sel[j][s][t] != 0
+  {
+    // one block a key, in a batched launch (0 alone)
+    const size_t key = blockIdx.x;
+    sel += key * C * S * S;
+    b_in += (key * S) << log_w;
+    b_out += (key * S) << log_w;
+    if (run != nullptr) run += key;
+  }
   uint32_t* B = reinterpret_cast<uint32_t*>(b_out);
   const uint32_t* bin = reinterpret_cast<const uint32_t*>(b_in);
 
@@ -377,9 +407,9 @@ size_t sel_bytes(int S, int C) {
 
 cudaLaunchConfig_t cluster_config(int k, int threads, size_t smem,
                                   cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
+                                  cudaLaunchAttribute* attr, int keys = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(k);
+  cfg.gridDim = dim3(k * keys);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -467,38 +497,41 @@ int jt_closure_active_clusters(int S, int C, int log_wb, int k,
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// One closure fixpoint on `stream`. layout: 0 global (one block, B in
-// device memory), 1 shared (one block, B in shared memory), 2 cluster (k
-// blocks, 2^log_wb words of each state each); `threads` per block. The
-// caller has checked that the layout's shared memory fits. b_out may
-// equal b_in (in place); run may be null. Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue for arguments it does not take).
+// The closure fixpoints of `keys` keys (1 alone, or a batch) in one
+// launch on `stream`: sel [keys, C, S, S], B and B' [keys, S, W], run
+// (null, or one flag a key) [keys]. layout: 0 global (a block a key, B in
+// device memory), 1 shared (a block a key, B in shared memory), 2 cluster
+// (k blocks a key, 2^log_wb words of each state each); `threads` per
+// block. The caller has checked that the layout's shared memory fits.
+// b_out may equal b_in (in place). Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for arguments it does not take).
 int jt_closure_launch(const int32_t* sel, const int32_t* b_in,
-                      int32_t* b_out, const unsigned char* run, int S, int C,
-                      int layout, int k, int log_wb, int threads,
-                      void* stream) {
+                      int32_t* b_out, const unsigned char* run, int keys,
+                      int S, int C, int layout, int k, int log_wb,
+                      int threads, void* stream) {
   const int log_w = C >= 5 ? C - 5 : 0;
   if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
       log_wb < 0 || log_wb > log_w || layout < 0 || layout > 2 ||
       (layout == 2 && (k < 2 || k > kMaxCluster || (k << log_wb) !=
                                                        (1 << log_w))) ||
-      (layout == 1 && log_wb != log_w)) {
+      (layout == 1 && log_wb != log_w) || keys < 1 ||
+      (long long)keys * (layout == 2 ? k : 1) > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (layout == 0) {
-    closure_global<<<1, threads, sel_bytes(S, C), st>>>(sel, b_in, b_out,
-                                                         run, S, C, log_w);
+    closure_global<<<keys, threads, sel_bytes(S, C), st>>>(
+        sel, b_in, b_out, run, S, C, log_w);
     return (int)cudaGetLastError();
   }
   const size_t smem = split_smem(S, C, 1 << log_wb).bytes;
   if (layout == 1) {
-    closure_split<false><<<1, threads, smem, st>>>(sel, b_in, b_out, run, S,
-                                                   C, log_w, log_wb);
+    closure_split<false><<<keys, threads, smem, st>>>(
+        sel, b_in, b_out, run, S, C, log_w, log_wb);
     return (int)cudaGetLastError();
   }
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(k, threads, smem, st, &attr);
+  cudaLaunchConfig_t cfg = cluster_config(k, threads, smem, st, &attr, keys);
   cudaError_t err = cudaLaunchKernelEx(&cfg, closure_split<true>, sel, b_in,
                                        b_out, run, S, C, log_w, log_wb);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());

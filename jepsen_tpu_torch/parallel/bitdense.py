@@ -21,6 +21,16 @@ The carry (B, ok, fail_r) stays on the device; the host walks the
 events, which it knows from the encoding, and reads the device once, at
 the end. After a failure the kernel skips its work by reading `ok`
 itself.
+
+The batch (`check_batch_bitdense`, a port of the reference's
+`check_batch_bitdense` and its vmapped `_check_bitdense_batch`) runs K
+keys' scans as one: B is [K, S, W], every event row makes one batched K1
+launch for all keys (`closure_kernels.closure_fixpoint_batch`), and
+each key filters on its own returning slot. A key past its last event
+or its failure has run = False: its closure is skipped by the kernel
+and its carry kept, so pad events change nothing. The single and the
+batched scans build their selects and filters from the same tables
+(`_compute_sel`, `_Tables`).
 """
 
 from __future__ import annotations
@@ -29,7 +39,9 @@ import numpy as np
 import torch
 
 from jepsen_tpu_torch.parallel import closure_kernels as ck
-from jepsen_tpu_torch.parallel.encode import EncodedHistory, fail_op_fields
+from jepsen_tpu_torch.parallel.encode import (
+    EncodedHistory, fail_op_fields, pad_batch,
+)
 from jepsen_tpu_torch.parallel.steps import STEPS
 
 MAX_C = 24  # 2^24 masks = 512k words per state row
@@ -91,6 +103,57 @@ def _plan(C: int):
     return W, plan
 
 
+class _Tables:
+    """The filter's per-slot tables on a device, from `_plan`: for slot j
+    the word gather `widx[j]` (the identity for j < 5), the right shift
+    `shift[j]` (1 << j for j < 5, else 0) and the mask `mask[j]` (the
+    intra-word clear for j < 5, the word clear for j >= 5), so that
+    keeping the configurations in which slot j has linearized, with its
+    bit cleared, is (B[..., widx[j]] >> shift[j]) & mask[j]."""
+
+    def __init__(self, C: int, device):
+        W, plan = _plan(C)
+        widx = np.tile(np.arange(W, dtype=np.int64), (C, 1))
+        mask = np.full((C, W), 0xFFFFFFFF, np.uint32)
+        shift = np.zeros(C, np.int32)
+        for j, pj in enumerate(plan):
+            if pj["intra"]:
+                shift[j] = pj["shift"]
+                mask[j] = pj["clear"]
+            else:
+                widx[j] = pj["fwd_idx"]
+                mask[j] = pj["clearw"]
+        self.widx = torch.from_numpy(widx).to(device)
+        self.mask = torch.from_numpy(mask.view(np.int32)).to(device)
+        self.shift = torch.from_numpy(shift).to(device)
+
+    def filter_at(self, s: int, B):
+        """One key's filter, B [S, W], on a slot the host knows."""
+        if s < 5:
+            return (B >> (1 << s)) & _intra_clear(s)
+        return torch.index_select(B, 1, self.widx[s]) & self.mask[s]
+
+    def filter_keys(self, s, B):
+        """Each key's filter on its own slot: s int64 [K] (in [0, C)), B
+        [K, S, W]."""
+        K, S, W = B.shape
+        g = torch.gather(B, 2, self.widx[s].unsqueeze(1).expand(K, S, W))
+        return (g >> self.shift[s].view(K, 1, 1)) & self.mask[s].unsqueeze(1)
+
+
+def _compute_sel(step, x: dict, states, t_idx, lo: int):
+    """sel[..., j, s, t] = FULL where slot j's op is legal from state s
+    and steps it to t, for slot tables x [..., C] (any leading dims):
+    [..., C, S, S]."""
+    x = {k: v[..., None] for k, v in x.items()}                 # [..., C, 1]
+    nxt, okj = step(states, x["slot_f"], x["slot_a0"], x["slot_a1"],
+                    x["slot_wild"])
+    legal = okj & x["slot_occ"]                                 # [..., C, S]
+    hit = legal[..., None] & ((nxt - lo)[..., None] == t_idx)
+    return torch.where(hit, torch.tensor(FULL, dtype=_I32, device=hit.device),
+                       torch.tensor(0, dtype=_I32, device=hit.device))
+
+
 def _xs_dense(e: EncodedHistory, C: int) -> dict:
     """The event tables padded to C slot columns (empty slots: f = -1,
     unoccupied), as numpy."""
@@ -127,43 +190,29 @@ class _Scan:
         self.step = STEPS[e.step_name]
         self.S, self.C, self.lo = S, C, e.state_lo
         self.device = device
-        W, plan = _plan(C)
         xs = _xs_dense(e, C)
         self.ev_slot = xs["ev_slot"]
         self.xs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                    for k, v in xs.items() if k != "ev_slot"}
         self.states = torch.arange(S, dtype=_I32, device=device) + self.lo
         self.t_idx = torch.arange(S, dtype=_I32, device=device)
-        # filter tables for word-level slots: word w (mask bit s clear)
-        # takes word w ^ jb (the same mask with bit s set); words with
-        # bit s set are cleared
-        self.fidx = {s: torch.from_numpy(plan[s]["fwd_idx"].astype(np.int64))
-                     .to(device) for s in range(5, C)}
-        self.fclear = {s: torch.from_numpy(plan[s]["clearw"].view(np.int32))
-                       .to(device) for s in range(5, C)}
+        self.tables = _Tables(C, device)
+        W = max(1, (1 << C) // 32)
         self.B = torch.zeros((S, W), dtype=_I32, device=device)
         self.B[e.state0 - self.lo, 0] = 1
         self.ok = torch.ones((), dtype=torch.bool, device=device)
         self.fail_r = torch.full((), -1, dtype=_I32, device=device)
 
     def compute_sel(self, r0: int, r1: int):
-        """sel[e, j, s, t] = FULL where slot j's op is legal from state
-        s and steps it to t, for events r0..r1-1: [E, C, S, S]."""
-        x = {k: v[r0:r1, :, None] for k, v in self.xs.items()}   # [E, C, 1]
-        nxt, okj = self.step(self.states[None, None, :], x["slot_f"],
-                             x["slot_a0"], x["slot_a1"], x["slot_wild"])
-        legal = okj & x["slot_occ"]                               # [E, C, S]
-        hit = legal[..., None] & ((nxt - self.lo)[..., None] == self.t_idx)
-        return torch.where(hit, torch.tensor(FULL, dtype=_I32,
-                                             device=self.device),
-                           torch.tensor(0, dtype=_I32, device=self.device))
+        """The selects of events r0..r1-1: [E, C, S, S]."""
+        return _compute_sel(self.step,
+                            {k: v[r0:r1] for k, v in self.xs.items()},
+                            self.states, self.t_idx, self.lo)
 
     def filter_at(self, s: int, B):
         """Keep the configurations in which slot s has linearized, with
         its bit cleared (the slot is free after its return)."""
-        if s < 5:
-            return (B >> (1 << s)) & _intra_clear(s)
-        return torch.index_select(B, 1, self.fidx[s]) & self.fclear[s]
+        return self.tables.filter_at(s, B)
 
     def run(self, n_events: int):
         """Scan events 0..n_events-1; the carry stays on the device."""
@@ -227,3 +276,124 @@ def frontier_rows(e: EncodedHistory, start_ev: int, device=None) -> list:
                          axis=1, bitorder="little")       # [S, 32*W]
     ss, ms = np.nonzero(bits)
     return [(int(s) + e.state_lo, int(m), 0) for s, m in zip(ss, ms)]
+
+
+# ------------------------------------------------------ batched (per-key)
+
+class _BatchScan:
+    """K keys' scans as one, on one device, over a padded batch
+    (`encode.pad_batch`): B [K, S, W], ok [K], fail_r [K]. Every key
+    uses the first key's state offset and step family, as the
+    reference's batch does (`encs[0].state_lo`, `encs[0].step_name`).
+
+    Per event row the host issues one batched K1 launch and a fixed
+    handful of torch ops for all K keys; it reads nothing back. A key
+    runs an event when it has not failed and the event is real
+    (ev_slot >= 0): a key past its last event or its failure keeps its
+    carry, and the kernel skips its closure."""
+
+    def __init__(self, encs, xs: dict, state0, S: int, C: int, R: int,
+                 device):
+        e0 = encs[0]
+        self.step = STEPS[e0.step_name]
+        self.K, self.S, self.C, self.R = len(encs), S, C, R
+        self.lo = e0.state_lo
+        self.device = device
+        self.tables = _Tables(C, device)
+        # event-major [R, K, C], so that one row's selects are contiguous
+        self.xs = {k: torch.from_numpy(np.ascontiguousarray(
+            np.swapaxes(v, 0, 1))).to(device)
+            for k, v in xs.items() if k != "ev_slot"}
+        ev = torch.from_numpy(np.ascontiguousarray(xs["ev_slot"].T)) \
+            .to(device)                                           # [R, K]
+        self.real = ev >= 0
+        self.slot = ev.clamp(0, C - 1).long()
+        self.states = torch.arange(S, dtype=_I32, device=device) + self.lo
+        self.t_idx = torch.arange(S, dtype=_I32, device=device)
+        W = max(1, (1 << C) // 32)
+        self.B = torch.zeros((self.K, S, W), dtype=_I32, device=device)
+        keys = torch.arange(self.K, device=device)
+        s0 = torch.from_numpy(np.asarray(state0, np.int64)).to(device)
+        self.B[keys, s0 - self.lo, 0] = 1
+        self.ok = torch.ones(self.K, dtype=torch.bool, device=device)
+        self.fail_r = torch.full((self.K,), -1, dtype=_I32, device=device)
+
+    def run(self):
+        K, C = self.K, self.C
+        per_row = K * C * self.S * self.S
+        chunk = max(1, SEL_CHUNK_ELEMS // per_row)
+        for r0 in range(0, self.R, chunk):
+            r1 = min(self.R, r0 + chunk)
+            sel = _compute_sel(self.step,
+                               {k: v[r0:r1] for k, v in self.xs.items()},
+                               self.states, self.t_idx, self.lo)
+            for r in range(r0, r1):
+                run = self.ok & self.real[r]
+                # in place; a key that does not run is left as it is
+                B2 = ck.closure_fixpoint_batch(sel[r - r0], self.B, C,
+                                               run=run, out=self.B)
+                B3 = self.tables.filter_keys(self.slot[r], B2)
+                failed = run & ~B3.flatten(1).any(1)
+                # a running key has not failed before, so its fail_r is
+                # still -1: this is its first failure
+                self.fail_r = torch.where(failed, r, self.fail_r)
+                self.B = torch.where(run.view(K, 1, 1), B3, B2)
+                self.ok = self.ok & ~failed
+        return self
+
+
+class PendingBitdenseBatch:
+    """A batched dense check that has been issued but not read: the
+    constructor pads the keys, moves the tables to the device and issues
+    the whole scan (on a card the host runs ahead of the device);
+    `finalize()` makes the one device read and builds the per-key
+    results. A trimmed port of the reference's class: no supervisor, no
+    decision ledger, no search-stats block, no mesh, and no closure
+    fallback — a launch the card refuses raises to the caller."""
+
+    def __init__(self, encs, device):
+        self.encs = encs
+        self.device = device
+        # C >= 5: at least one full 32-mask word
+        xs, state0, self.S, self.C, self.R = pad_batch(encs, min_slots=5)
+        self._scan = _BatchScan(encs, xs, state0, self.S, self.C, self.R,
+                                device).run()
+        self._results = None
+
+    def finalize(self) -> list:
+        if self._results is not None:
+            return self._results
+        sc = self._scan
+        valid = sc.ok & (sc.B != 0).flatten(1).any(1)
+        # the one device read of the whole batch
+        valid_l, fail_l = torch.stack([valid.to(_I32), sc.fail_r]).tolist()
+        closure = "cuda" if self.device.type == "cuda" else "torch"
+        out = []
+        for k, e in enumerate(self.encs):
+            r = {"valid?": bool(valid_l[k]), "engine": "bitdense",
+                 "dedupe": "dense", "closure": closure}
+            if not r["valid?"]:
+                r.update(fail_op_fields(e, int(fail_l[k])))
+            out.append(r)
+        self._results = out
+        return out
+
+
+def dispatch_batch_bitdense(encs, device=None) -> PendingBitdenseBatch:
+    """Pad and issue a batched per-key check without reading its
+    results: `finalize()` on the returned PendingBitdenseBatch reads
+    them. `device` None means the card (RuntimeError without one)."""
+    return PendingBitdenseBatch(encs, resolve_device(device))
+
+
+def check_batch_bitdense(encs, device=None) -> list:
+    """Batched per-key check, the result schema of the reference's
+    batch: per key {"valid?", "engine": "bitdense", "dedupe": "dense",
+    "closure"} plus the failing op's fields when the key is invalid
+    (no `states`/`slots`, no counterexample paths). `closure` is "cuda"
+    on the card, "torch" on the CPU. The caller makes sure the padded
+    dims fit (`fits_bitdense(max S, max C)`); `engine.check_batch`
+    does."""
+    if not encs:
+        return []
+    return dispatch_batch_bitdense(encs, device=device).finalize()

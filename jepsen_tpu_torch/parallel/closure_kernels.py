@@ -15,6 +15,14 @@ one block or one block on device memory, as `closure_plan` says — or
 raises; on a CPU tensor it runs `closure_fixpoint_reference`, the plain
 PyTorch version, which the tests and `chip_smoke.py` hold the kernel
 against.
+
+`closure_fixpoint_batch(sel [K, C, S, S], B [K, S, W], C, run=[K])` is
+the same fixpoint for K keys of one padded shape at once — the per-key
+closure that the reference vmaps in its batched scan
+(`jepsen_tpu.parallel.bitdense._check_bitdense_batch`) — in one launch
+of the kernel, each key in `closure_plan`'s layout, a key whose run flag
+is False left as it is. Its plain version is
+`closure_fixpoint_batch_reference`.
 """
 
 from __future__ import annotations
@@ -26,13 +34,16 @@ import torch
 _I32 = torch.int32
 
 # Kernel launches since the last reset: incremented once per launch of
-# the CUDA kernel, never by the plain version.
+# the CUDA kernel, never by the plain version; `launches` counts the
+# single-key launches and `batch_launches` the batched ones.
 launches = 0
+batch_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, batch_launches
     launches = 0
+    batch_launches = 0
 
 
 def n_words(C: int) -> int:
@@ -56,6 +67,20 @@ def _check_args(sel, B, C: int) -> None:
         raise ValueError(f"closure: S={S} outside 1..128")
     if sel.device != B.device:
         raise ValueError(f"closure: sel on {sel.device}, B on {B.device}")
+
+
+def _check_batch_args(sel, B, C: int, run) -> None:
+    if B.dim() != 3 or sel.dim() != 4 or sel.shape[0] != B.shape[0] \
+            or B.shape[0] < 1:
+        raise ValueError(f"closure batch: sel must be [K, C, S, S] and B "
+                         f"[K, S, W], got {tuple(sel.shape)} and "
+                         f"{tuple(B.shape)}")
+    _check_args(sel[0], B[0], C)
+    if run is not None and (run.dtype != torch.bool
+                            or tuple(run.shape) != (B.shape[0],)
+                            or run.device != B.device):
+        raise ValueError(f"closure batch: run must be bool [{B.shape[0]}] "
+                         f"on B's device")
 
 
 # ------------------------------------------------------------ plain version
@@ -108,6 +133,16 @@ def closure_fixpoint_reference(sel, B, C: int):
     """The plain PyTorch closure: expand unpacked masks until nothing
     changes."""
     return closure_reference_expansions(sel, B, C)[0]
+
+
+def closure_fixpoint_batch_reference(sel, B, C: int, run=None):
+    """The plain batched closure: `closure_fixpoint_reference` key by
+    key; a key whose `run` flag is False is returned as it is."""
+    _check_batch_args(sel, B, C, run)
+    keep = [True] * B.shape[0] if run is None else run.tolist()
+    return torch.stack([closure_fixpoint_reference(sel[k], B[k], C)
+                        if keep[k] else B[k].clone()
+                        for k in range(B.shape[0])])
 
 
 # ----------------------------------------------------------------- kernel
@@ -206,7 +241,7 @@ def _kernel_lib():
         lib = kernels.load("closure")
         lib.jt_closure_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.jt_closure_launch.restype = ctypes.c_int
         for name, n_args in (("jt_closure_init", 0),
                              ("jt_closure_max_cluster", 0),
@@ -276,33 +311,41 @@ def kernel_layout(S: int, C: int, device=None) -> str:
     return device_plan(S, C, device)["layout"]
 
 
-def _launch(sel, B, out, C: int, run=None, plan=None) -> None:
-    """One launch of K1 on CUDA tensors, in `plan` (default: the card's
-    `device_plan`; chip_smoke.py also runs the other layouts a shape can
-    take). Raises on a launch the card refuses."""
-    global launches
+def _issue(sel, B, out, C: int, run, plan, keys: int) -> None:
+    """One launch of K1 over `keys` keys of CUDA tensors (sel [keys, C,
+    S, S] or [C, S, S], B and out [keys, S, W] or [S, W]), each key in
+    `plan` (default: the card's `device_plan`). Raises on a launch the
+    card refuses."""
     if not (sel.is_contiguous() and B.is_contiguous()
             and out.is_contiguous()):
         raise ValueError("closure kernel: tensors must be contiguous")
     if out.shape != B.shape or out.dtype != B.dtype \
             or out.device != B.device:
         raise ValueError("closure kernel: out must match B")
-    if run is not None and (run.dtype != torch.bool or run.numel() != 1
-                            or run.device != B.device):
-        raise ValueError("closure kernel: run must be one bool on B's device")
-    S = B.shape[0]
+    S = B.shape[-2]
     if plan is None:
         plan = device_plan(S, C, B.device)
     with torch.cuda.device(B.device):
         err = _kernel_lib().jt_closure_launch(
             sel.data_ptr(), B.data_ptr(), out.data_ptr(),
-            None if run is None else run.data_ptr(), S, C,
+            None if run is None else run.data_ptr(), keys, S, C,
             _LAYOUT_CODES[plan["layout"]], plan["cluster"],
             plan["block_words"].bit_length() - 1, plan["threads"],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"closure kernel launch failed ({plan['layout']} "
-                           f"layout): CUDA error {err}")
+                           f"layout, {keys} keys): CUDA error {err}")
+
+
+def _launch(sel, B, out, C: int, run=None, plan=None) -> None:
+    """One launch of K1 on CUDA tensors, in `plan` (default: the card's
+    `device_plan`; chip_smoke.py also runs the other layouts a shape can
+    take). Raises on a launch the card refuses."""
+    global launches
+    if run is not None and (run.dtype != torch.bool or run.numel() != 1
+                            or run.device != B.device):
+        raise ValueError("closure kernel: run must be one bool on B's device")
+    _issue(sel, B, out, C, run, plan, 1)
     launches += 1
 
 
@@ -328,4 +371,37 @@ def closure_fixpoint(sel, B, C: int, *, run=None, out=None):
     if out is None:
         out = torch.empty_like(B)
     _launch(sel, B, out, C, run)
+    return out
+
+
+def _launch_batch(sel, B, out, C: int, run=None, plan=None) -> None:
+    """One batched launch of K1 over the K keys of CUDA tensors sel [K, C,
+    S, S], B and out [K, S, W], each key in `plan` (default: the card's
+    `device_plan`; the tests and chip_smoke.py run every layout). Raises
+    on a launch the card refuses."""
+    global batch_launches
+    _issue(sel, B, out, C, run, plan, B.shape[0])
+    batch_launches += 1
+
+
+def closure_fixpoint_batch(sel, B, C: int, *, run=None, out=None):
+    """K1 over K keys of one padded shape: sel [K, C, S, S] and B [K, S,
+    W] int32 -> B' [K, S, W], each key's closure fixpoint (contract in
+    the module docstring). `run`, bool [K] on B's device, leaves a key
+    whose flag is False as it is, without the host reading it; `out`
+    receives B' (it may be B itself). A CPU tensor runs the plain
+    version; a CUDA tensor makes one launch of the kernel, on the current
+    stream, in the layout `device_plan(S, C)` gives, or raises."""
+    _check_batch_args(sel, B, C, run)
+    if B.device.type == "cpu":
+        res = closure_fixpoint_batch_reference(sel, B, C, run)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    if B.device.type != "cuda":
+        raise RuntimeError(f"closure: no kernel for device {B.device}")
+    if out is None:
+        out = torch.empty_like(B)
+    _launch_batch(sel, B, out, C, run)
     return out

@@ -22,7 +22,8 @@ more (pathological crash pile-ups) fall back to the host engines
 (SURVEY.md §7.3 hard part #1/#4).
 
 A copy of `jepsen_tpu.parallel.encode` without the JAX batch placement
-(`place_batch`/`pad_batch`), plus `encoded_from_arrays`, which rebuilds
+(`place_batch`; `pad_batch` returns numpy tables, which the batched scan
+moves to its device once), plus `encoded_from_arrays`, which rebuilds
 an `EncodedHistory` from plain arrays so that both engines can be fed
 the identical encoded input.
 """
@@ -281,6 +282,42 @@ def encode(model, history, pad_slots: Optional[int] = None,
     composition of prepare_encode and finish_encode."""
     return finish_encode(prepare_encode(model, history, use_bulk=use_bulk),
                          pad_slots)
+
+
+def pad_batch(encs: list, min_slots: int = 1, min_states: int = 0,
+              min_returns: int = 0):
+    """Pad per-key encoded histories to one (K, R, C) batch: the
+    reference's `pad_batch` without the mesh placement. `min_slots`,
+    `min_states` and `min_returns` floor C, S and R (the dense batch
+    passes min_slots=5: one full 32-mask word). Pad slots are empty (f,
+    a0, a1 = -1, unoccupied, not wild) and pad events return on slot -1.
+    Returns (xs, state0, S, C, R): xs maps each table name to a numpy
+    array ([K, R, C], `ev_slot` [K, R]), state0 is int32 [K]."""
+    S = max(min_states, max(e.n_states for e in encs))
+    C = max(min_slots, max(e.slot_f.shape[1] for e in encs))
+    R = max(min_returns, max(e.n_returns for e in encs))
+    K = len(encs)
+
+    def pad(attr, fill, dtype):
+        out = np.full((K, R, C), fill, dtype)
+        for k, e in enumerate(encs):
+            a = getattr(e, attr)
+            out[k, : a.shape[0], : a.shape[1]] = a
+        return out
+
+    xs = {
+        "slot_f": pad("slot_f", -1, np.int32),
+        "slot_a0": pad("slot_a0", -1, np.int32),
+        "slot_a1": pad("slot_a1", -1, np.int32),
+        "slot_wild": pad("slot_wild", False, bool),
+        "slot_occ": pad("slot_occ", False, bool),
+    }
+    ev = np.full((K, R), -1, np.int32)
+    for k, e in enumerate(encs):
+        ev[k, : e.n_returns] = e.ev_slot
+    xs["ev_slot"] = ev
+    state0 = np.array([e.state0 for e in encs], np.int32)
+    return xs, state0, S, C, R
 
 
 ARRAY_FIELDS = ("slot_f", "slot_a0", "slot_a1", "slot_wild", "slot_occ",

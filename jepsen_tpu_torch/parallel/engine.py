@@ -18,12 +18,21 @@ Routes, as in the reference:
   * any other history runs on the sparse engine.
 
 A device fault is not caught here: it surfaces to the caller.
+
+The per-key batch (`check_batch`, `check_batch_encoded`; the reference's
+jepsen.independent batch) buckets the keys by slot window and checks
+each bucket whose padded dims fit the dense engine in one batched scan
+(`bitdense.check_batch_bitdense`). Results keep the input order. The
+sparse batch, its capacity escalation, the pipelined and work-stealing
+executors are not ported yet: they raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time as _time
+from typing import Optional
 
 from jepsen_tpu_torch import models as model_ns
 from jepsen_tpu_torch.checker import wgl
@@ -283,3 +292,115 @@ def _prefix_calls(cs, fail_idx):
     """Calls restricted to the failing prefix: everything invoked up to
     fail_idx, with completions after it treated as still-open (crashed)."""
     return _window_calls(cs, -1, fail_idx, frozenset())
+
+
+# ----------------------------------------------------- batched (per-key)
+
+def encode_batch(model, histories, pad_slots: Optional[int] = None,
+                 encs: Optional[list] = None):
+    """Encode many per-key histories to one padded batch (the reference's
+    per-key data parallelism, jepsen.independent). -> (encs, xs, state0)
+    with xs and state0 as `encode.pad_batch` gives them (numpy)."""
+    if encs is None:
+        encs = [enc_mod.encode(model, h, pad_slots=pad_slots)
+                for h in histories]
+    elif pad_slots is not None:
+        # a pre-encoded key's slot tables are final: padding them here
+        # would hand back a batch narrower than asked for
+        if any(e.slot_f.shape[1] != pad_slots for e in encs):
+            raise ValueError(
+                "encode_batch: pad_slots conflicts with pre-encoded "
+                "encs whose slot tables are at a different width (their "
+                "tables are already final) — re-encode with pad_slots")
+    xs, state0, _, _, _ = enc_mod.pad_batch(encs)
+    return encs, xs, state0
+
+
+def _resolve_bucket(bucket: Optional[str]) -> str:
+    """"tier" (default) or "exact"; None reads JEPSEN_TPU_TORCH_BUCKET.
+    A value outside those raises, on an empty batch too."""
+    if bucket is None:
+        raw = os.environ.get("JEPSEN_TPU_TORCH_BUCKET")
+        if raw is None:
+            return "tier"
+        if raw not in ("tier", "exact"):
+            raise ValueError(f"JEPSEN_TPU_TORCH_BUCKET={raw!r}: unknown "
+                             f"bucket strategy (expected one of "
+                             f"('tier', 'exact'))")
+        return raw
+    if bucket not in ("tier", "exact"):
+        raise ValueError(f"unknown bucket strategy {bucket!r}")
+    return bucket
+
+
+def bucket_key(n_slots: int, bucket: str) -> int:
+    """The bucket a key with `n_slots` open-call slots lands in: "exact"
+    one bucket per slot count (floored at the dense engine's C = 5),
+    "tier" power-of-two slot-window tiers (at least 4), so that one wide
+    key does not pad every narrow key to its mask space."""
+    if bucket == "exact":
+        return max(5, n_slots)
+    return 1 << max(2, (max(1, n_slots) - 1).bit_length())
+
+
+def check_batch(model, histories, device=None,
+                bucket: Optional[str] = None,
+                pipeline: Optional[bool] = None, cache=None,
+                pipeline_stats: Optional[dict] = None,
+                steal: Optional[bool] = None) -> list:
+    """Check many per-key histories, one batched device scan per
+    slot-window bucket (`check_batch_encoded`), results in input order.
+    `device` None means the card (RuntimeError without one); the tests
+    pass "cpu". The reference's `capacity`, `max_capacity` and `dedupe`
+    steer its sparse buckets only and come with the sparse batch
+    (ROADMAP Queue 1 item 7).
+
+    The pipelined executor (`pipeline`, `cache`, `pipeline_stats`) and
+    the work-stealing one (`steal`) are not ported: asking for them
+    raises NotImplementedError."""
+    bucket = _resolve_bucket(bucket)   # fail fast: before the encode
+    if pipeline or (cache is not None and cache is not False) \
+            or pipeline_stats is not None:
+        raise NotImplementedError(
+            "check_batch: the pipelined executor (pipeline, cache, "
+            "pipeline_stats) is not ported yet (ROADMAP Queue 1 item 8)")
+    if steal:
+        raise NotImplementedError(
+            "check_batch: work stealing (steal) is not ported yet "
+            "(ROADMAP Queue 1 item 9b)")
+    pre = [enc_mod.encode(model, h) for h in histories]
+    return check_batch_encoded(model, pre, device=device, bucket=bucket)
+
+
+def check_batch_encoded(model, pre, device=None,
+                        bucket: Optional[str] = None) -> list:
+    """check_batch on already-encoded keys: bucket them by slot window
+    (`bucket_key`), check each bucket whose padded dims fit the dense
+    engine (`bitdense.fits_bitdense(S_max, C_max)`) in one batched scan,
+    and return the results in `pre`'s order. A bucket past the dense
+    engine raises NotImplementedError: the sparse batch (ROADMAP Queue 1
+    item 7) is not ported, and the single-key sparse check runs at other
+    capacities than the batch's, so its `capacity` would differ from the
+    reference's."""
+    bucket = _resolve_bucket(bucket)
+    if not pre:
+        return []
+    dev = bitdense.resolve_device(device)
+    out: list = [None] * len(pre)
+    buckets: dict = {}
+    for i, e in enumerate(pre):
+        buckets.setdefault(bucket_key(e.n_slots, bucket), []).append(i)
+    for tier in sorted(buckets):
+        idxs = buckets[tier]
+        sub = [pre[i] for i in idxs]
+        S_max = max(bitdense.n_states(e) for e in sub)
+        C_max = max(e.n_slots for e in sub)
+        if not bitdense.fits_bitdense(S_max, C_max):
+            raise NotImplementedError(
+                f"check_batch: a bucket of {len(sub)} keys at S={S_max}, "
+                f"C={C_max} is past the dense engine; the sparse batch "
+                f"is not ported yet (ROADMAP Queue 1 item 7)")
+        for i, r in zip(idxs, bitdense.check_batch_bitdense(sub,
+                                                            device=dev)):
+            out[i] = r
+    return out

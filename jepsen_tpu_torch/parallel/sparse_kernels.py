@@ -28,7 +28,7 @@ bytes a row), the table (T = next_pow2(2N) slots of 12 bytes of row, 4
 of claim and 1 of occupancy) and two bytes per candidate (N*C of them)
 in one block; K4 keeps a claim word per tile slot, one chunk of
 gathered candidates and the bin's counters (`k4_smem_bytes`, whatever
-the number of candidates), and its plan (`tiled_plan`) sizes the tile
+the number of candidates or tiles), and its plan (`tiled_plan`) sizes the tile
 and the chunk by a fixed split of the budget, which fixes each row's
 probe sequence and so the results. The budget is the
 card's opt-in on a card (232,448 bytes on the H100) and that Hopper
@@ -89,20 +89,29 @@ def k2_smem_bytes(N: int, C: int) -> int:
     return 12 * N + 17 * T + 2 * N * C + K2_FIXED_BYTES
 
 
-# K4's bin: threads a block, candidates a thread at most, and the (tile,
-# group of 32) counters a block keeps at most (tiled_insert.cu)
+# K4's bin: threads a block, candidates a thread at most, the (bin, group
+# of 32) counters a block keeps at most while R can shrink, and the bins
+# at most (past 2^12 tiles a bin is a group of tiles) (tiled_insert.cu)
 K4_BIN_THREADS = 256
 K4_BIN_MAX_K = 8
 K4_BIN_GROUPS = 8192
+K4_BIN_MAX_BITS = 12
+
+
+def k4_bins(tile_bits: int) -> int:
+    """The bins of K4's bin with 2^tile_bits tiles: a bin a tile up to
+    4,096 tiles (every capacity up to 2^24), else 4,096 bins of
+    2^(tile_bits - 12) consecutive tiles."""
+    return 1 << min(tile_bits, K4_BIN_MAX_BITS)
 
 
 def k4_bin_shape(tile_bits: int, chunk: int):
     """(candidates per bin block R, bin blocks a chunk spans at most) of
     K4 with 2^tile_bits tiles and chunk CH (tiled_insert.cu make_plan):
     R is 256 * kb with kb <= 8 a power of two, shrunk while the block's
-    counters (R/32 per tile) pass 8,192 and until R divides the chunk
+    counters (R/32 per bin) pass 8,192 and until R divides the chunk
     (for a chunk of at least 256)."""
-    n_tt = 1 << tile_bits
+    n_tt = k4_bins(tile_bits)
     kb = max(1, min(K4_BIN_MAX_K, K4_BIN_GROUPS // (8 * n_tt)))
     kb = _pow2_floor(kb)
     if kb * K4_BIN_THREADS > chunk:
@@ -116,11 +125,13 @@ def k4_smem_bytes(tile: int, chunk: int, tiles: int) -> int:
     chunk of `chunk` candidates, the larger of its two launches (M does
     not enter): the insert's claim words (4 a tile slot), a chunk's
     candidates (10 bytes each) and the places of a chunk's bin segments
-    (8 a bin block it spans, and 8); or the bin's counters (4 a tile and
-    group of 32 candidates) and 40 words of scan."""
-    R, span = k4_bin_shape(tiles.bit_length() - 1, chunk)
+    (8 a bin block it spans, and 8); or the bin's counters (4 a bin and
+    group of 32 candidates, at most 32,768 of them whatever the number
+    of tiles) and 40 words of scan."""
+    bits = tiles.bit_length() - 1
+    R, span = k4_bin_shape(bits, chunk)
     return max(4 * tile + 10 * chunk + 8 * (span + 1),
-               4 * tiles * (R // 32) + 160)
+               4 * k4_bins(bits) * (R // 32) + 160)
 
 
 def k3_smem_bytes(Nd: int) -> int:

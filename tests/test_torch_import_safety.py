@@ -36,6 +36,8 @@ bad = sorted(m for m in sys.modules
 print("MODULES", len(names))
 print("SPARSE", sorted(n for n in names if "sparse" in n))
 print("SHARDED", sorted(n for n in names if n.endswith(("sharded", "meshplan"))))
+print("BATCH", sorted(n for n in names if n.endswith(("independent", "encode",
+                                                      "closure_kernels"))))
 print("BAD", bad)
 """
 
@@ -52,12 +54,16 @@ def test_port_and_smoke_import_without_jax():
                           env=env)
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
-    assert int(lines["MODULES"]) >= 18, proc.stdout
+    assert int(lines["MODULES"]) >= 19, proc.stdout
     assert lines["SPARSE"] == str(["jepsen_tpu_torch.parallel.sparse",
                                    "jepsen_tpu_torch.parallel."
                                    "sparse_kernels"]), proc.stdout
     assert lines["SHARDED"] == str(["jepsen_tpu_torch.parallel.meshplan",
                                     "jepsen_tpu_torch.parallel.sharded"]), \
+        proc.stdout
+    assert lines["BATCH"] == str(["jepsen_tpu_torch.independent",
+                                  "jepsen_tpu_torch.parallel.closure_kernels",
+                                  "jepsen_tpu_torch.parallel.encode"]), \
         proc.stdout
     assert lines["BAD"] == "[]", proc.stdout
 

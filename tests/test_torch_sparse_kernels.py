@@ -519,19 +519,26 @@ def test_plain_k4_matches_interpret_pallas_on_the_new_cases(name):
 
 def test_k4_bin_shape():
     """A bin block takes R = 256 * kb candidates (kb <= 8, a power of
-    two), keeps at most 8,192 (tile, group) counters while it can, and
-    divides the chunk, so a chunk spans CH / R bin blocks; K4's shared
-    memory does not grow with the number of candidates M."""
+    two), keeps at most 8,192 (bin, group) counters while it can, and
+    divides the chunk, so a chunk spans CH / R bin blocks; a bin is a
+    tile up to 4,096 tiles (every capacity up to 2^24) and a group of
+    tiles past that, so K4's shared memory does not grow with the number
+    of candidates M, and stops growing with the tile count there."""
     assert sk.k4_bin_shape(3, 8192) == (2048, 4)
     assert sk.k4_bin_shape(3, 512) == (512, 1)
     assert sk.k4_bin_shape(0, 128) == (256, 1)
     assert sk.k4_bin_shape(8, 8192) == (1024, 8)
     assert sk.k4_bin_shape(12, 8192) == (256, 32)
+    # 8,192 tiles and more: 4,096 bins of 2^(bits - 12) tiles
+    assert sk.k4_bin_shape(13, 8192) == (256, 32)
+    assert [sk.k4_bins(b) for b in (0, 3, 9, 10, 12, 13, 17)] == \
+        [1, 8, 512, 1024, 4096, 4096, 4096]
     for bits, CH in ((3, 8192), (3, 512), (7, 8192), (1, 1024), (8, 16384),
-                     (12, 512)):
+                     (12, 512), (13, 8192), (17, 8192)):
         R, span = sk.k4_bin_shape(bits, CH)
         assert CH % R == 0 and span == CH // R
-        assert (1 << bits) * R // 32 <= max(8192, 8 << bits)
+        assert sk.k4_bins(bits) * R // 32 <= max(8192,
+                                                 8 * sk.k4_bins(bits))
     # the fifo-1000 tier's insert fits the H100 with room to spare, and
     # so does the default top tier (N = 2^20: T = 2^21, 256 tiles) at any
     # M: the shared memory has no term in M
@@ -541,6 +548,73 @@ def test_k4_bin_shape():
         4 * 8192 + 10 * 8192 + 8 * 9 <= sk.HOPPER_SMEM_OPTIN
     for N, C in ((1 << 20, 15), (1 << 20, 64), (1 << 19, 58)):
         assert sk.tiled_plan(N, C) == {"tile": 8192, "chunk": 8192}
+
+
+def test_tiled_plan_at_every_capacity():
+    """K4 has a plan within the H100's opt-in at every frontier capacity
+    N (a power of two) with N * C < 2^31, the int32 candidate index's
+    range, from N = 256 (T = 512, one tile of the least size; below it
+    K2's gate takes every C). Up to N = 2^24 the plan is what it was
+    before the bin grouped tiles: it decides where rows probe, so every
+    result stays as it was."""
+    before = {256: (512, 16384), 512: (1024, 16384), 1024: (2048, 16384),
+              2048: (4096, 8192)}
+    assert sk.supported(128, sk.MAX_C)
+    for C in (2, 8, 12, 24):
+        N = 256
+        while N * C < 1 << 31:
+            p = sk.tiled_plan(N, C)
+            T = 1 << (2 * N - 1).bit_length()
+            assert p is not None, (N, C)
+            assert sk.k4_smem_bytes(p["tile"], p["chunk"], T // p["tile"]) \
+                <= sk.HOPPER_SMEM_OPTIN, (N, C)
+            if N <= 1 << 24:
+                assert (p["tile"], p["chunk"]) == \
+                    before.get(N, (8192, 8192)), (N, C)
+            N *= 2
+
+
+def test_route_is_tiled_past_capacity_2_24():
+    """Past N = 2^24 (8,192 tiles and more) the hash route still has a
+    plan: the bin groups tiles, so its counters stay in shared memory."""
+    cpu = torch.device("cpu")
+    big = {"tile": 8192, "chunk": 8192}
+    assert sparse._route(1 << 24, 2, "hash", cpu) == ("tiled", big)
+    assert sparse._route(1 << 25, 2, "hash", cpu) == ("tiled", big)
+    assert sparse._route(1 << 26, 24, "hash", cpu) == ("tiled", big)
+    assert sparse._route(1 << 29, 2, "hash", cpu) == ("tiled", big)
+
+
+def tiled_group_bin_reference(c_rows, c_live, T: int, plan: dict,
+                              bin_bits: int) -> list:
+    """K4's bin past 2^12 tiles as plain ops, with `bin_bits` in place
+    of 12: the live candidates sorted stably by bin (tile >> gshift), then
+    each tile's candidates taken from its bin's list in list order.
+    -> one int64 index list per tile."""
+    M = c_live.shape[0]
+    n_tt, _, tt_bits, _ = sk._tiling(T, M, plan)
+    gshift = max(0, tt_bits - bin_bits)
+    h = sparse.table_hash_u32(*(sparse._u32(r) for r in c_rows))
+    tile = h & (n_tt - 1)
+    live = torch.nonzero(c_live).flatten()
+    order = live[torch.sort(tile[live] >> gshift, stable=True).indices]
+    return [order[tile[order] == t] for t in range(n_tt)]
+
+
+@pytest.mark.parametrize("name", K4_CASES)
+def test_grouped_bin_gives_each_tile_its_candidates_in_order(name):
+    """A bin of a group of tiles, filtered by tile, is the tile's list of
+    the bin by tile: every live candidate of the tile, in index order.
+    So K4 past 4,096 tiles walks what it walks below."""
+    _, c_rows, c_live, table, _, plan = _k4_cases()[name]
+    T = table[1].shape[0]
+    order, counts, offsets = tiled_bin_reference(c_rows, c_live, T, plan)
+    n_tt = counts.shape[0]
+    for bin_bits in range(max(1, n_tt.bit_length() - 1)):
+        got = tiled_group_bin_reference(c_rows, c_live, T, plan, bin_bits)
+        for t in range(n_tt):
+            o, n = int(offsets[t]), int(counts[t])
+            assert torch.equal(got[t], order[o:o + n]), (bin_bits, t)
 
 
 def test_k2_cases_reach_their_shapes():
@@ -621,3 +695,21 @@ def test_plain_k2_matches_interpret_pallas_on_the_new_cases(name):
     rows2, meta = sk.frontier_closure(step_name, ev, rows, live, run, pl)
     _assert_closure_equal((step_name, ev, rows, live, run, (rows2, meta)),
                           pl)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_matches_plain_on_8192_tiles():
+    """K4 at frontier capacity 2^25's table (8,192 tiles of 8,192; a bin
+    is a group of 2 tiles) equals its plain version, bit for bit."""
+    dev = _cuda()
+    _, c_rows, c_live, table, pl, plan = parity_cases.k4_wide_case(8192)
+    rows, live, dtable = _dev_tiled(dev, c_rows, c_live, table)
+    want = sk.tiled_insert_reference(rows, live, dtable, pl, plan)
+    before = sk.launches["tiled_insert"]
+    got = sk.tiled_insert(rows, live, dtable, pl, plan)
+    torch.cuda.synchronize()
+    assert sk.launches["tiled_insert"] == before + 1
+    _assert_k4_equal(got, tuple(
+        x.cpu() if torch.is_tensor(x) else
+        (tuple(r.cpu() for r in x[0]), x[1].cpu()) for x in want))
+    assert int(want[1].sum()) > 100

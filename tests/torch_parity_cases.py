@@ -191,3 +191,35 @@ def k4_cases() -> list:
     out.append(("40 live of 50,000 on a half-full table", c_rows, live,
                 table, 32, big))
     return out
+
+
+def k4_wide_case(tiles: int = 8192):
+    """(name, c_rows, c_live, table, probe_limit, plan): K4 on a table of
+    `tiles` tiles of 8,192 slots (T = tiles * 8,192; 8,192 tiles is the
+    frontier capacity 2^25), where a bin is a group of tiles. 24,576
+    candidates over 3 chunks: ~3,000 live from a pool of 2,000 rows
+    (equal rows within and across chunks), 100 more in tile 3 (the
+    block-wide insert, from its group's list) and 20 in tile 4 (the
+    one-warp insert, its candidates put in index order). Built on the
+    CPU; the table alone is 13 * T bytes."""
+    rng = np.random.default_rng(20261019)
+    M = 24576
+    c_rows = tuple(r.clone() for r in _rand_rows(rng, M, 2000))
+    live = torch.from_numpy(rng.random(M) < 0.12)
+    pool = _rand_rows(rng, 1 << 22, 1 << 22)
+    home = _tiles(pool, tiles)
+    at = rng.permutation(M)
+    k = 0
+    for tile, n in ((3, 100), (4, 20)):
+        rows = torch.nonzero(home == tile).flatten()[:n]
+        if rows.numel() < n:
+            raise ValueError(f"k4_wide_case: only {rows.numel()} rows in "
+                             f"tile {tile}")
+        for i in rows.tolist():
+            for r, p in zip(c_rows, pool):
+                r[at[k]] = p[i]
+            live[at[k]] = True
+            k += 1
+    return (f"{tiles} tiles of 8,192", c_rows, live,
+            sp._empty_table(tiles * 8192, sp._rep((), 1)), 32,
+            {"tile": 8192, "chunk": 8192})
