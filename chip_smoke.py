@@ -79,7 +79,32 @@ down both of its engines:
        closure loop cut to 0 and 1 passes: kernel_ab.py's breakdown),
        K4's bin and insert also apart, each launch on its own copy of
        the recorded table.
-  5. K3 (the sharded engine's visited-set transaction, kernels/
+  5. the sparse per-key batch (Jepsen's per-key queue workload), whose
+     closure is K2 batched over keys (one launch an event row for every
+     key of a tier within K2's gate) and the tiled closure around K4
+     batched over keys (one bin and insert pair a closure iteration for
+     every key past it):
+     * main path: 24 keys of the bench's multi-key layout on the
+       unordered-queue model (120 ops, 14 processes, seeds 2024 + k; cut
+       from 84) and corrupted twins of four, through `engine.check_batch`
+       at the reference's defaults (capacity 512, ceiling 2^18), three
+       times (cold, then warm), beside the same keys one by one through
+       `sparse.check_encoded(capacity=512)`; again with max_capacity
+       4,096, where keys escalate to the single-key engine ("escalated":
+       "single") or end "unknown"; four cheap keys with dedupe="sort";
+       and the 28 keys as one keyed history through
+       `independent.checker(linearizable(UnorderedQueue()))`. Every
+       result equals the reference's (REF_SPARSE_BATCH, recorded on the
+       CPU); each tier within K2's gate launches batched K2 once an event
+       row, and the main run launches both batched kernels and no
+       single-key one; each tier's launches print;
+     * parity of batched K2 against its plain version, bit for bit, on
+       the first tier's first row, a middle one, the first where a key is
+       past its last event and the last; of batched K4 on one iteration
+       of the tier at capacity 16,384 (12 keys);
+     * timing per launch of both, beside their plain versions and
+       bounds;
+  6. K3 (the sharded engine's visited-set transaction, kernels/
      hash_insert.cu), on a one-rank NCCL mesh (`meshplan.local_mesh()`):
      * main path, small shapes: 60-op register histories and their
        corrupted twins, a wide frontier that climbs capacity tiers, and
@@ -89,7 +114,7 @@ down both of its engines:
      * main path, full width: the bench's sharded shape,
        `adversarial_register_history(10000, 12)` through
        `sharded.analysis` at capacity 2^17 (K3's table in device
-       memory, its insert a cooperative grid), cold and warm, and its
+       memory, its insert a cooperative grid), once, and its
        impossible-read twin through `check_encoded_sharded`, each with
        the dense engine's verdict, op and fail-event on the card;
      * parity against its plain version, bit for bit, on inputs recorded
@@ -1260,6 +1285,389 @@ def phase_sparse_timing(dev, rec) -> list:
     return out
 
 
+# ------------------------------------------------- the sparse per-key batch
+
+# Jepsen's per-key queue workload on the bench's multi-key layout
+# (bench.py:80-85: 120 ops, 14 processes, seeds 2024 + k) on the
+# unordered-queue model, cut from 84 keys to 24 (the reference's batch
+# took 1,877 s on a CPU for these 28, and ~14 minutes for 12 of the 84;
+# PERF.md §4), plus corrupted twins of four of them. Every key packs past
+# the dense engine.
+SPARSE_BATCH_KEYS = 24
+SPARSE_TWINS = (0, 6, 12, 18)
+SPARSE_SORT_KEYS = (0, 2, 10, 24)   # cheap keys, and key 0's twin
+SPARSE_ESC_CEILING = 4096
+SPARSE_K4_TIER = 16384   # the capacity whose batched K4 calls are timed
+# The reference's results (jepsen_tpu.parallel.engine.check_batch_encoded
+# on the CPU, dedupe "hash" unless named) on _sparse_batch_keys(): the
+# digest of every field but `closure` (_batch_digest), each key's
+# capacity, and the invalid keys' failing op and event.
+REF_SPARSE_BATCH = {
+    "uqueue-24+4": {
+        "keys": 28, "digest": "f445e21ce09b0403",
+        "capacity": [1024, 8192, 1024, 16384, 32768, 16384, 16384,
+                     2048, 32768, 32768, 1024, 16384, 512, 32768,
+                     1024, 8192, 1024, 32768, 16384, 1024, 4096,
+                     4096, 16384, 4096, 1024, 16384, 512, 2048],
+        "invalid": {
+            24: {"fail-event": 117, "op": {"process": 8, "f": "dequeue",
+                 "value": 1001, "index": 223}},
+            25: {"fail-event": 103, "op": {"process": 13, "f": "dequeue",
+                 "value": 1002, "index": 190}},
+            26: {"fail-event": 74, "op": {"process": 6, "f": "dequeue",
+                 "value": 1001, "index": 150}},
+            27: {"fail-event": 32, "op": {"process": 12, "f": "dequeue",
+                 "value": 1002, "index": 66}}}},
+    "uqueue-24+4 max4096": {
+        "keys": 28, "digest": "b6c75c76d66fabc6",
+        "capacity": [1024, 8192, 1024, 16384, 16384, 16384, 16384,
+                     2048, 16384, 16384, 1024, 16384, 512, 16384,
+                     1024, 8192, 1024, 16384, 16384, 1024, 4096,
+                     4096, 16384, 4096, 1024, 16384, 512, 2048],
+        "invalid": {
+            24: {"fail-event": 117, "op": {"process": 8, "f": "dequeue",
+                 "value": 1001, "index": 223}},
+            25: {"fail-event": 103, "op": {"process": 13, "f": "dequeue",
+                 "value": 1002, "index": 190}},
+            26: {"fail-event": 74, "op": {"process": 6, "f": "dequeue",
+                 "value": 1001, "index": 150}},
+            27: {"fail-event": 32, "op": {"process": 12, "f": "dequeue",
+                 "value": 1002, "index": 66}}}},
+    "uqueue sort": {
+        "keys": 4, "digest": "96459eb7c9457e98",
+        "capacity": [1024, 1024, 1024, 1024],
+        "invalid": {
+            3: {"fail-event": 117, "op": {"process": 8, "f": "dequeue",
+                 "value": 1001, "index": 223}}}},
+}
+
+
+def _sparse_batch_keys():
+    from jepsen_tpu_torch import histories
+    keys = [histories.rand_queue_history(120, n_processes=14, crash_p=0.005,
+                                         seed=2024 + k)
+            for k in range(SPARSE_BATCH_KEYS)]
+    return keys + [histories.corrupt_history(keys[k], seed=k)
+                   for k in SPARSE_TWINS]
+
+
+def _sparse_batch_digest(rs: list) -> dict:
+    return dict(_batch_digest(rs), capacity=[r["capacity"] for r in rs])
+
+
+class _Tiers:
+    """Each `sparse._BatchScan` of a run: (K, N, C, R, route) and the
+    batched K2 and K4 launches it made, read around its `run`."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __enter__(self):
+        from jepsen_tpu_torch.parallel import sparse, sparse_kernels as sk
+        real = self.real = sparse._BatchScan.run
+        seen = self.seen
+
+        def run(sc):
+            n2 = sk.launches["frontier_closure_batch"]
+            n4 = sk.launches["tiled_insert_batch"]
+            out = real(sc)
+            seen.append({"K": sc.K, "N": sc.N, "C": sc.C, "R": sc.R,
+                         "route": sc.closure,
+                         "K2": sk.launches["frontier_closure_batch"] - n2,
+                         "K4": sk.launches["tiled_insert_batch"] - n4})
+            return out
+
+        sparse._BatchScan.run = run
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.parallel import sparse
+        sparse._BatchScan.run = self.real
+
+
+def _sparse_batch_check(model, hs, dev, **kw):
+    """engine.check_batch on the card, every launch count zeroed just
+    before and read just after -> (results, wall s, counts, tiers)."""
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    from jepsen_tpu_torch.parallel import engine, sparse_kernels as sk
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    sk.reset_launches()
+    with _Tiers() as tiers:
+        t0 = time.perf_counter()
+        rs = engine.check_batch(model, hs, device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return rs, secs, dict(sk.launches, K1=ck.launches,
+                          K1_batch=ck.batch_launches), tiers.seen
+
+
+def phase_sparse_batch_main(dev) -> dict:
+    """The sparse per-key batch (Jepsen's per-key queue workload) through
+    `engine.check_batch` and `independent.checker(linearizable(
+    UnorderedQueue()))`: the 28 keys at the defaults (capacity 512,
+    max_capacity 2^18, dedupe "hash": the cheap keys decide inside K2's
+    gate, the hot ones climb into batched K4) cold and warm, the same
+    keys one by one through `sparse.check_encoded(capacity=512)`, the
+    keys again with max_capacity 4,096 (the single-key escalation and
+    its "unknown"), and four cheap keys with dedupe "sort". Every result
+    equals the reference's (REF_SPARSE_BATCH); each fused tier launches
+    batched K2 once an event row, exactly; batched K2 and K4 both run;
+    the main run launches no single-key sparse kernel."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import UnorderedQueue
+    from jepsen_tpu_torch.parallel import encode as enc
+    from jepsen_tpu_torch.parallel import sparse
+    hs = _sparse_batch_keys()
+    model = UnorderedQueue()
+    out = {}
+
+    def held(name, rs, tiers, n):
+        got = _sparse_batch_digest(rs)
+        _require(got == REF_SPARSE_BATCH[name],
+                 f"{name}: results differ from the reference's: {got}")
+        for t in tiers:
+            if t["route"] == "fused":
+                _require(t["K2"] == t["R"] and t["K4"] == 0,
+                         f"{name}: fused tier {t}: batched K2 once an "
+                         f"event row")
+            elif t["route"] == "tiled":
+                _require(t["K4"] > 0 and t["K2"] == 0,
+                         f"{name}: tiled tier {t}")
+        print(f"main: sparse batch {name}: {len(rs)} keys, "
+              f"{len(got['invalid'])} invalid, == REF_SPARSE_BATCH; "
+              f"capacities {got['capacity']}; launches {n}")
+        for t in tiers:
+            print(f"main: sparse batch {name}: tier {t}")
+
+    walls = []
+    for _ in range(3):
+        rs, secs, n, tiers = _sparse_batch_check(model, hs, dev)
+        walls.append(secs)
+    held("uqueue-24+4", rs, tiers, n)
+    _require(n["frontier_closure_batch"] > 0 and n["tiled_insert_batch"] > 0,
+             f"uqueue-24+4: batched K2 and K4 must both run: {n}")
+    _require(n["frontier_closure"] == n["tiled_insert"] == 0,
+             f"uqueue-24+4: a single-key sparse kernel ran: {n}")
+    _require({r["closure"] for r in rs} <= {"cuda", "cuda-tiled"}
+             and "cuda-tiled" in {r["closure"] for r in rs},
+             "uqueue-24+4: closure tags")
+    out["main"] = {"cold_s": walls[0], "warm_s": sorted(walls[1:])[0],
+                   "warm_runs": walls[1:], "launches": n, "tiers": tiers}
+    print(f"main: sparse batch uqueue-24+4: wall cold {walls[0]:.3f} s, "
+          f"warm {walls[1:]}")
+    # the same keys one by one, as a caller without the batch would
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    singles = [sparse.check_encoded(enc.encode(model, h), capacity=512,
+                                    device=dev) for h in hs]
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    for i, (r, s) in enumerate(zip(rs, singles)):
+        _require({k: s.get(k) for k in ("valid?", "op", "fail-event")}
+                 == {k: r.get(k) for k in ("valid?", "op", "fail-event")},
+                 f"key {i}: the single-key check disagrees: {s} {r}")
+    out["one_by_one_s"] = one
+    print(f"main: the same {len(hs)} keys one by one "
+          f"(sparse.check_encoded, capacity 512): {one:.3f} s, verdicts "
+          f"agree")
+    # the escalation: max_capacity 4,096
+    rs2, secs, n2, tiers2 = _sparse_batch_check(
+        model, hs, dev, max_capacity=SPARSE_ESC_CEILING)
+    held("uqueue-24+4 max4096", rs2, tiers2, n2)
+    esc = sum(1 for r in rs2 if r.get("escalated") == "single")
+    unknown = sum(1 for r in rs2 if r["valid?"] == "unknown")
+    _require(esc > 0 and n2["frontier_closure"] + n2["tiled_insert"] > 0,
+             "max4096: no key escalated to the single-key engine")
+    out["max4096"] = {"wall_s": secs, "escalated": esc, "unknown": unknown,
+                      "launches": n2}
+    print(f"main: sparse batch max_capacity {SPARSE_ESC_CEILING}: "
+          f"{esc} keys escalated (single), {unknown} unknown, wall "
+          f"{secs:.3f} s")
+    # dedupe "sort" on four cheap keys
+    rs3, secs, n3, tiers3 = _sparse_batch_check(
+        model, [hs[i] for i in SPARSE_SORT_KEYS], dev, dedupe="sort")
+    held("uqueue sort", rs3, tiers3, n3)
+    _require(all(r["closure"] == "torch" and r["dedupe"] == "sort"
+                 for r in rs3) and n3["frontier_closure_batch"] == 0,
+             "sort: closure tags or a kernel launched")
+    out["sort_s"] = secs
+    # the same 28 keys through the port's jepsen.independent
+    ops = []
+    for k, h in enumerate(hs):
+        for o in h:
+            o = dict(o)
+            o["value"] = independent.KV(k, o.get("value"))
+            ops.append(o)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = independent.checker(linearizable(model, device=dev)).check(
+        {}, History.wrap(ops).index())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = [{k: v for k, v in r["results"][k].items() if k != "analyzer"}
+           for k in range(len(hs))]
+    _require(_sparse_batch_digest(got) == REF_SPARSE_BATCH["uqueue-24+4"],
+             "independent: results differ from the reference's")
+    _require(r["failures"] == sorted(REF_SPARSE_BATCH["uqueue-24+4"]
+                                     ["invalid"])
+             and "device-fallback" not in r, f"independent: {r['failures']}")
+    out["independent_s"] = secs
+    print(f"main: independent.checker(linearizable(UnorderedQueue())) over "
+          f"{len(hs)} keys: failures {r['failures']}, == REF_SPARSE_BATCH, "
+          f"wall {secs:.3f} s")
+    return out
+
+
+def _record_sparse_batch(dev) -> dict:
+    """From one run of the main batch: the batched K2 calls of its largest
+    bucket's first tier (every event row, capacity 512), and every 97th
+    expansion insert of batched K4 at capacity 16,384 (6 at most, across
+    the tier's rows), as the batch hands them over."""
+    from jepsen_tpu_torch.models import UnorderedQueue
+    from jepsen_tpu_torch.parallel import encode as enc, engine
+    pc = _parity_cases()
+    encs = [enc.encode(UnorderedQueue(), h) for h in _sparse_batch_keys()]
+    T = 2 * SPARSE_K4_TIER
+    seen = [0]
+
+    def wide(a):
+        # an expansion insert (M = N*C candidates a key; the seed has N)
+        if a[2][1].shape[1] != T or a[1].shape[1] <= T // 2:
+            return False
+        seen[0] += 1
+        return seen[0] % 97 == 0 and seen[0] <= 6 * 97
+
+    k4 = []
+    k2 = pc.record_calls(
+        "frontier_closure_batch",
+        lambda: k4.extend(pc.record_calls(
+            "tiled_insert_batch",
+            lambda: engine.check_batch_encoded(None, encs, device=dev),
+            keep=wide)),
+        keep=lambda a: a[4].shape[1] == 512)
+    _require(len(k2) > 0 and len(k4) > 0, "no batched inputs recorded")
+    K = max(a[4].shape[0] for a in k2)
+    k2 = [a for a in k2 if a[4].shape[0] == K]
+    tier = engine.bucket_key(k2[0][1]["slot_f"].shape[2], "tier")
+    return {"k2": k2, "k4": k4,
+            "encs": [e for e in encs
+                     if engine.bucket_key(e.n_slots, "tier") == tier]}
+
+
+def phase_sparse_batch_parity(dev, rec) -> dict:
+    """Batched K2 against its plain version, bit for bit, on the first
+    tier's first row, a middle one, the first where a key is past its
+    last event and the last; batched K4 on one iteration at capacity
+    16,384, on its own copy of the table. Returns the largest |difference|
+    of each (0: bit-identical)."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    by_row = {a[2]: a for a in rec["k2"]}
+    R = max(e.n_returns for e in rec["encs"])
+    first_pad = min(e.n_returns for e in rec["encs"])
+    worst = {"K2": 0, "K4": 0}
+    for r in sorted({0, R // 2, first_pad, R - 1}):
+        _require(r in by_row, f"no batched K2 call recorded at row {r}")
+        args = by_row[r]
+        want = sk.frontier_closure_batch_reference(*args)
+        got = sk.frontier_closure_batch(*args)
+        torch.cuda.synchronize()
+        err = max(_max_err(got[0], want[0]), _max_err([got[1]], [want[1]]))
+        worst["K2"] = max(worst["K2"], err)
+        idle = int((~args[5]).sum())
+        _require(err == 0, f"batched K2 differs from its plain version at "
+                           f"row {r}")
+        print(f"parity: batched K2 == plain closure at K={args[4].shape[0]}"
+              f" N={args[4].shape[1]} C={args[1]['slot_f'].shape[2]}, row "
+              f"{r} of {R}, {idle} keys not running")
+    _require(idle > 0, "the last row leaves no key out")
+    c_rows, c_live, table, pl, plan = rec["k4"][len(rec["k4"]) // 2]
+    want = sk.tiled_insert_batch_reference(c_rows, c_live, table, pl, plan)
+    copy = (tuple(x.clone() for x in table[0]), table[1].clone())
+    got = sk.tiled_insert_batch(c_rows, c_live, copy, pl, plan)
+    torch.cuda.synchronize()
+    err = max(_max_err(got[0][0], want[0][0]),
+              _max_err([got[0][1], got[1], got[2], got[3]],
+                       [want[0][1], want[1], want[2], want[3]]))
+    worst["K4"] = err
+    _require(err == 0, "batched K4 differs from its plain version")
+    print(f"parity: batched K4 == plain insert at K={c_live.shape[0]} "
+          f"M={c_live.shape[1]} T={table[1].shape[1]} (plan {plan}): "
+          f"{int(want[1].sum())} fresh of {int(c_live.sum())} live, probe "
+          f"overflow {want[3].tolist()}")
+    return worst
+
+
+def phase_sparse_batch_timing(dev, rec) -> list:
+    """Batched K2 on every row of the first tier and batched K4 on the
+    recorded inserts (each launch on its own copy of the table), per
+    launch with CUDA events, beside their plain versions and bounds."""
+    import kernel_ab
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    out = []
+    k2 = rec["k2"]
+    step_name, xs, _, rows, live, run, pl = k2[0]
+    K, N = live.shape
+    C = xs["slot_f"].shape[2]
+    ms = _time_launches(sk.frontier_closure_batch, k2, reps=3)
+    picks = k2[::max(1, len(k2) // 3)][:3]
+    plain_ms = _time_host(sk.frontier_closure_batch_reference, picks)
+    # bytes: per running key its row's slot tables, its live flags and
+    # live rows in, its frontier and meta out; operations: every
+    # candidate stepped and tested (~16 int32 ops), every appended row
+    # hashed, probed and written (~20)
+    # (the kernel's meta: bit-identical to the plain version's, above)
+    metas = [sk.frontier_closure_batch(*a)[1].cpu() for a in k2]
+    nbytes = float(np.mean([
+        int(a[5].sum()) * (14 * C + N + 12 * N + 17) + 12 * int(
+            (a[4] & a[5][:, None]).sum()) for a in k2]))
+    ops = float(np.mean([int((m[:, 3] * C * 16 + m[:, 0] * 20).sum())
+                         for m in metas]))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t = {"name": f"frontier_closure_batch[K{K},N{N},C{C}]", "K": K, "N": N,
+         "C": C, "rows": len(k2), "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "bytes_ms": t_bytes, "ops_ms": t_ops,
+         "mean_running": float(np.mean([int(a[5].sum()) for a in k2]))}
+    print("timing: " + json.dumps(t))
+    out.append(t)
+
+    k4 = rec["k4"]
+    c_rows, c_live, table, pl, plan = k4[0]
+    (K, M), T = c_live.shape, table[1].shape[1]
+
+    def fresh(reps):
+        return [a[:2] + ((tuple(x.clone() for x in a[2][0]),
+                          a[2][1].clone()),) + a[3:]
+                for _ in range(reps) for a in k4]
+
+    ms = kernel_ab._time_once_each(torch, sk.tiled_insert_batch, fresh(1),
+                                   fresh(3))
+    plain_ms = _time_host(sk.tiled_insert_batch_reference, k4[:1])
+    # (the kernel's outputs: bit-identical to the plain version's, above)
+    outs = [sk.tiled_insert_batch(*a) for a in fresh(1)]
+    live = float(np.mean([int(a[1].sum()) for a in k4]))
+    probes = float(np.mean([int((o[2][a[1]] + 1).sum())
+                            for a, o in zip(k4, outs)]))
+    n_fresh = float(np.mean([int(o[1].sum()) for o in outs]))
+    nbytes = K * M + 5 * K * M + 12 * live + 13 * probes + 13 * n_fresh
+    ops = K * M + live * 24 + probes * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t = {"name": f"tiled_insert_batch[K{K},T{T},M{M}]", "K": K, "T": T,
+         "M": M, "plan": plan, "inputs": len(k4), "mean_live": live,
+         "mean_probes": probes, "mean_fresh": n_fresh, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print("timing: " + json.dumps(t))
+    out.append(t)
+    return out
+
+
 # ---------------------------------------------------------- sharded engine
 
 SHARDED_KEYS = ("valid?", "op", "fail-event", "max-frontier", "capacity",
@@ -1419,9 +1827,10 @@ def phase_sharded_small(dev, mesh) -> dict:
 
 def phase_sharded_full(dev, mesh) -> dict:
     """The bench's shape at full width: the valid history through
-    `sharded.analysis` cold (recording K3 inputs) and warm (counted),
-    its impossible-read twin through check_encoded_sharded; each against
-    the dense engine on the card."""
+    `sharded.analysis` once (counted, recording K3 inputs) and its
+    impossible-read twin through check_encoded_sharded; each against the
+    dense engine on the card. (One run of the valid history: a warm
+    re-run took a third of this phase, up to ~185 s on a slow host.)"""
     from jepsen_tpu_torch import histories, models
     from jepsen_tpu_torch.parallel import bitdense, sharded
     from jepsen_tpu_torch.parallel import encode as enc
@@ -1433,26 +1842,20 @@ def phase_sharded_full(dev, mesh) -> dict:
     _require(sk.k3_layout(FULL_CAPACITY, dev) == "device",
              "the full-width tier does not take the device layout")
     out = {}
-    for label in ("cold", "warm"):
-        torch.cuda.synchronize()
-        sk.reset_launches()
-        t0 = time.perf_counter()
-        if label == "cold":
-            # a prime stride: a check makes about four inserts per event
-            # (the seed and the expansions), and every kind is recorded
-            with _K3Recorder(stride=997) as rec:
-                r = sharded.analysis(model, h, mesh, **kw)
-        else:
-            r = sharded.analysis(model, h, mesh, **kw)
-        torch.cuda.synchronize()
-        out[label] = time.perf_counter() - t0
-        out[f"{label}_launches"] = sk.launches["hash_insert"]
-        out[f"{label}_by_layout"] = dict(sk.hash_insert_launches)
-        print(f"sharded: adv-{FULL_OPS}-k12 ({label}): valid?="
-              f"{r['valid?']} capacity={r['capacity']} max-frontier="
-              f"{r['max-frontier']} configs-stepped={r['configs-stepped']} "
-              f"wall {out[label]:.3f} s, K3 launches "
-              f"{out[f'{label}_launches']}")
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    # a prime stride: a check makes about four inserts per event (the seed
+    # and the expansions), and every kind is recorded
+    with _K3Recorder(stride=997) as rec:
+        r = sharded.analysis(model, h, mesh, **kw)
+    torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["by_layout"] = dict(sk.hash_insert_launches)
+    print(f"sharded: adv-{FULL_OPS}-k12: valid?={r['valid?']} capacity="
+          f"{r['capacity']} max-frontier={r['max-frontier']} "
+          f"configs-stepped={r['configs-stepped']} wall {out['wall']:.3f} "
+          f"s, K3 launches {sk.launches['hash_insert']}")
     out["recorded"] = rec.kept
     out["valid"] = r
     dense = bitdense.check_encoded_bitdense(enc.encode(model, h), device=dev)
@@ -1688,6 +2091,14 @@ def main() -> int:
     sworst = _phase("K2/K4 parity", phase_sparse_parity, dev, rec)
     slaunches = _phase("sparse main path", phase_sparse_main, dev, cases)
     stimed = _phase("K2/K4 timing", phase_sparse_timing, dev, rec)
+    del rec
+    sbatch = _phase("sparse batch main path", phase_sparse_batch_main, dev)
+    srec = _phase("sparse batch record", _record_sparse_batch, dev)
+    sbworst = _phase("batched K2/K4 parity", phase_sparse_batch_parity, dev,
+                     srec)
+    sbtimed = _phase("batched K2/K4 timing", phase_sparse_batch_timing, dev,
+                     srec)
+    del srec
     from jepsen_tpu_torch.parallel import meshplan
     mesh = meshplan.local_mesh()
     small = _phase("sharded small", phase_sharded_small, dev, mesh)
@@ -1732,13 +2143,29 @@ def main() -> int:
             "library_ms": None,
             **({"cut_ms": t["cut_ms"]} if key == "K2" else
                {"bin_ms": t["bin_ms"], "insert_ms": t["insert_ms"]})})
+    # K2 and K4 batched over keys: timed and held against their plain
+    # versions on the sparse batch's own calls, with the launches of the
+    # main batch's run
+    for t, key, src, line in (
+            (sbtimed[0], "K2", "frontier_closure.cu", 205),
+            (sbtimed[1], "K4", "tiled_insert.cu", 345)):
+        kernels.append({
+            "name": t["name"], "route": "cuda",
+            "source": f"jepsen_tpu_torch/kernels/{src}",
+            "replaces": f"jepsen_tpu/parallel/sparse_kernels.py:{line}",
+            "launches": sbatch["main"]["launches"][
+                "frontier_closure_batch" if key == "K2"
+                else "tiled_insert_batch"],
+            "max_abs_err": sbworst[key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     # K3: one entry per table layout (insert "shared": one block; "grid":
     # the cooperative grid over the table in device memory), timed at
     # the shape it names; its launches in that layout over the small
-    # checks and the warm full-width check
+    # checks and the full-width check
     for t in k3_timed:
         layout = t["layout"]
-        n = small[layout] + full["warm_by_layout"][layout]
+        n = small[layout] + full["by_layout"][layout]
         _require(n > 0, f"K3's {layout} layout never launched")
         kernels.append({
             "name": f"hash_insert[{t['insert']},T{t['T']},M{t['M']}]",

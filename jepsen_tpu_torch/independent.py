@@ -9,8 +9,11 @@ key: valid iff valid for all keys, results under {"results": {k: ...},
 
 When the lifted checker is the port's `Linearizable` with algorithm
 "torch" and the model is packable, every key is checked in one call of
-`engine.check_batch`: one batched device scan per slot-window bucket,
-each sub-result tagged "analyzer": "torch". Otherwise ("wgl", an
+`engine.check_batch`: one batched device scan per slot-window bucket —
+the dense engine's where the bucket fits it, else the sparse batch with
+its per-key capacity retry and single-key escalation (Jepsen's per-key
+queue and set workloads) — each sub-result tagged "analyzer": "torch".
+Otherwise ("wgl", an
 unpackable model) each key runs the checker on its own, on the host. A
 batch that cannot be encoded (EncodeError) goes to the per-key path
 with the reference's structured "device-fallback" / "resilience" record
@@ -170,6 +173,9 @@ class IndependentChecker(Checker):
 
     def _batched_device_results(self, test, subs):
         """(results, fallback): results None means the per-key path runs.
+        The batch is `engine.check_batch` at its defaults (capacity 512,
+        max_capacity 2^18, the port's dedupe flag), dense and sparse
+        buckets alike.
         fallback None means the batch did not apply (not the port's device
         checker, no model, an unpackable model); else the structured
         record of why a batch that applied did not run."""

@@ -19,8 +19,17 @@
 //
 // Output: the frontier lanes and meta = (count, ovf, iters, stepped).
 //
+// Batched over keys (the per-key batch, engine.check_batch): one launch
+// runs K keys' closures of one event row, a block a key (blockIdx.x).
+// Block `key` reads its event's slot tables in place at (key * R + r) * C
+// of the batch's [K, R, C] tables, and its own rows, live flags, run
+// flag and meta at key * N, key and key * 4; its table lives in its own
+// shared memory. The single-key launch is the same entry with K = R = 1,
+// so one body serves both.
+//
 // Design (one thread block of 512 threads owns the event's closure, as
-// K1 owns a history's closure, so one of the H100's 132 SMs):
+// K1 owns a history's closure, so one of the H100's 132 SMs; a batch of
+// at most 132 keys runs in one wave when one block a SM is resident):
 //   * The frontier, the table (rows, occupancy) and a claim word per
 //     table slot live in dynamic shared memory for the whole closure.
 //     A pass's candidates are never materialised in full: candidate
@@ -355,17 +364,38 @@ __device__ PassOut k2_pass(const Event& ev, const Shared& s,
   return probe_append(s, t, c, lo, hi, count, ev.N, ev.probe_limit);
 }
 
+// Block `key` of a launch over K keys: its event's slot tables (event
+// row `row`) start at (key * R + row) * C, its rows and outputs at key * N,
+// its run flag at key and its meta at key * 4.
 __global__ void __launch_bounds__(kThreads, 1)
 frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
                         const int32_t* __restrict__ a0,
                         const int32_t* __restrict__ a1,
                         const uint8_t* __restrict__ wild,
-                        const uint8_t* __restrict__ occ,
+                        const uint8_t* __restrict__ occ, int row, int R,
                         const uint8_t* __restrict__ run, int32_t* st_out,
                         int32_t* ml_out, int32_t* mh_out, int32_t* meta) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int N = ev.N, T = ev.T, C = ev.C;
+  const int key = blockIdx.x;
+  {
+    const size_t at = ((size_t)key * R + row) * C, rows = (size_t)key * N;
+    f += at;
+    a0 += at;
+    a1 += at;
+    wild += at;
+    occ += at;
+    ev.st_in += rows;
+    ev.ml_in += rows;
+    ev.mh_in += rows;
+    ev.live_in += rows;
+    st_out += rows;
+    ml_out += rows;
+    mh_out += rows;
+    run += key;
+    meta += 4 * (size_t)key;
+  }
 
   if (*run == 0) {
     // the history already failed or overflowed: an empty result, which
@@ -479,28 +509,30 @@ long long jt_frontier_closure_smem(int N, int C) {
   return (long long)smem_bytes(N, C);
 }
 
-// One event's closure on `stream`. Slot tables f/a0/a1/wild/occ are [C],
-// rows and live [N], run one byte, meta [4]. Returns the cudaError_t of
-// the launch (cudaErrorInvalidValue for a shape the kernel does not
-// take).
+// One event row's closures of K keys on `stream`, a block a key. Slot
+// tables f/a0/a1/wild/occ are the batch's [K, R, C] (row r is read),
+// rows and live [K, N], run [K] bytes, meta [K, 4]; one key's event is
+// K = R = 1, r = 0. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a shape the kernel does not take).
 int jt_frontier_closure_launch(int step_code, const int32_t* f,
                                const int32_t* a0, const int32_t* a1,
-                               const uint8_t* wild, const uint8_t* occ,
-                               const int32_t* st_in, const int32_t* ml_in,
-                               const int32_t* mh_in, const uint8_t* live_in,
-                               const uint8_t* run, int32_t* st_out,
-                               int32_t* ml_out, int32_t* mh_out,
-                               int32_t* meta, int N, int C, int probe_limit,
-                               void* stream) {
-  if (N < 1 || C < 1 || C > kMaxC || probe_limit < 1 || probe_limit > 255 ||
-      step_code < kRegister || step_code > kFifo) {
+                               const uint8_t* wild, const uint8_t* occ, int r,
+                               int R, const int32_t* st_in,
+                               const int32_t* ml_in, const int32_t* mh_in,
+                               const uint8_t* live_in, const uint8_t* run,
+                               int32_t* st_out, int32_t* ml_out,
+                               int32_t* mh_out, int32_t* meta, int K, int N,
+                               int C, int probe_limit, void* stream) {
+  if (K < 1 || R < 1 || r < 0 || r >= R || N < 1 || C < 1 || C > kMaxC ||
+      probe_limit < 1 || probe_limit > 255 || step_code < kRegister ||
+      step_code > kFifo) {
     return (int)cudaErrorInvalidValue;
   }
   Event ev{step_code, N, C, table_size(N), probe_limit,
            st_in,     ml_in, mh_in, live_in};
-  frontier_closure_kernel<<<1, kThreads, smem_bytes(N, C),
+  frontier_closure_kernel<<<K, kThreads, smem_bytes(N, C),
                             reinterpret_cast<cudaStream_t>(stream)>>>(
-      ev, f, a0, a1, wild, occ, run, st_out, ml_out, mh_out, meta);
+      ev, f, a0, a1, wild, occ, r, R, run, st_out, ml_out, mh_out, meta);
   return (int)cudaGetLastError();
 }
 

@@ -90,7 +90,6 @@ namespace {
 using namespace jt;
 
 constexpr int kPrepThreads = 256;
-constexpr int kFlagsPerThread = 16;
 constexpr int kChunk = kPrepThreads * kFlagsPerThread;  // flags per block
 constexpr int kThreads = 1024;      // the one-block (shared) insert
 constexpr int kGridThreads = 1024;  // each block of the grid insert
@@ -162,29 +161,6 @@ struct Args {
   Scratch sc;
   int probe_limit, layout;
 };
-
-// The live flags i0 .. i0+15 (those below M) as bits.
-__device__ __forceinline__ uint32_t live_bits(const uint8_t* live, int M,
-                                              int i0) {
-  uint32_t bits = 0;
-  if (i0 + kFlagsPerThread <= M &&
-      (reinterpret_cast<uintptr_t>(live + i0) & 15) == 0) {
-    const uint4 v = *reinterpret_cast<const uint4*>(live + i0);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        bits |= (((w[q] >> (8 * b)) & 0xFFu) != 0 ? 1u : 0u) << (4 * q + b);
-      }
-    }
-  } else {
-    for (int k = 0; k < kFlagsPerThread && i0 + k < M; ++k) {
-      bits |= (live[i0 + k] != 0 ? 1u : 0u) << k;
-    }
-  }
-  return bits;
-}
 
 __global__ void __launch_bounds__(kPrepThreads)
 k3_count(Args a) {

@@ -152,6 +152,31 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
   return before;
 }
 
+constexpr int kFlagsPerThread = 16;  // live flags a thread reads at once
+
+// The live flags i0 .. i0+15 (those below M) as bits.
+__device__ __forceinline__ uint32_t live_bits(const uint8_t* live, int M,
+                                              int i0) {
+  uint32_t bits = 0;
+  if (i0 + kFlagsPerThread <= M &&
+      (reinterpret_cast<uintptr_t>(live + i0) & 15) == 0) {
+    const uint4 v = *reinterpret_cast<const uint4*>(live + i0);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        bits |= (((w[q] >> (8 * b)) & 0xFFu) != 0 ? 1u : 0u) << (4 * q + b);
+      }
+    }
+  } else {
+    for (int k = 0; k < kFlagsPerThread && i0 + k < M; ++k) {
+      bits |= (live[i0 + k] != 0 ? 1u : 0u) << k;
+    }
+  }
+  return bits;
+}
+
 // An open-addressed visited set of T slots (T a power of two, mask =
 // T - 1): rows, occupancy and one claim word per slot (kClaimFree between
 // rounds), in shared or device memory alike.

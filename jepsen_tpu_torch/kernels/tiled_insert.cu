@@ -23,8 +23,39 @@
 // ops (sparse_kernels.tiled_event_closure), as the reference keeps them
 // in XLA.
 //
-// Design: two launches, so that the M candidates are read once, by every
-// SM, and each tile's block walks only its own live candidates.
+// The engine's plan is the whole table as one tile and every candidate
+// in one chunk (sparse_kernels.whole_plan): the reference's own
+// visited-set transaction (engine._hash_insert over the table, the
+// closure's default), so the table layout and the probe-overflow flag,
+// and with them `capacity`, are the reference's. Smaller tiles and chunks
+// lay rows out differently, and can exhaust a probe run where the
+// reference does not; the binned path below serves such explicit plans
+// (as the reference's tiled_insert_call takes them).
+//
+// Batched over keys (the per-key batch, engine.check_batch): one launch
+// pair runs K keys' transactions, each on its own table, with the same M
+// and plan; blockIdx.y is the key. Key k's candidates, fresh and off lie
+// at k * M, its table at k * T, its flag at k, and its bin's list and
+// segments in its own slice of the scratch. Every key's chunk walk is
+// exactly the single key's: a chunk never spans two keys, so the table
+// layout and the probe-overflow flag are what one key's launch gives.
+// One key is K = 1.
+//
+// Design of the whole-table path (one tile, one chunk): one block of 1,024
+// threads a key, its table and claim words in device memory. The block
+// zeroes its fresh and off, frees its claim words and lists its live
+// candidates in index order (sixteen flags a thread in one 16-byte load,
+// a block prefix sum a run of them); then probe rounds over the list as
+// in K3 (probe_read, barrier, claim_settle, barrier; the claim words take
+// the list index, whose order is the candidates'), the offsets and flags
+// in its slice of the scratch, every table word read through L2; then
+// fresh, off and the probe flag. One block owns one table, so block
+// barriers order every round for it (spreading a key over blocks would
+// take a grid-wide barrier a round, as K3's grid does).
+//
+// Design of the binned path: two launches, so that the M candidates are
+// read once, by every SM, and each tile's block walks only its own live
+// candidates.
 //
 //   bin     one block per R consecutive candidates (R = 256 * kb, a power
 //           of two that divides CH whenever CH >= 256).
@@ -104,6 +135,7 @@ constexpr int kMaxBinBits = 12;   // 4,096 bins at most; past, groups
 // 256 threads: the common tile needs warp 0 alone, and a smaller block
 // launches sooner
 constexpr int kInsThreads = 256;
+constexpr int kWholeThreads = 1024;  // the whole-table path, a block a key
 
 struct Plan {
   int n_bins, kb, R;  // bins, candidates a bin thread takes, R = 256 * kb
@@ -146,11 +178,24 @@ size_t insert_smem(const Plan& p, int TS, int CH) {
   return 4 * (size_t)TS + 10 * (size_t)CH + 8 * ((size_t)p.span + 1);
 }
 
-// scratch: the list (B * R candidate indices), in a group the tile of
-// each (B * R more), then per (bin, block) the segment's offset and count
+// scratch of one key: the list (B * R candidate indices), in a group the
+// tile of each (B * R more), then per (bin, block) the segment's offset
+// and count; a multiple of 4 bytes, so the keys' slices lie end to end
 size_t scratch_bytes(const Plan& p, int M) {
   const size_t B = (size_t)bin_blocks(p, M);
   return 4 * B * p.R * (p.gshift > 0 ? 2 : 1) + 8 * (size_t)p.n_bins * B;
+}
+
+// The whole-table path: one tile (tile_bits 0) and one chunk of all M.
+bool whole_table(int M, int tile_bits, int CH) {
+  return tile_bits == 0 && CH >= M;
+}
+
+// scratch of one key on the whole-table path: the live list [M] and the
+// claim words [T], then the offsets and flags [M] (a byte each), rounded
+// up to 16 bytes
+__host__ __device__ size_t whole_scratch_bytes(int M, int T) {
+  return (4 * (size_t)M + 4 * (size_t)T + 2 * (size_t)M + 15) & ~(size_t)15;
 }
 
 // ------------------------------------------------------------------ bin
@@ -160,10 +205,25 @@ bin_kernel(const int32_t* __restrict__ c_st, const int32_t* __restrict__ c_ml,
            const int32_t* __restrict__ c_mh,
            const uint8_t* __restrict__ c_live, int M, uint8_t* fresh,
            int32_t* off_out, uint8_t* pend_out, int32_t* list,
-           int32_t* ltile, int32_t* seg_off, int32_t* seg_cnt, int tile_bits,
-           int gshift, int kb) {
+           int32_t* ltile, int32_t* seg_off, int32_t* seg_cnt,
+           size_t kstride, int tile_bits, int gshift, int kb) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  {
+    // key blockIdx.y: its candidates and outputs, and its scratch slice
+    const size_t key = blockIdx.y, at = key * M, sk = key * kstride;
+    c_st += at;
+    c_ml += at;
+    c_mh += at;
+    c_live += at;
+    fresh += at;
+    off_out += at;
+    pend_out += key;
+    list += sk;
+    ltile += sk;
+    seg_off += sk;
+    seg_cnt += sk;
+  }
   const int n_bins = 1 << (tile_bits - gshift);
   const int R = kb * kBinThreads;
   const int G = R / 32;  // groups of 32 candidates, in index order
@@ -362,11 +422,31 @@ insert_kernel(const int32_t* __restrict__ c_st,
               const int32_t* __restrict__ list,
               const int32_t* __restrict__ ltile,
               const int32_t* __restrict__ seg_off,
-              const int32_t* __restrict__ seg_cnt, int B, int R, int span,
-              int TS, int tile_bits, int gshift, int CH, int probe_limit) {
+              const int32_t* __restrict__ seg_cnt, size_t kstride, int B,
+              int R, int span, int TS, int tile_bits, int gshift, int CH,
+              int probe_limit) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int tile = blockIdx.x;
+  {
+    // key blockIdx.y: its candidates, outputs, table and scratch slice
+    const size_t key = blockIdx.y, at = key * M, sk = key * kstride;
+    const size_t tb = key * ((size_t)TS << tile_bits);
+    c_st += at;
+    c_ml += at;
+    c_mh += at;
+    fresh += at;
+    off_out += at;
+    pend_out += key;
+    t_st += tb;
+    t_ml += tb;
+    t_mh += tb;
+    t_occ += tb;
+    list += sk;
+    ltile += sk;
+    seg_off += sk;
+    seg_cnt += sk;
+  }
   const int bin = tile >> gshift;
   const Tile t{c_st, c_ml, c_mh, t_st, t_ml, t_mh, t_occ,
                (size_t)tile * TS, TS, tile_bits, probe_limit};
@@ -570,6 +650,99 @@ insert_kernel(const int32_t* __restrict__ c_st,
   }
 }
 
+// ------------------------------------------------------- whole table
+
+// Live candidate li of a key: row idx[li] of its candidates.
+struct ListCand {
+  const int32_t *st, *ml, *mh, *idx;
+  __device__ __forceinline__ bool operator()(int li, int32_t& s,
+                                             uint32_t& l,
+                                             uint32_t& h) const {
+    const int i = idx[li];
+    s = st[i];
+    l = (uint32_t)ml[i];
+    h = (uint32_t)mh[i];
+    return true;
+  }
+};
+
+// Block `key`: the reference's whole-table transaction of its M
+// candidates into its table of T slots (see the design note above).
+__global__ void __launch_bounds__(kWholeThreads, 1)
+whole_insert_kernel(const int32_t* __restrict__ c_st,
+                    const int32_t* __restrict__ c_ml,
+                    const int32_t* __restrict__ c_mh,
+                    const uint8_t* __restrict__ c_live, int M, int32_t* t_st,
+                    int32_t* t_ml, int32_t* t_mh, uint8_t* t_occ, int T,
+                    uint8_t* fresh, int32_t* off_out, uint8_t* pend_out,
+                    unsigned char* scratch, int probe_limit) {
+  __shared__ int scan[40];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t key = blockIdx.x, at = key * M, tb = key * (size_t)T;
+  c_st += at;
+  c_ml += at;
+  c_mh += at;
+  c_live += at;
+  fresh += at;
+  off_out += at;
+  t_st += tb;
+  t_ml += tb;
+  t_mh += tb;
+  t_occ += tb;
+  unsigned char* base = scratch + key * whole_scratch_bytes(M, T);
+  int32_t* idx = reinterpret_cast<int32_t*>(base);
+  int32_t* claim = idx + M;
+  uint8_t* off = reinterpret_cast<uint8_t*>(claim + T);
+  uint8_t* flags = off + M;
+
+  for (int i = tid; i < T; i += nt) claim[i] = kClaimFree;
+  for (int i = tid; i < M; i += nt) {
+    fresh[i] = 0;
+    off_out[i] = 0;
+  }
+  // the live candidates listed in index order: sixteen flags a thread,
+  // neighbouring threads on neighbouring flags, a block prefix sum for
+  // each run of nt * 16 of them
+  int L = 0;
+  for (int base = 0; base < M; base += nt * kFlagsPerThread) {
+    const int i0 = base + tid * kFlagsPerThread;
+    uint32_t bits = i0 < M ? live_bits(c_live, M, i0) : 0u;
+    int total;
+    int pos = L + block_exclusive_scan(__popc(bits), scan, &total);
+    for (; bits; bits &= bits - 1, ++pos) {
+      idx[pos] = i0 + __ffs(bits) - 1;
+      off[pos] = 0;
+      flags[pos] = kPending;
+    }
+    L += total;
+  }
+  __syncthreads();
+
+  const TableView t{t_st, t_ml, t_mh, claim, t_occ, (uint32_t)(T - 1)};
+  const ListCand cand{c_st, c_ml, c_mh, idx};
+  int active = L > 0;
+  while (active) {
+    for (int li = tid; li < L; li += nt) {
+      probe_read<L2Loads>(cand, t, off, flags, li, probe_limit);
+    }
+    __syncthreads();
+    int local = 0;
+    for (int li = tid; li < L; li += nt) {
+      local |= claim_settle<L2Loads>(cand, t, off, flags, li, probe_limit);
+    }
+    active = __syncthreads_or(local);
+  }
+  int pend = 0;
+  for (int li = tid; li < L; li += nt) {
+    const int i = idx[li];
+    fresh[i] = (flags[li] & kFresh) ? 1 : 0;
+    off_out[i] = off[li];
+    pend |= (flags[li] & kPending) != 0;
+  }
+  pend = __syncthreads_or(pend);
+  if (tid == 0) pend_out[key] = pend ? 1 : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -606,15 +779,24 @@ long long jt_tiled_insert_smem(int TS, int tile_bits, int CH) {
   return (long long)(a > b ? a : b);
 }
 
-// The device scratch one launch needs, in bytes.
-long long jt_tiled_insert_scratch(int M, int tile_bits, int CH) {
+// The device scratch one key of a launch needs, in bytes (a launch over
+// K keys takes K times as much), for tiles of TS slots.
+long long jt_tiled_insert_scratch(int M, int TS, int tile_bits, int CH) {
+  if (whole_table(M, tile_bits, CH)) {
+    return (long long)whole_scratch_bytes(M, TS);
+  }
   return (long long)scratch_bytes(make_plan(tile_bits, CH), M);
 }
 
-// One tiled insert on `stream`: the bin, then n_tiles = 1 << tile_bits
-// insert blocks of TS slots (both powers of two). The table t_* is
-// updated in place. fresh, off_out and pend_out are written whole (the
-// bin zeroes them). `stages`: 1 the bin alone, 2 the insert alone (on a
+// K keys' tiled inserts on `stream`. One tile and one chunk (tile_bits 0,
+// CH >= M): the whole-table kernel, a block a key (stages 2 or 3; stage
+// 1 alone launches nothing). Else the bin, then n_tiles = 1 <<
+// tile_bits insert blocks of TS slots (both powers of two) a key. The
+// candidates c_*, fresh and off_out are [K, M], the tables t_* [K, T]
+// (T = n_tiles * TS) and pend_out [K]; `scratch` holds K slices of
+// jt_tiled_insert_scratch(M, TS, tile_bits, CH) bytes. The tables are updated
+// in place. fresh, off_out and pend_out are written whole (the bin
+// zeroes them). `stages`: 1 the bin alone, 2 the insert alone (on a
 // scratch an earlier bin of the same candidates filled), 3 both.
 // Returns the cudaError_t of the launches (cudaErrorInvalidValue for a
 // shape the kernels do not take).
@@ -622,35 +804,46 @@ int jt_tiled_insert_launch(const int32_t* c_st, const int32_t* c_ml,
                            const int32_t* c_mh, const uint8_t* c_live, int M,
                            int32_t* t_st, int32_t* t_ml, int32_t* t_mh,
                            uint8_t* t_occ, uint8_t* fresh, int32_t* off_out,
-                           uint8_t* pend_out, void* scratch, int TS,
+                           uint8_t* pend_out, void* scratch, int K, int TS,
                            int tile_bits, int CH, int probe_limit, int stages,
                            void* stream) {
-  if (M < 1 || TS < 1 || (TS & (TS - 1)) != 0 || tile_bits < 0 ||
+  if (K < 1 || K > 65535 || M < 1 || TS < 1 || (TS & (TS - 1)) != 0 ||
+      tile_bits < 0 ||
       tile_bits > 24 || CH < 1 || (CH & (CH - 1)) != 0 || probe_limit < 1 ||
       probe_limit > 255 || stages < 1 || stages > 3 ||
       (M > CH && CH < 2 * kBinThreads)) {
     return (int)cudaErrorInvalidValue;
   }
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (whole_table(M, tile_bits, CH)) {
+    if (stages & 2) {
+      whole_insert_kernel<<<K, kWholeThreads, 0, s>>>(
+          c_st, c_ml, c_mh, c_live, M, t_st, t_ml, t_mh, t_occ, TS, fresh,
+          off_out, pend_out, reinterpret_cast<unsigned char*>(scratch),
+          probe_limit);
+    }
+    return (int)cudaGetLastError();
+  }
   const Plan p = make_plan(tile_bits, CH);
   const int B = bin_blocks(p, M);
+  const size_t kstride = scratch_bytes(p, M) / 4;  // int32 words a key
   int32_t* list = reinterpret_cast<int32_t*>(scratch);
   int32_t* ltile = list + (size_t)B * p.R;  // in a group
   int32_t* seg_off = ltile + (p.gshift > 0 ? (size_t)B * p.R : 0);
   int32_t* seg_cnt = seg_off + (size_t)p.n_bins * B;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (stages & 1) {
-    bin_kernel<<<B, kBinThreads, bin_smem(p), s>>>(
+    bin_kernel<<<dim3(B, K), kBinThreads, bin_smem(p), s>>>(
         c_st, c_ml, c_mh, c_live, M, fresh, off_out, pend_out, list, ltile,
-        seg_off, seg_cnt, tile_bits, p.gshift, p.kb);
+        seg_off, seg_cnt, kstride, tile_bits, p.gshift, p.kb);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (stages & 2) {
-    insert_kernel<<<1 << tile_bits, kInsThreads, insert_smem(p, TS, CH),
-                    s>>>(
+    insert_kernel<<<dim3(1 << tile_bits, K), kInsThreads,
+                    insert_smem(p, TS, CH), s>>>(
         c_st, c_ml, c_mh, M, t_st, t_ml, t_mh, t_occ, fresh, off_out,
-        pend_out, list, ltile, seg_off, seg_cnt, B, p.R, p.span, TS,
-        tile_bits, p.gshift, CH, probe_limit);
+        pend_out, list, ltile, seg_off, seg_cnt, kstride, B, p.R, p.span,
+        TS, tile_bits, p.gshift, CH, probe_limit);
   }
   return (int)cudaGetLastError();
 }

@@ -22,9 +22,12 @@ A device fault is not caught here: it surfaces to the caller.
 The per-key batch (`check_batch`, `check_batch_encoded`; the reference's
 jepsen.independent batch) buckets the keys by slot window and checks
 each bucket whose padded dims fit the dense engine in one batched scan
-(`bitdense.check_batch_bitdense`). Results keep the input order. The
-sparse batch, its capacity escalation, the pipelined and work-stealing
-executors are not ported yet: they raise NotImplementedError.
+(`bitdense.check_batch_bitdense`), and every other bucket in the sparse
+batch with per-key capacity retry (`sparse.check_batch_sparse`, whose
+closure is K2 or K4 batched over keys) and, past its ceiling, the
+single-key escalation (`_escalate_overflow`). Results keep the input
+order. The sharded escalation rung, the pipelined and work-stealing
+executors are not ported yet: the latter two raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -343,22 +346,27 @@ def bucket_key(n_slots: int, bucket: str) -> int:
     return 1 << max(2, (max(1, n_slots) - 1).bit_length())
 
 
-def check_batch(model, histories, device=None,
-                bucket: Optional[str] = None,
+def check_batch(model, histories, capacity: int = 512,
+                max_capacity: int = 1 << 18, device=None,
+                bucket: Optional[str] = None, dedupe: Optional[str] = None,
                 pipeline: Optional[bool] = None, cache=None,
                 pipeline_stats: Optional[dict] = None,
                 steal: Optional[bool] = None) -> list:
     """Check many per-key histories, one batched device scan per
     slot-window bucket (`check_batch_encoded`), results in input order.
     `device` None means the card (RuntimeError without one); the tests
-    pass "cpu". The reference's `capacity`, `max_capacity` and `dedupe`
-    steer its sparse buckets only and come with the sparse batch
-    (ROADMAP Queue 1 item 7).
+    pass "cpu". `capacity`, `max_capacity` and `dedupe` steer the sparse
+    buckets, as the reference's do; an unknown `bucket` or `dedupe`
+    raises ValueError before the encode, on an empty batch too.
 
-    The pipelined executor (`pipeline`, `cache`, `pipeline_stats`) and
-    the work-stealing one (`steal`) are not ported: asking for them
+    The reference takes a `mesh` for the batch's key axis and for the
+    sharded escalation rung; the port's batch runs on one device, and
+    its escalation stops at the single-key rung (ROADMAP Queue 1 item
+    9b). The pipelined executor (`pipeline`, `cache`, `pipeline_stats`)
+    and the work-stealing one (`steal`) are not ported: asking for them
     raises NotImplementedError."""
     bucket = _resolve_bucket(bucket)   # fail fast: before the encode
+    dedupe = sparse._resolve_dedupe(dedupe)   # likewise
     if pipeline or (cache is not None and cache is not False) \
             or pipeline_stats is not None:
         raise NotImplementedError(
@@ -369,20 +377,22 @@ def check_batch(model, histories, device=None,
             "check_batch: work stealing (steal) is not ported yet "
             "(ROADMAP Queue 1 item 9b)")
     pre = [enc_mod.encode(model, h) for h in histories]
-    return check_batch_encoded(model, pre, device=device, bucket=bucket)
+    return check_batch_encoded(model, pre, capacity=capacity,
+                               max_capacity=max_capacity, device=device,
+                               bucket=bucket, dedupe=dedupe)
 
 
-def check_batch_encoded(model, pre, device=None,
-                        bucket: Optional[str] = None) -> list:
+def check_batch_encoded(model, pre, capacity: int = 512,
+                        max_capacity: int = 1 << 18, device=None,
+                        bucket: Optional[str] = None,
+                        dedupe: Optional[str] = None) -> list:
     """check_batch on already-encoded keys: bucket them by slot window
     (`bucket_key`), check each bucket whose padded dims fit the dense
-    engine (`bitdense.fits_bitdense(S_max, C_max)`) in one batched scan,
-    and return the results in `pre`'s order. A bucket past the dense
-    engine raises NotImplementedError: the sparse batch (ROADMAP Queue 1
-    item 7) is not ported, and the single-key sparse check runs at other
-    capacities than the batch's, so its `capacity` would differ from the
-    reference's."""
+    engine (`bitdense.fits_bitdense(S_max, C_max)`) in one batched dense
+    scan and every other bucket in the sparse batch
+    (`_check_batch_sparse`), and return the results in `pre`'s order."""
     bucket = _resolve_bucket(bucket)
+    dedupe = sparse._resolve_dedupe(dedupe)
     if not pre:
         return []
     dev = bitdense.resolve_device(device)
@@ -395,12 +405,53 @@ def check_batch_encoded(model, pre, device=None,
         sub = [pre[i] for i in idxs]
         S_max = max(bitdense.n_states(e) for e in sub)
         C_max = max(e.n_slots for e in sub)
-        if not bitdense.fits_bitdense(S_max, C_max):
-            raise NotImplementedError(
-                f"check_batch: a bucket of {len(sub)} keys at S={S_max}, "
-                f"C={C_max} is past the dense engine; the sparse batch "
-                f"is not ported yet (ROADMAP Queue 1 item 7)")
-        for i, r in zip(idxs, bitdense.check_batch_bitdense(sub,
-                                                            device=dev)):
+        if bitdense.fits_bitdense(S_max, C_max):
+            rs = bitdense.check_batch_bitdense(sub, device=dev)
+        else:
+            rs = _check_batch_sparse(sub, capacity, max_capacity,
+                                     dedupe=dedupe, device=dev)
+        for i, r in zip(idxs, rs):
             out[i] = r
     return out
+
+
+def _check_batch_sparse(pre, capacity: int, max_capacity: int,
+                        dedupe: Optional[str] = None, device=None,
+                        smem_budget=None) -> list:
+    """The sparse batch with per-key capacity retry
+    (`sparse.check_batch_sparse`), its keys past `max_capacity` escalated
+    one by one (`_escalate_overflow`). `smem_budget` is the test seam of
+    the closure's route, in the batch and in the escalation."""
+    dev = bitdense.resolve_device(device)
+    dedupe = sparse._resolve_dedupe(dedupe)
+
+    def escalate(e, batch_cap):
+        return _escalate_overflow(e, batch_cap, device=dev, dedupe=dedupe,
+                                  smem_budget=smem_budget)
+
+    return sparse.check_batch_sparse(pre, capacity, max_capacity,
+                                     dedupe=dedupe, device=dev,
+                                     smem_budget=smem_budget,
+                                     escalate=escalate)
+
+
+def _escalate_overflow(e: EncodedHistory, batch_cap: int, device=None,
+                       dedupe: str = "hash", smem_budget=None) -> dict:
+    """A key too wide for the batch escalates instead of dying as
+    "unknown": the single-key sparse engine on the batch's own device,
+    from 2x the batch's ceiling up to 4x it (at most 2^21), as the
+    reference's first rung (engine.py `_escalate_overflow_impl`). A key
+    it decides is tagged "escalated": "single"; one it does not keeps
+    the single rung's "unknown" result with the reference's error. The
+    reference's second rung, the frontier-sharded engine over the
+    caller's mesh, waits for ROADMAP Queue 1 item 9b."""
+    ceil_single = min(batch_cap * 4, 1 << 21)
+    r = sparse.check_encoded(e, capacity=min(batch_cap * 2, ceil_single),
+                             max_capacity=ceil_single, device=device,
+                             dedupe=dedupe, smem_budget=smem_budget)
+    if r["valid?"] != "unknown":
+        r["escalated"] = "single"
+        return r
+    r["error"] = (f"frontier overflow: batch capacity {batch_cap}, "
+                  f"escalation tiers exhausted ({r.get('error')})")
+    return r

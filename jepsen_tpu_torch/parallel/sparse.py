@@ -35,7 +35,9 @@ import torch
 
 from jepsen_tpu_torch.parallel import sparse_kernels as sk
 from jepsen_tpu_torch.parallel.bitdense import resolve_device
-from jepsen_tpu_torch.parallel.encode import EncodedHistory, fail_op_fields
+from jepsen_tpu_torch.parallel.encode import (
+    EncodedHistory, fail_op_fields, pad_batch,
+)
 from jepsen_tpu_torch.parallel.steps import STEPS
 
 _I32 = torch.int32
@@ -166,18 +168,19 @@ class _UnpackedRep:
         return owner_hash_u32(*(_u32(r) for r in rows))
 
     def mask_test(self, rows):
-        """[N, C] bool: slot j already linearized in row n."""
+        """[..., N, C] bool: slot j already linearized in row n (rows
+        [..., N]: one frontier, or a key's each)."""
         _, ml, mh = rows
-        return ((ml[:, None] & self.bit_lo[None, :])
-                | (mh[:, None] & self.bit_hi[None, :])) != 0
+        return ((ml[..., None] & self.bit_lo)
+                | (mh[..., None] & self.bit_hi)) != 0
 
     def candidates(self, rows, cand_st):
-        """Flattened [N*C] candidate rows (index n*C + j): state from the
-        model step, mask with slot j's bit set."""
+        """Flattened [..., N*C] candidate rows (index n*C + j): state
+        from the model step ([..., N, C]), mask with slot j's bit set."""
         _, ml, mh = rows
-        return (cand_st.reshape(-1),
-                (ml[:, None] | self.bit_lo[None, :]).reshape(-1),
-                (mh[:, None] | self.bit_hi[None, :]).reshape(-1))
+        return (cand_st.flatten(-2),
+                (ml[..., None] | self.bit_lo).flatten(-2),
+                (mh[..., None] | self.bit_hi).flatten(-2))
 
     @staticmethod
     def event_bits(s: int):
@@ -226,19 +229,26 @@ def _rows_where(cond, a_rows, b_rows):
 
 def _rows_at_set(rows, pos, vals):
     """rows[pos] = vals for the positions inside the lanes (the others
-    are dropped), on copies."""
-    n = rows[0].shape[0]
+    are dropped), on copies. Lanes [N] with pos [M], or [K, N] with pos
+    [K, M]: each key's row of pos places into its own row of lanes."""
+    n = rows[0].shape[-1]
     keep = (pos >= 0) & (pos < n)
-    p = pos[keep]
+    if pos.dim() == 1:
+        at = (pos[keep],)
+    else:
+        keys = torch.arange(pos.shape[0], device=pos.device)[:, None]
+        at = (keys.expand_as(pos)[keep], pos[keep])
     out = []
     for r, v in zip(rows, vals):
         r = r.clone()
-        r[p] = v[keep]
+        r[at] = v[keep]
         out.append(r)
     return tuple(out)
 
 
-def _empty_table(T: int, rep):
+def _empty_table(T, rep):
+    """An empty visited set of T slots (T a shape: (K, T) gives a table
+    a key)."""
     return (rep.zeros(T), torch.zeros(T, dtype=torch.bool,
                                       device=rep.device))
 
@@ -302,9 +312,11 @@ def _hash_insert(c_rows, c_live, table, probe_limit: int, rep=None,
 def _append_fresh(c_rows, fresh, f_rows, count, N: int):
     """The append half of one visited-set transaction: fresh rows land
     contiguously after `count` in the frontier lanes. Returns (rows2,
-    count2, n_fresh, append_ovf)."""
-    n_fresh = fresh.sum()
-    pos = torch.where(fresh, count + torch.cumsum(fresh, 0) - 1, N)
+    count2, n_fresh, append_ovf). Batched: candidates and fresh [K, M],
+    lanes [K, N], count [K], each key appending to its own lanes."""
+    n_fresh = fresh.sum(-1)
+    count_ = count[..., None] if fresh.dim() > 1 else count
+    pos = torch.where(fresh, count_ + torch.cumsum(fresh, -1) - 1, N)
     rows2 = _rows_at_set(f_rows, pos, c_rows)
     return (rows2, torch.clamp(count + n_fresh, max=N), n_fresh,
             count + n_fresh > N)
@@ -364,15 +376,56 @@ def _hash_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
     return rows, count, ovf, iters, stepped
 
 
+def _step_batch(step, rows, ev):
+    """The model step of every row of every key ([K, N] lanes) through
+    every slot of its key's event (ev: [K, C] tables) -> [K, N, C]."""
+    return step(rows[0][:, :, None], ev["slot_f"][:, None, :],
+                ev["slot_a0"][:, None, :], ev["slot_a1"][:, None, :],
+                ev["slot_wild"][:, None, :])
+
+
+def _hash_event_closure_batch(rep, step, ev, rows, live, run, N: int,
+                              T: int, insert):
+    """K keys' hash closures of one event row at once (ev: [K, C] slot
+    tables, rows [K, N] lanes, live [K, N], run [K]): each key's is
+    `_hash_event_closure`'s, with `insert` a batched visited-set
+    transaction over [K, M] candidates and a table a key. A key closes
+    while it has fresh rows and no overflow, as the reference's
+    while_loop under vmap does: one whose closure has ended keeps its
+    rows, table, count and counters, and its insert has no live
+    candidate. A key whose `run` is False seeds nothing: zero rows and
+    zero meta, as K2 writes. The host reads one flag an iteration (does
+    any key still close).
+
+    Returns (rows2, count, ovf, iters, stepped), each [K]-leading."""
+    K = live.shape[0]
+    dev = live.device
+    zero = torch.zeros(K, dtype=_I64, device=dev)
+    rows, table, count, _, ovf = insert(rows, live & run[:, None],
+                                        rep.zeros((K, N)), zero,
+                                        _empty_table((K, T), rep))
+    n_old = iters = stepped = zero
+    active = run & ~ovf
+    row = torch.arange(N, device=dev)
+    occ = ev["slot_occ"][:, None, :]
+    while bool(active.any()):
+        cand_st, cand_ok = _step_batch(step, rows, ev)
+        delta = (row >= n_old[:, None]) & (row < count[:, None]) \
+            & active[:, None]
+        legal = delta[:, :, None] & occ & ~rep.mask_test(rows) & cand_ok
+        rows, table, count2, n_fresh, ins_ovf = insert(
+            rep.candidates(rows, cand_st), legal.flatten(1), rows, count,
+            table)
+        stepped = stepped + torch.where(active, count - n_old, 0)
+        iters = iters + active.to(_I64)
+        n_old = torch.where(active, count, n_old)
+        count = count2
+        ovf = ovf | ins_ovf
+        active = active & (n_fresh > 0) & ~ovf
+    return rows, count, ovf, iters, stepped
+
+
 # ----------------------------------------------------------- sort dedupe
-
-def _rows_prev_same(rows_s):
-    acc = rows_s[0][1:] == rows_s[0][:-1]
-    for r in rows_s[1:]:
-        acc = acc & (r[1:] == r[:-1])
-    return torch.cat([torch.zeros(1, dtype=torch.bool, device=acc.device),
-                      acc])
-
 
 def _dedupe_compact(rows, live, N: int, rep):
     """Sort rows by (dead, state, mask_lo, mask_hi) — the masks as
@@ -380,18 +433,34 @@ def _dedupe_compact(rows, live, N: int, rep):
     [N] frontier. Returns (rows, live, count, overflow). The order is
     the reference's lexsort, built from stable sorts from the minor key
     to the major one."""
-    M = live.shape[0]
+    out = _dedupe_compact_batch(tuple(r[None] for r in rows), live[None],
+                                N, rep)
+    return tuple(r[0] for r in out[0]), out[1][0], out[2][0], out[3][0]
+
+
+def _dedupe_compact_batch(rows, live, N: int, rep):
+    """`_dedupe_compact` of K keys at once (lanes and live [K, M]): each
+    key's rows sorted and compacted into its own [N] frontier, in the
+    order of the reference's lexsort with the key as its most
+    significant key (every sort runs along a key's row). Returns (rows
+    [K, N], live [K, N], count [K], overflow [K])."""
+    K, M = live.shape
     st, ml, mh = rows
-    order = torch.arange(M, device=live.device)
+    order = torch.arange(M, device=live.device).expand(K, M)
     for key in (_u32(mh), _u32(ml), st, (~live).to(_I32)):
-        order = order[torch.sort(key[order], stable=True).indices]
-    rows_s = _rows_take(rows, order)
-    live_s = live[order]
-    uniq = live_s & ~_rows_prev_same(rows_s)
-    count = uniq.sum()
-    pos = torch.where(uniq, torch.cumsum(uniq, 0) - 1, M + N)
-    new_rows = _rows_at_set(rep.zeros(N), pos, rows_s)
-    new_live = torch.arange(N, device=live.device) < count
+        order = order.gather(1, torch.sort(key.gather(1, order), dim=1,
+                                           stable=True).indices)
+    rows_s = tuple(r.gather(1, order) for r in rows)
+    live_s = live.gather(1, order)
+    same = rows_s[0][:, 1:] == rows_s[0][:, :-1]
+    for r in rows_s[1:]:
+        same = same & (r[:, 1:] == r[:, :-1])
+    uniq = live_s.clone()
+    uniq[:, 1:] &= ~same
+    count = uniq.sum(1)
+    pos = torch.where(uniq, torch.cumsum(uniq, 1) - 1, M + N)
+    new_rows = _rows_at_set(rep.zeros((K, N)), pos, rows_s)
+    new_live = torch.arange(N, device=live.device) < count[:, None]
     return new_rows, new_live, count, count > N
 
 
@@ -399,23 +468,39 @@ def _sort_event_closure(rep, step, ev, rows, live, run, N: int):
     """The per-event closure under dedupe="sort": every iteration steps
     the whole live frontier and deduplicates all N*(C+1) rows by sort.
     Returns (rows2, live2, ovf, iters, stepped)."""
+    out = _sort_event_closure_batch(
+        rep, step, {k: v[None] for k, v in ev.items()},
+        tuple(r[None] for r in rows), live[None], run.reshape(1), N)
+    return (tuple(r[0] for r in out[0]),) + tuple(x[0] for x in out[1:])
+
+
+def _sort_event_closure_batch(rep, step, ev, rows, live, run, N: int):
+    """`_sort_event_closure` of K keys at once (ev [K, C], rows and live
+    [K, N], run [K]): a key iterates while its frontier grows and does
+    not overflow, the others keep theirs. Plain PyTorch on any device;
+    the host reads one flag an iteration. Returns (rows2, live2, ovf,
+    iters, stepped), each [K]-leading."""
+    K = live.shape[0]
     dev = live.device
-    ovf = torch.zeros((), dtype=torch.bool, device=dev)
-    iters = stepped = torch.zeros((), dtype=_I64, device=dev)
-    changed = bool(run)
-    while changed and not bool(ovf):
-        cand_st, cand_ok = step(rep.state(rows)[:, None], ev["slot_f"],
-                                ev["slot_a0"], ev["slot_a1"],
-                                ev["slot_wild"])
-        legal = (live[:, None] & ev["slot_occ"][None, :]
-                 & ~rep.mask_test(rows) & cand_ok)
-        old_count = live.sum()
-        rows, live, count, ovf = _dedupe_compact(
-            _rows_concat(rows, rep.candidates(rows, cand_st)),
-            torch.cat([live, legal.reshape(-1)]), N, rep)
-        iters = iters + 1
-        stepped = stepped + old_count
-        changed = bool(count > old_count)
+    ovf = torch.zeros(K, dtype=torch.bool, device=dev)
+    iters = stepped = torch.zeros(K, dtype=_I64, device=dev)
+    occ = ev["slot_occ"][:, None, :]
+    active = run.clone()
+    while bool(active.any()):
+        cand_st, cand_ok = _step_batch(step, rows, ev)
+        legal = live[:, :, None] & occ & ~rep.mask_test(rows) & cand_ok
+        old_count = live.sum(1)
+        rows2, live2, count, ovf2 = _dedupe_compact_batch(
+            tuple(torch.cat([a, b], 1) for a, b in
+                  zip(rows, rep.candidates(rows, cand_st))),
+            torch.cat([live, legal.flatten(1)], 1), N, rep)
+        go = active[:, None]
+        rows = _rows_where(go, rows2, rows)
+        live = torch.where(go, live2, live)
+        ovf = torch.where(active, ovf2, ovf)
+        iters = iters + active.to(_I64)
+        stepped = stepped + torch.where(active, old_count, 0)
+        active = active & (count > old_count) & ~ovf2
     return rows, live, ovf, iters, stepped
 
 
@@ -438,17 +523,15 @@ def _route(N: int, C: int, dedupe: str, device, smem_budget=None):
     the tiled insert's plan. The hash closure is fused while K2's
     shared-memory layout fits the budget, and tiled past it; the budget
     is the card's opt-in on a card, Hopper's on the CPU, or the test
-    seam `smem_budget`."""
+    seam `smem_budget`. The tiled closure's plan is the whole table
+    (`sparse_kernels.whole_plan`): the reference's transaction, so both
+    routes give the reference's results."""
     if dedupe == "sort":
         return "sort", None
     budget = smem_budget or sk.smem_budget(device)
     if sk.supported(N, C, budget):
         return "fused", None
-    plan = sk.tiled_plan(N, C, budget)
-    if plan is None:
-        raise RuntimeError(f"no tiled insert plan at capacity {N}, C={C} "
-                           f"within {budget} bytes of shared memory")
-    return "tiled", plan
+    return "tiled", sk.whole_plan(N)
 
 
 class _Scan:
@@ -593,6 +676,176 @@ def check_encoded(e: EncodedHistory, capacity: int = 1024,
            "closure": _closure_tag(sc.closure, dev)}
     if not valid:
         out.update(fail_op_fields(e, fail_r))
+    return out
+
+
+# ------------------------------------------------------ batched (per-key)
+
+class _BatchScan:
+    """K keys' scans at frontier capacity N as one, on one device, over a
+    padded batch (`encode.pad_batch`): rows [K, N] lanes, live [K, N],
+    and per key ok, fail_r, max-frontier, configs-stepped and the
+    overflow flag, all on the device. Every key uses the first key's
+    step family, as the reference's batch does (`pre[0].step_name`).
+
+    Per event row a key runs when it has not failed or overflowed and
+    the event is real (ev_slot >= 0); its closure is the route's —
+    batched K2 ("fused": one launch for every key), the tiled closure
+    around batched K4 ("tiled": one launch pair a closure iteration for
+    every key) or the sort closure — then the filter and carry of
+    `_Scan.run` on [K, ...] tensors. The fused route on a card reads
+    nothing from the device until the end; the others read a flag a
+    closure iteration, and skip a row no key runs."""
+
+    def __init__(self, encs, xs: dict, state0, N: int, dedupe: str,
+                 probe_limit: int, device, smem_budget=None):
+        K, R, C = xs["slot_f"].shape
+        self.K, self.R, self.N, self.C = K, R, N, C
+        self.T = _next_pow2(2 * N)
+        self.probe_limit = probe_limit
+        self.device = device
+        self.step_name = encs[0].step_name
+        self.step = STEPS[self.step_name]
+        self.rep = _rep((), C, device)
+        self.closure, self.plan = _route(N, C, dedupe, device, smem_budget)
+        self.synced = self.closure != "fused" or device.type != "cuda"
+        # key-major [K, R, C]: batched K2 reads row r of key k in place
+        self.xs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                   for k, v in xs.items() if k != "ev_slot"}
+        ev = torch.from_numpy(np.ascontiguousarray(xs["ev_slot"].T)) \
+            .to(device=device, dtype=_I64)                          # [R, K]
+        self.real = ev >= 0
+        # the returning slot's bit, as int32 bit patterns of each lane
+        s = ev.clamp(min=0)
+        self.bit_lo, self.bit_hi = _bit_lane(s, 0), _bit_lane(s, 32)
+        z = torch.zeros(K, dtype=_I64, device=device)
+        self.rows = self.rep.zeros((K, N))
+        self.rows[0][:, 0] = torch.from_numpy(
+            np.asarray(state0, np.int32)).to(device)
+        self.live = (torch.arange(N, device=device) < 1).expand(K, N)
+        self.ok = torch.ones(K, dtype=torch.bool, device=device)
+        self.overflow = torch.zeros(K, dtype=torch.bool, device=device)
+        self.fail_r = z - 1
+        self.maxf = z + 1
+        self.stepped = z
+
+    def _closure(self, r: int, run):
+        """-> (rows2, live2, ovf, stepped) of event row r, [K]-leading."""
+        N = self.N
+        if self.closure == "sort":
+            ev = {k: v[:, r] for k, v in self.xs.items()}
+            rows2, live2, ovf, _, d = _sort_event_closure_batch(
+                self.rep, self.step, ev, self.rows, self.live, run, N)
+            return rows2, live2, ovf, d
+        if self.closure == "fused":
+            rows2, meta = sk.frontier_closure_batch(
+                self.step_name, self.xs, r, self.rows, self.live, run,
+                self.probe_limit)
+        else:
+            ev = {k: v[:, r] for k, v in self.xs.items()}
+            rows2, meta = sk.tiled_event_closure_batch(
+                self.rep, self.step, ev, self.rows, self.live, run, N,
+                self.T, self.probe_limit, self.plan)
+        live2 = torch.arange(N, device=self.device) < meta[:, 0, None]
+        return rows2, live2, meta[:, 1] != 0, meta[:, 3].to(_I64)
+
+    def run(self):
+        for r in range(self.R):
+            run = self.ok & self.real[r]
+            if self.synced and not bool(run.any()):
+                continue     # no key runs: the carry stays as it is
+            rows2, live2, ovf, d = self._closure(r, run)
+            # a settled or padded event's probe flag must not trigger
+            # escalation
+            ovf = run & ovf
+            lo, hi = self.bit_lo[r][:, None], self.bit_hi[r][:, None]
+            live3 = live2 & (((rows2[1] & lo) | (rows2[2] & hi)) != 0)
+            rows3 = (rows2[0], torch.where(live3, rows2[1] & ~lo, rows2[1]),
+                     torch.where(live3, rows2[2] & ~hi, rows2[2]))
+            failed_here = run & ~live3.any(1)
+            self.fail_r = torch.where(failed_here & (self.fail_r < 0), r,
+                                      self.fail_r)
+            self.ok = torch.where(run, ~failed_here & ~ovf, self.ok)
+            go = run[:, None]
+            self.rows = _rows_where(go, rows3, self.rows)
+            self.live = torch.where(go, live3, self.live)
+            self.maxf = torch.maximum(
+                self.maxf, torch.where(run, live2.sum(1), 0))
+            self.stepped = self.stepped + torch.where(run, d, 0)
+            self.overflow = self.overflow | ovf
+        return self
+
+    def result(self):
+        """(valid, fail_r, overflow, maxf, stepped), lists of K Python
+        values: the scan's one read of the device."""
+        valid = self.ok & self.live.any(1) & ~self.overflow
+        vals = torch.stack([valid.to(_I64), self.fail_r,
+                            self.overflow.to(_I64), self.maxf,
+                            self.stepped]).tolist()
+        return ([bool(v) for v in vals[0]], vals[1],
+                [bool(v) for v in vals[2]], vals[3], vals[4])
+
+
+def _bit_lane(s, base: int):
+    """The int32 bit pattern of slot s's bit in the mask lane of slots
+    [base, base + 32) (0 outside it), for an int64 tensor of slots."""
+    b = s - base
+    inside = (b >= 0) & (b < 32)
+    v = torch.where(inside, torch.ones_like(b) << b.clamp(0, 31), 0)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(_I32)
+
+
+def check_batch_sparse(encs, capacity: int = 512,
+                       max_capacity: int = 1 << 18, dedupe=None,
+                       device=None, smem_budget=None, *, escalate,
+                       probe_limit: int = 0) -> list:
+    """The reference's sparse per-key batch with per-key capacity retry
+    (`jepsen_tpu.parallel.engine._check_batch_sparse`): every key runs
+    in one batched scan (`_BatchScan`) at N = max(64, capacity); a key
+    that overflows runs again at 2N with the other pending keys, padded
+    anew to their own dims (R and C of the pending keys only). A key
+    decided at N gets {"valid?", "max-frontier", "capacity": N, "dedupe",
+    "configs-stepped", "closure"} (+ the failing op's fields); a key
+    still pending when 2N passes `max_capacity` gets `escalate(e, N)`
+    (engine._escalate_overflow). Results keep `encs`' order.
+
+    `dedupe` "hash" (default; JEPSEN_TPU_TORCH_DEDUPE) or "sort";
+    `smem_budget` is the test seam of `_route`, `probe_limit` the hash
+    probes' bound (0: the flag)."""
+    dev = resolve_device(device)
+    dedupe = _resolve_dedupe(dedupe)
+    probe_limit = _resolve_probe_limit(probe_limit)
+    out: list = [None] * len(encs)
+    pending = list(range(len(encs)))
+    N = max(64, capacity)
+    while pending:
+        encs_t = [encs[i] for i in pending]
+        # C is the widest pending key's, with no floor (the dense
+        # batch's is 5)
+        xs, state0, _, _, _ = pad_batch(encs_t)
+        sc = _BatchScan(encs_t, xs, state0, N, dedupe, probe_limit, dev,
+                        smem_budget).run()
+        valid, fail_r, overflow, maxf, stepped = sc.result()
+        tag = _closure_tag(sc.closure, dev)
+        retry = []
+        for j, i in enumerate(pending):
+            if overflow[j]:
+                retry.append(i)
+                continue
+            r = {"valid?": valid[j], "max-frontier": maxf[j],
+                 "capacity": N, "dedupe": dedupe,
+                 "configs-stepped": stepped[j], "closure": tag}
+            if not valid[j]:
+                r.update(fail_op_fields(encs[i], fail_r[j]))
+            out[i] = r
+        if not retry:
+            break
+        if N * 2 > max_capacity:
+            for i in retry:
+                out[i] = escalate(encs[i], N)
+            break
+        pending = retry
+        N *= 2
     return out
 
 

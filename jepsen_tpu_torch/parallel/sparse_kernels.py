@@ -4,15 +4,23 @@ versions and shared-memory gates.
   * K2, `frontier_closure` — one return event's whole delta-frontier
     hash closure in one launch (`kernels/frontier_closure.cu`; replaces
     `jepsen_tpu.parallel.sparse_kernels.frontier_closure_call`). Its
-    plain version is `sparse._hash_event_closure`.
+    plain version is `sparse._hash_event_closure`. Batched over keys,
+    `frontier_closure_batch`: one event row of K keys in one launch, a
+    block a key (the reference's K2 under vmap); its plain version is
+    `frontier_closure_batch_reference`, the single key's key by key.
   * K4, `tiled_insert` — the probe/claim half of one visited-set
-    transaction over a table split into hash-range tiles
-    (`kernels/tiled_insert.cu`; replaces
-    `jepsen_tpu.parallel.sparse_kernels.tiled_insert_call`): a bin of
-    the live candidates by home tile over many blocks, then one block
-    per tile walking only its own. Its plain version is
-    `tiled_insert_reference`. The closure around it
+    transaction over a table split into hash-range tiles, the candidates
+    in chunks, as a plan says (`kernels/tiled_insert.cu`; replaces
+    `jepsen_tpu.parallel.sparse_kernels.tiled_insert_call`). The
+    engine's plan (`whole_plan`) is one tile and one chunk, the
+    reference's transaction: a block a table, in device memory. Smaller
+    plans take a bin of the live candidates by home tile over many
+    blocks, then one block per tile walking only its own. Its plain
+    version is `tiled_insert_reference`. The closure around it
     (`tiled_event_closure`) is the plain closure with K4 as its insert.
+    Batched over keys, `tiled_insert_batch`: K keys' transactions, a
+    table each, in one launch pair (plain version
+    `tiled_insert_batch_reference`), inside `tiled_event_closure_batch`.
   * K3, `hash_insert` — one visited-set transaction of the sharded
     engine's closure iterations: probe, claim, loser re-check and the
     append of the fresh rows (`kernels/hash_insert.cu`; replaces
@@ -26,21 +34,23 @@ versions and shared-memory gates.
 The gates come from shared-memory layouts: K2 keeps the frontier (12
 bytes a row), the table (T = next_pow2(2N) slots of 12 bytes of row, 4
 of claim and 1 of occupancy) and two bytes per candidate (N*C of them)
-in one block; K4 keeps a claim word per tile slot, one chunk of
-gathered candidates and the bin's counters (`k4_smem_bytes`, whatever
-the number of candidates or tiles), and its plan (`tiled_plan`) sizes the tile
-and the chunk by a fixed split of the budget, which fixes each row's
-probe sequence and so the results. The budget is the
-card's opt-in on a card (232,448 bytes on the H100) and that Hopper
-figure on the CPU, so the CPU tests take the routes the card would.
+in one block; K4's binned path keeps a claim word per tile slot, one
+chunk of gathered candidates and the bin's counters (`k4_smem_bytes`,
+whatever the number of candidates or tiles), and `tiled_plan` sizes such
+a tile and chunk by a fixed split of the budget (the engine runs
+`whole_plan`, whose block keeps its table in device memory). The budget
+is the card's opt-in on a card (232,448 bytes on the H100) and that
+Hopper figure on the CPU, so the CPU tests take the routes the card
+would.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version, which the tests and `chip_smoke.py`
 hold the kernel against. Each wrapper counts its launches, and nothing
 else, in a plain integer: `launches["frontier_closure"]`,
-`launches["hash_insert"]` and `launches["tiled_insert"]`; K3 also counts
-them per table layout, in `hash_insert_launches["shared"]` and
-`hash_insert_launches["device"]`.
+`launches["frontier_closure_batch"]`, `launches["hash_insert"]`,
+`launches["tiled_insert"]` and `launches["tiled_insert_batch"]` (a bin
+and insert pair counts once); K3 also counts them per table layout, in
+`hash_insert_launches["shared"]` and `hash_insert_launches["device"]`.
 """
 
 from __future__ import annotations
@@ -60,7 +70,8 @@ HOPPER_SMEM_OPTIN = 232_448
 STEP_CODES = {"register": 0, "mutex": 1, "gset": 2, "uqueue": 3, "fifo": 4}
 
 # kernel launches since the last reset, per wrapper
-launches = {"frontier_closure": 0, "hash_insert": 0, "tiled_insert": 0}
+launches = {"frontier_closure": 0, "frontier_closure_batch": 0,
+            "hash_insert": 0, "tiled_insert": 0, "tiled_insert_batch": 0}
 # K3's launches since the last reset, per table layout
 hash_insert_launches = {"shared": 0, "device": 0}
 
@@ -182,9 +193,10 @@ def tiled_plan(N: int, C: int, budget: int = HOPPER_SMEM_OPTIN):
     shared memory (`k4_smem_bytes`) does not fit it. Up to 3/5 of the
     budget at 17 bytes a slot goes to the tile (at most the whole table,
     T = next_pow2(2N)), the rest at 10 bytes an entry to the chunk: on
-    the H100 a tile of 8,192 slots and a chunk of 8,192 candidates. The
-    tile fixes where each row probes, so the split stays the one every
-    result so far was computed with."""
+    the H100 a tile of 8,192 slots and a chunk of 8,192 candidates. Such
+    a plan runs on K4's binned path (the tests and the parity cases take
+    it); the engine's route takes `whole_plan`, since a tile lays rows
+    out otherwise than the reference's one table."""
     T = sp._next_pow2(2 * N)
     tile = min(T, _pow2_floor((budget * 3 // 5) // K4_PLAN_SLOT_BYTES))
     chunk = _pow2_floor(max(1, (budget - K4_PLAN_SLOT_BYTES * tile
@@ -194,6 +206,22 @@ def tiled_plan(N: int, C: int, budget: int = HOPPER_SMEM_OPTIN):
             k4_smem_bytes(tile, chunk, T // tile) > budget:
         return None
     return {"tile": tile, "chunk": chunk}
+
+
+# the engine's K4 plan: one tile of the whole table, one chunk of every
+# candidate (a chunk is clipped to the candidates' next power of two)
+WHOLE_CHUNK = 1 << 30
+
+
+def whole_plan(N: int) -> dict:
+    """K4's plan on the engine's route past K2's gate: the whole table
+    (T = next_pow2(2N)) as one tile and every candidate in one chunk —
+    the reference's visited-set transaction (`engine._hash_insert` over
+    the table), so the layout, the probe-overflow flag and `capacity`
+    are the reference's. Hash-range tiles of `tiled_plan` lay rows out
+    otherwise and can exhaust a probe run where the reference does not
+    (ROADMAP Queue 3)."""
+    return {"tile": sp._next_pow2(2 * N), "chunk": WHOLE_CHUNK}
 
 
 # ----------------------------------------------------------- the libraries
@@ -216,7 +244,7 @@ def _lib(name: str):
         lib = kernels.load(name)
         if name == "frontier_closure":
             lib.jt_frontier_closure_launch.argtypes = \
-                [_I] + [_P] * 14 + [_I, _I, _I, _P]
+                [_I] + [_P] * 5 + [_I] * 2 + [_P] * 9 + [_I] * 4 + [_P]
             lib.jt_frontier_closure_launch.restype = _I
             lib.jt_frontier_closure_smem.argtypes = [_I, _I]
             lib.jt_frontier_closure_smem.restype = ctypes.c_longlong
@@ -234,11 +262,11 @@ def _lib(name: str):
             lib.jt_hash_insert_smem.restype = ctypes.c_longlong
         else:
             lib.jt_tiled_insert_launch.argtypes = \
-                [_P] * 4 + [_I] + [_P] * 8 + [_I] * 5 + [_P]
+                [_P] * 4 + [_I] + [_P] * 8 + [_I] * 6 + [_P]
             lib.jt_tiled_insert_launch.restype = _I
             lib.jt_tiled_insert_smem.argtypes = [_I] * 3
             lib.jt_tiled_insert_smem.restype = ctypes.c_longlong
-            lib.jt_tiled_insert_scratch.argtypes = [_I] * 3
+            lib.jt_tiled_insert_scratch.argtypes = [_I] * 4
             lib.jt_tiled_insert_scratch.restype = ctypes.c_longlong
         init = getattr(lib, f"jt_{name}_init")
         init.argtypes = []
@@ -372,31 +400,113 @@ def frontier_closure(step_name: str, ev: dict, rows, live, run,
     A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel on the current stream, after the shape gate
     (`supported(N, C)` against the card's opt-in)."""
-    N, C = _check_closure_args(step_name, ev, rows, live, run, probe_limit)
-    dev = _dev(live)
-    if dev.type == "cpu":
+    _check_closure_args(step_name, ev, rows, live, run, probe_limit)
+    if _dev(live).type == "cpu":
         return frontier_closure_reference(step_name, ev, rows, live, run,
                                           probe_limit)
+    out = _frontier_closure_launch(step_name, ev, 0, 1, rows, live, run,
+                                   probe_limit)
+    launches["frontier_closure"] += 1
+    return out
+
+
+SLOT_TABLES = ("slot_f", "slot_a0", "slot_a1", "slot_wild", "slot_occ")
+
+
+def _frontier_closure_launch(step_name, xs, r: int, R: int, rows, live,
+                             run, probe_limit: int):
+    """K2's launch on CUDA tensors after the shape gate: one key's event
+    (slot tables [C], rows and live [N], one run flag) or event row r of
+    K keys' (tables [K, R, C], rows and live [K, N], run [K]); the
+    outputs take live's shape. Raises on a launch the card refuses;
+    counts nothing (its callers do)."""
+    C, N = xs["slot_f"].shape[-1], live.shape[-1]
+    K = live.numel() // N
+    dev = live.device
     if not supported(N, C, _device_optin("frontier_closure", dev)):
         raise ValueError(f"frontier_closure: N={N} C={C} needs "
                          f"{k2_smem_bytes(N, C)} bytes of shared memory, "
                          f"past the card's opt-in")
-    ins = [ev[k].contiguous() for k in ("slot_f", "slot_a0", "slot_a1",
-                                        "slot_wild", "slot_occ")]
-    ins += [r.contiguous() for r in rows] + [live.contiguous(),
-                                             run.reshape(1).contiguous()]
-    out = [torch.empty(N, dtype=_I32, device=dev) for _ in range(3)]
-    meta = torch.empty(4, dtype=_I32, device=dev)
+    ins = [xs[k].contiguous() for k in SLOT_TABLES]
+    rins = [x.contiguous() for x in rows] + [live.contiguous(),
+                                              run.contiguous()]
+    out = [torch.empty(live.shape, dtype=_I32, device=dev)
+           for _ in range(3)]
+    meta = torch.empty((*live.shape[:-1], 4), dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         err = _lib("frontier_closure").jt_frontier_closure_launch(
-            STEP_CODES[step_name], *map(_ptr, ins), *map(_ptr, out),
-            _ptr(meta), N, C, probe_limit,
-            torch.cuda.current_stream().cuda_stream)
+            STEP_CODES[step_name], *map(_ptr, ins), r, R,
+            *map(_ptr, rins), *map(_ptr, out), _ptr(meta), K, N, C,
+            probe_limit, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"frontier_closure kernel launch failed: CUDA "
                            f"error {err}")
-    launches["frontier_closure"] += 1
     return tuple(out), meta
+
+
+def frontier_closure_batch_reference(step_name, xs, r: int, rows, live,
+                                     run, probe_limit: int):
+    """Batched K2's plain version: `frontier_closure_reference` key by
+    key on event row r -> (rows2 three [K, N] lanes, meta int32 [K, 4]).
+    A key whose `run` is False gets zero rows and zero meta."""
+    outs = [frontier_closure_reference(
+        step_name, {k: xs[k][i, r] for k in SLOT_TABLES},
+        tuple(x[i] for x in rows), live[i], run[i], probe_limit)
+        for i in range(live.shape[0])]
+    return (tuple(torch.stack([o[0][j] for o in outs]) for j in range(3)),
+            torch.stack([o[1] for o in outs]))
+
+
+def frontier_closure_batch(step_name: str, xs: dict, r: int, rows, live,
+                           run, probe_limit: int):
+    """Batched K2: event row r's whole hash closure for each of K keys,
+    in one launch (a block a key).
+
+    xs     the padded batch's slot tables: slot_f/slot_a0/slot_a1 int32
+           [K, R, C], slot_wild/slot_occ bool [K, R, C] (read in place;
+           other entries are ignored)
+    r      the event row, 0 <= r < R
+    rows   three int32 lanes [K, N]; live bool [K, N]
+    run    bool [K]: False skips that key (zero rows and meta)
+    ->     (rows2 three int32 lanes [K, N], meta int32 [K, 4] = count,
+           ovf, iters, stepped per key), as `frontier_closure` gives
+           each key.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel on the current stream, after the shape gate (`supported(N,
+    C)` against the card's opt-in), or raises."""
+    _check(step_name in STEP_CODES, f"frontier_closure_batch: unknown "
+                                    f"step family {step_name!r}")
+    _check(xs["slot_f"].dim() == 3, "frontier_closure_batch: slot tables "
+                                    "must be [K, R, C]")
+    K, R, C = xs["slot_f"].shape
+    N = live.shape[-1]
+    _check(1 <= C <= MAX_C and 0 <= r < R and K >= 1,
+           f"frontier_closure_batch: C={C} outside 1..{MAX_C}, or row "
+           f"{r} outside 0..{R - 1}")
+    _check(1 <= probe_limit <= sp.MAX_PROBE_LIMIT,
+           f"frontier_closure_batch: probe_limit={probe_limit} outside "
+           f"1..{sp.MAX_PROBE_LIMIT}")
+    for k in SLOT_TABLES:
+        dt = _I32 if k in ("slot_f", "slot_a0", "slot_a1") else torch.bool
+        _check(xs[k].dtype == dt and tuple(xs[k].shape) == (K, R, C),
+               f"frontier_closure_batch: {k} must be {dt} [{K}, {R}, {C}]")
+    _check(len(rows) == 3 and all(x.dtype == _I32 and tuple(x.shape) ==
+                                  (K, N) for x in rows)
+           and live.dtype == torch.bool and tuple(live.shape) == (K, N)
+           and run.dtype == torch.bool and tuple(run.shape) == (K,),
+           f"frontier_closure_batch: rows must be three int32 [{K}, N] "
+           f"lanes, live bool [{K}, N], run bool [{K}]")
+    devs = {t.device for t in (*(xs[k] for k in SLOT_TABLES), *rows, live,
+                               run)}
+    _check(len(devs) == 1, f"frontier_closure_batch: tensors on {devs}")
+    if _dev(live).type == "cpu":
+        return frontier_closure_batch_reference(step_name, xs, r, rows,
+                                                live, run, probe_limit)
+    out = _frontier_closure_launch(step_name, xs, r, R, rows, live, run,
+                                   probe_limit)
+    launches["frontier_closure_batch"] += 1
+    return out
 
 
 # --------------------------------------------------------------------- K3
@@ -502,6 +612,14 @@ def _tiling(T: int, M: int, plan: dict):
     return n_tt, T // n_tt, n_tt.bit_length() - 1, CH
 
 
+def is_whole(T: int, M: int, plan: dict) -> bool:
+    """Whether `plan` on T slots and M candidates is one tile and one
+    chunk: the reference's whole-table transaction, which K4 runs as a
+    block a key with the table in device memory (tiled_insert.cu)."""
+    n_tt, _, _, CH = _tiling(T, M, plan)
+    return n_tt == 1 and CH >= M
+
+
 def tiled_insert_reference(c_rows, c_live, table, probe_limit: int,
                            plan: dict):
     """K4's plain version: chunk by chunk, in order, one round-synchronous
@@ -535,7 +653,7 @@ def tiled_insert(c_rows, c_live, table, probe_limit: int, plan: dict):
 
     c_rows  candidates, three int32 lanes [M]; c_live bool [M]
     table   (three int32 lanes [T], occupancy bool [T]), T a power of two
-    plan    {"tile", "chunk"} (tiled_plan)
+    plan    {"tile", "chunk"} (whole_plan, or a binned tiled_plan)
     ->      (table2, fresh bool[M], off int32[M], probe_ovf bool [])
 
     A CPU tensor runs the plain version, which leaves `table` as it is.
@@ -571,17 +689,21 @@ def tiled_insert(c_rows, c_live, table, probe_limit: int, plan: dict):
 
 def _tiled_insert_launch(c_rows, c_live, table, probe_limit: int,
                          plan: dict, stages: int = 3, work=None):
-    """K4's launches on CUDA tensors: `stages` 1 the bin alone, 2 the
-    insert alone (on `work` from an earlier bin of the same candidates),
-    3 both (the wrapper's). chip_smoke.py and kernel_ab.py time the two
-    apart. -> (table2, fresh, off, probe_ovf, work); one launch counted
-    per insert."""
+    """K4's launches on CUDA tensors, one key's ([M] candidates, a [T]
+    table) or K keys' ([K, M] and [K, T]: `tiled_insert_batch`): `stages`
+    1 the bin alone, 2 the insert alone (on `work` from an earlier bin of
+    the same candidates), 3 both (the wrappers'). chip_smoke.py and
+    kernel_ab.py time the two apart. -> (table2, fresh, off, probe_ovf,
+    work); one launch counted per insert, in `launches["tiled_insert"]`
+    or `launches["tiled_insert_batch"]`."""
     t_rows, t_occ = table
-    M, T = c_live.shape[0], t_occ.shape[0]
+    M, T = c_live.shape[-1], t_occ.shape[-1]
+    K = c_live.shape[0] if c_live.dim() == 2 else 1
     dev = c_live.device
     n_tt, TS, tt_bits, CH = _tiling(T, M, plan)
     smem = k4_smem_bytes(TS, CH, n_tt)
-    if smem > _device_optin("tiled_insert", dev):
+    if not is_whole(T, M, plan) and smem > _device_optin("tiled_insert",
+                                                           dev):
         raise ValueError(f"tiled_insert: {n_tt} tiles of {TS} and chunk "
                          f"{CH} need {smem} bytes of shared memory, past "
                          f"the card's opt-in")
@@ -589,22 +711,25 @@ def _tiled_insert_launch(c_rows, c_live, table, probe_limit: int,
     ins = [r.contiguous() for r in c_rows] + [c_live.contiguous()]
     tins = [r.contiguous() for r in t_rows] + [t_occ.contiguous()]
     if work is None:
-        work = (torch.empty(M, dtype=torch.bool, device=dev),
-                torch.empty(M, dtype=_I32, device=dev),
-                torch.empty((), dtype=torch.bool, device=dev),
-                torch.empty(lib.jt_tiled_insert_scratch(M, tt_bits, CH),
+        work = (torch.empty(c_live.shape, dtype=torch.bool, device=dev),
+                torch.empty(c_live.shape, dtype=_I32, device=dev),
+                torch.empty(c_live.shape[:-1], dtype=torch.bool,
+                            device=dev),
+                torch.empty(K * lib.jt_tiled_insert_scratch(M, TS, tt_bits,
+                                                            CH),
                             dtype=torch.uint8, device=dev))
     fresh, off, pend, scratch = work
     with torch.cuda.device(dev):
         err = lib.jt_tiled_insert_launch(
             *map(_ptr, ins), M, *map(_ptr, tins), _ptr(fresh), _ptr(off),
-            _ptr(pend), _ptr(scratch), TS, tt_bits, CH, probe_limit,
+            _ptr(pend), _ptr(scratch), K, TS, tt_bits, CH, probe_limit,
             stages, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"tiled_insert kernel launch failed: CUDA "
                            f"error {err}")
     if stages & 2:
-        launches["tiled_insert"] += 1
+        launches["tiled_insert" if c_live.dim() == 1
+                 else "tiled_insert_batch"] += 1
     return (tuple(tins[:3]), tins[3]), fresh, off, pend, work
 
 
@@ -624,3 +749,85 @@ def tiled_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
         rep, step, ev, rows, live, run, N, T, probe_limit, insert=insert)
     return rows2, torch.stack([count, ovf.to(count.dtype), iters,
                                stepped]).to(_I32)
+
+
+def tiled_insert_batch_reference(c_rows, c_live, table, probe_limit: int,
+                                 plan: dict):
+    """Batched K4's plain version: `tiled_insert_reference` key by key ->
+    (table2 ([K, T] lanes, occupancy), fresh [K, M], off [K, M],
+    probe_ovf [K]). Leaves `table` as it is."""
+    t_rows, t_occ = table
+    outs = [tiled_insert_reference(
+        tuple(x[i] for x in c_rows), c_live[i],
+        (tuple(x[i] for x in t_rows), t_occ[i]), probe_limit, plan)
+        for i in range(c_live.shape[0])]
+    return ((tuple(torch.stack([o[0][0][j] for o in outs])
+                   for j in range(3)),
+             torch.stack([o[0][1] for o in outs])),
+            *(torch.stack([o[j] for o in outs]) for j in (1, 2, 3)))
+
+
+def tiled_insert_batch(c_rows, c_live, table, probe_limit: int,
+                       plan: dict):
+    """Batched K4: K keys' visited-set transactions, each into its own
+    table, in one launch pair (the bin and the insert, blockIdx.y the
+    key). Each key's chunks are the single key's: what key k gets is
+    `tiled_insert` on its own candidates and table.
+
+    c_rows  candidates, three int32 lanes [K, M]; c_live bool [K, M]
+    table   (three int32 lanes [K, T], occupancy bool [K, T]), T a power
+            of two
+    plan    {"tile", "chunk"} (whole_plan, or a binned tiled_plan)
+    ->      (table2, fresh bool [K, M], off int32 [K, M], probe_ovf bool
+            [K])
+
+    A CPU tensor runs the plain version, which leaves `table` as it is;
+    a CUDA tensor launches the kernels on the current stream and updates
+    the tables in place (`table` is consumed, as `tiled_insert`'s), or
+    raises."""
+    t_rows, t_occ = table
+    _check(c_live.dim() == 2 and t_occ.dim() == 2
+           and c_live.shape[0] == t_occ.shape[0],
+           "tiled_insert_batch: candidates [K, M], tables [K, T]")
+    (K, M), T = c_live.shape, t_occ.shape[1]
+    _check(M >= 1 and T >= 1 and T & (T - 1) == 0,
+           f"tiled_insert_batch: M={M} T={T} (T must be a power of two)")
+    _check(1 <= probe_limit <= sp.MAX_PROBE_LIMIT,
+           f"tiled_insert_batch: probe_limit={probe_limit} outside "
+           f"1..{sp.MAX_PROBE_LIMIT}")
+    _check(len(c_rows) == 3 and len(t_rows) == 3
+           and all(r.dtype == _I32 and tuple(r.shape) == (K, M)
+                   for r in c_rows)
+           and all(r.dtype == _I32 and tuple(r.shape) == (K, T)
+                   for r in t_rows)
+           and c_live.dtype == torch.bool and t_occ.dtype == torch.bool,
+           "tiled_insert_batch: rows must be three int32 lanes, flags bool")
+    devs = {t.device for t in (*c_rows, c_live, *t_rows, t_occ)}
+    _check(len(devs) == 1, f"tiled_insert_batch: tensors on {devs}")
+    if _dev(c_live).type == "cpu":
+        return tiled_insert_batch_reference(c_rows, c_live, table,
+                                            probe_limit, plan)
+    return _tiled_insert_launch(c_rows, c_live, table, probe_limit,
+                                plan)[:4]
+
+
+def tiled_event_closure_batch(rep, step, ev, rows, live, run, N: int,
+                              T: int, probe_limit: int, plan: dict):
+    """The hash closures of one event row for K keys with batched K4 as
+    their visited-set insert: `sparse._hash_event_closure_batch` whose
+    insert is `tiled_insert_batch` followed by the plain append, one
+    launch pair an iteration for every key. ev [K, C] slot tables, rows
+    and live [K, N], run [K] -> (rows2 [K, N] lanes, meta int32 [K, 4]);
+    a key whose closure ended early is frozen, one that does not run
+    gets zero rows and meta."""
+    def insert(c_rows, c_live, f_rows, count, table):
+        table2, fresh, _, p_ovf = tiled_insert_batch(c_rows, c_live, table,
+                                                     probe_limit, plan)
+        rows2, count2, n_fresh, a_ovf = sp._append_fresh(
+            c_rows, fresh, f_rows, count, N)
+        return rows2, table2, count2, n_fresh, p_ovf | a_ovf
+
+    rows2, count, ovf, iters, stepped = sp._hash_event_closure_batch(
+        rep, step, ev, rows, live, run, N, T, insert)
+    return rows2, torch.stack([count, ovf.to(count.dtype), iters,
+                               stepped], 1).to(_I32)

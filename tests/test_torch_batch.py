@@ -309,17 +309,27 @@ def test_every_dense_family_matches_reference(name):
 
 
 def test_bucket_past_the_dense_engine_raises():
-    """26 concurrent writes need C = 26 > 24: the sparse batch is not
-    ported, and the single-key sparse check would report another
-    capacity than the reference's batch."""
-    ops = [{"process": p, "type": "invoke", "f": "write", "value": 1000 + p}
+    """26 concurrent reads need C = 26 > 24: that bucket is past the
+    dense engine. It used to raise NotImplementedError; since the sparse
+    batch (ROADMAP Queue 1 item 7) it runs there, beside the narrow key's
+    dense bucket, with the reference's batch results (every field but
+    `closure`), in input order. No read can linearize (nothing was
+    written), so the key fails at its first return, at the batch's
+    default capacity of 512."""
+    ops = [{"process": p, "type": "invoke", "f": "read", "value": None}
            for p in range(26)]
-    ops += [{"process": p, "type": "ok", "f": "write", "value": 1000 + p}
+    ops += [{"process": p, "type": "ok", "f": "read", "value": 1000 + p}
             for p in range(26)]
-    wide = History.wrap(ops).index()
-    narrow = _port_history(_bench_keys(1, 20, n_processes=3)[0])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        engine.check_batch(models.CASRegister(), [narrow, wide], device=CPU)
+    narrow = _bench_keys(1, 20, n_processes=3)[0]
+    wide = RefHistory.wrap(ops).index()
+    want = ref_engine.check_batch(ref_models.CASRegister(), [narrow, wide],
+                                  dedupe="hash")
+    got = engine.check_batch(models.CASRegister(),
+                             [_port_history(narrow), _port_history(wide)],
+                             device=CPU)
+    assert _strip(got) == _strip(want)
+    assert got[0]["engine"] == "bitdense" and "engine" not in got[1]
+    assert got[1]["valid?"] is False and got[1]["capacity"] == 512
 
 
 @pytest.mark.parametrize("kw,item", [({"pipeline": True}, "item 8"),

@@ -23,6 +23,7 @@ from jepsen_tpu.parallel import encode as ref_enc
 from jepsen_tpu.parallel import engine as ref_engine
 from jepsen_tpu_torch.parallel import encode as enc
 from jepsen_tpu_torch.parallel import sparse
+from jepsen_tpu_torch.parallel import sparse_kernels as sk
 
 KEYS = ("valid?", "fail-event", "op", "max-frontier", "capacity",
         "configs-stepped", "explored", "dedupe")
@@ -241,3 +242,28 @@ def test_default_device_without_cuda_raises(monkeypatch):
         sparse.check_encoded(pe)
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         sparse.frontier_at(pe, 3)
+
+
+def test_tiled_route_takes_the_references_whole_table(monkeypatch):
+    """A fault of ROADMAP Queue 3, now closed: the tiled closure probed
+    K4's hash-range tiles (`tiled_plan`), whose table layout, and so
+    where a probe run is exhausted, differ from the reference's one
+    table. At probe_limit 3 this queue history settled at capacity 512
+    on tiles of 512; the reference needs 1,024. The route's plan is now
+    the whole table as one tile (`whole_plan`), the reference's own
+    transaction."""
+    h = ref_histories.rand_queue_history(n_ops=40, n_processes=6,
+                                         n_values=3, crash_p=0.1, seed=1)
+    re_ = ref_enc.encode(ref_models.UnorderedQueue(), h)
+    pe = _to_port(re_)
+    want = ref_engine.check_encoded(re_, capacity=256, dedupe="hash",
+                                    probe_limit=3)
+    kw = dict(capacity=256, dedupe="hash", probe_limit=3,
+              smem_budget=16384, device="cpu")
+    got = sparse.check_encoded(pe, **kw)
+    assert got["closure"] == "torch-tiled"
+    assert _pin(got) == _pin(want) and want["capacity"] == 1024
+    monkeypatch.setattr(sk, "whole_plan",
+                        lambda N: sk.tiled_plan(N, 7, 16384))
+    old = sparse.check_encoded(pe, **kw)
+    assert old["closure"] == "torch-tiled" and old["capacity"] == 512

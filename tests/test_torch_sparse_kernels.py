@@ -241,18 +241,23 @@ def test_hopper_gate_arithmetic():
 
 
 def test_routes_follow_the_gate():
+    """Past K2's gate the tiled closure takes the whole table as one tile
+    and every candidate as one chunk (`whole_plan`: the reference's own
+    transaction); so every shape has a plan, however small the
+    budget."""
+    whole = sk.WHOLE_CHUNK
     assert sparse._route(1024, 12, "hash", torch.device("cpu")) == \
         ("fused", None)
     assert sparse._route(4096, 12, "hash", torch.device("cpu")) == \
-        ("tiled", {"tile": 8192, "chunk": 8192})
+        ("tiled", {"tile": 8192, "chunk": whole})
     assert sparse._route(512, 8, "hash", torch.device("cpu"),
                          smem_budget=16384) == \
-        ("tiled", {"tile": 512, "chunk": 512})
+        ("tiled", {"tile": 1024, "chunk": whole})
     assert sparse._route(4096, 12, "sort", torch.device("cpu")) == \
         ("sort", None)
-    with pytest.raises(RuntimeError, match="no tiled insert plan"):
-        sparse._route(128, 8, "hash", torch.device("cpu"),
-                      smem_budget=4000)
+    assert sparse._route(128, 8, "hash", torch.device("cpu"),
+                         smem_budget=4000) == \
+        ("tiled", {"tile": 256, "chunk": whole})
 
 
 def _closure_args(C=3, N=8):
@@ -575,14 +580,16 @@ def test_tiled_plan_at_every_capacity():
 
 
 def test_route_is_tiled_past_capacity_2_24():
-    """Past N = 2^24 (8,192 tiles and more) the hash route still has a
-    plan: the bin groups tiles, so its counters stay in shared memory."""
+    """Past N = 2^24 the hash route still has a plan: the whole table, as
+    at every capacity past K2's gate (the binned plans that `tiled_plan`
+    sizes, a bin of tiles past 4,096 tiles, serve explicit plans)."""
     cpu = torch.device("cpu")
-    big = {"tile": 8192, "chunk": 8192}
-    assert sparse._route(1 << 24, 2, "hash", cpu) == ("tiled", big)
-    assert sparse._route(1 << 25, 2, "hash", cpu) == ("tiled", big)
-    assert sparse._route(1 << 26, 24, "hash", cpu) == ("tiled", big)
-    assert sparse._route(1 << 29, 2, "hash", cpu) == ("tiled", big)
+    for N, C in ((1 << 24, 2), (1 << 25, 2), (1 << 26, 24), (1 << 29, 2)):
+        assert sparse._route(N, C, "hash", cpu) == \
+            ("tiled", {"tile": 2 * N, "chunk": sk.WHOLE_CHUNK})
+        # one chunk up to 2^30 candidates (the kernel's counts are int32)
+        assert sk.is_whole(2 * N, N * C, sk.whole_plan(N)) \
+            == (N * C <= sk.WHOLE_CHUNK)
 
 
 def tiled_group_bin_reference(c_rows, c_live, T: int, plan: dict,

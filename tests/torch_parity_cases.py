@@ -18,6 +18,14 @@ moves it to its device. Each one aims at a part of a kernel's design:
     overflow raised, M not a multiple of the chunk, and a few live
     candidates over many chunks on a table already half full (the
     one-warp insert).
+  * K4 batched over keys (`k4_batch_cases`): keys with their own tables
+    side by side — one with no live candidate (a key whose closure has
+    ended), two with the same candidates on different tables, one on a
+    half-full table — at probe_limit 32 and 2.
+
+`record_calls` keeps the inputs a check hands to a wrapper of
+`sparse_kernels` (the batched K2 and K4 parity runs record theirs from
+the sparse batch itself).
 """
 
 from __future__ import annotations
@@ -223,3 +231,68 @@ def k4_wide_case(tiles: int = 8192):
     return (f"{tiles} tiles of 8,192", c_rows, live,
             sp._empty_table(tiles * 8192, sp._rep((), 1)), 32,
             {"tile": 8192, "chunk": 8192})
+
+
+def k4_batch_cases() -> list:
+    """[(name, c_rows [K, M] lanes, c_live [K, M], table ([K, T] lanes,
+    occupancy [K, T]), probe_limit, plan)]: 4 keys of 1,536 candidates
+    (3 chunks of 512) on tables of 4 tiles of 512. Key 0 has ~80% live
+    from a pool of 900 rows (equal rows within it); key 1 none live; key
+    2 key 0's candidates on an empty table of its own; key 3 fresh rows
+    on a table already holding 1,000 (probe_limit 2 overflows there)."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    rng = np.random.default_rng(20261020)
+    rep = sp._rep((), 1)
+    plan = {"tile": 512, "chunk": 512}
+    M, T = 1536, 2048
+    out = []
+    for pl in (32, 2):
+        k0 = _rand_rows(rng, M, 900)
+        k3 = _rand_rows(rng, M, M)
+        live0 = torch.from_numpy(rng.random(M) < 0.8)
+        live3 = torch.from_numpy(rng.random(M) < 0.6)
+        fill = sk.tiled_insert_reference(
+            _rand_rows(rng, 1000, 1000), torch.ones(1000, dtype=torch.bool),
+            sp._empty_table(T, rep), 32, plan)[0]
+        empty = sp._empty_table(T, rep)
+        c_rows = tuple(torch.stack([a, a, a, b]) for a, b in zip(k0, k3))
+        c_live = torch.stack([live0, torch.zeros(M, dtype=torch.bool),
+                              live0, live3])
+        tables = [empty, empty, empty, fill]
+        table = (tuple(torch.stack([t[0][j] for t in tables])
+                       for j in range(3)),
+                 torch.stack([t[1] for t in tables]))
+        out.append((f"4 keys, probe_limit {pl}", c_rows, c_live, table, pl,
+                    plan))
+    return out
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+def record_calls(name: str, run, keep=None) -> list:
+    """Run `run()` with `sparse_kernels.<name>` recording: the arguments
+    of its calls for which `keep(args)` holds (every call when None),
+    cloned as the caller handed them over, in call order. The wrapper
+    itself still runs, and its counters count as ever."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    real, kept = getattr(sk, name), []
+
+    def recording(*args):
+        if keep is None or keep(args):
+            kept.append(_clone(args))
+        return real(*args)
+
+    setattr(sk, name, recording)
+    try:
+        run()
+    finally:
+        setattr(sk, name, real)
+    return kept
