@@ -60,13 +60,12 @@ down both of its engines:
        cases of `tests/torch_parity_cases.py` (C = 33 and 64, N = 2,048,
        passes of at most 32, more than 32 and more than 1,024
        candidates, a frontier overflow past N, probe_limit 2); K4 on a
-       random insert over 4 tiles x 3 chunks, on inserts recorded from
-       the 1000-op FIFO and on the seeded cases (a tile with no live
-       candidate, all in one tile, equal rows across a chunk boundary,
-       probe_limit 1 and 2, M not a multiple of the chunk, a few live
-       candidates over many chunks, and a table of 16,384 tiles, where a
-       bin is a group of 4 tiles), and its bin and insert launched
-       apart. K4 updates the table in place, so it gets a copy;
+       random insert, on inserts recorded from the 1000-op FIFO and on
+       the seeded cases (many and few live candidates racing, equal rows
+       near and far apart, probe_limit 1 and 2, a few live candidates
+       among 50,000 on a half-full table, and more live candidates than
+       its grid has threads). K4 updates the table in place, so it gets
+       a copy;
      * main path: the six golden queue and set histories, 400-op
        unordered-queue and set histories (the K2 route), a 1000-op FIFO
        history (the K4 route, at capacity 32,768) and its invalid twin,
@@ -77,13 +76,12 @@ down both of its engines:
      * timing of K2 and K4 per launch, beside their plain versions, the
        sort closure, and their bound; K2 also cut short (run=False, its
        closure loop cut to 0 and 1 passes: kernel_ab.py's breakdown),
-       K4's bin and insert also apart, each launch on its own copy of
-       the recorded table.
+       each K4 launch on its own copy of the recorded table.
   5. the sparse per-key batch (Jepsen's per-key queue workload), whose
      closure is K2 batched over keys (one launch an event row for every
      key of a tier within K2's gate) and the tiled closure around K4
-     batched over keys (one bin and insert pair a closure iteration for
-     every key past it):
+     batched over keys (one launch a closure iteration for every key
+     past it):
      * main path: 24 keys of the bench's multi-key layout on the
        unordered-queue model (120 ops, 14 processes, seeds 2024 + k; cut
        from 84) and corrupted twins of four, through `engine.check_batch`
@@ -972,7 +970,7 @@ def _record_sparse(cases, dev) -> dict:
                                      live.clone(), run.clone()))
         return real_k2(step_name, ev, rows, live, run, pl)
 
-    def k4(c_rows, c_live, table, pl, plan):
+    def k4(c_rows, c_live, table, pl):
         # the expansion inserts (M = N*C candidates; the seed insert of
         # each event has M = N = T/2), sampled across the events
         if table[1].shape[0] == 65536 and c_live.shape[0] != 32768:
@@ -981,8 +979,8 @@ def _record_sparse(cases, dev) -> dict:
                 rec["k4"].append((tuple(r.clone() for r in c_rows),
                                   c_live.clone(),
                                   (tuple(r.clone() for r in table[0]),
-                                   table[1].clone()), pl, dict(plan)))
-        return real_k4(c_rows, c_live, table, pl, plan)
+                                   table[1].clone()), pl))
+        return real_k4(c_rows, c_live, table, pl)
 
     sk.frontier_closure, sk.tiled_insert = k2, k4
     try:
@@ -1017,25 +1015,14 @@ def phase_sparse_parity(dev, rec) -> dict:
     """K2 and K4 against their plain versions on the card, bit for bit.
     Returns the largest |difference| of each (0: bit-identical)."""
     from jepsen_tpu_torch.parallel import sparse, sparse_kernels as sk
-    lib2, lib4 = sk._lib("frontier_closure"), sk._lib("tiled_insert")
+    lib2 = sk._lib("frontier_closure")
     for N, C in ((1024, 8), (2048, 12), (2048, 33)):
         _require(lib2.jt_frontier_closure_smem(N, C)
                  == sk.k2_smem_bytes(N, C), f"K2 layout at N={N} C={C}")
-    # K4's shared memory has no term in M: the default top tier (N = 2^20,
-    # T = 2^21, 256 tiles of 8,192) fits at every C
-    for TS, bits, CH in ((8192, 3, 8192), (512, 3, 512), (512, 0, 128),
-                         (8192, 8, 8192), (2048, 0, 16384)):
-        _require(lib4.jt_tiled_insert_smem(TS, bits, CH)
-                 == sk.k4_smem_bytes(TS, CH, 1 << bits),
-                 f"K4 layout at TS={TS} tiles=2^{bits} CH={CH}")
-        _require(sk.k4_smem_bytes(TS, CH, 1 << bits) <= sk.smem_budget(dev),
-                 f"K4 at TS={TS} tiles=2^{bits} CH={CH} past the opt-in")
     print(f"parity: shared-memory opt-in {sk.smem_budget(dev)} bytes; K2 "
           f"needs {sk.k2_smem_bytes(1024, 8)} at N=1024 C=8 and "
-          f"{sk.k2_smem_bytes(2048, 33)} at N=2048 C=33; K4's plan "
-          f"{sk.tiled_plan(32768, 12)} needs "
-          f"{sk.k4_smem_bytes(8192, 8192, 8)} on 8 tiles and "
-          f"{sk.k4_smem_bytes(8192, 8192, 256)} on 256, at any M")
+          f"{sk.k2_smem_bytes(2048, 33)} at N=2048 C=33; K4's grid "
+          f"{sk.k4_grid(dev)} blocks of 1,024 threads")
     worst = {"K2": 0, "K4": 0}
 
     def k2_pair(args, pl):
@@ -1065,10 +1052,10 @@ def phase_sparse_parity(dev, rec) -> dict:
     print(f"parity: K2 == plain closure at probe_limit=2 with the probe "
           f"overflow raised (meta {fired})")
 
-    def k4_pair(c_rows, c_live, table, pl, plan):
-        want = sk.tiled_insert_reference(c_rows, c_live, table, pl, plan)
+    def k4_pair(c_rows, c_live, table, pl):
+        want = sk.tiled_insert_reference(c_rows, c_live, table, pl)
         copy = (tuple(r.clone() for r in table[0]), table[1].clone())
-        got = sk.tiled_insert(c_rows, c_live, copy, pl, plan)
+        got = sk.tiled_insert(c_rows, c_live, copy, pl)
         torch.cuda.synchronize()
         err = max(_max_err(got[0][0], want[0][0]),
                   _max_err([got[0][1], got[1], got[2], got[3]],
@@ -1086,54 +1073,27 @@ def phase_sparse_parity(dev, rec) -> dict:
                        .to(dev) for k in range(3))
         c_live = torch.from_numpy(rng.random(M) < 0.8).to(dev)
         table = sparse._empty_table(T, sparse._rep((), 1, dev))
-        err, ovf, n = k4_pair(c_rows, c_live, table, pl,
-                              {"tile": 512, "chunk": 512})
+        err, ovf, n = k4_pair(c_rows, c_live, table, pl)
         _require(err == 0, f"K4 differs on the random insert, "
                            f"probe_limit={pl}")
-        print(f"parity: K4 == plain insert, 4 tiles x 3 chunks, "
+        print(f"parity: K4 == plain insert, T={T} M={M}, "
               f"probe_limit={pl}: {n} fresh, probe overflow {ovf}")
     for args in rec["k4"]:
         err, ovf, n = k4_pair(*args)
         _require(err == 0, "K4 differs on a recorded 1000-op FIFO insert")
-    plan = rec["k4"][0][4]
     print(f"parity: K4 == plain insert on {len(rec['k4'])} recorded "
-          f"1000-op FIFO inserts (T=65536, plan {plan}: "
-          f"{65536 // plan['tile']} tiles, M={rec['k4'][0][1].shape[0]})")
-    # the seeded cases, on the card, and K4's two launches apart
+          f"1000-op FIFO inserts (T=65536, M={rec['k4'][0][1].shape[0]})")
+    # the seeded cases, on the card
     parity_cases = _parity_cases()
-    for name, c_rows, c_live, table, pl, plan in parity_cases.k4_cases():
+    for name, c_rows, c_live, table, pl in parity_cases.k4_cases() + \
+            [parity_cases.k4_wide_case()]:
         args = (tuple(r.to(dev) for r in c_rows), c_live.to(dev),
-                (tuple(r.to(dev) for r in table[0]), table[1].to(dev)),
-                pl, plan)
+                (tuple(r.to(dev) for r in table[0]), table[1].to(dev)), pl)
         err, ovf, n = k4_pair(*args)
         _require(err == 0, f"K4 differs from the plain insert: {name}")
-        want = sk.tiled_insert_reference(*args)
-        work = sk._tiled_insert_launch(*args, stages=1)[-1]
-        got = sk._tiled_insert_launch(*args, stages=2, work=work)
-        torch.cuda.synchronize()
-        err = max(_max_err(got[0][0], want[0][0]),
-                  _max_err([got[0][1], got[1], got[2], got[3]],
-                           [want[0][1], want[1], want[2], want[3]]))
-        worst["K4"] = max(worst["K4"], err)
-        _require(err == 0, f"K4's bin and insert apart differ: {name}")
-        print(f"parity: K4 == plain insert ({name}): {n} fresh, probe "
-              f"overflow {ovf}; bin and insert apart agree")
-    # past 4,096 tiles a bin is a group of tiles: 16,384 tiles of 8,192
-    # (capacity 2^26's table), where a bin holds 4
-    for TS, bits, CH in ((8192, 12, 8192), (8192, 13, 8192),
-                         (8192, 14, 8192), (8192, 17, 8192)):
-        _require(lib4.jt_tiled_insert_smem(TS, bits, CH)
-                 == sk.k4_smem_bytes(TS, CH, 1 << bits)
-                 <= sk.smem_budget(dev),
-                 f"K4 layout at TS={TS} tiles=2^{bits} CH={CH}")
-    name, c_rows, c_live, table, pl, plan = parity_cases.k4_wide_case(16384)
-    args = (tuple(r.to(dev) for r in c_rows), c_live.to(dev),
-            (tuple(r.to(dev) for r in table[0]), table[1].to(dev)), pl, plan)
-    del table
-    err, ovf, n = k4_pair(*args)
-    _require(err == 0, f"K4 differs from the plain insert: {name}")
-    print(f"parity: K4 == plain insert ({name}, T={args[2][1].shape[0]}): "
-          f"{n} fresh of {int(c_live.sum())} live, probe overflow {ovf}")
+        print(f"parity: K4 == plain insert ({name}, T="
+              f"{table[1].shape[0]}): {n} fresh of {int(c_live.sum())} "
+              f"live, probe overflow {ovf}")
     del args
     for name, step_name, ev, rows, live, run, pl in \
             parity_cases.k2_cases():
@@ -1218,9 +1178,9 @@ def _time_host(fn, args: list) -> float:
 def phase_sparse_timing(dev, rec) -> list:
     """K2 on the 400-op unordered queue's events and K4 on the 1000-op
     FIFO's inserts, per launch with CUDA events (kernel_ab.py's timers:
-    K2 also cut short, K4's bin and insert also apart, each K4 launch on
-    its own copy of the table), beside the plain versions, the sort
-    closure of the same events and the bound."""
+    K2 also cut short, each K4 launch on its own copy of the table),
+    beside the plain versions, the sort closure of the same events and
+    the bound."""
     import kernel_ab
     from jepsen_tpu_torch.parallel import sparse, sparse_kernels as sk
     out = []
@@ -1255,7 +1215,7 @@ def phase_sparse_timing(dev, rec) -> list:
     out.append(t)
 
     k4 = rec["k4"]
-    c_rows, c_live, table, pl, plan = k4[0]
+    c_rows, c_live, table, pl = k4[0]
     M, T = c_live.shape[0], table[1].shape[0]
     t4 = kernel_ab._time_k4(torch, sk, k4)
     plain_ms = _time_host(sk.tiled_insert_reference, k4[:2])
@@ -1263,8 +1223,8 @@ def phase_sparse_timing(dev, rec) -> list:
     # off written once; the live candidates' rows read, each table slot
     # they probe read (12 bytes of row, 1 of occupancy) and each one they
     # claim written: the table is updated in place. operations: the live
-    # test of every candidate, and for the live ones the hash, the home
-    # tile and start, and a compare per probe (~24)
+    # test of every candidate, and for the live ones the hash and its
+    # slot, and a compare per probe (~24)
     outs = [sk.tiled_insert_reference(*a) for a in k4]
     live = float(np.mean([int(a[1].sum()) for a in k4]))
     probes = float(np.mean([int((o[2][a[1]] + 1).sum())
@@ -1275,10 +1235,9 @@ def phase_sparse_timing(dev, rec) -> list:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t = {"name": f"tiled_insert[T{T},M{M}]", "T": T, "M": M,
-         "plan": plan, "inputs": len(k4), "mean_live": live,
+         "inputs": len(k4), "mean_live": live,
          "mean_probes": probes, "mean_fresh": fresh, "ms": t4["ms"],
-         "bin_ms": t4.get("bin_ms"), "insert_ms": t4.get("insert_ms"),
-         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+         "host_us": t4["host_us"], "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     print("timing: " + json.dumps(t))
     out.append(t)
@@ -1583,10 +1542,10 @@ def phase_sparse_batch_parity(dev, rec) -> dict:
               f" N={args[4].shape[1]} C={args[1]['slot_f'].shape[2]}, row "
               f"{r} of {R}, {idle} keys not running")
     _require(idle > 0, "the last row leaves no key out")
-    c_rows, c_live, table, pl, plan = rec["k4"][len(rec["k4"]) // 2]
-    want = sk.tiled_insert_batch_reference(c_rows, c_live, table, pl, plan)
+    c_rows, c_live, table, pl = rec["k4"][len(rec["k4"]) // 2]
+    want = sk.tiled_insert_batch_reference(c_rows, c_live, table, pl)
     copy = (tuple(x.clone() for x in table[0]), table[1].clone())
-    got = sk.tiled_insert_batch(c_rows, c_live, copy, pl, plan)
+    got = sk.tiled_insert_batch(c_rows, c_live, copy, pl)
     torch.cuda.synchronize()
     err = max(_max_err(got[0][0], want[0][0]),
               _max_err([got[0][1], got[1], got[2], got[3]],
@@ -1594,7 +1553,7 @@ def phase_sparse_batch_parity(dev, rec) -> dict:
     worst["K4"] = err
     _require(err == 0, "batched K4 differs from its plain version")
     print(f"parity: batched K4 == plain insert at K={c_live.shape[0]} "
-          f"M={c_live.shape[1]} T={table[1].shape[1]} (plan {plan}): "
+          f"M={c_live.shape[1]} T={table[1].shape[1]}: "
           f"{int(want[1].sum())} fresh of {int(c_live.sum())} live, probe "
           f"overflow {want[3].tolist()}")
     return worst
@@ -1637,7 +1596,7 @@ def phase_sparse_batch_timing(dev, rec) -> list:
     out.append(t)
 
     k4 = rec["k4"]
-    c_rows, c_live, table, pl, plan = k4[0]
+    c_rows, c_live, table, pl = k4[0]
     (K, M), T = c_live.shape, table[1].shape[1]
 
     def fresh(reps):
@@ -1659,7 +1618,7 @@ def phase_sparse_batch_timing(dev, rec) -> list:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t = {"name": f"tiled_insert_batch[K{K},T{T},M{M}]", "K": K, "T": T,
-         "M": M, "plan": plan, "inputs": len(k4), "mean_live": live,
+         "M": M, "inputs": len(k4), "mean_live": live,
          "mean_probes": probes, "mean_fresh": n_fresh, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -2141,8 +2100,7 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
-            **({"cut_ms": t["cut_ms"]} if key == "K2" else
-               {"bin_ms": t["bin_ms"], "insert_ms": t["insert_ms"]})})
+            **({"cut_ms": t["cut_ms"]} if key == "K2" else {})})
     # K2 and K4 batched over keys: timed and held against their plain
     # versions on the sparse batch's own calls, with the launches of the
     # main batch's run

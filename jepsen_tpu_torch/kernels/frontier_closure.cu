@@ -379,7 +379,7 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   const int tid = threadIdx.x, nt = blockDim.x;
   const int N = ev.N, T = ev.T, C = ev.C;
   const int key = blockIdx.x;
-  {
+  if (key != 0 || row != 0) {  // one key's event (K = R = 1) is in place
     const size_t at = ((size_t)key * R + row) * C, rows = (size_t)key * N;
     f += at;
     a0 += at;

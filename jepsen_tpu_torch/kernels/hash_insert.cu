@@ -28,9 +28,10 @@
 // Design. The sharded engine cannot fuse a whole event's closure into one
 // kernel, as K2 does: the owner all-to-all runs between the expansion and
 // the insert. So K3 is one transaction, three launches on the stream:
-//   1. count (one block per 4,096 candidates): counts the live flags of
-//      its chunk, and copies the frontier — and, in the device layout,
-//      the table — to the outputs, freeing every claim word;
+//   1. count (one block per 4,096 candidates; sparse_common.cuh's live
+//      list): counts the live flags of its chunk, and copies the
+//      frontier — and, in the device layout, the table — to the
+//      outputs, freeing every claim word;
 //   2. compact (same grid): writes the indices of the live candidates, in
 //      order, after the live ones of the chunks before it. The exchange
 //      buffer is mostly dead rows (buckets have 2x slack, most candidates
@@ -47,19 +48,17 @@
 //        card keeps resident (blocks per SM x SMs, read once per device
 //        by jt_hash_insert_init), launched with
 //        cudaLaunchCooperativeKernel, the table in the output buffers and
-//        the claim words in the scratch. Each block owns a contiguous
-//        range of the live list; while that leaves each thread at most
-//        one candidate, its row, hash and probe state stay in registers
-//        (else in the scratch, the row rebuilt each phase). A probe round
-//        is phase A (probe_a), grid.sync(), phase B (probe_b),
-//        grid.sync(): every read of a round precedes its writes
-//        grid-wide, as in the one-block pass, so the table, offsets and
+//        the claim words in the scratch. Its probe rounds are
+//        sparse_common.cuh's grid_rounds, the whole-table transaction K4
+//        runs too: each block owns a contiguous range of the live list;
+//        while that leaves each thread at most one candidate, its row,
+//        hash and probe state stay in registers (else in the scratch,
+//        the row rebuilt each phase); a probe round is phase A,
+//        grid.sync(), phase B, grid.sync(), so the table, offsets and
 //        winners are the reference's. One block stays the faster
-//        insert at the shared layout's sizes (PERF.md). Whether
-//        any candidate is still probing is a grid-wide flag, double-
-//        buffered by round parity so that clearing it needs no third
-//        barrier. The append: each block counts its fresh winners
-//        (a block prefix sum in candidate order), grid.sync(), then takes
+//        insert at the shared layout's sizes (PERF.md). The append:
+//        each block counts its fresh winners (a block prefix sum in
+//        candidate order), grid.sync(), then takes
 //        the sum of the blocks before it and writes its rows after
 //        count + that sum, dropping those at or past N; block 0 writes
 //        meta. Table words other blocks write are read through L2
@@ -89,8 +88,6 @@ namespace {
 
 using namespace jt;
 
-constexpr int kPrepThreads = 256;
-constexpr int kChunk = kPrepThreads * kFlagsPerThread;  // flags per block
 constexpr int kThreads = 1024;      // the one-block (shared) insert
 constexpr int kGridThreads = 1024;  // each block of the grid insert
 constexpr int kMaxGrid = 1024;      // blocks of the grid insert, at most
@@ -103,14 +100,12 @@ int g_per_sm[kMaxDevices], g_sms[kMaxDevices];
 
 size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
-__host__ __device__ int n_chunks(int M) { return (M + kChunk - 1) / kChunk; }
-
 size_t smem_bytes(int T, int layout) {
   return (layout == kShared ? 17 * (size_t)T : 0) + 4 * kScanWords;
 }
 
 struct Scratch {
-  int32_t* counts;  // [n_chunks] live flags per chunk
+  int32_t* counts;  // [list_chunks(M)] live flags per chunk
   int32_t* idx;     // [M] the live candidates' indices, in order
   int32_t* claim;   // [T] claim words (device layout only)
   int32_t* block_fresh;  // [kMaxGrid] fresh winners per grid block (device)
@@ -124,7 +119,7 @@ Scratch carve(void* base, int M, int T, int layout) {
   Scratch s;
   size_t o = 0;
   s.counts = reinterpret_cast<int32_t*>(p + o);
-  o = align16(o + 4 * (size_t)n_chunks(M));
+  o = align16(o + 4 * (size_t)list_chunks(M));
   s.idx = reinterpret_cast<int32_t*>(p + o);
   o = align16(o + 4 * (size_t)M);
   s.claim = s.block_fresh = s.gflags = nullptr;
@@ -162,13 +157,10 @@ struct Args {
   int probe_limit, layout;
 };
 
-__global__ void __launch_bounds__(kPrepThreads)
+__global__ void __launch_bounds__(kListThreads)
 k3_count(Args a) {
   __shared__ int scan[kScanWords];
-  const int i0 = blockIdx.x * kChunk + threadIdx.x * kFlagsPerThread;
-  int total;
-  block_exclusive_scan(__popc(live_bits(a.c_live, a.M, i0)), scan, &total);
-  if (threadIdx.x == 0) a.sc.counts[blockIdx.x] = total;
+  list_count(a.c_live, a.M, a.sc.counts, scan);
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   for (int i = first; i < a.N; i += stride) {
@@ -187,49 +179,10 @@ k3_count(Args a) {
   }
 }
 
-__global__ void __launch_bounds__(kPrepThreads)
+__global__ void __launch_bounds__(kListThreads)
 k3_compact(Args a) {
   __shared__ int scan[kScanWords];
-  int part = 0;
-  for (int b = threadIdx.x; b < (int)blockIdx.x; b += blockDim.x) {
-    part += a.sc.counts[b];
-  }
-  int before;
-  block_exclusive_scan(part, scan, &before);
-  const int i0 = blockIdx.x * kChunk + threadIdx.x * kFlagsPerThread;
-  uint32_t bits = live_bits(a.c_live, a.M, i0);
-  int total;
-  int pos = before + block_exclusive_scan(__popc(bits), scan, &total);
-  while (bits) {
-    a.sc.idx[pos++] = i0 + __ffs(bits) - 1;
-    bits &= bits - 1;
-  }
-}
-
-// Live candidate li: row idx[li] of the exchange buffer.
-struct LiveCand {
-  const int32_t *st, *ml, *mh, *idx;
-  __device__ __forceinline__ bool operator()(int li, int32_t& s,
-                                             uint32_t& l,
-                                             uint32_t& h) const {
-    const int i = idx[li];
-    s = st[i];
-    l = (uint32_t)ml[i];
-    h = (uint32_t)mh[i];
-    return true;
-  }
-};
-
-// The live candidates: the sum of the chunk counts (every thread of the
-// block gets it).
-__device__ __forceinline__ int live_total(const Args& a, int* scan) {
-  int part = 0;
-  for (int b = threadIdx.x; b < n_chunks(a.M); b += blockDim.x) {
-    part += a.sc.counts[b];
-  }
-  int L;
-  block_exclusive_scan(part, scan, &L);
-  return L;
+  list_compact(a.c_live, a.M, a.sc.counts, a.sc.idx, scan);
 }
 
 __device__ __forceinline__ void write_meta(const Args& a, int count,
@@ -246,7 +199,7 @@ k3_insert(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nt = blockDim.x, T = a.T;
   int* scan = reinterpret_cast<int*>(smem);
-  const int L = live_total(a, scan);
+  const int L = list_total(a.sc.counts, a.M, scan);
 
   TableView t;
   t.mask = (uint32_t)(T - 1);
@@ -268,7 +221,7 @@ k3_insert(Args a) {
   const int count = *a.count;
   bool p_ovf;
   const int n_fresh = insert_pass(
-      LiveCand{a.c_st, a.c_ml, a.c_mh, a.sc.idx}, t, a.sc.off, a.sc.flags,
+      ListCand{a.c_st, a.c_ml, a.c_mh, a.sc.idx}, t, a.sc.off, a.sc.flags,
       scan, L, a.probe_limit, a.o_st, a.o_ml, a.o_mh, count, a.N, &p_ovf);
 
   for (int i = tid; i < T; i += nt) {
@@ -286,76 +239,31 @@ k3_insert(Args a) {
 // 270,336 live on the H100's 264 blocks) its row, hash, offset and flags
 // stay in registers through every round and the append; past that they
 // live in the scratch and each round rebuilds the row.
+// The one table every candidate of K3's grid probes.
+struct OneTable {
+  TableView t;
+  __device__ __forceinline__ TableView operator()(int) const { return t; }
+};
+
 __global__ void __launch_bounds__(kGridThreads)
 k3_grid_insert(Args a) {
-  namespace cg = cooperative_groups;
-  cg::grid_group grid = cg::this_grid();
   __shared__ int scan[kScanWords];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int b = blockIdx.x, G = gridDim.x;
-  int* const active = a.sc.gflags;    // [2], by round parity
   int* const pend = a.sc.gflags + 2;  // a probe run exhausted
-  const int L = live_total(a, scan);
-  // this block's contiguous range of the live list, in order
-  const int per = (L + G - 1) / G;
-  const int lo = min(L, b * per), hi = min(L, lo + per);
-  const bool in_regs = per <= nt;  // the same in every block
-  const LiveCand cand{a.c_st, a.c_ml, a.c_mh, a.sc.idx};
-  TableView t{a.ot_st, a.ot_ml, a.ot_mh, a.sc.claim, a.ot_occ,
-              (uint32_t)(a.T - 1)};
-  uint8_t* const off = a.sc.off;
+  const int L = list_total(a.sc.counts, a.M, scan);
+  const GridSpan s = grid_span(L);
+  const int lo = s.lo, hi = s.hi;
+  const bool in_regs = s.in_regs;
+  const ListCand cand{a.c_st, a.c_ml, a.c_mh, a.sc.idx};
   uint8_t* const flags = a.sc.flags;
-  const int pl = a.probe_limit;
-
-  const int my = lo + tid;  // this thread's candidate, in_regs
   Probe p;
-  p.off = 0;
-  p.fl = 0;
-  if (in_regs) {
-    if (my < hi) {
-      int32_t st;
-      uint32_t ml, mh;
-      cand(my, st, ml, mh);
-      set_row(p, st, ml, mh);
-      p.fl = kPending;  // every compacted candidate is live
-    }
-  } else {
-    for (int li = lo + tid; li < hi; li += nt) {
-      flags[li] = kPending;
-      off[li] = 0;
-    }
-  }
-  if (b == 0 && tid == 0) {
-    active[0] = active[1] = 0;
-    *pend = 0;
-  }
-  grid.sync();
-  for (int round = 0, go = L > 0; go; ++round) {
-    if (in_regs) {
-      probe_a<L2Loads>(p, t, my, pl);
-    } else {
-      for (int li = lo + tid; li < hi; li += nt) {
-        probe_read<L2Loads>(cand, t, off, flags, li, pl);
-      }
-    }
-    grid.sync();
-    int local = 0;
-    if (in_regs) {
-      local = probe_b<L2Loads>(p, t, my, pl);
-    } else {
-      for (int li = lo + tid; li < hi; li += nt) {
-        local |= claim_settle<L2Loads>(cand, t, off, flags, li, pl);
-      }
-    }
-    // the other parity's flag was last read before the barrier above;
-    // it is set again only after the barrier below
-    if (b == 0 && tid == 0) active[(round + 1) & 1] = 0;
-    if (__syncthreads_or(local) && tid == 0) {
-      atomicOr(&active[round & 1], 1);
-    }
-    grid.sync();
-    go = __ldcg(&active[round & 1]);
-  }
+  grid_rounds(cand,
+              OneTable{{a.ot_st, a.ot_ml, a.ot_mh, a.sc.claim, a.ot_occ,
+                        (uint32_t)(a.T - 1)}},
+              s, L, p, a.sc.off, flags, a.sc.gflags, a.probe_limit);
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
 
   // append: this block's fresh winners in candidate order, after the
   // blocks before it (in_regs: thread order is candidate order)
@@ -498,9 +406,9 @@ int jt_hash_insert_launch(const int32_t* c_st, const int32_t* c_ml,
          o_ml,  o_mh,  ot_st, ot_ml,  ot_mh, ot_occ, meta,
          carve(scratch, M, T, layout), probe_limit, layout};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int grid = n_chunks(M);
-  k3_count<<<grid, kPrepThreads, 0, s>>>(a);
-  k3_compact<<<grid, kPrepThreads, 0, s>>>(a);
+  const int grid = list_chunks(M);
+  k3_count<<<grid, kListThreads, 0, s>>>(a);
+  k3_compact<<<grid, kListThreads, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (layout == kShared) {

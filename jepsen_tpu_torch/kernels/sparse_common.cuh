@@ -4,14 +4,17 @@
 // jepsen_tpu_torch/parallel/steps.py, a block-wide exclusive prefix sum,
 // the two phases of a visited-set probe round (probe_a, probe_b, on a
 // candidate's state in registers or, through probe_read and
-// claim_settle, in memory: K2's and K3's one-block insert_pass, and K3's
-// cooperative grid) and insert_pass itself. Integers are 32-bit two's
+// claim_settle, in memory), the one-block transaction insert_pass (K2's
+// and K3's shared layout), and the whole-table transaction over a
+// cooperative grid (the live list, then grid_rounds: K3's device layout
+// and K4). Integers are 32-bit two's
 // complement; shifts follow steps.py's _shl/_sar (0 past the word for a left shift,
 // sign fill for a right shift), and wrapping arithmetic goes through
 // uint32_t so that it is defined.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 
 namespace jt {
@@ -188,9 +191,10 @@ struct TableView {
 };
 
 // Loads of table words. PlainLoads serve a table that one block owns
-// (K2, K3's shared layout); L2Loads (ld.global.cg) serve K3's grid,
-// whose table words other blocks write between grid-wide barriers, so
-// no read may come from a stale line of this SM's L1.
+// (K2, K3's shared layout); L2Loads (ld.global.cg) serve the grid
+// transaction (grid_rounds: K3's device layout, K4), whose table words
+// other blocks write between grid-wide barriers, so no read may come
+// from a stale line of this SM's L1.
 struct PlainLoads {
   template <class T>
   __device__ __forceinline__ static T ld(const T* p) { return *p; }
@@ -376,6 +380,176 @@ __device__ int insert_pass(const Cand& cand, const TableView& t,
   }
   __syncthreads();
   return n_fresh;
+}
+
+// ------------------------------------------- the grid transaction
+
+// The live list: the indices of the live candidates among M flags, in
+// order, built by two launches of kListThreads-thread blocks, one block
+// per kListChunk flags: list_count, then list_compact.
+constexpr int kListThreads = 256;
+constexpr int kListChunk = kListThreads * kFlagsPerThread;
+
+__host__ __device__ __forceinline__ int list_chunks(int M) {
+  return (M + kListChunk - 1) / kListChunk;
+}
+
+// The first launch: block b counts the live flags of its chunk into
+// counts[b]. `scan` is 40 ints of shared memory; every thread calls it.
+__device__ __forceinline__ void list_count(const uint8_t* live, int M,
+                                           int32_t* counts, int* scan) {
+  const int i0 = blockIdx.x * kListChunk + threadIdx.x * kFlagsPerThread;
+  int total;
+  block_exclusive_scan(__popc(live_bits(live, M, i0)), scan, &total);
+  if (threadIdx.x == 0) counts[blockIdx.x] = total;
+}
+
+// The second launch: block b writes the indices of its chunk's live
+// candidates, in order, after those of the chunks before it.
+__device__ __forceinline__ void list_compact(const uint8_t* live, int M,
+                                             const int32_t* counts,
+                                             int32_t* idx, int* scan) {
+  int part = 0;
+  for (int b = threadIdx.x; b < (int)blockIdx.x; b += blockDim.x) {
+    part += counts[b];
+  }
+  int before;
+  block_exclusive_scan(part, scan, &before);
+  const int i0 = blockIdx.x * kListChunk + threadIdx.x * kFlagsPerThread;
+  uint32_t bits = live_bits(live, M, i0);
+  int total;
+  int pos = before + block_exclusive_scan(__popc(bits), scan, &total);
+  while (bits) {
+    idx[pos++] = i0 + __ffs(bits) - 1;
+    bits &= bits - 1;
+  }
+}
+
+// The list's length: every chunk's count summed (every thread of the
+// block gets it).
+__device__ __forceinline__ int list_total(const int32_t* counts, int M,
+                                          int* scan) {
+  int part = 0;
+  for (int b = threadIdx.x; b < list_chunks(M); b += blockDim.x) {
+    part += counts[b];
+  }
+  int L;
+  block_exclusive_scan(part, scan, &L);
+  return L;
+}
+
+// Live candidate li: row idx[li] of the candidates.
+struct ListCand {
+  const int32_t *st, *ml, *mh, *idx;
+  __device__ __forceinline__ bool operator()(int li, int32_t& s,
+                                             uint32_t& l,
+                                             uint32_t& h) const {
+    const int i = idx[li];
+    s = st[i];
+    l = (uint32_t)ml[i];
+    h = (uint32_t)mh[i];
+    return true;
+  }
+};
+
+// This block's share of the list of L live candidates: the contiguous
+// range [lo, hi), in order. While that leaves each thread at most one
+// candidate (in_regs, the same in every block), thread t holds
+// candidate my = lo + t in registers.
+struct GridSpan {
+  int lo, hi, my;
+  bool in_regs;
+};
+
+__device__ __forceinline__ GridSpan grid_span(int L) {
+  const int per = (L + gridDim.x - 1) / gridDim.x;
+  GridSpan s;
+  s.lo = min(L, (int)blockIdx.x * per);
+  s.hi = min(L, s.lo + per);
+  s.my = s.lo + threadIdx.x;
+  s.in_regs = per <= (int)blockDim.x;
+  return s;
+}
+
+// The probe rounds of one visited-set transaction of the L listed
+// candidates over a cooperative grid of co-resident blocks (the
+// reference's whole-table transaction; K3's device layout and K4). The
+// claim words take the list index, whose order is the candidates', so
+// the lowest index wins a race as in the one-block insert_pass. A
+// candidate of the span's registers keeps its row, hash, offset and
+// flags in p; else they live in off[li] and flags[li], the row rebuilt
+// each phase. A round is phase A (probe_a), grid.sync(), phase B
+// (probe_b), grid.sync(): every read of a round precedes its writes
+// grid-wide, so the table, the offsets and the winners are the
+// reference's whatever order the blocks run in. Table words other blocks
+// write are read through L2 (ld.global.cg), never from a stale L1 line.
+// Whether any candidate still probes is a grid-wide flag, double-
+// buffered by round parity so that clearing it needs no third barrier.
+//
+// `view(li)` is the table candidate li probes: the one table (K3), or
+// its key's among K tables (K4). gflags is 3 ints of device memory: the
+// probing flags and, for the caller's epilogue, a third that block 0
+// clears here with them, before the first barrier. On return the
+// candidates' outcome is in p (in_regs) or in off and flags.
+template <class Cand, class View>
+__device__ void grid_rounds(const Cand& cand, const View& view,
+                            const GridSpan& s, int L, Probe& p,
+                            uint8_t* off, uint8_t* flags, int* gflags,
+                            int probe_limit) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int* const active = gflags;  // [2], by round parity
+  p.off = 0;
+  p.fl = 0;
+  TableView tv{};  // the table of this thread's register candidate
+  if (s.in_regs) {
+    if (s.my < s.hi) {
+      int32_t st;
+      uint32_t ml, mh;
+      cand(s.my, st, ml, mh);
+      set_row(p, st, ml, mh);
+      p.fl = kPending;  // every listed candidate is live
+      tv = view(s.my);
+    }
+  } else {
+    for (int li = s.lo + tid; li < s.hi; li += nt) {
+      flags[li] = kPending;
+      off[li] = 0;
+    }
+  }
+  if (blockIdx.x == 0 && tid == 0) {
+    active[0] = active[1] = 0;
+    gflags[2] = 0;
+  }
+  grid.sync();
+  for (int round = 0, go = L > 0; go; ++round) {
+    if (s.in_regs) {
+      probe_a<L2Loads>(p, tv, s.my, probe_limit);
+    } else {
+      for (int li = s.lo + tid; li < s.hi; li += nt) {
+        probe_read<L2Loads>(cand, view(li), off, flags, li, probe_limit);
+      }
+    }
+    grid.sync();
+    int local = 0;
+    if (s.in_regs) {
+      local = probe_b<L2Loads>(p, tv, s.my, probe_limit);
+    } else {
+      for (int li = s.lo + tid; li < s.hi; li += nt) {
+        local |= claim_settle<L2Loads>(cand, view(li), off, flags, li,
+                                       probe_limit);
+      }
+    }
+    // the other parity's flag was last read before the barrier above;
+    // it is set again only after the barrier below
+    if (blockIdx.x == 0 && tid == 0) active[(round + 1) & 1] = 0;
+    if (__syncthreads_or(local) && tid == 0) {
+      atomicOr(&active[round & 1], 1);
+    }
+    grid.sync();
+    go = __ldcg(&active[round & 1]);
+  }
 }
 
 }  // namespace jt

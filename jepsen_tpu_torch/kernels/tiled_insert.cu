@@ -1,124 +1,71 @@
-// K4: the probe/claim half of one visited-set transaction, with the
-// table split into hash-range tiles, for Hopper.
+// K4: the probe/claim half of the sparse engine's visited-set
+// transaction past K2's gate, batched over keys, for Hopper.
 //
 // Replaces jepsen_tpu/parallel/sparse_kernels.py::tiled_insert_call (the
 // Pallas TPU kernel the sparse engine takes past the whole-event closure's
-// memory gate). It computes what
-// jepsen_tpu_torch.parallel.sparse_kernels.tiled_insert_reference
-// computes, bit for bit: for M candidate rows (state, mask_lo, mask_hi)
-// with live flags and a table of T = n_tiles * TS slots,
+// memory gate, batched over a tier's keys under the reference's vmap). For
+// each of K keys, M candidate rows (state, mask_lo, mask_hi) with live
+// flags go into the key's own open-addressed table of T slots. It computes
+// what jepsen_tpu_torch.parallel.sparse_kernels.tiled_insert_reference
+// computes, bit for bit: key by key, the reference's visited-set
+// transaction over the whole table (engine._hash_insert, the closure's
+// default):
 //
-//   * candidate i's hash h picks its home tile, h & (n_tiles - 1), and its
-//     start inside the tile, (h >> log2(n_tiles)) & (TS - 1); its probes
-//     wrap inside the tile, so each row has exactly one probe sequence;
-//   * candidates stream in chunks of CH consecutive indices, in order;
-//     within a chunk they probe round-synchronously (drop on an equal
-//     occupant, advance past a different one, claim an empty slot by the
-//     lowest index, losers re-check next round);
-//   * out: the table (updated in place), fresh[M] (claimed a slot),
-//     off[M] (final probe offset, 0 for dead candidates) and a flag set
-//     when some candidate exhausted its `probe_limit` probes.
+//   probe   every live candidate probes slots (table_hash + off) & (T-1),
+//           off = 0, 1, ... < probe_limit, round-synchronously: an equal
+//           occupant drops it, a different one advances it, an empty
+//           slot is claimed, the lowest candidate index winning a race;
+//           the losers re-check the slot next round;
+//   out     the tables (updated in place), fresh [K, M] (claimed a
+//           slot), off [K, M] (final probe offset, 0 for dead
+//           candidates) and a flag a key, set when one of its candidates
+//           exhausted its probes.
 //
 // The append of the fresh rows and the expansion around it stay PyTorch
 // ops (sparse_kernels.tiled_event_closure), as the reference keeps them
 // in XLA.
 //
-// The engine's plan is the whole table as one tile and every candidate
-// in one chunk (sparse_kernels.whole_plan): the reference's own
-// visited-set transaction (engine._hash_insert over the table, the
-// closure's default), so the table layout and the probe-overflow flag,
-// and with them `capacity`, are the reference's. Smaller tiles and chunks
-// lay rows out differently, and can exhaust a probe run where the
-// reference does not; the binned path below serves such explicit plans
-// (as the reference's tiled_insert_call takes them).
+// Why one table and no tiles. The TPU kernel streams the table through
+// VMEM in hash-range tiles, a candidate's probes wrapping inside its home
+// tile. That lays rows out otherwise than one table and can exhaust a
+// probe run where one table does not, so `capacity` would differ from the
+// reference's default route, to which the port's results are held. The
+// H100 keeps the whole table in device memory, read through L2, so K4 runs
+// the one-table transaction.
 //
-// Batched over keys (the per-key batch, engine.check_batch): one launch
-// pair runs K keys' transactions, each on its own table, with the same M
-// and plan; blockIdx.y is the key. Key k's candidates, fresh and off lie
-// at k * M, its table at k * T, its flag at k, and its bin's list and
-// segments in its own slice of the scratch. Every key's chunk walk is
-// exactly the single key's: a chunk never spans two keys, so the table
-// layout and the probe-overflow flag are what one key's launch gives.
+// Design: three launches on the stream, as K3's device layout:
+//   1. prep (one block of 256 threads per 4,096 of the K*M candidates):
+//      counts the live flags of its chunk (sparse_common.cuh's live
+//      list) and, grid-stride, zeroes fresh and off, frees every claim
+//      word and clears the keys' flags;
+//   2. compact (same grid): writes the indices of the live candidates of
+//      every key, in order (key-major), after those of the chunks before
+//      it;
+//   3. insert: a cooperative grid of every block the card keeps resident
+//      (blocks per SM x SMs, read once per device by
+//      jt_tiled_insert_init) runs sparse_common.cuh's grid_rounds, the
+//      whole-table transaction of K3's device layout, over the list.
+//      Each block owns a contiguous range of it, and each candidate
+//      probes its own key's table (key = index / M, k * T slots in; its
+//      claim words k * T words into the scratch). The claim words take
+//      the list index: a key's candidates keep their order in the list
+//      and only they claim its slots, so the lowest index wins each race
+//      as in one key's transaction, and what key k gets is what one
+//      key's launch on its own candidates and table gives. Then each
+//      candidate writes its fresh flag and offset, and one still probing
+//      sets its key's flag.
 // One key is K = 1.
 //
-// Design of the whole-table path (one tile, one chunk): one block of 1,024
-// threads a key, its table and claim words in device memory. The block
-// zeroes its fresh and off, frees its claim words and lists its live
-// candidates in index order (sixteen flags a thread in one 16-byte load,
-// a block prefix sum a run of them); then probe rounds over the list as
-// in K3 (probe_read, barrier, claim_settle, barrier; the claim words take
-// the list index, whose order is the candidates'), the offsets and flags
-// in its slice of the scratch, every table word read through L2; then
-// fresh, off and the probe flag. One block owns one table, so block
-// barriers order every round for it (spreading a key over blocks would
-// take a grid-wide barrier a round, as K3's grid does).
-//
-// Design of the binned path: two launches, so that the M candidates are
-// read once, by every SM, and each tile's block walks only its own live
-// candidates.
-//
-//   bin     one block per R consecutive candidates (R = 256 * kb, a power
-//           of two that divides CH whenever CH >= 256).
-//           It reads each live flag once, writes fresh = 0 and off = 0
-//           for every candidate, hashes the live ones and sorts their
-//           indices by bin into its own segment of the list, stably: a
-//           candidate's place is the exclusive prefix, over (bin, group
-//           of 32 candidates) in that order, of the groups' counts, plus
-//           its rank among the lanes of its group with the same bin
-//           (__match_any_sync). No atomics decide a place, so inside a
-//           segment each bin's candidates stay in index order. It writes
-//           per (bin, block) the segment's offset and count.
-//           A bin is a tile while there are at most 4,096 tiles (every
-//           capacity up to 2^24); past that it is a group of 2^gshift
-//           consecutive tiles (tile >> gshift), and the bin also writes
-//           each listed candidate's tile. So the bin's counters (at most
-//           32,768, 128 KiB) and its per-(bin, block) segments stop
-//           growing with the tile count where a bin of one tile would
-//           pass the opt-in.
-//   insert  one block per tile. A prefix over the blocks of its bin's
-//           counts makes the concatenation of its segments, in block
-//           order, the bin's live candidates in index order; in a group
-//           the tile's are those of them with its tile. Chunk c covers
-//           blocks [c * CH/R, (c+1) * CH/R), at most max(1, CH/R) of
-//           them. The table stays in
-//           device memory (read through L2 with ld.global.cg) and is
-//           updated in place; no block touches another's tile.
-//           Every warp first sums the tile's counts itself (a shuffle
-//           prefix, no barrier; in a group the block counts the
-//           candidates with its tile), so all know how the tile runs:
-//           * a tile with at most 32 live candidates runs in warp 0 alone:
-//             lane p holds candidate p (row, hash, offset, flags in
-//             registers); each chunk's lanes probe in rounds separated by
-//             __syncwarp, and a claim goes to the lowest lane of those
-//             trying one slot (__match_any_sync), the lowest index: no
-//             claim words and no block barrier;
-//             (in a group the block gathers them first, and warp 0
-//             orders them by index);
-//           * a larger tile runs each non-empty chunk with the whole
-//             block: every warp sums the chunk's counts itself (a chunk
-//             with none of the bin's candidates costs no barrier), warp
-//             0 places the chunk's segments, the candidates are gathered
-//             into shared memory (in a group: those with its tile, each
-//             taking the next entry; their order inside a chunk does not
-//             change the result, since the lowest index wins a claim),
-//             then probe rounds as in the reference, separated by
-//             __syncthreads, with atomicMin claims on a claim word per
-//             tile slot in shared memory.
-//
-// Shared memory, whatever M is: the bin 4 * n_bins * (R / 32) + 160
-// bytes; the insert 4 * TS (claims) + 10 * CH (a chunk's candidates) +
-// 8 * (span + 1) (the places of a chunk's segments, span = max(1,
-// CH / R)). sparse_kernels.k4_smem_bytes computes the larger of the two,
-// and sparse_kernels.tiled_plan makes no plan that it does not fit.
-//
-// What bounds it: the bytes the function must move — every live flag,
+// What bounds it: bytes. The least it must move is every live flag,
 // fresh and off once, the live candidates' rows and the table slots
-// they probe and write; a few integer operations a candidate. chip_smoke.py
-// measures both against the bound on the card; PERF.md keeps the numbers.
+// they probe and write; a few dozen integer operations a live candidate.
+// chip_smoke.py measures both against the bound on the card; PERF.md
+// keeps the numbers.
 //
 // Build: nvcc -gencode=arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC tiled_insert.cu   (see kernels/__init__.py)
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -128,724 +75,188 @@ namespace {
 
 using namespace jt;
 
-constexpr int kBinThreads = 256;
-constexpr int kBinMaxK = 8;      // candidates a bin thread takes, at most
-constexpr int kBinGroups = 8192;  // (bin, group) counters of a bin block
-constexpr int kMaxBinBits = 12;   // 4,096 bins at most; past, groups
-// 256 threads: the common tile needs warp 0 alone, and a smaller block
-// launches sooner
-constexpr int kInsThreads = 256;
-constexpr int kWholeThreads = 1024;  // the whole-table path, a block a key
+constexpr int kGridThreads = 1024;  // each block of the insert's grid
+constexpr int kScanWords = 40;
 
-struct Plan {
-  int n_bins, kb, R;  // bins, candidates a bin thread takes, R = 256 * kb
-  int span;         // bin blocks a chunk spans, at most
-  int gshift;       // a bin is 2^gshift consecutive tiles
+size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+struct Scratch {
+  int32_t* counts;       // [list_chunks(K*M)] live flags per chunk
+  int32_t* idx;          // [K*M] the live candidates' indices, in order
+  int32_t* claim;        // [K*T] claim words
+  int32_t* gflags;       // [4] still probing (by round parity), spare
+  uint8_t *off, *flags;  // [K*M] per live candidate
+  size_t bytes;
 };
 
-int pow2_floor(int n) {
-  int p = 1;
-  while (p * 2 <= n) p *= 2;
-  return p;
+Scratch carve(void* base, int KM, size_t KT) {
+  char* p = reinterpret_cast<char*>(base);
+  Scratch s;
+  size_t o = 0;
+  s.counts = reinterpret_cast<int32_t*>(p + o);
+  o = align16(o + 4 * (size_t)list_chunks(KM));
+  s.idx = reinterpret_cast<int32_t*>(p + o);
+  o = align16(o + 4 * (size_t)KM);
+  s.claim = reinterpret_cast<int32_t*>(p + o);
+  o = align16(o + 4 * KT);
+  s.gflags = reinterpret_cast<int32_t*>(p + o);
+  o = align16(o + 4 * 4);
+  s.off = reinterpret_cast<uint8_t*>(p + o);
+  o = align16(o + (size_t)KM);
+  s.flags = reinterpret_cast<uint8_t*>(p + o);
+  o = align16(o + (size_t)KM);
+  s.bytes = o;
+  return s;
 }
 
-// The bin's shape for 2^tile_bits tiles and chunk CH (M does not enter).
-// There are min(2^tile_bits, 4096) bins. A bin block has (R / 32) *
-// n_bins counters, at most kBinGroups while R can shrink to 256, and R
-// divides CH whenever CH >= 256 (a launch over more than one chunk has
-// CH >= 512), so a chunk spans at most max(1, CH / R) bin blocks.
-Plan make_plan(int tile_bits, int CH) {
-  Plan p;
-  const int bin_bits = tile_bits < kMaxBinBits ? tile_bits : kMaxBinBits;
-  p.gshift = tile_bits - bin_bits;
-  p.n_bins = 1 << bin_bits;
-  int kb = kBinGroups / (8 * p.n_bins);
-  kb = kb < 1 ? 1 : pow2_floor(kb < kBinMaxK ? kb : kBinMaxK);
-  if (kb * kBinThreads > CH) kb = CH >= kBinThreads ? CH / kBinThreads : 1;
-  p.kb = kb;
-  p.R = kb * kBinThreads;
-  p.span = CH > p.R ? CH / p.R : 1;
-  return p;
-}
-
-int bin_blocks(const Plan& p, int M) { return (M + p.R - 1) / p.R; }
-
-size_t bin_smem(const Plan& p) {
-  return 4 * (size_t)p.n_bins * (p.R / 32) + 40 * 4;
-}
-
-size_t insert_smem(const Plan& p, int TS, int CH) {
-  return 4 * (size_t)TS + 10 * (size_t)CH + 8 * ((size_t)p.span + 1);
-}
-
-// scratch of one key: the list (B * R candidate indices), in a group the
-// tile of each (B * R more), then per (bin, block) the segment's offset
-// and count; a multiple of 4 bytes, so the keys' slices lie end to end
-size_t scratch_bytes(const Plan& p, int M) {
-  const size_t B = (size_t)bin_blocks(p, M);
-  return 4 * B * p.R * (p.gshift > 0 ? 2 : 1) + 8 * (size_t)p.n_bins * B;
-}
-
-// The whole-table path: one tile (tile_bits 0) and one chunk of all M.
-bool whole_table(int M, int tile_bits, int CH) {
-  return tile_bits == 0 && CH >= M;
-}
-
-// scratch of one key on the whole-table path: the live list [M] and the
-// claim words [T], then the offsets and flags [M] (a byte each), rounded
-// up to 16 bytes
-__host__ __device__ size_t whole_scratch_bytes(int M, int T) {
-  return (4 * (size_t)M + 4 * (size_t)T + 2 * (size_t)M + 15) & ~(size_t)15;
-}
-
-// ------------------------------------------------------------------ bin
-
-__global__ void __launch_bounds__(kBinThreads)
-bin_kernel(const int32_t* __restrict__ c_st, const int32_t* __restrict__ c_ml,
-           const int32_t* __restrict__ c_mh,
-           const uint8_t* __restrict__ c_live, int M, uint8_t* fresh,
-           int32_t* off_out, uint8_t* pend_out, int32_t* list,
-           int32_t* ltile, int32_t* seg_off, int32_t* seg_cnt,
-           size_t kstride, int tile_bits, int gshift, int kb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  {
-    // key blockIdx.y: its candidates and outputs, and its scratch slice
-    const size_t key = blockIdx.y, at = key * M, sk = key * kstride;
-    c_st += at;
-    c_ml += at;
-    c_mh += at;
-    c_live += at;
-    fresh += at;
-    off_out += at;
-    pend_out += key;
-    list += sk;
-    ltile += sk;
-    seg_off += sk;
-    seg_cnt += sk;
-  }
-  const int n_bins = 1 << (tile_bits - gshift);
-  const int R = kb * kBinThreads;
-  const int G = R / 32;  // groups of 32 candidates, in index order
-  const int b = blockIdx.x, B = gridDim.x;
-  const uint32_t tile_mask = (1u << tile_bits) - 1u;
-  int32_t* sub = reinterpret_cast<int32_t*>(smem);  // [n_bins][G]
-  int32_t* scan = sub + (size_t)n_bins * G;  // 40 words
-
-  const int n_sub = n_bins * G;
-  for (int i = tid; i < n_sub; i += kBinThreads) sub[i] = 0;
-  if (b == 0 && tid == 0) *pend_out = 0;
-  __syncthreads();
-
-  // every load first (flags, then the live candidates' rows), so that a
-  // thread's kb candidates wait on memory once, not kb times
-  // bins[k]: the bin of the thread's k-th candidate (-1: not live)
-  int bins[kBinMaxK], ranks[kBinMaxK], home[kBinMaxK] = {};
-  const int base = b * R;
-#pragma unroll
-  for (int k = 0; k < kBinMaxK; ++k) {
-    const int i = base + k * kBinThreads + tid;
-    bins[k] = k < kb && i < M && c_live[i] != 0 ? 0 : -1;
-  }
-#pragma unroll
-  for (int k = 0; k < kBinMaxK; ++k) {
-    const int i = base + k * kBinThreads + tid;
-    if (k < kb && i < M) {
-      fresh[i] = 0;
-      off_out[i] = 0;
-    }
-    if (bins[k] == 0) {
-      const uint32_t h =
-          table_hash(c_st[i], (uint32_t)c_ml[i], (uint32_t)c_mh[i]);
-      home[k] = (int)(h & tile_mask);
-      bins[k] = home[k] >> gshift;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kBinMaxK; ++k) {
-    ranks[k] = 0;
-    if (k >= kb) continue;
-    // lanes of one tile find each other (most groups have no live lane
-    // and skip it); a dead lane matches nobody
-    const bool live = bins[k] >= 0;
-    if (!__any_sync(0xffffffffu, live)) continue;
-    const unsigned peers =
-        __match_any_sync(0xffffffffu, live ? bins[k] : -1 - lane);
-    if (live) {
-      const int rank = __popc(peers & lanemask_lt());
-      if (rank == 0) {
-        sub[bins[k] * G + k * (kBinThreads / 32) + warp] = __popc(peers);
-      }
-      ranks[k] = rank;
-    }
-  }
-  __syncthreads();
-
-  // exclusive prefix of sub in (tile, group) order, in place
-  const int per = (n_sub + kBinThreads - 1) / kBinThreads;
-  const int lo = min(n_sub, tid * per), hi = min(n_sub, lo + per);
-  int mine = 0;
-  for (int i = lo; i < hi; ++i) mine += sub[i];
-  int total;
-  int run = block_exclusive_scan(mine, scan, &total);
-  for (int i = lo; i < hi; ++i) {
-    const int v = sub[i];
-    sub[i] = run;
-    run += v;
-  }
-  __syncthreads();
-
-  for (int t = tid; t < n_bins; t += kBinThreads) {
-    const int o = sub[t * G];
-    const int e = t + 1 < n_bins ? sub[(t + 1) * G] : total;
-    seg_off[(size_t)t * B + b] = o;
-    seg_cnt[(size_t)t * B + b] = e - o;
-  }
-#pragma unroll
-  for (int k = 0; k < kBinMaxK; ++k) {
-    if (bins[k] < 0) continue;
-    const int g = k * (kBinThreads / 32) + warp;
-    const size_t at = (size_t)b * R + sub[bins[k] * G + g] + ranks[k];
-    list[at] = base + k * kBinThreads + tid;
-    if (gshift > 0) ltile[at] = home[k];
-  }
-}
-
-// --------------------------------------------------------------- insert
-
-struct WarpScan {
-  // exclusive prefix of v over the warp's lanes; *total the warp's sum
-  __device__ static int excl(int v, int* total) {
-    const int lane = threadIdx.x & 31;
-    int x = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    *total = __shfl_sync(0xffffffffu, x, 31);
-    return x - v;
-  }
-};
-
-struct Tile {
+struct Args {
   const int32_t *c_st, *c_ml, *c_mh;
+  const uint8_t* c_live;
+  int M, K, KM, T;  // candidates a key, keys, K * M, slots a table
+  size_t KT;        // K * T
   int32_t *t_st, *t_ml, *t_mh;
   uint8_t* t_occ;
-  size_t base;    // the tile's first slot
-  int TS, tile_bits, probe_limit;
+  uint8_t* fresh;
+  int32_t* off_out;
+  uint8_t* pend_out;
+  Scratch sc;
+  int probe_limit;
 };
 
-// One candidate's probe in the tile: its row, in-tile start, offset and
-// flags (kPending, kFresh).
-struct TProbe {
-  int32_t st, ml, mh;
-  int start, off;
-  uint8_t fl;
-};
-
-// The tile's candidates, at most 32, in warp 0: lane p < n holds the
-// tile's p-th live candidate (index idx). Chunks in order; inside one,
-// rounds of: every pending lane with probes left reads its slot (an equal
-// row drops it, a different one advances it, an empty slot makes it try
-// a claim), __syncwarp, the lowest lane trying each slot writes it,
-// __syncwarp. The others trying that slot stay pending at the same
-// offset and re-check it next round, as the reference's losers do.
-__device__ void insert_warp(const Tile& t, int idx, int n, int CH,
-                            uint8_t* fresh, int32_t* off_out,
-                            uint8_t* pend_out) {
-  const int lane = threadIdx.x & 31;
-  const bool mine = lane < n;
-  TProbe p{};
-  if (mine) {
-    p.st = t.c_st[idx];
-    p.ml = t.c_ml[idx];
-    p.mh = t.c_mh[idx];
-    const uint32_t h = table_hash(p.st, (uint32_t)p.ml, (uint32_t)p.mh);
-    p.start = (int)((h >> t.tile_bits) & (uint32_t)(t.TS - 1));
-    p.fl = kPending;
+__global__ void __launch_bounds__(kListThreads)
+k4_prep(Args a) {
+  __shared__ int scan[kScanWords];
+  list_count(a.c_live, a.KM, a.sc.counts, scan);
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (size_t i = first; i < (size_t)a.KM; i += stride) {
+    a.fresh[i] = 0;
+    a.off_out[i] = 0;
   }
-  const int chunk = mine ? idx / CH : -1;
-  unsigned todo = __ballot_sync(0xffffffffu, mine);
-  while (todo) {
-    const int cur = __shfl_sync(0xffffffffu, chunk, __ffs(todo) - 1);
-    const bool in = mine && chunk == cur;
-    todo &= ~__ballot_sync(0xffffffffu, in);
-    while (true) {
-      const bool act = in && (p.fl & kPending) && p.off < t.probe_limit;
-      if (!__any_sync(0xffffffffu, act)) break;
-      int slot = -1;
-      bool occ = false, same = false;
-      if (act) {
-        slot = (p.start + p.off) & (t.TS - 1);
-        const size_t s = t.base + slot;
-        occ = __ldcg(&t.t_occ[s]) != 0;
-        const int32_t st = __ldcg(&t.t_st[s]), ml = __ldcg(&t.t_ml[s]),
-                      mh = __ldcg(&t.t_mh[s]);
-        same = occ && st == p.st && ml == p.ml && mh == p.mh;
-      }
-      __syncwarp();  // every read of the round before any write
-      const bool claim = act && !occ;
-      const unsigned rivals =
-          __match_any_sync(0xffffffffu, claim ? slot : -1 - lane);
-      if (act) {
-        if (same) {
-          p.fl = 0;  // already visited
-        } else if (occ) {
-          p.off += 1;
-        } else if (__ffs(rivals) - 1 == lane) {
-          const size_t s = t.base + slot;
-          t.t_st[s] = p.st;
-          t.t_ml[s] = p.ml;
-          t.t_mh[s] = p.mh;
-          t.t_occ[s] = 1;
-          p.fl = kFresh;
-        }
-      }
-      __syncwarp();  // the round's writes before the next round's reads
-    }
-  }
-  if (mine) {
-    fresh[idx] = (p.fl & kFresh) ? 1 : 0;
-    off_out[idx] = p.off;
-  }
-  if (__any_sync(0xffffffffu, mine && (p.fl & kPending)) && lane == 0) {
-    *pend_out = 1;
-  }
+  for (size_t i = first; i < a.KT; i += stride) a.sc.claim[i] = kClaimFree;
+  for (size_t i = first; i < (size_t)a.K; i += stride) a.pend_out[i] = 0;
 }
 
-__global__ void __launch_bounds__(kInsThreads, 1)
-insert_kernel(const int32_t* __restrict__ c_st,
-              const int32_t* __restrict__ c_ml,
-              const int32_t* __restrict__ c_mh, int M, int32_t* t_st,
-              int32_t* t_ml, int32_t* t_mh, uint8_t* t_occ, uint8_t* fresh,
-              int32_t* off_out, uint8_t* pend_out,
-              const int32_t* __restrict__ list,
-              const int32_t* __restrict__ ltile,
-              const int32_t* __restrict__ seg_off,
-              const int32_t* __restrict__ seg_cnt, size_t kstride, int B,
-              int R, int span, int TS, int tile_bits, int gshift, int CH,
-              int probe_limit) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int tile = blockIdx.x;
-  {
-    // key blockIdx.y: its candidates, outputs, table and scratch slice
-    const size_t key = blockIdx.y, at = key * M, sk = key * kstride;
-    const size_t tb = key * ((size_t)TS << tile_bits);
-    c_st += at;
-    c_ml += at;
-    c_mh += at;
-    fresh += at;
-    off_out += at;
-    pend_out += key;
-    t_st += tb;
-    t_ml += tb;
-    t_mh += tb;
-    t_occ += tb;
-    list += sk;
-    ltile += sk;
-    seg_off += sk;
-    seg_cnt += sk;
-  }
-  const int bin = tile >> gshift;
-  const Tile t{c_st, c_ml, c_mh, t_st, t_ml, t_mh, t_occ,
-               (size_t)tile * TS, TS, tile_bits, probe_limit};
-
-  int32_t* w = reinterpret_cast<int32_t*>(smem);
-  int32_t* claim = w; w += TS;
-  // per bin block of the chunk: where its segment begins among the
-  // chunk's candidates of this tile, and in that block's list
-  int32_t* pre = w; w += span + 1;
-  int32_t* soff = w; w += span + 1;
-  int32_t* e_idx = w; w += CH;   // a chunk's candidates: index,
-  int32_t* e_start = w; w += CH;  // in-tile start,
-  uint8_t* e_off = reinterpret_cast<uint8_t*>(w);  // offset and flags
-  uint8_t* e_fl = e_off + CH;
-  // in a group, which places no segments: the tile's candidates counted,
-  // and gathered so far (all shared memory is dynamic, so that the
-  // kernel may take the whole opt-in)
-  int32_t& s_count = pre[0];
-  int32_t& s_gather = pre[1];
-
-  const int32_t* cnt = seg_cnt + (size_t)bin * B;
-  const int32_t* offs = seg_off + (size_t)bin * B;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
-
-  // every warp counts the bin's candidates itself: lane l sums the
-  // blocks [l * per, (l+1) * per), a shuffle prefix joins the lanes
-  const int per = (B + 31) / 32;
-  const int lo = min(B, lane * per), hi = min(B, lo + per);
-  int mine = 0;
-#pragma unroll 4
-  for (int b = lo; b < hi; ++b) mine += cnt[b];
-  int n_t;
-  int at = WarpScan::excl(mine, &n_t);
-  if (n_t == 0) return;  // uniform: no live candidate in this bin
-
-  if (gshift > 0) {
-    // a group: count the candidates of this tile among the bin's
-    if (tid == 0) s_count = s_gather = 0;
-    __syncthreads();
-    int c = 0;
-    for (int b = warp; b < B; b += n_warps) {
-      const size_t a = (size_t)b * R + offs[b];
-      for (int j = lane; j < cnt[b]; j += 32) c += ltile[a + j] == tile;
-    }
-    c = __reduce_add_sync(0xffffffffu, c);
-    if (lane == 0 && c != 0) atomicAdd(&s_count, c);
-    __syncthreads();
-    n_t = s_count;
-    if (n_t == 0) return;  // uniform
-    if (n_t <= 32) {
-      for (int b = warp; b < B; b += n_warps) {
-        const size_t a = (size_t)b * R + offs[b];
-        for (int j = lane; j < cnt[b]; j += 32) {
-          if (ltile[a + j] == tile) {
-            e_idx[atomicAdd(&s_gather, 1)] = list[a + j];
-          }
-        }
-      }
-      __syncthreads();
-      if (tid >= 32) return;
-      // warp 0 puts them in index order: lane p holds the p-th
-      const int v = lane < n_t ? e_idx[lane] : 0x7fffffff;
-      int rank = 0;
-      for (int q = 0; q < 32; ++q) rank += __shfl_sync(0xffffffffu, v, q) < v;
-      __syncwarp();
-      if (lane < n_t) e_idx[rank] = v;
-      __syncwarp();
-      insert_warp(t, lane < n_t ? e_idx[lane] : 0, n_t, CH, fresh, off_out,
-                  pend_out);
-      return;
-    }
-  } else if (n_t <= 32) {
-    // warp 0 alone: e_idx[p] = the tile's p-th candidate, in index order
-    if (tid >= 32) return;
-    for (int b = lo; b < hi; ++b) {
-      const int k = cnt[b];
-      for (int j = 0; j < k; ++j) {
-        e_idx[at + j] = list[(size_t)b * R + offs[b] + j];
-      }
-      at += k;
-    }
-    __syncwarp();
-    insert_warp(t, lane < n_t ? e_idx[lane] : 0, n_t, CH, fresh, off_out,
-                pend_out);
-    return;
-  }
-
-  // the whole block, chunk by chunk
-  for (int i = tid; i < TS; i += nt) claim[i] = kClaimFree;
-  __syncthreads();
-  const int n_chunks = (M + CH - 1) / CH;
-  const int spc = M > CH ? CH / R : B;  // blocks a chunk spans, <= span
-  for (int c = 0; c < n_chunks; ++c) {
-    const int b0 = c * spc, nb = min(B, b0 + spc) - b0;
-    // every warp sums the chunk's counts itself
-    int v = 0;
-    for (int q = lane; q < nb; q += 32) v += cnt[b0 + q];
-    int ne = __reduce_add_sync(0xffffffffu, v);
-    if (ne == 0) continue;  // uniform: the chunk has none of the bin's
-    // candidate i takes entry e of the chunk's
-    auto take = [&](int e, int i) {
-      const uint32_t h =
-          table_hash(c_st[i], (uint32_t)c_ml[i], (uint32_t)c_mh[i]);
-      e_idx[e] = i;
-      e_start[e] = (int32_t)((h >> tile_bits) & (uint32_t)(TS - 1));
-      e_off[e] = 0;
-      e_fl[e] = kPending;
-    };
-    if (gshift > 0) {
-      // a group: each of the chunk's candidates with this tile takes the
-      // next entry
-      if (tid == 0) s_gather = 0;
-      __syncthreads();
-      for (int q = 0; q < nb; ++q) {
-        const size_t a = (size_t)(b0 + q) * R + offs[b0 + q];
-        for (int j = tid; j < cnt[b0 + q]; j += nt) {
-          if (ltile[a + j] == tile) {
-            take(atomicAdd(&s_gather, 1), list[a + j]);
-          }
-        }
-      }
-      __syncthreads();
-      ne = s_gather;
-      __syncthreads();  // every thread read it before the next reset
-      if (ne == 0) continue;  // uniform
-    } else {
-      if (tid < 32) {
-        int run = 0;
-        for (int q0 = 0; q0 < nb; q0 += 32) {
-          const int q = q0 + lane;
-          const int k = q < nb ? cnt[b0 + q] : 0;
-          int sum;
-          const int x = WarpScan::excl(k, &sum);
-          if (q < nb) {
-            pre[q] = run + x;
-            soff[q] = offs[b0 + q];
-          }
-          run += sum;
-        }
-        if (lane == 0) pre[nb] = ne;
-      }
-      __syncthreads();
-      for (int q = 0; q < nb; ++q) {
-        const int k = pre[q + 1] - pre[q];
-        for (int j = tid; j < k; j += nt) {
-          take(pre[q] + j, list[(size_t)(b0 + q) * R + soff[q] + j]);
-        }
-      }
-      __syncthreads();
-    }
-    int active = 1;
-    while (active) {
-      for (int e = tid; e < ne; e += nt) {
-        if (!(e_fl[e] & kPending) || e_off[e] >= probe_limit) continue;
-        const int i = e_idx[e];
-        const int slot = (e_start[e] + e_off[e]) & (TS - 1);
-        const size_t s = t.base + slot;
-        if (__ldcg(&t_occ[s])) {
-          if (__ldcg(&t_st[s]) == c_st[i] && __ldcg(&t_ml[s]) == c_ml[i] &&
-              __ldcg(&t_mh[s]) == c_mh[i]) {
-            e_fl[e] = 0;  // already visited
-          } else {
-            e_off[e] += 1;
-          }
-        } else {
-          atomicMin(&claim[slot], i);
-          e_fl[e] = kPending | kTry;
-        }
-      }
-      __syncthreads();
-      int local = 0;
-      for (int e = tid; e < ne; e += nt) {
-        uint8_t fl = e_fl[e];
-        if (fl & kTry) {
-          const int slot = (e_start[e] + e_off[e]) & (TS - 1);
-          const int i = e_idx[e];
-          if (claim[slot] == i) {
-            const size_t s = t.base + slot;
-            t_st[s] = c_st[i];
-            t_ml[s] = c_ml[i];
-            t_mh[s] = c_mh[i];
-            t_occ[s] = 1;
-            claim[slot] = kClaimFree;
-            e_fl[e] = kFresh;
-            continue;
-          }
-          fl = kPending;
-          e_fl[e] = fl;
-        }
-        if ((fl & kPending) && e_off[e] < probe_limit) local = 1;
-      }
-      active = __syncthreads_or(local);
-    }
-    for (int e = tid; e < ne; e += nt) {
-      const int i = e_idx[e];
-      fresh[i] = (e_fl[e] & kFresh) ? 1 : 0;
-      off_out[i] = e_off[e];
-      if (e_fl[e] & kPending) *pend_out = 1;
-    }
-    __syncthreads();  // before the chunk's arrays are reused
-  }
+__global__ void __launch_bounds__(kListThreads)
+k4_compact(Args a) {
+  __shared__ int scan[kScanWords];
+  list_compact(a.c_live, a.KM, a.sc.counts, a.sc.idx, scan);
 }
 
-// ------------------------------------------------------- whole table
-
-// Live candidate li of a key: row idx[li] of its candidates.
-struct ListCand {
-  const int32_t *st, *ml, *mh, *idx;
-  __device__ __forceinline__ bool operator()(int li, int32_t& s,
-                                             uint32_t& l,
-                                             uint32_t& h) const {
-    const int i = idx[li];
-    s = st[i];
-    l = (uint32_t)ml[i];
-    h = (uint32_t)mh[i];
-    return true;
+// The table listed candidate li probes: its key's, idx[li] / M, whose
+// slots and claim words lie key * T further than key 0's.
+struct KeyTable {
+  TableView t;  // key 0's
+  const int32_t* idx;
+  int M;
+  size_t T;
+  __device__ __forceinline__ TableView operator()(int li) const {
+    const size_t at = (size_t)(idx[li] / M) * T;
+    return {t.st + at, t.ml + at, t.mh + at, t.claim + at, t.occ + at,
+            t.mask};
   }
 };
 
-// Block `key`: the reference's whole-table transaction of its M
-// candidates into its table of T slots (see the design note above).
-__global__ void __launch_bounds__(kWholeThreads, 1)
-whole_insert_kernel(const int32_t* __restrict__ c_st,
-                    const int32_t* __restrict__ c_ml,
-                    const int32_t* __restrict__ c_mh,
-                    const uint8_t* __restrict__ c_live, int M, int32_t* t_st,
-                    int32_t* t_ml, int32_t* t_mh, uint8_t* t_occ, int T,
-                    uint8_t* fresh, int32_t* off_out, uint8_t* pend_out,
-                    unsigned char* scratch, int probe_limit) {
-  __shared__ int scan[40];
+__global__ void __launch_bounds__(kGridThreads)
+k4_grid_insert(Args a) {
+  __shared__ int scan[kScanWords];
   const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t key = blockIdx.x, at = key * M, tb = key * (size_t)T;
-  c_st += at;
-  c_ml += at;
-  c_mh += at;
-  c_live += at;
-  fresh += at;
-  off_out += at;
-  t_st += tb;
-  t_ml += tb;
-  t_mh += tb;
-  t_occ += tb;
-  unsigned char* base = scratch + key * whole_scratch_bytes(M, T);
-  int32_t* idx = reinterpret_cast<int32_t*>(base);
-  int32_t* claim = idx + M;
-  uint8_t* off = reinterpret_cast<uint8_t*>(claim + T);
-  uint8_t* flags = off + M;
-
-  for (int i = tid; i < T; i += nt) claim[i] = kClaimFree;
-  for (int i = tid; i < M; i += nt) {
-    fresh[i] = 0;
-    off_out[i] = 0;
-  }
-  // the live candidates listed in index order: sixteen flags a thread,
-  // neighbouring threads on neighbouring flags, a block prefix sum for
-  // each run of nt * 16 of them
-  int L = 0;
-  for (int base = 0; base < M; base += nt * kFlagsPerThread) {
-    const int i0 = base + tid * kFlagsPerThread;
-    uint32_t bits = i0 < M ? live_bits(c_live, M, i0) : 0u;
-    int total;
-    int pos = L + block_exclusive_scan(__popc(bits), scan, &total);
-    for (; bits; bits &= bits - 1, ++pos) {
-      idx[pos] = i0 + __ffs(bits) - 1;
-      off[pos] = 0;
-      flags[pos] = kPending;
+  const int L = list_total(a.sc.counts, a.KM, scan);
+  const GridSpan s = grid_span(L);
+  const ListCand cand{a.c_st, a.c_ml, a.c_mh, a.sc.idx};
+  const KeyTable tables{{a.t_st, a.t_ml, a.t_mh, a.sc.claim, a.t_occ,
+                         (uint32_t)(a.T - 1)},
+                        a.sc.idx, a.M, (size_t)a.T};
+  Probe p;
+  grid_rounds(cand, tables, s, L, p, a.sc.off, a.sc.flags, a.sc.gflags,
+              a.probe_limit);
+  // each candidate's outcome; one still probing flags its key
+  if (s.in_regs) {
+    if (s.my < s.hi) {
+      const int i = a.sc.idx[s.my];
+      a.fresh[i] = (p.fl & kFresh) ? 1 : 0;
+      a.off_out[i] = p.off;
+      if (p.fl & kPending) a.pend_out[i / a.M] = 1;
     }
-    L += total;
-  }
-  __syncthreads();
-
-  const TableView t{t_st, t_ml, t_mh, claim, t_occ, (uint32_t)(T - 1)};
-  const ListCand cand{c_st, c_ml, c_mh, idx};
-  int active = L > 0;
-  while (active) {
-    for (int li = tid; li < L; li += nt) {
-      probe_read<L2Loads>(cand, t, off, flags, li, probe_limit);
+  } else {
+    for (int li = s.lo + tid; li < s.hi; li += nt) {
+      const int i = a.sc.idx[li];
+      const uint8_t fl = a.sc.flags[li];
+      a.fresh[i] = (fl & kFresh) ? 1 : 0;
+      a.off_out[i] = a.sc.off[li];
+      if (fl & kPending) a.pend_out[i / a.M] = 1;
     }
-    __syncthreads();
-    int local = 0;
-    for (int li = tid; li < L; li += nt) {
-      local |= claim_settle<L2Loads>(cand, t, off, flags, li, probe_limit);
-    }
-    active = __syncthreads_or(local);
   }
-  int pend = 0;
-  for (int li = tid; li < L; li += nt) {
-    const int i = idx[li];
-    fresh[i] = (flags[li] & kFresh) ? 1 : 0;
-    off_out[i] = off[li];
-    pend |= (flags[li] & kPending) != 0;
-  }
-  pend = __syncthreads_or(pend);
-  if (tid == 0) pend_out[key] = pend ? 1 : 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Once per device, before the first launch there: lets the kernels use
-// the block's whole shared-memory opt-in. Returns that opt-in in bytes,
-// or minus the cudaError_t.
+// Once per device, before the first launch there: reads how many blocks
+// of the insert's grid the card keeps resident per SM and its SM count.
+// Returns their product, the blocks of every launch's grid there, or
+// minus the cudaError_t.
 int jt_tiled_insert_init(void) {
-  int dev = 0, optin = 0;
+  int dev = 0, per_sm = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k4_grid_insert, kGridThreads, 0);
   }
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute((const void*)insert_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute((const void*)bin_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
+  if (err == cudaSuccess && per_sm < 1) {
+    err = cudaErrorCooperativeLaunchTooLarge;
   }
-  return err == cudaSuccess ? optin : -(int)err;
+  return err == cudaSuccess ? per_sm * sms : -(int)err;
 }
 
-// The larger dynamic shared memory of the two launches for a tile of TS
-// slots, 2^tile_bits tiles and a chunk of CH, whatever M is
-// (sparse_kernels.k4_smem_bytes must agree).
-long long jt_tiled_insert_smem(int TS, int tile_bits, int CH) {
-  const Plan p = make_plan(tile_bits, CH);
-  const size_t a = insert_smem(p, TS, CH), b = bin_smem(p);
-  return (long long)(a > b ? a : b);
+// The device scratch a launch over K keys of M candidates and tables of T
+// slots needs, in bytes.
+long long jt_tiled_insert_scratch(int K, int M, int T) {
+  if (K < 1 || M < 1 || (long long)K * M >= INT_MAX) return -1;
+  return (long long)carve(nullptr, K * M, (size_t)K * T).bytes;
 }
 
-// The device scratch one key of a launch needs, in bytes (a launch over
-// K keys takes K times as much), for tiles of TS slots.
-long long jt_tiled_insert_scratch(int M, int TS, int tile_bits, int CH) {
-  if (whole_table(M, tile_bits, CH)) {
-    return (long long)whole_scratch_bytes(M, TS);
-  }
-  return (long long)scratch_bytes(make_plan(tile_bits, CH), M);
-}
-
-// K keys' tiled inserts on `stream`. One tile and one chunk (tile_bits 0,
-// CH >= M): the whole-table kernel, a block a key (stages 2 or 3; stage
-// 1 alone launches nothing). Else the bin, then n_tiles = 1 <<
-// tile_bits insert blocks of TS slots (both powers of two) a key. The
-// candidates c_*, fresh and off_out are [K, M], the tables t_* [K, T]
-// (T = n_tiles * TS) and pend_out [K]; `scratch` holds K slices of
-// jt_tiled_insert_scratch(M, TS, tile_bits, CH) bytes. The tables are updated
-// in place. fresh, off_out and pend_out are written whole (the bin
-// zeroes them). `stages`: 1 the bin alone, 2 the insert alone (on a
-// scratch an earlier bin of the same candidates filled), 3 both.
-// Returns the cudaError_t of the launches (cudaErrorInvalidValue for a
-// shape the kernels do not take).
+// K keys' transactions on `stream`: the prep and compact launches, then a
+// cooperative grid of grid_blocks blocks (all of which the card must keep
+// resident; jt_tiled_insert_init's count). The candidates c_*, fresh and
+// off_out are [K, M], the tables t_* [K, T] (T a power of two) and
+// pend_out [K]; the tables are updated in place, fresh, off_out and
+// pend_out written whole. Returns the cudaError_t of the launches
+// (cudaErrorInvalidValue for a shape it does not take: K * M must stay
+// below INT_MAX, the list's int32 range; a cooperative launch the card
+// refuses returns its error and runs nothing).
 int jt_tiled_insert_launch(const int32_t* c_st, const int32_t* c_ml,
                            const int32_t* c_mh, const uint8_t* c_live, int M,
                            int32_t* t_st, int32_t* t_ml, int32_t* t_mh,
-                           uint8_t* t_occ, uint8_t* fresh, int32_t* off_out,
-                           uint8_t* pend_out, void* scratch, int K, int TS,
-                           int tile_bits, int CH, int probe_limit, int stages,
-                           void* stream) {
-  if (K < 1 || K > 65535 || M < 1 || TS < 1 || (TS & (TS - 1)) != 0 ||
-      tile_bits < 0 ||
-      tile_bits > 24 || CH < 1 || (CH & (CH - 1)) != 0 || probe_limit < 1 ||
-      probe_limit > 255 || stages < 1 || stages > 3 ||
-      (M > CH && CH < 2 * kBinThreads)) {
+                           uint8_t* t_occ, int T, uint8_t* fresh,
+                           int32_t* off_out, uint8_t* pend_out,
+                           void* scratch, int K, int probe_limit,
+                           int grid_blocks, void* stream) {
+  if (K < 1 || M < 1 || (long long)K * M >= INT_MAX || T < 2 ||
+      (T & (T - 1)) != 0 || probe_limit < 1 || probe_limit > 255 ||
+      grid_blocks < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  const int KM = K * M;
+  const size_t KT = (size_t)K * T;
+  Args a{c_st,   c_ml, c_mh,  c_live, M,       K,        KM,
+         T,      KT,   t_st,  t_ml,   t_mh,    t_occ,    fresh,
+         off_out, pend_out, carve(scratch, KM, KT), probe_limit};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (whole_table(M, tile_bits, CH)) {
-    if (stages & 2) {
-      whole_insert_kernel<<<K, kWholeThreads, 0, s>>>(
-          c_st, c_ml, c_mh, c_live, M, t_st, t_ml, t_mh, t_occ, TS, fresh,
-          off_out, pend_out, reinterpret_cast<unsigned char*>(scratch),
-          probe_limit);
-    }
-    return (int)cudaGetLastError();
-  }
-  const Plan p = make_plan(tile_bits, CH);
-  const int B = bin_blocks(p, M);
-  const size_t kstride = scratch_bytes(p, M) / 4;  // int32 words a key
-  int32_t* list = reinterpret_cast<int32_t*>(scratch);
-  int32_t* ltile = list + (size_t)B * p.R;  // in a group
-  int32_t* seg_off = ltile + (p.gshift > 0 ? (size_t)B * p.R : 0);
-  int32_t* seg_cnt = seg_off + (size_t)p.n_bins * B;
-  if (stages & 1) {
-    bin_kernel<<<dim3(B, K), kBinThreads, bin_smem(p), s>>>(
-        c_st, c_ml, c_mh, c_live, M, fresh, off_out, pend_out, list, ltile,
-        seg_off, seg_cnt, kstride, tile_bits, p.gshift, p.kb);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (stages & 2) {
-    insert_kernel<<<dim3(1 << tile_bits, K), kInsThreads,
-                    insert_smem(p, TS, CH), s>>>(
-        c_st, c_ml, c_mh, M, t_st, t_ml, t_mh, t_occ, fresh, off_out,
-        pend_out, list, ltile, seg_off, seg_cnt, kstride, B, p.R, p.span,
-        TS, tile_bits, p.gshift, CH, probe_limit);
-  }
-  return (int)cudaGetLastError();
+  const int grid = list_chunks(KM);
+  k4_prep<<<grid, kListThreads, 0, s>>>(a);
+  k4_compact<<<grid, kListThreads, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)k4_grid_insert,
+                                    dim3(grid_blocks), dim3(kGridThreads),
+                                    params, 0, s);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

@@ -255,15 +255,12 @@ def _empty_table(T, rep):
 
 # ------------------------------------------------- the visited-set insert
 
-def _hash_insert(c_rows, c_live, table, probe_limit: int, rep=None,
-                 h0=None, base=None, span=None):
+def _hash_insert(c_rows, c_live, table, probe_limit: int, rep):
     """Parallel bounded-linear-probe insert of candidate rows into the
     open-addressed visited set `table` ((rows, occ) of length T).
 
-    Each live candidate probes slots base + ((h0 + off) & (span - 1)):
-    by default h0 is its table hash (`rep`'s), base 0 and span T; the
-    tiled insert passes the in-tile start, the tile's first slot and the
-    tile size.
+    Each live candidate probes slots (h + off) & (T - 1), h its table
+    hash (`rep`'s).
     Per round it drops on an equal occupant, claims an empty slot
     (racing claimants are arbitrated by a scatter-min of the candidate
     index; losers re-check the same slot next round, since the winner
@@ -277,10 +274,7 @@ def _hash_insert(c_rows, c_live, table, probe_limit: int, rep=None,
     M = c_live.shape[0]
     T = t_occ.shape[0]
     dev = c_live.device
-    if h0 is None:
-        h0 = rep.table_hash(c_rows)
-    if span is None:
-        span = T
+    h0 = rep.table_hash(c_rows)
     idx = torch.arange(M, dtype=_I64, device=dev)
     t_rows = tuple(r.clone() for r in t_rows)
     t_occ = t_occ.clone()
@@ -289,9 +283,7 @@ def _hash_insert(c_rows, c_live, table, probe_limit: int, rep=None,
     fresh = torch.zeros(M, dtype=torch.bool, device=dev)
     while bool((pending & (off < probe_limit)).any()):
         act = pending & (off < probe_limit)
-        slot = (h0 + off) & (span - 1)
-        if base is not None:
-            slot = slot + base
+        slot = (h0 + off) & (T - 1)
         occ = t_occ[slot]
         same = occ & _rows_eq(_rows_take(t_rows, slot), c_rows)
         try_claim = act & ~occ
@@ -341,8 +333,8 @@ def _hash_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
     plain version of K2: seed a fresh visited set with the live
     frontier (compacting it), then expand only the delta — the rows
     found by the last iteration — until no fresh row appears. With the
-    `insert` hook each iteration's visited-set transaction is the tiled
-    insert (K4) instead.
+    `insert` hook each iteration's visited-set transaction is K4's
+    instead.
 
     Returns (rows2, count, ovf, iters, stepped), `stepped` counting the
     configurations expanded during this closure."""
@@ -519,19 +511,15 @@ def _xs(e: EncodedHistory, device) -> dict:
 
 
 def _route(N: int, C: int, dedupe: str, device, smem_budget=None):
-    """-> (closure, plan): "sort", "fused" (K2) or "tiled" (K4), with
-    the tiled insert's plan. The hash closure is fused while K2's
-    shared-memory layout fits the budget, and tiled past it; the budget
-    is the card's opt-in on a card, Hopper's on the CPU, or the test
-    seam `smem_budget`. The tiled closure's plan is the whole table
-    (`sparse_kernels.whole_plan`): the reference's transaction, so both
-    routes give the reference's results."""
+    """-> "sort", "fused" (K2) or "tiled" (K4). The hash closure is fused
+    while K2's shared-memory layout fits the budget, and tiled past it;
+    the budget is the card's opt-in on a card, Hopper's on the CPU, or
+    the test seam `smem_budget`. Both hash routes run the reference's
+    whole-table transaction, so both give the reference's results."""
     if dedupe == "sort":
-        return "sort", None
+        return "sort"
     budget = smem_budget or sk.smem_budget(device)
-    if sk.supported(N, C, budget):
-        return "fused", None
-    return "tiled", sk.whole_plan(N)
+    return "fused" if sk.supported(N, C, budget) else "tiled"
 
 
 class _Scan:
@@ -550,7 +538,7 @@ class _Scan:
         self.rep = _rep(pack, C, device)
         self.step = STEPS[e.step_name]
         self.xs = _xs(e, device) if xs is None else xs
-        self.closure, self.plan = _route(N, C, dedupe, device, smem_budget)
+        self.closure = _route(N, C, dedupe, device, smem_budget)
         # the fused closure on a card is the one route that never needs
         # a value on the host during the scan
         self.synced = self.closure != "fused" or device.type != "cuda"
@@ -581,7 +569,7 @@ class _Scan:
         else:
             rows2, meta = sk.tiled_event_closure(
                 self.rep, self.step, ev, self.rows, self.live, run, N,
-                self.T, self.probe_limit, self.plan)
+                self.T, self.probe_limit)
         live2 = torch.arange(N, device=self.device) < meta[0]
         return rows2, live2, meta[1] != 0, meta[2], meta[3]
 
@@ -691,7 +679,7 @@ class _BatchScan:
     Per event row a key runs when it has not failed or overflowed and
     the event is real (ev_slot >= 0); its closure is the route's —
     batched K2 ("fused": one launch for every key), the tiled closure
-    around batched K4 ("tiled": one launch pair a closure iteration for
+    around batched K4 ("tiled": one launch a closure iteration for
     every key) or the sort closure — then the filter and carry of
     `_Scan.run` on [K, ...] tensors. The fused route on a card reads
     nothing from the device until the end; the others read a flag a
@@ -707,7 +695,7 @@ class _BatchScan:
         self.step_name = encs[0].step_name
         self.step = STEPS[self.step_name]
         self.rep = _rep((), C, device)
-        self.closure, self.plan = _route(N, C, dedupe, device, smem_budget)
+        self.closure = _route(N, C, dedupe, device, smem_budget)
         self.synced = self.closure != "fused" or device.type != "cuda"
         # key-major [K, R, C]: batched K2 reads row r of key k in place
         self.xs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
@@ -745,7 +733,7 @@ class _BatchScan:
             ev = {k: v[:, r] for k, v in self.xs.items()}
             rows2, meta = sk.tiled_event_closure_batch(
                 self.rep, self.step, ev, self.rows, self.live, run, N,
-                self.T, self.probe_limit, self.plan)
+                self.T, self.probe_limit)
         live2 = torch.arange(N, device=self.device) < meta[:, 0, None]
         return rows2, live2, meta[:, 1] != 0, meta[:, 3].to(_I64)
 

@@ -8,18 +8,16 @@ versions and shared-memory gates.
     `frontier_closure_batch`: one event row of K keys in one launch, a
     block a key (the reference's K2 under vmap); its plain version is
     `frontier_closure_batch_reference`, the single key's key by key.
-  * K4, `tiled_insert` — the probe/claim half of one visited-set
-    transaction over a table split into hash-range tiles, the candidates
-    in chunks, as a plan says (`kernels/tiled_insert.cu`; replaces
-    `jepsen_tpu.parallel.sparse_kernels.tiled_insert_call`). The
-    engine's plan (`whole_plan`) is one tile and one chunk, the
-    reference's transaction: a block a table, in device memory. Smaller
-    plans take a bin of the live candidates by home tile over many
-    blocks, then one block per tile walking only its own. Its plain
+  * K4, `tiled_insert` — the probe/claim half of the visited-set
+    transaction past K2's gate (`kernels/tiled_insert.cu`; replaces
+    `jepsen_tpu.parallel.sparse_kernels.tiled_insert_call`): the
+    reference's transaction over the whole table, run by a cooperative
+    grid (`k4_grid`) over the live candidates, as K3's device layout
+    runs it (one body, sparse_common.cuh's grid_rounds). Its plain
     version is `tiled_insert_reference`. The closure around it
     (`tiled_event_closure`) is the plain closure with K4 as its insert.
     Batched over keys, `tiled_insert_batch`: K keys' transactions, a
-    table each, in one launch pair (plain version
+    table each, in one launch (plain version
     `tiled_insert_batch_reference`), inside `tiled_event_closure_batch`.
   * K3, `hash_insert` — one visited-set transaction of the sharded
     engine's closure iterations: probe, claim, loser re-check and the
@@ -31,25 +29,20 @@ versions and shared-memory gates.
     block the card keeps resident (`k3_layout` "device", `k3_grid_blocks`),
     so it takes every shape.
 
-The gates come from shared-memory layouts: K2 keeps the frontier (12
-bytes a row), the table (T = next_pow2(2N) slots of 12 bytes of row, 4
-of claim and 1 of occupancy) and two bytes per candidate (N*C of them)
-in one block; K4's binned path keeps a claim word per tile slot, one
-chunk of gathered candidates and the bin's counters (`k4_smem_bytes`,
-whatever the number of candidates or tiles), and `tiled_plan` sizes such
-a tile and chunk by a fixed split of the budget (the engine runs
-`whole_plan`, whose block keeps its table in device memory). The budget
-is the card's opt-in on a card (232,448 bytes on the H100) and that
-Hopper figure on the CPU, so the CPU tests take the routes the card
-would.
+The gate comes from K2's shared-memory layout: it keeps the frontier
+(12 bytes a row), the table (T = next_pow2(2N) slots of 12 bytes of
+row, 4 of claim and 1 of occupancy) and two bytes per candidate (N*C of
+them) in one block. The budget is the card's opt-in on a card (232,448
+bytes on the H100) and that Hopper figure on the CPU, so the CPU tests
+take the routes the card would.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version, which the tests and `chip_smoke.py`
 hold the kernel against. Each wrapper counts its launches, and nothing
 else, in a plain integer: `launches["frontier_closure"]`,
 `launches["frontier_closure_batch"]`, `launches["hash_insert"]`,
-`launches["tiled_insert"]` and `launches["tiled_insert_batch"]` (a bin
-and insert pair counts once); K3 also counts them per table layout, in
+`launches["tiled_insert"]` and `launches["tiled_insert_batch"]` (its
+three kernels count once); K3 also counts them per table layout, in
 `hash_insert_launches["shared"]` and `hash_insert_launches["device"]`.
 """
 
@@ -79,13 +72,6 @@ MAX_C = 64
 # K2: the slot tables (3 int32 + 2 bytes per slot, for 64 slots) and 40
 # words of scan scratch
 K2_FIXED_BYTES = 3 * 4 * MAX_C + 40 * 4 + 2 * MAX_C
-# K4's plan splits the budget as its first kernel's layout did (17 bytes
-# a tile slot, 10 a chunk entry, 16 more): the tile fixes where each row
-# probes, so the plan, and every result, stays what it was
-K4_PLAN_SLOT_BYTES = 17
-K4_PLAN_ENTRY_BYTES = 10
-K4_PLAN_FIXED_BYTES = 16
-TILE_MIN = CHUNK_MIN = 512
 # K3: 40 words of scan scratch, and in the shared layout the table
 K3_FIXED_BYTES = 40 * 4
 K3_SLOT_BYTES = 17    # rows 12, claim 4, occupancy 1
@@ -98,51 +84,6 @@ def k2_smem_bytes(N: int, C: int) -> int:
     """K2's dynamic shared memory at frontier capacity N and C slots."""
     T = sp._next_pow2(2 * N)
     return 12 * N + 17 * T + 2 * N * C + K2_FIXED_BYTES
-
-
-# K4's bin: threads a block, candidates a thread at most, the (bin, group
-# of 32) counters a block keeps at most while R can shrink, and the bins
-# at most (past 2^12 tiles a bin is a group of tiles) (tiled_insert.cu)
-K4_BIN_THREADS = 256
-K4_BIN_MAX_K = 8
-K4_BIN_GROUPS = 8192
-K4_BIN_MAX_BITS = 12
-
-
-def k4_bins(tile_bits: int) -> int:
-    """The bins of K4's bin with 2^tile_bits tiles: a bin a tile up to
-    4,096 tiles (every capacity up to 2^24), else 4,096 bins of
-    2^(tile_bits - 12) consecutive tiles."""
-    return 1 << min(tile_bits, K4_BIN_MAX_BITS)
-
-
-def k4_bin_shape(tile_bits: int, chunk: int):
-    """(candidates per bin block R, bin blocks a chunk spans at most) of
-    K4 with 2^tile_bits tiles and chunk CH (tiled_insert.cu make_plan):
-    R is 256 * kb with kb <= 8 a power of two, shrunk while the block's
-    counters (R/32 per bin) pass 8,192 and until R divides the chunk
-    (for a chunk of at least 256)."""
-    n_tt = k4_bins(tile_bits)
-    kb = max(1, min(K4_BIN_MAX_K, K4_BIN_GROUPS // (8 * n_tt)))
-    kb = _pow2_floor(kb)
-    if kb * K4_BIN_THREADS > chunk:
-        kb = max(1, chunk // K4_BIN_THREADS)
-    R = kb * K4_BIN_THREADS
-    return R, max(1, chunk // R)
-
-
-def k4_smem_bytes(tile: int, chunk: int, tiles: int) -> int:
-    """K4's dynamic shared memory with `tiles` tiles of `tile` slots and a
-    chunk of `chunk` candidates, the larger of its two launches (M does
-    not enter): the insert's claim words (4 a tile slot), a chunk's
-    candidates (10 bytes each) and the places of a chunk's bin segments
-    (8 a bin block it spans, and 8); or the bin's counters (4 a bin and
-    group of 32 candidates, at most 32,768 of them whatever the number
-    of tiles) and 40 words of scan."""
-    bits = tiles.bit_length() - 1
-    R, span = k4_bin_shape(bits, chunk)
-    return max(4 * tile + 10 * chunk + 8 * (span + 1),
-               4 * k4_bins(bits) * (R // 32) + 160)
 
 
 def k3_smem_bytes(Nd: int) -> int:
@@ -183,47 +124,6 @@ def supported(N: int, C: int, budget: int = HOPPER_SMEM_OPTIN) -> bool:
     return 1 <= C <= MAX_C and k2_smem_bytes(N, C) <= budget
 
 
-def _pow2_floor(n: int) -> int:
-    return 1 << max(0, int(n).bit_length() - 1)
-
-
-def tiled_plan(N: int, C: int, budget: int = HOPPER_SMEM_OPTIN):
-    """{"tile", "chunk"} of K4 at frontier capacity N, or None when no
-    tile and chunk of at least 512 come out of `budget` or the kernel's
-    shared memory (`k4_smem_bytes`) does not fit it. Up to 3/5 of the
-    budget at 17 bytes a slot goes to the tile (at most the whole table,
-    T = next_pow2(2N)), the rest at 10 bytes an entry to the chunk: on
-    the H100 a tile of 8,192 slots and a chunk of 8,192 candidates. Such
-    a plan runs on K4's binned path (the tests and the parity cases take
-    it); the engine's route takes `whole_plan`, since a tile lays rows
-    out otherwise than the reference's one table."""
-    T = sp._next_pow2(2 * N)
-    tile = min(T, _pow2_floor((budget * 3 // 5) // K4_PLAN_SLOT_BYTES))
-    chunk = _pow2_floor(max(1, (budget - K4_PLAN_SLOT_BYTES * tile
-                                - K4_PLAN_FIXED_BYTES)
-                            // K4_PLAN_ENTRY_BYTES))
-    if tile < TILE_MIN or chunk < CHUNK_MIN or \
-            k4_smem_bytes(tile, chunk, T // tile) > budget:
-        return None
-    return {"tile": tile, "chunk": chunk}
-
-
-# the engine's K4 plan: one tile of the whole table, one chunk of every
-# candidate (a chunk is clipped to the candidates' next power of two)
-WHOLE_CHUNK = 1 << 30
-
-
-def whole_plan(N: int) -> dict:
-    """K4's plan on the engine's route past K2's gate: the whole table
-    (T = next_pow2(2N)) as one tile and every candidate in one chunk —
-    the reference's visited-set transaction (`engine._hash_insert` over
-    the table), so the layout, the probe-overflow flag and `capacity`
-    are the reference's. Hash-range tiles of `tiled_plan` lay rows out
-    otherwise and can exhaust a probe run where the reference does not
-    (ROADMAP Queue 3)."""
-    return {"tile": sp._next_pow2(2 * N), "chunk": WHOLE_CHUNK}
-
-
 # ----------------------------------------------------------- the libraries
 
 _libs: dict = {}
@@ -232,6 +132,8 @@ _libs: dict = {}
 _optin: dict = {}
 # device index -> the blocks of K3's cooperative grid there
 _k3_grid: dict = {}
+# device index -> the blocks of K4's cooperative grid there
+_k4_grid: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -262,11 +164,10 @@ def _lib(name: str):
             lib.jt_hash_insert_smem.restype = ctypes.c_longlong
         else:
             lib.jt_tiled_insert_launch.argtypes = \
-                [_P] * 4 + [_I] + [_P] * 8 + [_I] * 6 + [_P]
+                [_P] * 4 + [_I] + [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 \
+                + [_P]
             lib.jt_tiled_insert_launch.restype = _I
-            lib.jt_tiled_insert_smem.argtypes = [_I] * 3
-            lib.jt_tiled_insert_smem.restype = ctypes.c_longlong
-            lib.jt_tiled_insert_scratch.argtypes = [_I] * 4
+            lib.jt_tiled_insert_scratch.argtypes = [_I] * 3
             lib.jt_tiled_insert_scratch.restype = ctypes.c_longlong
         init = getattr(lib, f"jt_{name}_init")
         init.argtypes = []
@@ -310,13 +211,30 @@ def k3_grid(device) -> int:
     return v
 
 
+def k4_grid(device) -> int:
+    """The blocks of K4's cooperative grid on `device`: every block of
+    its insert the card keeps resident (blocks per SM x SMs), read once
+    there by jt_tiled_insert_init."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    v = _k4_grid.get(index)
+    if v is None:
+        with torch.cuda.device(index):
+            v = _lib("tiled_insert").jt_tiled_insert_init()
+        if v <= 0:
+            raise RuntimeError(f"tiled_insert kernel: cannot set up device "
+                               f"{index}: CUDA error {-v}")
+        _k4_grid[index] = v
+    return v
+
+
 def smem_budget(device) -> int:
-    """The shared-memory budget of the routes on `device`: the card's
-    opt-in, or Hopper's on the CPU."""
+    """The shared-memory budget of the routes on `device`: K2's opt-in on
+    the card, or Hopper's on the CPU."""
     device = torch.device(device)
     if device.type == "cuda":
-        return min(_device_optin("frontier_closure", device),
-                   _device_optin("tiled_insert", device))
+        return _device_optin("frontier_closure", device)
     return HOPPER_SMEM_OPTIN
 
 
@@ -604,143 +522,101 @@ def _hash_insert_launch(c_rows, c_live, f_rows, count, table,
 
 # --------------------------------------------------------------------- K4
 
-def _tiling(T: int, M: int, plan: dict):
-    """(tiles, tile size, log2 tiles, chunk) of `plan` on a table of T
-    slots and M candidates — the reference's arithmetic."""
-    n_tt = max(1, T // plan["tile"])
-    CH = min(plan["chunk"], 1 << max(0, (M - 1).bit_length()))
-    return n_tt, T // n_tt, n_tt.bit_length() - 1, CH
+def tiled_insert_reference(c_rows, c_live, table, probe_limit: int):
+    """K4's plain version: the reference's visited-set transaction over
+    the whole table (`sparse._hash_insert`). Returns (table2, fresh
+    bool[M], off int32[M], probe_ovf bool) and leaves `table` as it
+    is."""
+    table2, fresh, p_ovf, off = sp._hash_insert(
+        c_rows, c_live, table, probe_limit, sp._rep((), 1, c_live.device))
+    return table2, fresh, off, p_ovf
 
 
-def is_whole(T: int, M: int, plan: dict) -> bool:
-    """Whether `plan` on T slots and M candidates is one tile and one
-    chunk: the reference's whole-table transaction, which K4 runs as a
-    block a key with the table in device memory (tiled_insert.cu)."""
-    n_tt, _, _, CH = _tiling(T, M, plan)
-    return n_tt == 1 and CH >= M
-
-
-def tiled_insert_reference(c_rows, c_live, table, probe_limit: int,
-                           plan: dict):
-    """K4's plain version: chunk by chunk, in order, one round-synchronous
-    insert of the chunk's live candidates, each probing inside its home
-    tile (`sparse._hash_insert` with the tile's slots). Every tile is
-    independent, so one insert per chunk serves all tiles at once.
-    Returns (table2, fresh bool[M], off int32[M], probe_ovf bool)."""
+def _check_k4_args(what, c_rows, c_live, table, probe_limit, K):
     t_rows, t_occ = table
-    M = c_live.shape[0]
-    T = t_occ.shape[0]
-    n_tt, TS, tt_bits, CH = _tiling(T, M, plan)
-    h0 = sp.table_hash_u32(*(sp._u32(r) for r in c_rows))
-    base = (h0 & (n_tt - 1)) * TS
-    start = (h0 >> tt_bits) & (TS - 1)
-    fresh, off, pend = [], [], []
-    for c0 in range(0, M, CH):
-        s = slice(c0, min(M, c0 + CH))
-        table, f, p, o = sp._hash_insert(
-            tuple(r[s] for r in c_rows), c_live[s], table, probe_limit,
-            h0=start[s], base=base[s], span=TS)
-        fresh.append(f)
-        off.append(o)
-        pend.append(p)
-    return (table, torch.cat(fresh), torch.cat(off),
-            torch.stack(pend).any())
+    M, T = c_live.shape[-1], t_occ.shape[-1]
+    lead = c_live.shape[:-1]
+    _check(M >= 1 and T >= 2 and T & (T - 1) == 0,
+           f"{what}: M={M} T={T} (T must be a power of two)")
+    _check(K * M < 2 ** 31 - 1,
+           f"{what}: {K} x {M} candidates, past the kernel's int32 list")
+    _check(1 <= probe_limit <= sp.MAX_PROBE_LIMIT,
+           f"{what}: probe_limit={probe_limit} outside "
+           f"1..{sp.MAX_PROBE_LIMIT}")
+    _check(len(c_rows) == 3 and len(t_rows) == 3
+           and all(r.dtype == _I32 and r.shape == (*lead, M)
+                   for r in c_rows)
+           and all(r.dtype == _I32 and r.shape == (*lead, T)
+                   for r in t_rows)
+           and c_live.dtype == torch.bool and t_occ.dtype == torch.bool
+           and t_occ.shape == (*lead, T),
+           f"{what}: rows must be three int32 lanes, flags bool")
+    devs = {t.device for t in (*c_rows, c_live, *t_rows, t_occ)}
+    _check(len(devs) == 1, f"{what}: tensors on {devs}")
+    return _dev(c_live)
 
 
-def tiled_insert(c_rows, c_live, table, probe_limit: int, plan: dict):
-    """K4: the probe/claim half of one visited-set transaction on a
-    table split into hash-range tiles.
+def tiled_insert(c_rows, c_live, table, probe_limit: int):
+    """K4: the probe/claim half of one visited-set transaction, over the
+    whole table (the reference's transaction).
 
     c_rows  candidates, three int32 lanes [M]; c_live bool [M]
     table   (three int32 lanes [T], occupancy bool [T]), T a power of two
-    plan    {"tile", "chunk"} (whole_plan, or a binned tiled_plan)
     ->      (table2, fresh bool[M], off int32[M], probe_ovf bool [])
 
     A CPU tensor runs the plain version, which leaves `table` as it is.
-    A CUDA tensor launches the kernel on the current stream, after
-    checking that its shared memory fits the card's opt-in; the kernel
+    A CUDA tensor launches the kernel on the current stream; the kernel
     updates the table in place, so `table` is consumed: table2 is the
     same tensors (their copies, where a lane was not contiguous), and a
     caller that needs the old table clones it first. The only caller,
     `tiled_event_closure`, never reads a table after inserting into
     it."""
-    t_rows, t_occ = table
-    M, T = c_live.shape[0], t_occ.shape[0]
-    _check(M >= 1 and T >= 1 and T & (T - 1) == 0,
-           f"tiled_insert: M={M} T={T} (T must be a power of two)")
-    _check(1 <= probe_limit <= sp.MAX_PROBE_LIMIT,
-           f"tiled_insert: probe_limit={probe_limit} outside "
-           f"1..{sp.MAX_PROBE_LIMIT}")
-    _check(all(r.dtype == _I32 and tuple(r.shape) == (M,) for r in c_rows)
-           and all(r.dtype == _I32 and tuple(r.shape) == (T,)
-                   for r in t_rows)
-           and c_live.dtype == torch.bool and t_occ.dtype == torch.bool
-           and len(c_rows) == 3 and len(t_rows) == 3,
-           "tiled_insert: rows must be three int32 lanes, flags bool")
-    devs = {t.device for t in (*c_rows, c_live, *t_rows, t_occ)}
-    _check(len(devs) == 1, f"tiled_insert: tensors on {devs}")
-    dev = _dev(c_live)
-    if dev.type == "cpu":
-        return tiled_insert_reference(c_rows, c_live, table, probe_limit,
-                                      plan)
-    return _tiled_insert_launch(c_rows, c_live, table, probe_limit,
-                                plan)[:4]
+    _check(c_live.dim() == 1, "tiled_insert: candidates [M]")
+    if _check_k4_args("tiled_insert", c_rows, c_live, table, probe_limit,
+                      1).type == "cpu":
+        return tiled_insert_reference(c_rows, c_live, table, probe_limit)
+    out = _tiled_insert_launch(c_rows, c_live, table, probe_limit)
+    launches["tiled_insert"] += 1
+    return out
 
 
-def _tiled_insert_launch(c_rows, c_live, table, probe_limit: int,
-                         plan: dict, stages: int = 3, work=None):
+def _tiled_insert_launch(c_rows, c_live, table, probe_limit: int):
     """K4's launches on CUDA tensors, one key's ([M] candidates, a [T]
-    table) or K keys' ([K, M] and [K, T]: `tiled_insert_batch`): `stages`
-    1 the bin alone, 2 the insert alone (on `work` from an earlier bin of
-    the same candidates), 3 both (the wrappers'). chip_smoke.py and
-    kernel_ab.py time the two apart. -> (table2, fresh, off, probe_ovf,
-    work); one launch counted per insert, in `launches["tiled_insert"]`
-    or `launches["tiled_insert_batch"]`."""
+    table) or K keys' ([K, M] and [K, T]: `tiled_insert_batch`) ->
+    (table2, fresh, off, probe_ovf). Raises on a launch the card
+    refuses; counts nothing (its callers do)."""
     t_rows, t_occ = table
     M, T = c_live.shape[-1], t_occ.shape[-1]
     K = c_live.shape[0] if c_live.dim() == 2 else 1
     dev = c_live.device
-    n_tt, TS, tt_bits, CH = _tiling(T, M, plan)
-    smem = k4_smem_bytes(TS, CH, n_tt)
-    if not is_whole(T, M, plan) and smem > _device_optin("tiled_insert",
-                                                           dev):
-        raise ValueError(f"tiled_insert: {n_tt} tiles of {TS} and chunk "
-                         f"{CH} need {smem} bytes of shared memory, past "
-                         f"the card's opt-in")
     lib = _lib("tiled_insert")
+    grid = k4_grid(dev)
     ins = [r.contiguous() for r in c_rows] + [c_live.contiguous()]
     tins = [r.contiguous() for r in t_rows] + [t_occ.contiguous()]
-    if work is None:
-        work = (torch.empty(c_live.shape, dtype=torch.bool, device=dev),
-                torch.empty(c_live.shape, dtype=_I32, device=dev),
-                torch.empty(c_live.shape[:-1], dtype=torch.bool,
-                            device=dev),
-                torch.empty(K * lib.jt_tiled_insert_scratch(M, TS, tt_bits,
-                                                            CH),
-                            dtype=torch.uint8, device=dev))
-    fresh, off, pend, scratch = work
+    fresh = torch.empty(c_live.shape, dtype=torch.bool, device=dev)
+    off = torch.empty(c_live.shape, dtype=_I32, device=dev)
+    pend = torch.empty(c_live.shape[:-1], dtype=torch.bool, device=dev)
+    scratch = torch.empty(lib.jt_tiled_insert_scratch(K, M, T),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = lib.jt_tiled_insert_launch(
-            *map(_ptr, ins), M, *map(_ptr, tins), _ptr(fresh), _ptr(off),
-            _ptr(pend), _ptr(scratch), K, TS, tt_bits, CH, probe_limit,
-            stages, torch.cuda.current_stream().cuda_stream)
+            *map(_ptr, ins), M, *map(_ptr, tins), T, _ptr(fresh), _ptr(off),
+            _ptr(pend), _ptr(scratch), K, probe_limit, grid,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"tiled_insert kernel launch failed: CUDA "
                            f"error {err}")
-    if stages & 2:
-        launches["tiled_insert" if c_live.dim() == 1
-                 else "tiled_insert_batch"] += 1
-    return (tuple(tins[:3]), tins[3]), fresh, off, pend, work
+    return (tuple(tins[:3]), tins[3]), fresh, off, pend
 
 
 def tiled_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
-                        probe_limit: int, plan: dict):
+                        probe_limit: int):
     """The hash closure of one event with K4 as its visited-set insert:
     `sparse._hash_event_closure` whose insert hook is `tiled_insert`
     followed by the plain append. -> (rows2, meta int32[4])."""
     def insert(c_rows, c_live, f_rows, count, table):
         table2, fresh, _, p_ovf = tiled_insert(c_rows, c_live, table,
-                                               probe_limit, plan)
+                                               probe_limit)
         rows2, count2, n_fresh, a_ovf = sp._append_fresh(
             c_rows, fresh, f_rows, count, N)
         return rows2, table2, count2, n_fresh, p_ovf | a_ovf
@@ -751,15 +627,14 @@ def tiled_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
                                stepped]).to(_I32)
 
 
-def tiled_insert_batch_reference(c_rows, c_live, table, probe_limit: int,
-                                 plan: dict):
+def tiled_insert_batch_reference(c_rows, c_live, table, probe_limit: int):
     """Batched K4's plain version: `tiled_insert_reference` key by key ->
     (table2 ([K, T] lanes, occupancy), fresh [K, M], off [K, M],
     probe_ovf [K]). Leaves `table` as it is."""
     t_rows, t_occ = table
     outs = [tiled_insert_reference(
         tuple(x[i] for x in c_rows), c_live[i],
-        (tuple(x[i] for x in t_rows), t_occ[i]), probe_limit, plan)
+        (tuple(x[i] for x in t_rows), t_occ[i]), probe_limit)
         for i in range(c_live.shape[0])]
     return ((tuple(torch.stack([o[0][0][j] for o in outs])
                    for j in range(3)),
@@ -767,17 +642,15 @@ def tiled_insert_batch_reference(c_rows, c_live, table, probe_limit: int,
             *(torch.stack([o[j] for o in outs]) for j in (1, 2, 3)))
 
 
-def tiled_insert_batch(c_rows, c_live, table, probe_limit: int,
-                       plan: dict):
+def tiled_insert_batch(c_rows, c_live, table, probe_limit: int):
     """Batched K4: K keys' visited-set transactions, each into its own
-    table, in one launch pair (the bin and the insert, blockIdx.y the
-    key). Each key's chunks are the single key's: what key k gets is
-    `tiled_insert` on its own candidates and table.
+    table, in one launch (the list of every key's live candidates, then
+    one cooperative grid). What key k gets is `tiled_insert` on its own
+    candidates and table.
 
     c_rows  candidates, three int32 lanes [K, M]; c_live bool [K, M]
     table   (three int32 lanes [K, T], occupancy bool [K, T]), T a power
             of two
-    plan    {"tile", "chunk"} (whole_plan, or a binned tiled_plan)
     ->      (table2, fresh bool [K, M], off int32 [K, M], probe_ovf bool
             [K])
 
@@ -785,44 +658,29 @@ def tiled_insert_batch(c_rows, c_live, table, probe_limit: int,
     a CUDA tensor launches the kernels on the current stream and updates
     the tables in place (`table` is consumed, as `tiled_insert`'s), or
     raises."""
-    t_rows, t_occ = table
-    _check(c_live.dim() == 2 and t_occ.dim() == 2
-           and c_live.shape[0] == t_occ.shape[0],
-           "tiled_insert_batch: candidates [K, M], tables [K, T]")
-    (K, M), T = c_live.shape, t_occ.shape[1]
-    _check(M >= 1 and T >= 1 and T & (T - 1) == 0,
-           f"tiled_insert_batch: M={M} T={T} (T must be a power of two)")
-    _check(1 <= probe_limit <= sp.MAX_PROBE_LIMIT,
-           f"tiled_insert_batch: probe_limit={probe_limit} outside "
-           f"1..{sp.MAX_PROBE_LIMIT}")
-    _check(len(c_rows) == 3 and len(t_rows) == 3
-           and all(r.dtype == _I32 and tuple(r.shape) == (K, M)
-                   for r in c_rows)
-           and all(r.dtype == _I32 and tuple(r.shape) == (K, T)
-                   for r in t_rows)
-           and c_live.dtype == torch.bool and t_occ.dtype == torch.bool,
-           "tiled_insert_batch: rows must be three int32 lanes, flags bool")
-    devs = {t.device for t in (*c_rows, c_live, *t_rows, t_occ)}
-    _check(len(devs) == 1, f"tiled_insert_batch: tensors on {devs}")
-    if _dev(c_live).type == "cpu":
+    _check(c_live.dim() == 2, "tiled_insert_batch: candidates [K, M], "
+                              "tables [K, T]")
+    if _check_k4_args("tiled_insert_batch", c_rows, c_live, table,
+                      probe_limit, c_live.shape[0]).type == "cpu":
         return tiled_insert_batch_reference(c_rows, c_live, table,
-                                            probe_limit, plan)
-    return _tiled_insert_launch(c_rows, c_live, table, probe_limit,
-                                plan)[:4]
+                                            probe_limit)
+    out = _tiled_insert_launch(c_rows, c_live, table, probe_limit)
+    launches["tiled_insert_batch"] += 1
+    return out
 
 
 def tiled_event_closure_batch(rep, step, ev, rows, live, run, N: int,
-                              T: int, probe_limit: int, plan: dict):
+                              T: int, probe_limit: int):
     """The hash closures of one event row for K keys with batched K4 as
     their visited-set insert: `sparse._hash_event_closure_batch` whose
     insert is `tiled_insert_batch` followed by the plain append, one
-    launch pair an iteration for every key. ev [K, C] slot tables, rows
+    launch an iteration for every key. ev [K, C] slot tables, rows
     and live [K, N], run [K] -> (rows2 [K, N] lanes, meta int32 [K, 4]);
     a key whose closure ended early is frozen, one that does not run
     gets zero rows and meta."""
     def insert(c_rows, c_live, f_rows, count, table):
         table2, fresh, _, p_ovf = tiled_insert_batch(c_rows, c_live, table,
-                                                     probe_limit, plan)
+                                                     probe_limit)
         rows2, count2, n_fresh, a_ovf = sp._append_fresh(
             c_rows, fresh, f_rows, count, N)
         return rows2, table2, count2, n_fresh, p_ovf | a_ovf

@@ -34,16 +34,16 @@ build directory.
           writes an empty result and returns), and the tree's own
           kernels/frontier_closure.cu rebuilt with its closure loop cut
           to 0 passes (table init, seed and output) and to 1 pass. K4
-          gets, in a tree whose wrapper splits it, its bin and insert
-          launches timed apart. K4 updates the table in place in trees
-          that do, so every timed launch gets its own copy of the
-          recorded table, made before the clock starts. Each kernel
-          is also rebuilt without its one-warp path for small work
-          (K2's passes of at most 32 candidates, K4's tiles of at most
-          32), where the tree has one, and timed whole (`variant_ms`;
-          the timing alone, results unchecked; chip_smoke.py, which
-          shares these timers, times only the cuts it prints). Prints
-          one JSON line;
+          runs on the plan its tree's engine takes, where the tree's
+          wrapper takes one (`whole_plan`, else `tiled_plan`), and gets
+          the host's cost of a launch; it updates the table in place in
+          trees that do, so every timed launch gets its own copy of the
+          recorded table, made before the clock starts. K2 is also
+          rebuilt without its one-warp path for passes of at most 32
+          candidates, where the tree has one, and timed whole
+          (`variant_ms`; the timing alone, results unchecked;
+          chip_smoke.py, which shares these timers, times only the cuts
+          it prints). Prints one JSON line;
   walls   the dense 10k-op check through the checker: cold, then the
           median of three warm runs; one JSON line.
 
@@ -158,15 +158,15 @@ def _record_k4(torch, sk, h, T_want: int, stride: int, keep: int):
     from jepsen_tpu_torch.models import FIFOQueue
     real, kept, seen = sk.tiled_insert, [], [0]
 
-    def recording(c_rows, c_live, table, pl, plan):
+    def recording(c_rows, c_live, table, pl, *plan):
         if table[1].shape[0] == T_want and c_live.shape[0] != T_want // 2:
             seen[0] += 1
             if seen[0] % stride == 0 and len(kept) < keep:
                 kept.append((tuple(r.clone() for r in c_rows),
                              c_live.clone(),
                              (tuple(r.clone() for r in table[0]),
-                              table[1].clone()), pl, dict(plan)))
-        return real(c_rows, c_live, table, pl, plan)
+                              table[1].clone()), pl))
+        return real(c_rows, c_live, table, pl, *plan)
 
     sk.tiled_insert = recording
     try:
@@ -262,7 +262,6 @@ K2_CUTS = {
 }
 # each kernel without its one-warp path (kernel_ab.py time)
 K2_WARP_AB = {"no_warp_pass": (r"if \(M <= 32\) \{", "if (false) {")}
-K4_WARP_AB = {"no_warp_insert": (r"if \(n_t <= 32\) \{", "if (false) {")}
 _C_FUNCS = ("launch", "init", "smem", "scratch")
 
 
@@ -370,48 +369,33 @@ def _time_once_each(torch, fn, warm: list, args: list) -> float:
     return start.elapsed_time(end) / len(args)
 
 
-def _time_k4(torch, sk, inputs: list, warp_ab: bool = False) -> dict:
-    """K4 per launch on fresh copies of the recorded tables; in a tree
-    whose wrapper has `_tiled_insert_launch` (bin and insert as two
-    launches), each launch alone too; with `warp_ab`, whole without the
-    one-warp path too (`variant_ms`)."""
-    reps = 3
-    res = {"ms": _time_once_each(torch, sk.tiled_insert,
-                                 _fresh_tables(torch, inputs, 1),
-                                 _fresh_tables(torch, inputs, reps)),
-           "inputs": len(inputs), "M": inputs[0][1].shape[0],
-           "T": inputs[0][2][1].shape[0], "plan": inputs[0][4],
-           "live": [int(a[1].sum()) for a in inputs]}
-    launch = getattr(sk, "_tiled_insert_launch", None)
-    if launch is not None:
-        def bin_(c_rows, c_live, table, pl, plan):
-            launch(c_rows, c_live, table, pl, plan, stages=1)
+def _k4_call(sk, inputs: list):
+    """K4's wrapper as f(c_rows, c_live, table, pl): in a tree whose
+    `tiled_insert` takes a plan, with the plan its engine's route takes
+    at the inputs' capacity (`whole_plan`, else `tiled_plan`)."""
+    import inspect
+    if len(inspect.signature(sk.tiled_insert).parameters) == 4:
+        return sk.tiled_insert
+    T, M = inputs[0][2][1].shape[0], inputs[0][1].shape[0]
+    N = T // 2
+    plan = sk.whole_plan(N) if hasattr(sk, "whole_plan") \
+        else sk.tiled_plan(N, M // N)
+    return lambda c_rows, c_live, table, pl: sk.tiled_insert(
+        c_rows, c_live, table, pl, plan)
 
-        works = [launch(*a, stages=1)[-1] for a in inputs]
 
-        def insert(c_rows, c_live, table, pl, plan, work):
-            launch(c_rows, c_live, table, pl, plan, stages=2, work=work)
-
-        res["bin_ms"] = _time_launches(torch, bin_, inputs, reps=reps)
-        res["variant_ms"] = {}
-        full = sk._libs["tiled_insert"]
-        try:
-            for n, lib in _variant_libs(
-                    sk, "tiled_insert",
-                    K4_WARP_AB if warp_ab else {}).items():
-                sk._libs["tiled_insert"] = lib
-                res["variant_ms"][n] = _time_once_each(
-                    torch, sk.tiled_insert, _fresh_tables(torch, inputs, 1),
-                    _fresh_tables(torch, inputs, reps))
-        finally:
-            sk._libs["tiled_insert"] = full
-        res["insert_ms"] = _time_once_each(
-            torch, insert,
-            [a + (w,) for a, w in zip(_fresh_tables(torch, inputs, 1),
-                                      works)],
-            [a + (works[i % len(inputs)],) for i, a in
-             enumerate(_fresh_tables(torch, inputs, reps))])
-    return res
+def _time_k4(torch, sk, inputs: list) -> dict:
+    """K4 per launch on fresh copies of the recorded tables, and the
+    host's cost of a launch through the wrapper."""
+    fn = _k4_call(sk, inputs)
+    return {"ms": _time_once_each(torch, fn,
+                                  _fresh_tables(torch, inputs, 1),
+                                  _fresh_tables(torch, inputs, 3)),
+            "inputs": len(inputs), "M": inputs[0][1].shape[0],
+            "T": inputs[0][2][1].shape[0],
+            "live": [int(a[1].sum()) for a in inputs],
+            "host_us": _host_us(torch, fn, _fresh_tables(torch, inputs, 1),
+                                n=500)}
 
 
 def cmd_time(args, torch) -> dict:
@@ -454,7 +438,7 @@ def cmd_time(args, torch) -> dict:
     for shape, inputs in rec.get("k2", {}).items():
         out[f"K2 {shape}"] = _time_k2(torch, sk, inputs, warp_ab=True)
     for shape, inputs in rec.get("k4", {}).items():
-        out[f"K4 {shape}"] = _time_k4(torch, sk, inputs, warp_ab=True)
+        out[f"K4 {shape}"] = _time_k4(torch, sk, inputs)
     for shape, inputs in rec["k3"].items():
         T = inputs[0][4][1].shape[0]
         out[f"K3 {shape}"] = {

@@ -244,14 +244,50 @@ def test_default_device_without_cuda_raises(monkeypatch):
         sparse.frontier_at(pe, 3)
 
 
+def _tiled_layout_insert(tile: int):
+    """A visited-set insert laid out as the TPU kernel's hash-range tiles
+    of `tile` slots (a candidate's home tile its hash's low bits, its
+    probes wrapping inside the tile from the next bits), one chunk: what
+    K4 computed on such a plan before it took the whole table."""
+    def insert(c_rows, c_live, table, probe_limit):
+        (t_rows, t_occ), M = table, c_live.shape[0]
+        n_tt = t_occ.shape[0] // tile
+        h = sparse.table_hash_u32(*(sparse._u32(r) for r in c_rows))
+        base = (h & (n_tt - 1)) * tile
+        start = (h >> (n_tt.bit_length() - 1)) & (tile - 1)
+        t_rows = tuple(r.clone() for r in t_rows)
+        t_occ = t_occ.clone()
+        idx = torch.arange(M)
+        pending, off = c_live.clone(), torch.zeros(M, dtype=torch.int32)
+        fresh = torch.zeros(M, dtype=torch.bool)
+        while bool((pending & (off < probe_limit)).any()):
+            act = pending & (off < probe_limit)
+            slot = base + ((start + off) & (tile - 1))
+            occ = t_occ[slot]
+            same = occ & (t_rows[0][slot] == c_rows[0]) & \
+                (t_rows[1][slot] == c_rows[1]) & (t_rows[2][slot] == c_rows[2])
+            try_claim = act & ~occ
+            claim = torch.full((t_occ.shape[0] + 1,), M, dtype=torch.int64)
+            claim.scatter_reduce_(0, torch.where(try_claim, slot,
+                                                 t_occ.shape[0]), idx, "amin")
+            won = try_claim & (claim[slot] == idx)
+            for r, c in zip(t_rows, c_rows):
+                r[slot[won]] = c[won]
+            t_occ[slot[won]] = True
+            pending = pending & ~(act & same) & ~won
+            off = off + (act & occ & ~same).to(torch.int32)
+            fresh = fresh | won
+        return (t_rows, t_occ), fresh, off, pending.any()
+    return insert
+
+
 def test_tiled_route_takes_the_references_whole_table(monkeypatch):
     """A fault of ROADMAP Queue 3, now closed: the tiled closure probed
-    K4's hash-range tiles (`tiled_plan`), whose table layout, and so
-    where a probe run is exhausted, differ from the reference's one
-    table. At probe_limit 3 this queue history settled at capacity 512
-    on tiles of 512; the reference needs 1,024. The route's plan is now
-    the whole table as one tile (`whole_plan`), the reference's own
-    transaction."""
+    K4's hash-range tiles, whose table layout, and so where a probe run
+    is exhausted, differ from the reference's one table. At probe_limit
+    3 this queue history settled at capacity 512 on tiles of 512; the
+    reference needs 1,024. K4 now runs the whole table, the reference's
+    own transaction."""
     h = ref_histories.rand_queue_history(n_ops=40, n_processes=6,
                                          n_values=3, crash_p=0.1, seed=1)
     re_ = ref_enc.encode(ref_models.UnorderedQueue(), h)
@@ -263,7 +299,6 @@ def test_tiled_route_takes_the_references_whole_table(monkeypatch):
     got = sparse.check_encoded(pe, **kw)
     assert got["closure"] == "torch-tiled"
     assert _pin(got) == _pin(want) and want["capacity"] == 1024
-    monkeypatch.setattr(sk, "whole_plan",
-                        lambda N: sk.tiled_plan(N, 7, 16384))
+    monkeypatch.setattr(sk, "tiled_insert", _tiled_layout_insert(512))
     old = sparse.check_encoded(pe, **kw)
     assert old["closure"] == "torch-tiled" and old["capacity"] == 512

@@ -121,7 +121,7 @@ def _queue_keys(n_keys=5, n_ops=30, corrupt=(2,)):
 
 def test_tiled_route_equals_the_fused_route_and_the_reference(tiers):
     """A budget too small for K2's layout at capacity 512 sends every
-    key's closure through the batched tiled insert (2 tiles of 512)."""
+    key's closure through the batched tiled insert (the whole table)."""
     pre = [ref_enc.encode(ref_models.UnorderedQueue(), h)
            for h in _queue_keys()]
     want = ref_engine._check_batch_sparse(ref_models.UnorderedQueue(), pre,

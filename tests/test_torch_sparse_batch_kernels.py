@@ -113,17 +113,16 @@ def test_batched_tiled_closure_freezes_each_key(k2_batch_inputs):
         rep = sparse._rep((), C)
         step = sparse.STEPS[step_name]
         T = sparse._next_pow2(2 * N)
-        plan = sk.tiled_plan(N, C, 16384)
         ev = {n: xs[n][:, r] for n in sk.SLOT_TABLES}
         got = sk.tiled_event_closure_batch(rep, step, ev, rows, live, run,
-                                           N, T, pl, plan)
+                                           N, T, pl)
         for k in range(K):
             if not bool(run[k]):
                 assert not got[1][k].any()
                 continue
             want = sk.tiled_event_closure(
                 rep, step, {n: v[k] for n, v in ev.items()},
-                tuple(x[k] for x in rows), live[k], run[k], N, T, pl, plan)
+                tuple(x[k] for x in rows), live[k], run[k], N, T, pl)
             for g, w in zip(got[0], want[0]):
                 assert torch.equal(g[k], w)
             assert torch.equal(got[1][k], want[1])
@@ -182,23 +181,23 @@ def test_dedupe_compact_batch_is_the_single_keys(N):
 def test_batched_k4_plain_version_is_the_single_keys(case):
     """`tiled_insert_batch` on CPU tensors: each key's table, fresh, off
     and probe flag are `tiled_insert`'s on its own candidates and table."""
-    name, c_rows, c_live, table, pl, plan = {
+    name, c_rows, c_live, table, pl = {
         c[0]: c for c in cases.k4_batch_cases()}[case]
-    got = sk.tiled_insert_batch(c_rows, c_live, table, pl, plan)
+    got = sk.tiled_insert_batch(c_rows, c_live, table, pl)
     for k in range(c_live.shape[0]):
         want = sk.tiled_insert(tuple(x[k] for x in c_rows), c_live[k],
                                (tuple(x[k] for x in table[0]),
-                                table[1][k]), pl, plan)
+                                table[1][k]), pl)
         for g, w in zip(got[0][0], want[0][0]):
             assert torch.equal(g[k], w)
         assert torch.equal(got[0][1][k], want[0][1])
         for g, w in zip(got[1:], want[1:]):
             assert torch.equal(g[k], w)
     # the same candidates on two empty tables; no live candidate: nothing
-    # fresh, no overflow; the loaded table overflows at 32 probes, and at
-    # 2 so do the empty ones
+    # fresh, no overflow; at 2 probes every key with live candidates
+    # overflows, at 32 none
     assert torch.equal(got[1][0], got[1][2]) and not got[1][1].any()
-    assert got[3].tolist() == ([False, False, False, True] if pl == 32
+    assert got[3].tolist() == ([False, False, False, False] if pl == 32
                                else [True, False, True, True])
 
 
@@ -206,15 +205,11 @@ def test_batched_k4_plain_version_is_the_single_keys(case):
 
 @pytest.mark.parametrize("case", [c[0] for c in cases.k4_batch_cases()])
 def test_whole_plan_is_the_references_one_table_insert(case):
-    """K4 under the engine's plan (`whole_plan`: one tile, one chunk) is
-    the reference's transaction, `sparse._hash_insert` over each key's
-    whole table: the same table, fresh, off and probe flag."""
-    name, c_rows, c_live, table, pl, _ = {
+    """K4 is the reference's transaction, `sparse._hash_insert` over each
+    key's whole table: the same table, fresh, off and probe flag."""
+    name, c_rows, c_live, table, pl = {
         c[0]: c for c in cases.k4_batch_cases()}[case]
-    T = table[1].shape[1]
-    plan = sk.whole_plan(T // 2)
-    assert sk.is_whole(T, c_live.shape[1], plan)
-    got = sk.tiled_insert_batch(c_rows, c_live, table, pl, plan)
+    got = sk.tiled_insert_batch(c_rows, c_live, table, pl)
     rep = sparse._rep((), 1)
     for k in range(c_live.shape[0]):
         want = sparse._hash_insert(
@@ -226,6 +221,79 @@ def test_whole_plan_is_the_references_one_table_insert(case):
         assert torch.equal(got[1][k], want[1])
         assert bool(got[3][k]) == bool(want[2])
         assert torch.equal(got[2][k], want[3])
+
+
+def grid_insert_model(c_rows, c_live, table, probe_limit: int):
+    """K4's cooperative grid as plain ops (tiled_insert.cu): every key's
+    live candidates in one list, key-major and in index order; probe
+    rounds over the K tables laid end to end, listed candidate li of key
+    k probing slot k * T + ((h + off) & (T - 1)), a claim race won by the
+    lowest list index. -> (table2, fresh [K, M], off [K, M], probe_ovf
+    [K]), as `tiled_insert_batch` returns them."""
+    t_rows, t_occ = table
+    K, M = c_live.shape
+    T = t_occ.shape[1]
+    listed = torch.nonzero(c_live.reshape(-1)).flatten()
+    L = listed.numel()
+    key = listed // M
+    rows = tuple(r.reshape(-1)[listed] for r in c_rows)
+    h = sparse._rep((), 1).table_hash(rows)
+    f_rows = tuple(r.reshape(-1).clone() for r in t_rows)
+    f_occ = t_occ.reshape(-1).clone()
+    li = torch.arange(L)
+    pending = torch.ones(L, dtype=torch.bool)
+    off = torch.zeros(L, dtype=torch.int32)
+    won_any = torch.zeros(L, dtype=torch.bool)
+    while bool((pending & (off < probe_limit)).any()):
+        act = pending & (off < probe_limit)
+        slot = key * T + ((h + off) & (T - 1))
+        occ = f_occ[slot]
+        same = occ & (f_rows[0][slot] == rows[0]) & \
+            (f_rows[1][slot] == rows[1]) & (f_rows[2][slot] == rows[2])
+        try_claim = act & ~occ
+        claim = torch.full((K * T + 1,), L, dtype=torch.int64)
+        claim.scatter_reduce_(0, torch.where(try_claim, slot, K * T), li,
+                              "amin")
+        won = try_claim & (claim[slot] == li)
+        for fr, r in zip(f_rows, rows):
+            fr[slot[won]] = r[won]
+        f_occ[slot[won]] = True
+        pending = pending & ~(act & same) & ~won
+        off = off + (act & occ & ~same).to(torch.int32)
+        won_any = won_any | won
+    fresh = torch.zeros(K * M, dtype=torch.bool)
+    fresh[listed] = won_any
+    off_all = torch.zeros(K * M, dtype=torch.int32)
+    off_all[listed] = off
+    pend = torch.zeros(K, dtype=torch.bool)
+    pend[key[pending]] = True
+    return ((tuple(r.reshape(K, T) for r in f_rows), f_occ.reshape(K, T)),
+            fresh.reshape(K, M), off_all.reshape(K, M), pend)
+
+
+def _k4_as_batches():
+    out = {c[0]: c[1:] for c in cases.k4_batch_cases()}
+    for name, c_rows, c_live, table, pl in cases.k4_cases():
+        out[name] = (tuple(r[None] for r in c_rows), c_live[None],
+                     (tuple(r[None] for r in table[0]), table[1][None]), pl)
+    return out
+
+
+@pytest.mark.parametrize("case", [c[0] for c in cases.k4_batch_cases()]
+                         + [c[0] for c in cases.k4_cases()])
+def test_k4_grid_order_is_each_keys_own_transaction(case):
+    """The order K4's grid runs the transaction in — one list of every
+    key's live candidates, claims won by the lowest list index, each key
+    on its own table — gives each key what its own transaction gives:
+    table, fresh, off and probe flag (single keys: the seeded K4 cases
+    as K = 1)."""
+    c_rows, c_live, table, pl = _k4_as_batches()[case]
+    want = sk.tiled_insert_batch_reference(c_rows, c_live, table, pl)
+    got = grid_insert_model(c_rows, c_live, table, pl)
+    for g, w in zip(got[0][0], want[0][0]):
+        assert torch.equal(g, w)
+    for g, w in zip((got[0][1],) + got[1:], (want[0][1],) + want[1:]):
+        assert torch.equal(g, w)
 
 
 def _cuda():
@@ -259,23 +327,19 @@ def test_cuda_batched_k2_matches_plain():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("whole", [False, True], ids=["binned", "whole"])
 @pytest.mark.parametrize("case", [c[0] for c in cases.k4_batch_cases()])
-def test_cuda_batched_k4_matches_plain(case, whole):
-    """Batched K4 bit for bit against its plain version, on the case's
-    plan of 4 tiles of 512 (the binned path) and on the engine's whole
-    table (one block a key)."""
+def test_cuda_batched_k4_matches_plain(case):
+    """Batched K4 bit for bit against its plain version."""
     dev = _cuda()
-    name, c_rows, c_live, table, pl, plan = {
+    name, c_rows, c_live, table, pl = {
         c[0]: c for c in cases.k4_batch_cases()}[case]
-    if whole:
-        plan = sk.whole_plan(table[1].shape[1] // 2)
     args = (tuple(r.to(dev) for r in c_rows), c_live.to(dev),
-            (tuple(r.to(dev) for r in table[0]), table[1].to(dev)), pl,
-            plan)
+            (tuple(r.to(dev) for r in table[0]), table[1].to(dev)), pl)
     want = sk.tiled_insert_batch_reference(*args)
+    n0 = sk.launches["tiled_insert_batch"]
     got = sk.tiled_insert_batch(*args)    # consumes args' tables
     torch.cuda.synchronize()
+    assert sk.launches["tiled_insert_batch"] == n0 + 1
     for g, w in zip(got[0][0], want[0][0]):
         assert torch.equal(g, w)
     for g, w in zip((got[0][1],) + tuple(got[1:]),

@@ -1,8 +1,9 @@
 """The sparse engine's kernels K2 and K4 (jepsen_tpu_torch.parallel.
 sparse_kernels): their plain versions against the reference's Pallas
 kernels run in interpret mode (`jepsen_tpu.parallel.sparse_kernels.
-frontier_closure_call` and `tiled_insert_call`), bit for bit — rows in
-order, counts, flags, table layout and probe offsets — on closure inputs
+frontier_closure_call`, and `tiled_insert_call` on one tile and one
+chunk: the whole table, as K4 runs it), bit for bit — rows in order,
+counts, flags, table layout and probe offsets — on closure inputs
 recorded from the port's own scans of every step family and on random
 inserts with duplicates and lanes >= 2^31. Also the Hopper gates' arithmetic,
 the wrappers' CPU contract and argument checks.
@@ -156,24 +157,30 @@ def _ref_tiled(c_rows, c_live, table, probe_limit, plan):
             np.asarray(fresh), np.asarray(off), bool(pend))
 
 
-def _port_tiled(c_rows, c_live, table, probe_limit, plan):
+def _whole(T: int, M: int) -> dict:
+    """The reference kernel's plan of one tile and one chunk: the whole
+    table of T slots and all M candidates, K4's transaction."""
+    return {"tile": T, "chunk": 1 << max(0, (M - 1).bit_length())}
+
+
+def _port_tiled(c_rows, c_live, table, probe_limit):
     (t_rows, t_occ) = table
     (tr, tocc), fresh, off, pend = sk.tiled_insert(
         tuple(torch.from_numpy(r) for r in c_rows), torch.from_numpy(c_live),
         (tuple(torch.from_numpy(r) for r in t_rows),
-         torch.from_numpy(t_occ)), probe_limit, plan)
+         torch.from_numpy(t_occ)), probe_limit)
     return ([r.numpy() for r in tr], tocc.numpy(), fresh.numpy(),
             off.numpy(), bool(pend))
 
 
 @pytest.mark.parametrize("probe_limit", [32, 2])
 def test_plain_k4_matches_interpret_pallas(probe_limit):
-    """Two transactions in a row on a 2048-slot table: 4 tiles of 512, 3
-    chunks of 512 candidates, duplicates inside and across chunks and
-    against the table."""
-    plan = {"tile": 512, "chunk": 512}
+    """Two transactions in a row on a 2048-slot table, 1,536 candidates
+    with duplicates among them and against the table; the reference's
+    kernel on one tile and one chunk."""
     rng = np.random.default_rng(7)
     T, M = 2048, 1536
+    plan = _whole(T, M)
     table = (tuple(np.zeros(T, np.int32) for _ in range(3)),
              np.zeros(T, bool))
     sk.reset_launches()
@@ -181,7 +188,7 @@ def test_plain_k4_matches_interpret_pallas(probe_limit):
         c_rows = _rand_rows(rng, M, 700)
         c_live = rng.random(M) < 0.8
         want = _ref_tiled(c_rows, c_live, table, probe_limit, plan)
-        got = _port_tiled(c_rows, c_live, table, probe_limit, plan)
+        got = _port_tiled(c_rows, c_live, table, probe_limit)
         for g, w in zip(got[0], want[0]):
             assert np.array_equal(g, w)
         for g, w in zip(got[1:4], want[1:4]):
@@ -194,15 +201,14 @@ def test_plain_k4_matches_interpret_pallas(probe_limit):
 
 
 def test_plain_k4_one_tile_equals_the_untiled_insert():
-    """With one tile and one chunk the tiled insert is `_hash_insert`."""
+    """K4's plain version is the whole table's `_hash_insert`."""
     rng = np.random.default_rng(3)
     c_rows = tuple(torch.from_numpy(r) for r in _rand_rows(rng, 300, 120))
     c_live = torch.from_numpy(rng.random(300) < 0.9)
     rep = sparse._rep((), 4)
     table = sparse._empty_table(1024, rep)
     a = sparse._hash_insert(c_rows, c_live, table, 32, rep)
-    b = sk.tiled_insert(c_rows, c_live, table, 32, {"tile": 1024,
-                                                    "chunk": 512})
+    b = sk.tiled_insert(c_rows, c_live, table, 32)
     for x, y in zip(a[0][0], b[0][0]):
         assert torch.equal(x, y)
     assert torch.equal(a[0][1], b[0][1]) and torch.equal(a[1], b[1])
@@ -212,7 +218,7 @@ def test_plain_k4_one_tile_equals_the_untiled_insert():
 def test_hopper_gate_arithmetic():
     """K2 keeps 12N + 17T + 2NC + 1056 bytes (T = 2N): N = 1024 fits the
     H100's 232,448-byte opt-in for every C <= 64, N = 2048 up to C = 33,
-    N = 4096 up to C = 5. K4's plan takes a tile and a chunk of 8,192."""
+    N = 4096 up to C = 5. Off the card the budget is that opt-in."""
     assert sk.HOPPER_SMEM_OPTIN == 232_448
     assert sk.k2_smem_bytes(1024, 8) == 12 * 1024 + 17 * 2048 \
         + 2 * 1024 * 8 + 1056
@@ -221,43 +227,19 @@ def test_hopper_gate_arithmetic():
     assert sk.supported(2048, 33) and not sk.supported(2048, 34)
     assert sk.supported(4096, 5) and not sk.supported(4096, 6)
     assert not sk.supported(8192, 1)
-    assert sk.tiled_plan(32768, 12) == {"tile": 8192, "chunk": 8192}
-    assert sk.k4_smem_bytes(8192, 8192, 8) == \
-        4 * 8192 + 10 * 8192 + 8 * 5 <= sk.HOPPER_SMEM_OPTIN
-    # a table smaller than the budget's tile is one tile
-    assert sk.tiled_plan(1024, 40) == {"tile": 2048, "chunk": 16384}
-    assert sk.tiled_plan(256, 8, budget=16384) == {"tile": 512,
-                                                  "chunk": 512}
-    assert sk.tiled_plan(64, 8) is None          # T = 128 < 512
-    assert sk.tiled_plan(4096, 8, budget=8000) is None
-    # every plan the gate makes fits its budget
-    for N in (256, 1024, 4096, 32768, 1 << 20):
-        for b in (16384, 65536, sk.HOPPER_SMEM_OPTIN):
-            p = sk.tiled_plan(N, 8, b)
-            if p is not None:
-                T = 1 << (2 * N - 1).bit_length()
-                assert sk.k4_smem_bytes(p["tile"], p["chunk"],
-                                        T // p["tile"]) <= b
+    assert sk.smem_budget("cpu") == sk.HOPPER_SMEM_OPTIN
 
 
 def test_routes_follow_the_gate():
-    """Past K2's gate the tiled closure takes the whole table as one tile
-    and every candidate as one chunk (`whole_plan`: the reference's own
-    transaction); so every shape has a plan, however small the
-    budget."""
-    whole = sk.WHOLE_CHUNK
-    assert sparse._route(1024, 12, "hash", torch.device("cpu")) == \
-        ("fused", None)
-    assert sparse._route(4096, 12, "hash", torch.device("cpu")) == \
-        ("tiled", {"tile": 8192, "chunk": whole})
-    assert sparse._route(512, 8, "hash", torch.device("cpu"),
-                         smem_budget=16384) == \
-        ("tiled", {"tile": 1024, "chunk": whole})
-    assert sparse._route(4096, 12, "sort", torch.device("cpu")) == \
-        ("sort", None)
-    assert sparse._route(128, 8, "hash", torch.device("cpu"),
-                         smem_budget=4000) == \
-        ("tiled", {"tile": 256, "chunk": whole})
+    """The hash closure is fused (K2) while K2's layout fits the budget
+    and tiled (K4, the whole table) past it, however small the budget;
+    dedupe "sort" takes the sort closure."""
+    cpu = torch.device("cpu")
+    assert sparse._route(1024, 12, "hash", cpu) == "fused"
+    assert sparse._route(4096, 12, "hash", cpu) == "tiled"
+    assert sparse._route(512, 8, "hash", cpu, smem_budget=16384) == "tiled"
+    assert sparse._route(4096, 12, "sort", cpu) == "sort"
+    assert sparse._route(128, 8, "hash", cpu, smem_budget=4000) == "tiled"
 
 
 def _closure_args(C=3, N=8):
@@ -302,7 +284,7 @@ def test_wrappers_have_no_fallback_for_other_devices():
                                            device="meta")
                                for _ in range(3)),
                          torch.zeros(16, dtype=torch.bool, device="meta")),
-                        32, {"tile": 512, "chunk": 512})
+                        32)
 
 
 def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
@@ -348,17 +330,16 @@ def test_cuda_k2_matches_plain(family, probe_limit):
 @pytest.mark.parametrize("probe_limit", [32, 2])
 def test_cuda_k4_matches_plain(probe_limit):
     dev = _cuda()
-    plan = {"tile": 512, "chunk": 512}
     rng = np.random.default_rng(7)
     c_rows = tuple(torch.from_numpy(r) for r in _rand_rows(rng, 1536, 700))
     c_live = torch.from_numpy(rng.random(1536) < 0.8)
     rep = sparse._rep((), 1)
     table = sparse._empty_table(2048, rep)
-    want = sk.tiled_insert(c_rows, c_live, table, probe_limit, plan)
+    want = sk.tiled_insert(c_rows, c_live, table, probe_limit)
     before = sk.launches["tiled_insert"]
     got = sk.tiled_insert(tuple(r.to(dev) for r in c_rows), c_live.to(dev),
                           (tuple(r.to(dev) for r in table[0]),
-                           table[1].to(dev)), probe_limit, plan)
+                           table[1].to(dev)), probe_limit)
     torch.cuda.synchronize()
     assert sk.launches["tiled_insert"] == before + 1
     for g, w in zip(got[0][0], want[0][0]):
@@ -369,7 +350,7 @@ def test_cuda_k4_matches_plain(probe_limit):
     assert bool(got[3]) == bool(want[3])
 
 
-# --------------------------------------- the binned K4 and the new cases
+# ---------------------------------------------------------- the new cases
 
 import torch_parity_cases as parity_cases  # noqa: E402
 
@@ -382,56 +363,6 @@ def _k4_cases():
 @functools.lru_cache(maxsize=None)
 def _k2_cases():
     return {c[0]: c for c in parity_cases.k2_cases()}
-
-
-def tiled_bin_reference(c_rows, c_live, T: int, plan: dict):
-    """The order K4's bin puts the live candidates in, as plain ops: their
-    indices sorted by home tile (h & (tiles - 1)), stably, so in index
-    order inside a tile; with each tile's count and offset into that
-    list. The kernel's per-block segments, read in block order, are
-    this list. -> (order int64[live], counts int64[tiles], offsets
-    int64[tiles])."""
-    M = c_live.shape[0]
-    n_tt = sk._tiling(T, M, plan)[0]
-    h = sparse.table_hash_u32(*(sparse._u32(r) for r in c_rows))
-    tile = h & (n_tt - 1)
-    live = torch.nonzero(c_live).flatten()
-    order = live[torch.sort(tile[live], stable=True).indices]
-    counts = torch.bincount(tile[live], minlength=n_tt)
-    return order, counts, torch.cumsum(counts, 0) - counts
-
-
-def tiled_insert_binned_reference(c_rows, c_live, table, probe_limit: int,
-                                  plan: dict):
-    """`tiled_insert_reference`'s function computed K4's way, as plain
-    ops: the bin (`tiled_bin_reference`), then each tile's list walked
-    chunk by chunk in order, a chunk with none of the tile's candidates
-    skipped, each one round-synchronous insert inside the tile. Every
-    field equals `tiled_insert_reference`'s, table layout and `off`
-    included. Returns (table2, fresh bool[M], off int32[M], probe_ovf
-    bool)."""
-    M, T = c_live.shape[0], table[1].shape[0]
-    dev = c_live.device
-    _, TS, tt_bits, CH = sk._tiling(T, M, plan)
-    order, counts, offsets = tiled_bin_reference(c_rows, c_live, T, plan)
-    h = sparse.table_hash_u32(*(sparse._u32(r) for r in c_rows))
-    start = (h >> tt_bits) & (TS - 1)
-    fresh = torch.zeros(M, dtype=torch.bool, device=dev)
-    off = torch.zeros(M, dtype=torch.int32, device=dev)
-    pend = torch.zeros((), dtype=torch.bool, device=dev)
-    for t, (o, n) in enumerate(zip(offsets.tolist(), counts.tolist())):
-        mine = order[o:o + n]
-        chunk = mine // CH
-        for c in torch.unique_consecutive(chunk).tolist():
-            idx = mine[chunk == c]
-            table, f, p, o_ = sparse._hash_insert(
-                tuple(r[idx] for r in c_rows),
-                torch.ones(idx.shape[0], dtype=torch.bool, device=dev),
-                table, probe_limit, h0=start[idx], base=t * TS, span=TS)
-            fresh[idx] = f
-            off[idx] = o_
-            pend = pend | p
-    return table, fresh, off, pend
 
 
 K4_CASES = ["no live candidate in one tile, M=1500",
@@ -450,36 +381,6 @@ def test_case_lists_name_every_case():
     assert sorted(K2_CASES) == sorted(_k2_cases())
 
 
-@pytest.mark.parametrize("name", K4_CASES)
-def test_bin_order_matches_a_python_loop(name):
-    """K4's bin: every live candidate once, grouped by home tile in tile
-    order and in index order inside a tile; counts and offsets of each
-    tile's run."""
-    _, c_rows, c_live, table, _, plan = _k4_cases()[name]
-    T, M = table[1].shape[0], c_live.shape[0]
-    n_tt, TS, tt_bits, _ = sk._tiling(T, M, plan)
-    order, counts, offsets = tiled_bin_reference(c_rows, c_live, T, plan)
-    lanes = [r.numpy().view(np.uint32) for r in c_rows]
-    mine = [[] for _ in range(n_tt)]
-    for i in range(M):
-        if c_live[i]:
-            h = _hash_py(int(lanes[0][i]), int(lanes[1][i]),
-                         int(lanes[2][i]))
-            mine[h & (n_tt - 1)].append(i)
-    assert order.tolist() == [i for t in mine for i in t]
-    assert counts.tolist() == [len(t) for t in mine]
-    assert offsets.tolist() == list(np.cumsum([0] + counts.tolist())[:-1])
-
-
-def _hash_py(st, ml, mh):
-    """The visited-set hash on Python ints (sparse_common.cuh table_hash)."""
-    m = 0xFFFFFFFF
-    h = ((st * 0x85EBCA6B) ^ (ml * 0xC2B2AE35) ^ (mh * 0x27D4EB2F)) & m
-    h ^= h >> 16
-    h = (h * 0x165667B1) & m
-    return h ^ (h >> 13)
-
-
 def _assert_k4_equal(got, want):
     for g, w in zip(got[0][0], want[0][0]):
         assert torch.equal(g.cpu(), w)
@@ -490,31 +391,13 @@ def _assert_k4_equal(got, want):
 
 
 @pytest.mark.parametrize("name", K4_CASES)
-def test_binned_reference_equals_the_tiled_reference(name):
-    """The kernel's decomposition — bin by tile, then each tile's chunks in
-    order, empty ones skipped — is the reference's chunk-by-chunk insert,
-    field for field: table layout, fresh, off and the probe flag."""
-    _, c_rows, c_live, table, pl, plan = _k4_cases()[name]
-    want = sk.tiled_insert_reference(c_rows, c_live, table, pl, plan)
-    got = tiled_insert_binned_reference(c_rows, c_live, table, pl, plan)
-    _assert_k4_equal(got, want)
-    if name.startswith("probe_limit"):
-        assert bool(want[3])
-    if "one tile" in name:
-        n_tt = sk._tiling(table[1].shape[0], c_live.shape[0], plan)[0]
-        counts = tiled_bin_reference(c_rows, c_live, table[1].shape[0],
-                                        plan)[1]
-        assert int((counts == 0).sum()) == (1 if "no live" in name
-                                            else n_tt - 1)
-
-
-@pytest.mark.parametrize("name", K4_CASES[:5])
 def test_plain_k4_matches_interpret_pallas_on_the_new_cases(name):
-    _, c_rows, c_live, table, pl, plan = _k4_cases()[name]
+    _, c_rows, c_live, table, pl = _k4_cases()[name]
     np_rows = tuple(r.numpy() for r in c_rows)
     np_table = (tuple(r.numpy() for r in table[0]), table[1].numpy())
-    want = _ref_tiled(np_rows, c_live.numpy(), np_table, pl, plan)
-    got = _port_tiled(np_rows, c_live.numpy(), np_table, pl, plan)
+    want = _ref_tiled(np_rows, c_live.numpy(), np_table, pl,
+                      _whole(table[1].shape[0], c_live.shape[0]))
+    got = _port_tiled(np_rows, c_live.numpy(), np_table, pl)
     for g, w in zip(got[0], want[0]):
         assert np.array_equal(g, w)
     for g, w in zip(got[1:4], want[1:4]):
@@ -522,106 +405,68 @@ def test_plain_k4_matches_interpret_pallas_on_the_new_cases(name):
     assert got[4] == want[4]
 
 
-def test_k4_bin_shape():
-    """A bin block takes R = 256 * kb candidates (kb <= 8, a power of
-    two), keeps at most 8,192 (bin, group) counters while it can, and
-    divides the chunk, so a chunk spans CH / R bin blocks; a bin is a
-    tile up to 4,096 tiles (every capacity up to 2^24) and a group of
-    tiles past that, so K4's shared memory does not grow with the number
-    of candidates M, and stops growing with the tile count there."""
-    assert sk.k4_bin_shape(3, 8192) == (2048, 4)
-    assert sk.k4_bin_shape(3, 512) == (512, 1)
-    assert sk.k4_bin_shape(0, 128) == (256, 1)
-    assert sk.k4_bin_shape(8, 8192) == (1024, 8)
-    assert sk.k4_bin_shape(12, 8192) == (256, 32)
-    # 8,192 tiles and more: 4,096 bins of 2^(bits - 12) tiles
-    assert sk.k4_bin_shape(13, 8192) == (256, 32)
-    assert [sk.k4_bins(b) for b in (0, 3, 9, 10, 12, 13, 17)] == \
-        [1, 8, 512, 1024, 4096, 4096, 4096]
-    for bits, CH in ((3, 8192), (3, 512), (7, 8192), (1, 1024), (8, 16384),
-                     (12, 512), (13, 8192), (17, 8192)):
-        R, span = sk.k4_bin_shape(bits, CH)
-        assert CH % R == 0 and span == CH // R
-        assert sk.k4_bins(bits) * R // 32 <= max(8192,
-                                                 8 * sk.k4_bins(bits))
-    # the fifo-1000 tier's insert fits the H100 with room to spare, and
-    # so does the default top tier (N = 2^20: T = 2^21, 256 tiles) at any
-    # M: the shared memory has no term in M
-    assert sk.k4_smem_bytes(8192, 8192, 8) == \
-        4 * 8192 + 10 * 8192 + 8 * 5 <= sk.HOPPER_SMEM_OPTIN
-    assert sk.k4_smem_bytes(8192, 8192, 256) == \
-        4 * 8192 + 10 * 8192 + 8 * 9 <= sk.HOPPER_SMEM_OPTIN
-    for N, C in ((1 << 20, 15), (1 << 20, 64), (1 << 19, 58)):
-        assert sk.tiled_plan(N, C) == {"tile": 8192, "chunk": 8192}
-
-
-def test_tiled_plan_at_every_capacity():
-    """K4 has a plan within the H100's opt-in at every frontier capacity
-    N (a power of two) with N * C < 2^31, the int32 candidate index's
-    range, from N = 256 (T = 512, one tile of the least size; below it
-    K2's gate takes every C). Up to N = 2^24 the plan is what it was
-    before the bin grouped tiles: it decides where rows probe, so every
-    result stays as it was."""
-    before = {256: (512, 16384), 512: (1024, 16384), 1024: (2048, 16384),
-              2048: (4096, 8192)}
-    assert sk.supported(128, sk.MAX_C)
-    for C in (2, 8, 12, 24):
-        N = 256
-        while N * C < 1 << 31:
-            p = sk.tiled_plan(N, C)
-            T = 1 << (2 * N - 1).bit_length()
-            assert p is not None, (N, C)
-            assert sk.k4_smem_bytes(p["tile"], p["chunk"], T // p["tile"]) \
-                <= sk.HOPPER_SMEM_OPTIN, (N, C)
-            if N <= 1 << 24:
-                assert (p["tile"], p["chunk"]) == \
-                    before.get(N, (8192, 8192)), (N, C)
-            N *= 2
-
-
 def test_route_is_tiled_past_capacity_2_24():
-    """Past N = 2^24 the hash route still has a plan: the whole table, as
-    at every capacity past K2's gate (the binned plans that `tiled_plan`
-    sizes, a bin of tiles past 4,096 tiles, serve explicit plans)."""
+    """Past N = 2^24 the hash route is still the tiled closure over K4's
+    whole table; K4 takes up to 2^31 - 2 candidates a launch (its list
+    of live candidates is int32), and past that its wrapper raises
+    before touching the card."""
     cpu = torch.device("cpu")
     for N, C in ((1 << 24, 2), (1 << 25, 2), (1 << 26, 24), (1 << 29, 2)):
-        assert sparse._route(N, C, "hash", cpu) == \
-            ("tiled", {"tile": 2 * N, "chunk": sk.WHOLE_CHUNK})
-        # one chunk up to 2^30 candidates (the kernel's counts are int32)
-        assert sk.is_whole(2 * N, N * C, sk.whole_plan(N)) \
-            == (N * C <= sk.WHOLE_CHUNK)
+        assert sparse._route(N, C, "hash", cpu) == "tiled"
+    M, T = 1 << 31, 1 << 27
+    rows = tuple(torch.empty(M, dtype=torch.int32, device="meta")
+                 for _ in range(3))
+    table = (tuple(torch.empty(T, dtype=torch.int32, device="meta")
+                   for _ in range(3)),
+             torch.empty(T, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="int32 list"):
+        sk.tiled_insert(rows, torch.empty(M, dtype=torch.bool,
+                                          device="meta"), table, 32)
+    with pytest.raises(ValueError, match="int32 list"):
+        sk.tiled_insert_batch(
+            tuple(r.reshape(2, M // 2) for r in rows),
+            torch.empty((2, M // 2), dtype=torch.bool, device="meta"),
+            (tuple(torch.empty((2, T), dtype=torch.int32, device="meta")
+                   for _ in range(3)),
+             torch.empty((2, T), dtype=torch.bool, device="meta")), 32)
 
 
-def tiled_group_bin_reference(c_rows, c_live, T: int, plan: dict,
-                              bin_bits: int) -> list:
-    """K4's bin past 2^12 tiles as plain ops, with `bin_bits` in place
-    of 12: the live candidates sorted stably by bin (tile >> gshift), then
-    each tile's candidates taken from its bin's list in list order.
-    -> one int64 index list per tile."""
-    M = c_live.shape[0]
-    n_tt, _, tt_bits, _ = sk._tiling(T, M, plan)
-    gshift = max(0, tt_bits - bin_bits)
-    h = sparse.table_hash_u32(*(sparse._u32(r) for r in c_rows))
-    tile = h & (n_tt - 1)
-    live = torch.nonzero(c_live).flatten()
-    order = live[torch.sort(tile[live] >> gshift, stable=True).indices]
-    return [order[tile[order] == t] for t in range(n_tt)]
+@pytest.mark.parametrize("case", [c[0] for c in
+                                  parity_cases.k4_batch_cases()])
+def test_plain_batched_k4_matches_interpret_pallas_key_by_key(case):
+    """Batched K4's plain version gives each key what the reference's
+    kernel gives it on its own candidates and table (one tile, one
+    chunk)."""
+    _, c_rows, c_live, table, pl = {
+        c[0]: c for c in parity_cases.k4_batch_cases()}[case]
+    got = sk.tiled_insert_batch(c_rows, c_live, table, pl)
+    K, M = c_live.shape
+    T = table[1].shape[1]
+    for k in range(K):
+        want = _ref_tiled(tuple(r[k].numpy() for r in c_rows),
+                          c_live[k].numpy(),
+                          (tuple(r[k].numpy() for r in table[0]),
+                           table[1][k].numpy()), pl, _whole(T, M))
+        for g, w in zip(got[0][0], want[0]):
+            assert np.array_equal(g[k].numpy(), w)
+        assert np.array_equal(got[0][1][k].numpy(), want[1])
+        assert np.array_equal(got[1][k].numpy(), want[2])
+        assert np.array_equal(got[2][k].numpy(), want[3])
+        assert bool(got[3][k]) == want[4]
 
 
-@pytest.mark.parametrize("name", K4_CASES)
-def test_grouped_bin_gives_each_tile_its_candidates_in_order(name):
-    """A bin of a group of tiles, filtered by tile, is the tile's list of
-    the bin by tile: every live candidate of the tile, in index order.
-    So K4 past 4,096 tiles walks what it walks below."""
-    _, c_rows, c_live, table, _, plan = _k4_cases()[name]
-    T = table[1].shape[0]
-    order, counts, offsets = tiled_bin_reference(c_rows, c_live, T, plan)
-    n_tt = counts.shape[0]
-    for bin_bits in range(max(1, n_tt.bit_length() - 1)):
-        got = tiled_group_bin_reference(c_rows, c_live, T, plan, bin_bits)
-        for t in range(n_tt):
-            o, n = int(offsets[t]), int(counts[t])
-            assert torch.equal(got[t], order[o:o + n]), (bin_bits, t)
+def test_k4_wide_case_is_past_the_grids_threads():
+    """The wide case has more live candidates than the H100's K4 grid has
+    threads (132 SMs x 2 blocks of 1,024 at most), so its probe state
+    lives in the scratch; its plain insert settles without a probe
+    overflow and finds both fresh rows and rows already visited."""
+    _, c_rows, c_live, table, pl = parity_cases.k4_wide_case()
+    live = int(c_live.sum())
+    assert live > 132 * 2 * 1024
+    _, fresh, off, ovf = sk.tiled_insert_reference(c_rows, c_live, table,
+                                                   pl)
+    assert not bool(ovf) and 0 < int(fresh.sum()) < live
+    assert int(off.max()) > 0
 
 
 def test_k2_cases_reach_their_shapes():
@@ -651,32 +496,13 @@ def _dev_tiled(dev, c_rows, c_live, table):
 @pytest.mark.parametrize("name", K4_CASES)
 def test_cuda_k4_matches_plain_on_the_new_cases(name):
     dev = _cuda()
-    _, c_rows, c_live, table, pl, plan = _k4_cases()[name]
-    want = sk.tiled_insert_reference(c_rows, c_live, table, pl, plan)
+    _, c_rows, c_live, table, pl = _k4_cases()[name]
+    want = sk.tiled_insert_reference(c_rows, c_live, table, pl)
     before = sk.launches["tiled_insert"]
-    got = sk.tiled_insert(*_dev_tiled(dev, c_rows, c_live, table), pl, plan)
+    got = sk.tiled_insert(*_dev_tiled(dev, c_rows, c_live, table), pl)
     torch.cuda.synchronize()
     assert sk.launches["tiled_insert"] == before + 1
     _assert_k4_equal(got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", K4_CASES[:3])
-def test_cuda_k4_bin_and_insert_apart_equal_both(name):
-    """The bin and the insert launched one at a time (as the timings do)
-    give what one call gives; the insert updates the table in place."""
-    dev = _cuda()
-    _, c_rows, c_live, table, pl, plan = _k4_cases()[name]
-    want = sk.tiled_insert_reference(c_rows, c_live, table, pl, plan)
-    rows, live, dtable = _dev_tiled(dev, c_rows, c_live, table)
-    work = sk._tiled_insert_launch(rows, live, dtable, pl, plan,
-                                   stages=1)[-1]
-    got = sk._tiled_insert_launch(rows, live, dtable, pl, plan, stages=2,
-                                  work=work)
-    torch.cuda.synchronize()
-    _assert_k4_equal(got[:4], want)
-    assert got[0][1].data_ptr() == dtable[1].data_ptr()
-    assert torch.equal(dtable[1].cpu(), want[0][1])
 
 
 @pytest.mark.cuda
@@ -705,15 +531,16 @@ def test_plain_k2_matches_interpret_pallas_on_the_new_cases(name):
 
 
 @pytest.mark.cuda
-def test_cuda_k4_matches_plain_on_8192_tiles():
-    """K4 at frontier capacity 2^25's table (8,192 tiles of 8,192; a bin
-    is a group of 2 tiles) equals its plain version, bit for bit."""
+def test_cuda_k4_matches_plain_past_the_grids_threads():
+    """K4 with more live candidates than its grid has threads (their
+    probe state in the scratch) equals its plain version, bit for bit."""
     dev = _cuda()
-    _, c_rows, c_live, table, pl, plan = parity_cases.k4_wide_case(8192)
+    _, c_rows, c_live, table, pl = parity_cases.k4_wide_case()
     rows, live, dtable = _dev_tiled(dev, c_rows, c_live, table)
-    want = sk.tiled_insert_reference(rows, live, dtable, pl, plan)
+    assert int(c_live.sum()) > 1024 * sk.k4_grid(dev)
+    want = sk.tiled_insert_reference(rows, live, dtable, pl)
     before = sk.launches["tiled_insert"]
-    got = sk.tiled_insert(rows, live, dtable, pl, plan)
+    got = sk.tiled_insert(rows, live, dtable, pl)
     torch.cuda.synchronize()
     assert sk.launches["tiled_insert"] == before + 1
     _assert_k4_equal(got, tuple(

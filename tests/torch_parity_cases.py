@@ -12,12 +12,14 @@ moves it to its device. Each one aims at a part of a kernel's design:
     them in shared memory), a frontier that overflows past N, C = 33 and
     64, N = 2,048 and 4,096 (a seed past the registers), and
     probe_limit 2 with the probe overflow raised.
-  * K4 (`k4_cases`): a tile with no live candidate, every live candidate
-    in one tile (more than 32: the block-wide insert), equal rows on
-    both sides of a chunk boundary, probe_limit 1 and 2 with the probe
-    overflow raised, M not a multiple of the chunk, and a few live
-    candidates over many chunks on a table already half full (the
-    one-warp insert).
+  * K4 (`k4_cases`): live candidates picked by their hash's low bits
+    (the names say how the inputs were drawn: the hash-range tiles and
+    512-candidate chunks of the TPU kernel's plan, which K4 does not
+    take), so that many or few race for slots; equal rows near and far
+    apart in the list; probe_limit 1 and 2 with the probe overflow
+    raised; and a few live candidates among 50,000 on a table already
+    half full. `k4_wide_case`: more live candidates than the grid's
+    threads, so that their probe state lives in the scratch.
   * K4 batched over keys (`k4_batch_cases`): keys with their own tables
     side by side — one with no live candidate (a key whose closure has
     ended), two with the same candidates on different tables, one on a
@@ -147,24 +149,23 @@ def _tiles(c_rows, n_tt: int):
 
 
 def k4_cases() -> list:
-    """[(name, c_rows, c_live, table, probe_limit, plan)]."""
+    """[(name, c_rows, c_live, table, probe_limit)]."""
     from jepsen_tpu_torch.parallel import sparse_kernels as sk
     rng = np.random.default_rng(20261018)
     rep = sp._rep((), 1)
-    small = {"tile": 512, "chunk": 512}
     out = []
-    # 8 tiles, 3 chunks (the last one short), tile 5 left empty
+    # candidates whose hash's low 3 bits are not 5 (1,500, ~80% live)
     c_rows = _rand_rows(rng, 1500, 900)
     live = torch.from_numpy(rng.random(1500) < 0.8) & \
         (_tiles(c_rows, 8) != 5)
     out.append(("no live candidate in one tile, M=1500", c_rows, live,
-                sp._empty_table(4096, rep), 32, small))
-    # every live candidate in tile 0 (~150 of them)
+                sp._empty_table(4096, rep), 32))
+    # only those whose hash's low 3 bits are 0 (~150 of them)
     c_rows = _rand_rows(rng, 1200, 1200)
     live = torch.from_numpy(rng.random(1200) < 0.9) & \
         (_tiles(c_rows, 8) == 0)
     out.append(("all live candidates in one tile", c_rows, live,
-                sp._empty_table(4096, rep), 32, small))
+                sp._empty_table(4096, rep), 32))
     # equal rows at 511 | 512 and 1023 | 1024, and at 100 and 600
     c_rows = tuple(r.clone() for r in _rand_rows(rng, 1536, 1000))
     for a, b in ((511, 512), (1023, 1024), (100, 600), (512, 1023)):
@@ -172,20 +173,19 @@ def k4_cases() -> list:
             r[b] = r[a]
     out.append(("equal rows across chunk boundaries", c_rows,
                 torch.ones(1536, dtype=torch.bool),
-                sp._empty_table(4096, rep), 32, small))
-    # a loaded table of 2 tiles: the probes run out
+                sp._empty_table(4096, rep), 32))
+    # a loaded table: the probes run out
     for pl in (1, 2):
         c_rows = _rand_rows(rng, 1536, 700)
         out.append((f"probe_limit {pl}", c_rows,
                     torch.from_numpy(rng.random(1536) < 0.9),
-                    sp._empty_table(1024, rep), pl, small))
-    # 40 live of 50,000 (7 chunks of 8,192, the last short), some equal
-    # to each other or to rows already in a half-full table of 8 tiles
-    big = {"tile": 8192, "chunk": 8192}
+                    sp._empty_table(1024, rep), pl))
+    # 40 live of 50,000, some equal to each other or to rows already in
+    # a half-full table
     fill = _rand_rows(rng, 30000, 30000)
     table = sk.tiled_insert_reference(
         fill, torch.ones(30000, dtype=torch.bool),
-        sp._empty_table(65536, rep), 32, big)[0]
+        sp._empty_table(65536, rep), 32)[0]
     c_rows = tuple(r.clone() for r in _rand_rows(rng, 50000, 50000))
     idx = np.sort(rng.choice(50000, 40, replace=False))
     for a, b in zip(idx[:6], idx[6:12]):
@@ -197,53 +197,44 @@ def k4_cases() -> list:
     live = torch.zeros(50000, dtype=torch.bool)
     live[torch.from_numpy(idx)] = True
     out.append(("40 live of 50,000 on a half-full table", c_rows, live,
-                table, 32, big))
+                table, 32))
     return out
 
 
-def k4_wide_case(tiles: int = 8192):
-    """(name, c_rows, c_live, table, probe_limit, plan): K4 on a table of
-    `tiles` tiles of 8,192 slots (T = tiles * 8,192; 8,192 tiles is the
-    frontier capacity 2^25), where a bin is a group of tiles. 24,576
-    candidates over 3 chunks: ~3,000 live from a pool of 2,000 rows
-    (equal rows within and across chunks), 100 more in tile 3 (the
-    block-wide insert, from its group's list) and 20 in tile 4 (the
-    one-warp insert, its candidates put in index order). Built on the
-    CPU; the table alone is 13 * T bytes."""
+def k4_wide_case():
+    """(name, c_rows, c_live, table, probe_limit): 600,000 candidates,
+    ~400,000 live from a pool of 300,000 rows (equal rows near and far
+    apart), on a table of 2^20 slots already holding 100,000 of the
+    pool's rows. More live candidates than the threads of the H100's
+    grid (264 or 132 blocks of 1,024), so K4 keeps their probe state in
+    the scratch and rebuilds each row every phase. Built on the CPU."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
     rng = np.random.default_rng(20261019)
-    M = 24576
-    c_rows = tuple(r.clone() for r in _rand_rows(rng, M, 2000))
-    live = torch.from_numpy(rng.random(M) < 0.12)
-    pool = _rand_rows(rng, 1 << 22, 1 << 22)
-    home = _tiles(pool, tiles)
-    at = rng.permutation(M)
-    k = 0
-    for tile, n in ((3, 100), (4, 20)):
-        rows = torch.nonzero(home == tile).flatten()[:n]
-        if rows.numel() < n:
-            raise ValueError(f"k4_wide_case: only {rows.numel()} rows in "
-                             f"tile {tile}")
-        for i in rows.tolist():
-            for r, p in zip(c_rows, pool):
-                r[at[k]] = p[i]
-            live[at[k]] = True
-            k += 1
-    return (f"{tiles} tiles of 8,192", c_rows, live,
-            sp._empty_table(tiles * 8192, sp._rep((), 1)), 32,
-            {"tile": 8192, "chunk": 8192})
+    M, T = 600_000, 1 << 20
+    pool = _rand_rows(rng, 300_000, 300_000)
+    pick = torch.from_numpy(rng.integers(0, 300_000, size=M))
+    c_rows = tuple(r[pick].contiguous() for r in pool)
+    live = torch.from_numpy(rng.random(M) < 0.67)
+    rep = sp._rep((), 1)
+    table = sk.tiled_insert_reference(
+        tuple(r[:100_000] for r in pool),
+        torch.ones(100_000, dtype=torch.bool), sp._empty_table(T, rep),
+        32)[0]
+    return "600,000 candidates past the grid's threads", c_rows, live, \
+        table, 32
 
 
 def k4_batch_cases() -> list:
     """[(name, c_rows [K, M] lanes, c_live [K, M], table ([K, T] lanes,
-    occupancy [K, T]), probe_limit, plan)]: 4 keys of 1,536 candidates
-    (3 chunks of 512) on tables of 4 tiles of 512. Key 0 has ~80% live
-    from a pool of 900 rows (equal rows within it); key 1 none live; key
-    2 key 0's candidates on an empty table of its own; key 3 fresh rows
-    on a table already holding 1,000 (probe_limit 2 overflows there)."""
+    occupancy [K, T]), probe_limit)]: 4 keys of 1,536 candidates on
+    tables of 2,048 slots. Key 0 has ~80% live from a pool of 900 rows
+    (equal rows within it); key 1 none live; key 2 key 0's candidates on
+    an empty table of its own; key 3 fresh rows on a table already
+    holding 1,000 (at probe_limit 2 every key with live candidates
+    overflows)."""
     from jepsen_tpu_torch.parallel import sparse_kernels as sk
     rng = np.random.default_rng(20261020)
     rep = sp._rep((), 1)
-    plan = {"tile": 512, "chunk": 512}
     M, T = 1536, 2048
     out = []
     for pl in (32, 2):
@@ -253,7 +244,7 @@ def k4_batch_cases() -> list:
         live3 = torch.from_numpy(rng.random(M) < 0.6)
         fill = sk.tiled_insert_reference(
             _rand_rows(rng, 1000, 1000), torch.ones(1000, dtype=torch.bool),
-            sp._empty_table(T, rep), 32, plan)[0]
+            sp._empty_table(T, rep), 32)[0]
         empty = sp._empty_table(T, rep)
         c_rows = tuple(torch.stack([a, a, a, b]) for a, b in zip(k0, k3))
         c_live = torch.stack([live0, torch.zeros(M, dtype=torch.bool),
@@ -262,8 +253,8 @@ def k4_batch_cases() -> list:
         table = (tuple(torch.stack([t[0][j] for t in tables])
                        for j in range(3)),
                  torch.stack([t[1] for t in tables]))
-        out.append((f"4 keys, probe_limit {pl}", c_rows, c_live, table, pl,
-                    plan))
+        out.append((f"4 keys, probe_limit {pl}", c_rows, c_live, table,
+                    pl))
     return out
 
 
