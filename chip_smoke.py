@@ -126,6 +126,29 @@ down both of its engines:
        T=1,024), beside the plain insert and the bound; the kernels line
        has one K3 entry per insert ("shared": one block; "grid"), with
        K3's launches in that layout (the wrapper counts them per layout).
+  7. packed rows (config_pack: a configuration as the word (state -
+     state_lo) | mask << state_bits in one or two int32 lanes), through K2,
+     K3 and K4 and their batched forms at one lane and two:
+     * main path, with config_pack=True: the ten sparse histories above and
+       a two-lane one (a 200-op set of 20 elements, 14 processes: a 34-bit
+       word) through the checker, each equal field for field to
+       REF_PACKED; the 28 queue keys through `engine.check_batch` and
+       `independent.checker(linearizable(..., config_pack=True))`, equal to
+       REF_SPARSE_BATCH_PACKED; the ten small sharded checks, a 44-op set
+       of 30 elements (33 bits) and the two-lane set at capacity 16,384
+       (K3's grid), equal to REF_SHARDED_PACKED (all recorded from the
+       reference on the CPU with config_pack=True and dedupe "hash"). The
+       1000-op FIFO and the 28-key batch are also timed warm, packed
+       against unpacked (walls: findings, not claims);
+     * parity of every packed kernel against its plain version, bit for
+       bit, at one lane and two, on the seeded packed cases of
+       `tests/torch_parity_cases.py` and on inputs kept from the packed
+       main path (K2 also at probe_limit 2; K3 through the wrapper, the
+       grid forced and one block forced where the table fits);
+     * timing per launch with CUDA events on the kept inputs, beside the
+       plain version and the bound (bytes at 4L a row of L lanes); one
+       kernels-line entry per packed kernel, lane count and shape, with
+       its launches on the packed main path.
   Launch counts are zeroed just before each main-path check and read just
   after; each check must have launched the kernel of its route.
 
@@ -1017,7 +1040,7 @@ def phase_sparse_parity(dev, rec) -> dict:
     from jepsen_tpu_torch.parallel import sparse, sparse_kernels as sk
     lib2 = sk._lib("frontier_closure")
     for N, C in ((1024, 8), (2048, 12), (2048, 33)):
-        _require(lib2.jt_frontier_closure_smem(N, C)
+        _require(lib2.jt_frontier_closure_smem(N, C, 3)
                  == sk.k2_smem_bytes(N, C), f"K2 layout at N={N} C={C}")
     print(f"parity: shared-memory opt-in {sk.smem_budget(dev)} bytes; K2 "
           f"needs {sk.k2_smem_bytes(1024, 8)} at N=1024 C=8 and "
@@ -1108,12 +1131,14 @@ def phase_sparse_parity(dev, rec) -> dict:
 
 
 def phase_sparse_main(dev, cases) -> dict:
-    """The sparse checks; returns the K2 and K4 launches of the run."""
+    """The sparse checks; returns the K2 and K4 launches of the run, and
+    each check's wall ("walls")."""
     from jepsen_tpu_torch.parallel import encode as enc
     from jepsen_tpu_torch.parallel import sparse
-    total = {"K2": 0, "K4": 0}
+    total = {"K2": 0, "K4": 0, "walls": {}}
     for name, model, h in cases:
         r, secs, n = _sparse_check(model, h, dev)
+        total["walls"][name] = secs
         want = REF[name]
         route = want.get("route", "cuda")
         kernel = {"cuda": "K2", "cuda-tiled": "K4"}.get(r.get("closure"))
@@ -1331,7 +1356,7 @@ class _Tiers:
             n4 = sk.launches["tiled_insert_batch"]
             out = real(sc)
             seen.append({"K": sc.K, "N": sc.N, "C": sc.C, "R": sc.R,
-                         "route": sc.closure,
+                         "lanes": sc.rep.lanes, "route": sc.closure,
                          "K2": sk.launches["frontier_closure_batch"] - n2,
                          "K4": sk.launches["tiled_insert_batch"] - n4})
             return out
@@ -1871,7 +1896,7 @@ def phase_k3_parity(dev, mesh, recorded: dict) -> int:
     from jepsen_tpu_torch.parallel import sparse_kernels as sk
     lib = sk._lib("hash_insert")
     for T in (1024, 8192):
-        _require(lib.jt_hash_insert_smem(T, 0) == sk.k3_smem_bytes(T // 2),
+        _require(lib.jt_hash_insert_smem(T, 0, 3) == sk.k3_smem_bytes(T // 2),
                  f"K3 layout at T={T}")
     grid = _k3_forced("device")
     worst = 0
@@ -2012,6 +2037,627 @@ def phase_k3_timing(dev, recorded: dict) -> list:
     return out
 
 
+# ------------------------------------------------ packed rows (config_pack)
+
+# The reference's results with config_pack=True (jepsen_tpu, dedupe
+# "hash", on the CPU; tests/torch_record_packed_refs.py records these
+# three tables): every field but analyzer and closure, and the digest of
+# final-paths and configs (_paths_digest; EMPTY_PATHS for the valid
+# ones). The two-lane history is a 20-element set with 14
+# processes: 2^20 states and 14 slots, a 34-bit word.
+REF_PACKED = {
+    "fifo-valid.edn": {"valid?": True, "max-frontier": 253, "capacity": 1024,
+        "dedupe": "hash", "configs-stepped": 2089, "explored": 794624,
+        "config-pack": "packed:24b/1-lane"},
+    "uqueue-valid.edn": {"valid?": True, "max-frontier": 128, "capacity": 1024,
+        "dedupe": "hash", "configs-stepped": 1632, "explored": 666624,
+        "config-pack": "packed:18b/1-lane"},
+    "gset-valid.edn": {"valid?": True, "max-frontier": 16, "capacity": 1024,
+        "dedupe": "hash", "configs-stepped": 297, "explored": 393216,
+        "config-pack": "packed:12b/1-lane"},
+    "fifo-invalid.edn": {"valid?": False, "max-frontier": 5, "capacity": 1024,
+        "dedupe": "hash", "configs-stepped": 10, "explored": 24576,
+        "config-pack": "packed:19b/1-lane", "op": {"process": 2, "f":
+        "dequeue", "value": 1000, "index": 7}, "fail-event": 2, "paths":
+        "727ecef79e85781a"},
+    "uqueue-invalid.edn": {"valid?": False, "max-frontier": 32, "capacity":
+        1024, "dedupe": "hash", "configs-stepped": 92, "explored": 98304,
+        "config-pack": "packed:16b/1-lane", "op": {"process": 2, "f":
+        "dequeue", "value": 1000, "index": 16}, "fail-event": 7, "paths":
+        "b0450bfaf452a0cb"},
+    "gset-invalid.edn": {"valid?": False, "max-frontier": 16, "capacity": 1024,
+        "dedupe": "hash", "configs-stepped": 105, "explored": 230400,
+        "config-pack": "packed:13b/1-lane", "op": {"process": 0, "f": "read",
+        "value": [0, 1, 2, 3, 4, 5, 1048], "index": 47}, "fail-event": 20,
+        "paths": "f95482334d86b907"},
+    "uqueue-400": {"valid?": True, "max-frontier": 256, "capacity": 1024,
+        "dedupe": "hash", "configs-stepped": 25467, "explored": 6447104,
+        "config-pack": "packed:28b/1-lane"},
+    "gset-400": {"valid?": True, "max-frontier": 1024, "capacity": 1024,
+        "dedupe": "hash", "configs-stepped": 75264, "explored": 8192000,
+        "config-pack": "packed:26b/1-lane"},
+    "gset-200 two-lane": {"valid?": True, "max-frontier": 16384, "capacity":
+        16384, "dedupe": "hash", "configs-stepped": 354355, "explored":
+        91291648, "config-pack": "packed:34b/2-lane"},
+    "fifo-1000": {"valid?": True, "max-frontier": 18610, "capacity": 32768,
+        "dedupe": "hash", "configs-stepped": 649022, "explored": 872153088,
+        "config-pack": "packed:30b/1-lane"},
+    "fifo-1000 corrupted": {"valid?": False, "max-frontier": 8520, "capacity":
+        16384, "dedupe": "hash", "configs-stepped": 88757, "explored":
+        185204736, "config-pack": "packed:39b/2-lane", "op": {"process": 5,
+        "f": "dequeue", "value": 1001, "index": 887}, "fail-event": 395,
+        "final-paths-window": [331, 395], "paths": "896dc485b8ac46e0"},
+}
+PACKED_TWO_LANE = "gset-200 two-lane"
+# The reference's batch of the 28 queue keys (_sparse_batch_keys()) with
+# config_pack=True: the digest of every field but closure, each key's
+# capacity, the invalid keys' failing op and event.
+REF_SPARSE_BATCH_PACKED = {
+    "uqueue-24+4": {
+        "keys": 28, "digest": "3197f9ce2f5df2af",
+        "capacity": [1024, 16384, 1024, 16384, 32768, 8192, 32768, 2048, 65536,
+                     32768, 1024, 32768, 512, 16384, 1024, 8192, 1024, 32768,
+                     16384, 1024, 4096, 8192, 16384, 4096, 1024, 32768, 512,
+                     2048],
+        "invalid": {
+            24: {"fail-event": 117, "op": {"process": 8, "f": "dequeue",
+                "value": 1001, "index": 223}},
+            25: {"fail-event": 103, "op": {"process": 13, "f": "dequeue",
+                "value": 1002, "index": 190}},
+            26: {"fail-event": 74, "op": {"process": 6, "f": "dequeue",
+                "value": 1001, "index": 150}},
+            27: {"fail-event": 32, "op": {"process": 12, "f": "dequeue",
+                "value": 1002, "index": 66}}}}}
+# The reference's check_encoded_sharded(..., config_pack=True) on a
+# one-device CPU mesh: the ten small cases (_sharded_small_cases()), a
+# 44-op set of 30 elements (a 33-bit word) and the two-lane 200-op set at
+# capacity 16,384 (K3's table in device memory), the fields of
+# SHARDED_KEYS and "config-pack".
+REF_SHARDED_PACKED = {
+    "register-60 seed 77": {"valid?": True, "max-frontier": 256, "capacity":
+        512, "devices": 1, "configs-stepped": 2644, "config-pack":
+        "packed:10b/1-lane"},
+    "register-60 seed 77 corrupted": {"valid?": False, "op": {"process": 0,
+        "f": "read", "value": 1000, "index": 61}, "fail-event": 23,
+        "max-frontier": 144, "capacity": 512, "devices": 1, "configs-stepped":
+        932, "config-pack": "packed:10b/1-lane"},
+    "register-60 seed 78": {"valid?": True, "max-frontier": 36, "capacity":
+        512, "devices": 1, "configs-stepped": 446, "config-pack":
+        "packed:8b/1-lane"},
+    "register-60 seed 78 corrupted": {"valid?": False, "op": {"process": 5,
+        "f": "read", "value": 1000, "index": 60}, "fail-event": 24,
+        "max-frontier": 36, "capacity": 512, "devices": 1, "configs-stepped":
+        273, "config-pack": "packed:8b/1-lane"},
+    "register-60 seed 79": {"valid?": True, "max-frontier": 56, "capacity":
+        512, "devices": 1, "configs-stepped": 612, "config-pack":
+        "packed:8b/1-lane"},
+    "register-60 seed 79 corrupted": {"valid?": False, "op": {"process": 2,
+        "f": "read", "value": 1000, "index": 18}, "fail-event": 8,
+        "max-frontier": 20, "capacity": 512, "devices": 1, "configs-stepped":
+        112, "config-pack": "packed:8b/1-lane"},
+    "wide-10 valid": {"valid?": True, "max-frontier": 7937, "capacity": 8192,
+        "devices": 1, "configs-stepped": 7937, "config-pack":
+        "packed:15b/1-lane"},
+    "wide-10 invalid": {"valid?": False, "op": {"process": 0, "f": "read",
+        "value": 99, "index": 20}, "fail-event": 0, "max-frontier": 5121,
+        "capacity": 8192, "devices": 1, "configs-stepped": 5121, "config-pack":
+        "packed:15b/1-lane"},
+    "uqueue-valid.edn": {"valid?": True, "max-frontier": 128, "capacity": 1024,
+        "devices": 1, "configs-stepped": 1632, "config-pack":
+        "packed:18b/1-lane"},
+    "fifo-invalid.edn": {"valid?": False, "op": {"process": 2, "f": "dequeue",
+        "value": 1000, "index": 7}, "fail-event": 2, "max-frontier": 5,
+        "capacity": 1024, "devices": 1, "configs-stepped": 10, "config-pack":
+        "packed:19b/1-lane"},
+    "gset-44 two-lane": {"valid?": True, "max-frontier": 36, "capacity": 512,
+        "devices": 1, "configs-stepped": 307, "config-pack":
+        "packed:33b/2-lane"},
+    "gset-200 two-lane": {"valid?": True, "max-frontier": 16384, "capacity":
+        16384, "devices": 1, "configs-stepped": 354355, "config-pack":
+        "packed:34b/2-lane"},
+}
+PACKED_SHARDED_KEYS = SHARDED_KEYS + ("config-pack",)
+PACKED_KEEP = 12      # kernel inputs kept per (wrapper, lanes, shapes)
+
+
+def _packed_cases(cases):
+    """The sparse main path's ten cases and the two-lane set."""
+    from jepsen_tpu_torch import histories, models
+    return cases + [(PACKED_TWO_LANE, models.GSet(),
+                     histories.rand_gset_history(
+                         200, n_processes=14, n_elements=20, crash_p=0.005,
+                         seed=1))]
+
+
+def _packed_sharded_cases():
+    from jepsen_tpu_torch import histories, models
+    from jepsen_tpu_torch.parallel import encode as enc
+    gset = models.GSet()
+    return _sharded_small_cases() + [
+        ("gset-44 two-lane", enc.encode(gset, histories.rand_gset_history(
+            n_ops=44, n_processes=6, n_elements=30, crash_p=0.05, seed=45)),
+         512),
+        (PACKED_TWO_LANE, enc.encode(gset, histories.rand_gset_history(
+            200, n_processes=14, n_elements=20, crash_p=0.005, seed=1)),
+         16384)]
+
+
+# wrapper -> the argument that holds its rows
+_ROWS_AT = {"frontier_closure": 2, "frontier_closure_batch": 3,
+            "hash_insert": 0, "tiled_insert": 0, "tiled_insert_batch": 0}
+
+
+def _shapes(x) -> tuple:
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape)
+    if isinstance(x, dict):
+        return tuple(_shapes(v) for v in x.values())
+    if isinstance(x, tuple):
+        return tuple(_shapes(v) for v in x)
+    return ()
+
+
+class _KeepPacked:
+    """Wraps the sparse kernels' wrappers and keeps copies of the inputs
+    of their calls on packed rows (one or two lanes) that `keep(name,
+    args)` accepts, every `stride`-th of them up to PACKED_KEEP per
+    (wrapper, lanes, argument shapes), in kept[(wrapper, lanes)][shapes].
+    The wrappers still run and count as ever."""
+
+    def __init__(self, keep, stride: int = 1):
+        self.keep, self.stride = keep, stride
+        self.kept, self.seen = {}, {}
+
+    def __enter__(self):
+        from jepsen_tpu_torch.parallel import sparse_kernels as sk
+        self.real = {n: getattr(sk, n) for n in _ROWS_AT}
+        pc = _parity_cases()
+
+        def wrap(name, real):
+            def recording(*args, **kw):
+                L = len(args[_ROWS_AT[name]])
+                if L < 3 and self.keep(name, args):
+                    sig = _shapes(args)
+                    key = (name, L, sig)
+                    n = self.seen[key] = self.seen.get(key, 0) + 1
+                    kept = self.kept.setdefault((name, L), {}) \
+                        .setdefault(sig, [])
+                    if n % self.stride == 0 and len(kept) < PACKED_KEEP:
+                        kept.append(pc._clone(args + tuple(kw.values())))
+                return real(*args, **kw)
+            return recording
+
+        for n, real in self.real.items():
+            setattr(sk, n, wrap(n, real))
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.parallel import sparse_kernels as sk
+        for n, real in self.real.items():
+            setattr(sk, n, real)
+
+
+def _lanes_of(r: dict) -> int:
+    return int(r["config-pack"].split("/")[1].split("-")[0]) \
+        if r.get("config-pack", "unpacked") != "unpacked" else 3
+
+
+def phase_packed_main(dev, cases, mesh, swalls, sbatch) -> dict:
+    """The packed main path (config_pack=True): the eleven single-key
+    histories through `Linearizable`, each equal field for field to
+    REF_PACKED; the 28-key batch through `engine.check_batch` and
+    `independent.checker(linearizable(..., config_pack=True))`, equal to
+    REF_SPARSE_BATCH_PACKED; the twelve sharded checks, equal to
+    REF_SHARDED_PACKED. Launch counts are zeroed just before each check
+    and read just after; they are summed by kernel and lane count. Also
+    the walls of the 1000-op FIFO and of the 28-key batch, packed against
+    unpacked, warm, in this run (findings, not claims): one more packed
+    run of each, beside the unpacked warm runs of the sparse phases
+    (`swalls`, `sbatch`). Keeps kernel inputs of packed rows for the
+    parity and timing phases."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import UnorderedQueue
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    launches: dict = {}
+    out = {"launches": launches, "walls": {}}
+
+    def count(kernel, L, n):
+        launches[(kernel, L)] = launches.get((kernel, L), 0) + n
+
+    def keep(name, args):
+        # K2 at its widest tiers (N = 4,096 at one lane, 2,048 at two);
+        # K4's expansion inserts (M = N * C, not the seed's N) of the
+        # FIFO's top tiers; every batched and sharded call
+        if name == "frontier_closure":
+            return args[3].shape[0] == (4096 if len(args[2]) == 1 else 2048)
+        if name == "tiled_insert":
+            T = args[2][1].shape[0]
+            return T in (65536, 32768) and args[1].shape[0] != T // 2
+        return True
+
+    rec = _KeepPacked(keep, stride=7)
+    with rec:
+        for name, model, h in _packed_cases(cases):
+            r, secs, n = _sparse_check(model, h, dev, config_pack=True)
+            want = REF_PACKED[name]
+            L = _lanes_of(r)
+            got = {k: v for k, v in r.items() if k not in (
+                "analyzer", "closure", "final-paths", "configs")}
+            _require(got == {k: v for k, v in want.items() if k != "paths"},
+                     f"packed {name}: {got} != reference {want}")
+            _require(_paths_digest(r) == want.get("paths", EMPTY_PATHS),
+                     f"packed {name}: final-paths/configs differ")
+            kernel = {"cuda": "K2", "cuda-tiled": "K4"}[r["closure"]]
+            _require(n[kernel] > 0, f"packed {name}: {kernel} never ran")
+            count("K2", L, n["K2"])
+            count("K4", L, n["K4"])
+            print(f"packed main: {name}: {r['config-pack']} valid?="
+                  f"{r['valid?']} closure={r['closure']} capacity="
+                  f"{r['capacity']} == REF_PACKED, wall {secs:.3f} s, "
+                  f"launches {n}")
+    # the 1000-op FIFO warm: the run above was its first packed one; the
+    # sparse main path's was its second unpacked one
+    name, model, h = cases[[c[0] for c in cases].index("fifo-1000")]
+    _, secs, _ = _sparse_check(model, h, dev, config_pack=True)
+    out["walls"]["fifo-1000 packed"] = secs
+    out["walls"]["fifo-1000 unpacked"] = swalls["fifo-1000"]
+    print(f"packed main: fifo-1000 warm walls: {json.dumps(out['walls'])}")
+
+    # the 28-key batch
+    hs = _sparse_batch_keys()
+    model = UnorderedQueue()
+    with _KeepPacked(lambda name, args: name.endswith("_batch"),
+                     stride=5) as brec:
+        rs, secs, n, tiers = _sparse_batch_check(model, hs, dev,
+                                                 config_pack=True)
+    got = _sparse_batch_digest(rs)
+    _require(got == REF_SPARSE_BATCH_PACKED["uqueue-24+4"],
+             f"packed batch: results differ from the reference's: {got}")
+    _require(n["frontier_closure_batch"] > 0 and n["tiled_insert_batch"] > 0
+             and n["frontier_closure"] == n["tiled_insert"] == 0,
+             f"packed batch: launches {n}")
+    lanes = {t["lanes"] for t in tiers}
+    for t in tiers:
+        count("K2 batch", t["lanes"], t["K2"])
+        count("K4 batch", t["lanes"], t["K4"])
+        print(f"packed main: batch tier {t}")
+    print(f"packed main: batch of {len(rs)} keys: {rs[0]['config-pack']}, "
+          f"tiers at {sorted(lanes)} lanes, == REF_SPARSE_BATCH_PACKED, "
+          f"cold {secs:.3f} s, launches {n}")
+    _, warm, _, _ = _sparse_batch_check(model, hs, dev, config_pack=True)
+    out["walls"]["batch-28 packed"] = warm
+    out["walls"]["batch-28 unpacked"] = sbatch["main"]["warm_runs"]
+    print(f"packed main: batch-28 warm walls: packed {warm:.3f} s, unpacked "
+          f"{sbatch['main']['warm_runs']} s (the sparse batch phase's)")
+    ops = []
+    for k, h in enumerate(hs):
+        for o in h:
+            o = dict(o)
+            o["value"] = independent.KV(k, o.get("value"))
+            ops.append(o)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = independent.checker(linearizable(model, device=dev,
+                                         config_pack=True)).check(
+        {}, History.wrap(ops).index())
+    torch.cuda.synchronize()
+    got = [{k: v for k, v in r["results"][k].items() if k != "analyzer"}
+           for k in range(len(hs))]
+    _require(_sparse_batch_digest(got) ==
+             REF_SPARSE_BATCH_PACKED["uqueue-24+4"],
+             "packed independent: results differ from the reference's")
+    print(f"packed main: independent.checker(linearizable(UnorderedQueue(), "
+          f"config_pack=True)): failures {r['failures']}, == "
+          f"REF_SPARSE_BATCH_PACKED, wall {time.perf_counter() - t0:.3f} s")
+
+    # the sharded checks
+    with _KeepPacked(lambda name, args: name == "hash_insert",
+                     stride=3) as srec:
+        for name, e, cap in _packed_sharded_cases():
+            r, secs, n = _sharded_check(e, mesh, capacity=cap,
+                                        dedupe="hash", config_pack=True)
+            want = REF_SHARDED_PACKED[name]
+            _require({k: r.get(k) for k in PACKED_SHARDED_KEYS}
+                     == {k: want.get(k) for k in PACKED_SHARDED_KEYS},
+                     f"packed sharded {name}: {r} != reference {want}")
+            _require(r["closure"] == "cuda" and n > 0,
+                     f"packed sharded {name}: K3 launches {n}")
+            L = _lanes_of(r)
+            for layout, k in sk.hash_insert_launches.items():
+                count(f"K3 {layout}", L, k)
+            print(f"packed main: sharded {name}: {r['config-pack']} "
+                  f"capacity={r['capacity']} == REF_SHARDED_PACKED, wall "
+                  f"{secs:.3f} s, K3 launches {dict(sk.hash_insert_launches)}")
+    out["recorded"] = {**rec.kept, **brec.kept, **srec.kept}
+    print("packed main: kept inputs (wrapper, lanes: shapes, inputs): "
+          + json.dumps({f"{k[0]} L{k[1]}": [len(groups), sum(
+              len(v) for v in groups.values())]
+              for k, groups in out["recorded"].items()}))
+    print(f"packed main: launches by (kernel, lanes): "
+          f"{ {f'{k} L{L}': v for (k, L), v in sorted(launches.items())} }")
+    return out
+
+
+def _flat(x) -> list:
+    """A kernel's output, nested tuples of tensors, as a flat list (each
+    scalar as one element)."""
+    if isinstance(x, torch.Tensor):
+        return [x.reshape(-1)]
+    return [t for v in x for t in _flat(v)]
+
+
+def _to(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        return tuple(_to(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    return x
+
+
+def _all_kept(rec, name) -> list:
+    """Every input kept of wrapper `name`, at one lane and two."""
+    return [a for L in (1, 2) for group in rec.get((name, L), {}).values()
+            for a in group]
+
+
+def _most_kept(rec, name, L) -> list:
+    """The inputs kept of wrapper `name` at L lanes in the shape kept most
+    often (the larger shape on a tie), or []."""
+    groups = rec.get((name, L), {})
+    if not groups:
+        return []
+    return max(groups.items(), key=lambda kv: (len(kv[1]), kv[0]))[1]
+
+
+def _k2_batch_seeded(pc, dev):
+    """Batched K2's seeded packed inputs: three keys on two event rows
+    (the case's, and its slots reversed) of each seeded K2 case at N <=
+    2,048: the case, the case with run False, and its frontier less the
+    first live row (as tests/test_torch_config_pack_kernels.py builds
+    them)."""
+    out = []
+    for name, step, ev, rows, live, run, pl, pack in pc.packed_k2_cases():
+        if live.shape[0] > 2048:
+            continue
+        rev = {k: v.flip(0) for k, v in ev.items()}
+        xs = {k: torch.stack([ev[k], rev[k]])[None].expand(3, 2, -1)
+              .contiguous() for k in ev}
+        live2 = live.clone()
+        live2[int(live.nonzero()[0])] = False
+        for r in (0, 1):
+            out.append((name, _to((step, xs, r, tuple(
+                torch.stack([x, x, x]) for x in rows),
+                torch.stack([live, live, live2]),
+                torch.tensor([True, False, True]), pl, pack), dev)))
+    return out
+
+
+def phase_packed_parity(dev, rec) -> dict:
+    """Every packed kernel against its plain version on the card, bit for
+    bit, at one lane and two: the seeded packed cases of
+    tests/torch_parity_cases.py and the inputs kept from the packed main
+    path (K2 also at probe_limit 2); K3 through the wrapper, with the
+    grid forced, and with one block forced where the table fits it; K4
+    on its own copy of each table. Returns the largest |difference| of
+    each (kernel, lanes) (0: bit-identical)."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    pc = _parity_cases()
+    lib2, lib3 = sk._lib("frontier_closure"), sk._lib("hash_insert")
+    for L in (1, 2, 3):
+        for N, C in ((1024, 8), (2048, 14), (4096, 12)):
+            _require(lib2.jt_frontier_closure_smem(N, C, L)
+                     == sk.k2_smem_bytes(N, C, L), f"K2 at N={N} C={C} L={L}")
+        _require(lib3.jt_hash_insert_smem(16384, 0, L)
+                 == sk.k3_smem_bytes(8192, L), f"K3 at L={L}")
+    worst: dict = {}
+
+    def held(key, got, want, what):
+        torch.cuda.synchronize()
+        got, want = _flat(got), _flat(want)
+        _require(len(got) == len(want), f"{key}: outputs {len(got)} != "
+                                        f"{len(want)}")
+        err = _max_err(got, want)
+        worst[key] = max(worst.get(key, 0), err)
+        _require(err == 0, f"{key[0]} differs from its plain version at "
+                           f"{key[1]} lanes: {what}")
+
+    def copy_table(args, at):
+        t = args[at]
+        return args[:at] + ((tuple(x.clone() for x in t[0]),
+                             t[1].clone()),) + args[at + 1:]
+
+    # K2
+    seeded = [(c[0], _to(c[1:], dev)) for c in pc.packed_k2_cases()]
+    kept = [(f"kept N{a[3].shape[0]}", a)
+            for a in _all_kept(rec, "frontier_closure")]
+    fired = False
+    for what, a in seeded + kept:
+        held(("K2", len(a[2])), sk.frontier_closure(*a),
+             sk.frontier_closure_reference(*a), what)
+    for what, a in kept[::4]:
+        a2 = a[:5] + (2,) + a[6:]
+        want = sk.frontier_closure_reference(*a2)
+        held(("K2", len(a[2])), sk.frontier_closure(*a2), want,
+             f"{what} probe_limit 2")
+        fired = fired or int(want[1][1]) == 1
+    _require({k[1] for k in worst if k[0] == "K2"} == {1, 2},
+             "K2 parity missed a lane count")
+    print(f"parity: packed K2 == plain closure on {len(seeded)} seeded and "
+          f"{len(kept)} kept inputs (N "
+          f"{sorted({a[3].shape[0] for _, a in seeded + kept})}), and at "
+          f"probe_limit 2 (overflow raised: {fired})")
+    # batched K2
+    seeded = _k2_batch_seeded(pc, dev)
+    kept = [("kept", a) for a in _all_kept(rec, "frontier_closure_batch")]
+    for what, a in seeded + kept:
+        held(("K2 batch", len(a[3])), sk.frontier_closure_batch(*a),
+             sk.frontier_closure_batch_reference(*a), what)
+    print(f"parity: packed batched K2 == plain closure on {len(seeded)} "
+          f"seeded and {len(kept)} kept inputs (K, N: "
+          f"{sorted({tuple(a[4].shape) for _, a in seeded + kept})})")
+    # K3: through the wrapper, the grid forced, and one block forced
+    grid, one = _k3_forced("device"), _k3_forced("shared")
+    seeded = [(c[0], _to(c[1:], dev)) for c in pc.packed_k3_cases()]
+    kept = [("kept", a) for a in _all_kept(rec, "hash_insert")]
+    layouts = set()
+    for what, a in seeded + kept:
+        L, T = len(a[0]), a[4][1].shape[0]
+        want = sk.hash_insert_reference(*a)
+        fits = sk.k3_layout(T // 2, dev, L) == "shared"
+        layouts.add((L, "device"))
+        if fits:
+            layouts.add((L, "shared"))
+        for fn in (sk.hash_insert, grid) + ((one,) if fits else ()):
+            held(("K3", L), fn(*a), want, f"{what} T={T}")
+    _require(layouts == {(1, "device"), (1, "shared"), (2, "device"),
+                         (2, "shared")}, f"K3 parity covered {layouts}")
+    print(f"parity: packed K3 == plain insert on {len(seeded)} seeded and "
+          f"{len(kept)} kept inputs, in both layouts at one lane and two "
+          f"(T {sorted({a[4][1].shape[0] for _, a in seeded + kept})})")
+    # K4 and batched K4, each launch on its own copy of the table
+    for name, seeded_k4, key in (
+            ("tiled_insert", pc.packed_k4_cases(), "K4"),
+            ("tiled_insert_batch", pc.packed_k4_batch_cases(), "K4 batch")):
+        fn = getattr(sk, name)
+        ref = getattr(sk, name + "_reference")
+        inputs = [(c[0], _to(c[1:], dev)) for c in seeded_k4] + \
+            [("kept", a) for a in _all_kept(rec, name)]
+        for what, a in inputs:
+            held((key, len(a[0])), fn(*copy_table(a, 2)), ref(*a), what)
+        print(f"parity: packed {key} == plain insert on {len(inputs)} "
+              f"inputs (T {sorted({a[2][1].shape[-1] for _, a in inputs})},"
+              f" lanes {sorted({len(a[0]) for _, a in inputs})})")
+    return worst
+
+
+def phase_packed_timing(dev, rec, launches) -> list:
+    """Each packed kernel per launch with CUDA events on the inputs kept
+    from the packed main path, beside its plain version on the card and
+    its bound, with bytes at 4L a row of L lanes; one kernels-line entry
+    each, with its launches on the packed main path."""
+    import kernel_ab
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    src = "jepsen_tpu_torch/kernels/"
+    ref = "jepsen_tpu/parallel/sparse_kernels.py:"
+    out = []
+
+    def entry(name, key, L, source, line, ms, plain_ms, t_bytes, t_ops,
+              **extra):
+        n = launches.get((key, L), 0)
+        _require(n > 0, f"packed {key} at {L} lanes never ran on the main "
+                        f"path")
+        t = {"name": name, "route": "cuda", "source": src + source,
+             "replaces": ref + str(line), "launches": n, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": None, "lanes": L, **extra}
+        print("timing: " + json.dumps(t))
+        out.append(t)
+
+    def per_s(nbytes, ops):
+        return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+
+    for L in (1, 2):
+        k2 = _most_kept(rec, "frontier_closure", L)
+        _require(len(k2) > 0, f"no packed K2 input kept at {L} lanes")
+        N, C = k2[0][3].shape[0], k2[0][1]["slot_f"].shape[0]
+        ms = _time_launches(sk.frontier_closure, k2, reps=3)
+        plain_ms = _time_host(sk.frontier_closure_reference, k2[:2])
+        metas = [sk.frontier_closure(*a)[1].tolist() for a in k2]
+        # bytes: the slot tables, the live flags and live rows in, the
+        # frontier and meta out; operations: every candidate stepped and
+        # tested (~16 int32 ops), every appended row hashed, probed and
+        # written (~20)
+        nbytes = float(np.mean([14 * C + N + 4 * L * int(a[3].sum()) + 1
+                                + 4 * L * N + 16 for a in k2]))
+        ops = float(np.mean([m[3] * C * 16 + m[0] * 20 for m in metas]))
+        entry(f"frontier_closure[packed L{L},N{N},C{C}]", "K2", L,
+              "frontier_closure.cu", 205, ms, plain_ms, *per_s(nbytes, ops),
+              inputs=len(k2))
+    for L in (1, 2):
+        k2 = _most_kept(rec, "frontier_closure_batch", L)
+        if not k2:
+            continue
+        step, xs, _, rows, live, run = k2[0][:6]
+        (K, N), C = live.shape, xs["slot_f"].shape[2]
+        ms = _time_launches(sk.frontier_closure_batch, k2, reps=3)
+        plain_ms = _time_host(sk.frontier_closure_batch_reference, k2[:1])
+        metas = [sk.frontier_closure_batch(*a)[1].cpu() for a in k2]
+        nbytes = float(np.mean([
+            int(a[5].sum()) * (14 * C + N + 4 * L * N + 17) + 4 * L * int(
+                (a[4] & a[5][:, None]).sum()) for a in k2]))
+        ops = float(np.mean([int((m[:, 3] * C * 16 + m[:, 0] * 20).sum())
+                             for m in metas]))
+        entry(f"frontier_closure_batch[packed L{L},K{K},N{N},C{C}]",
+              "K2 batch", L, "frontier_closure.cu", 205, ms, plain_ms,
+              *per_s(nbytes, ops), inputs=len(k2))
+    for name, key in (("tiled_insert", "K4"),
+                      ("tiled_insert_batch", "K4 batch")):
+        fn, ref_fn = getattr(sk, name), getattr(sk, name + "_reference")
+        for L in (1, 2):
+            k4 = _most_kept(rec, name, L)
+            if not k4 and key == "K4 batch":
+                continue
+            _require(len(k4) > 0, f"no packed {key} input kept at {L} lanes")
+            k4 = k4[:6]
+            c_live, T = k4[0][1], k4[0][2][1].shape[-1]
+            KM = c_live.numel()
+
+            def fresh(reps, k4=k4):
+                return [a[:2] + ((tuple(x.clone() for x in a[2][0]),
+                                  a[2][1].clone()),) + a[3:]
+                        for _ in range(reps) for a in k4]
+
+            ms = kernel_ab._time_once_each(torch, fn, fresh(1), fresh(2))
+            plain_ms = _time_host(ref_fn, k4[:1])
+            outs = [fn(*a) for a in fresh(1)]
+            live = float(np.mean([int(a[1].sum()) for a in k4]))
+            probes = float(np.mean([int((o[2][a[1]] + 1).sum())
+                                    for a, o in zip(k4, outs)]))
+            n_fresh = float(np.mean([int(o[1].sum()) for o in outs]))
+            # bytes: every live flag read and fresh and off written; the
+            # live rows read, each probed slot read (4L bytes of row, 1 of
+            # occupancy) and each claimed one written; operations: the
+            # live test of every candidate, the hash and a compare a probe
+            nbytes = 6 * KM + 4 * L * live + (4 * L + 1) * (probes + n_fresh)
+            ops = KM + live * 24 + probes * 4
+            shape = f"K{c_live.shape[0]}," if c_live.dim() == 2 else ""
+            entry(f"{name}[packed L{L},{shape}T{T},M{c_live.shape[-1]}]",
+                  key, L, "tiled_insert.cu", 345, ms, plain_ms,
+                  *per_s(nbytes, ops), inputs=len(k4), mean_live=live)
+    k3 = {}
+    for a in _all_kept(rec, "hash_insert"):
+        L, T = len(a[0]), a[4][1].shape[0]
+        if a[1].shape[0] > a[2][0].shape[0]:     # an expansion insert
+            k3.setdefault((L, sk.k3_layout(T // 2, dev, L)), {}) \
+                .setdefault(T, []).append(a)
+    for (L, layout), by_T in sorted(k3.items()):
+        T = max(by_T)
+        inputs = by_T[T]
+        M, N = inputs[0][1].shape[0], inputs[0][2][0].shape[0]
+        ms = _time_launches(sk.hash_insert, inputs, reps=3)
+        grid_ms = _time_launches(_k3_forced("device"), inputs, reps=3) \
+            if layout == "shared" else ms
+        plain_ms = _time_host(sk.hash_insert_reference, inputs[:2])
+        live = float(np.mean([int(a[1].sum()) for a in inputs]))
+        n_fresh = float(np.mean([int(sk.hash_insert(*a)[2]) - int(a[3])
+                                 for a in inputs]))
+        # bytes: every live flag, the live rows, the table in and out,
+        # the fresh rows appended, the count and meta
+        nbytes = M + 4 * L * live + 2 * (4 * L + 1) * T + 4 * L * n_fresh \
+            + 16
+        ops = M + 24 * live
+        entry(f"hash_insert[packed L{L},{K3_NAMES[layout]},T{T},M{M}]",
+              f"K3 {layout}", L, "hash_insert.cu", 282, ms, plain_ms,
+              *per_s(nbytes, ops), inputs=len(inputs), layout=layout,
+              grid_ms=grid_ms)
+    return out
+
+
 def _phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2065,6 +2711,14 @@ def main() -> int:
     k3_inputs = {**small["recorded"], **full["recorded"]}
     k3_worst = _phase("K3 parity", phase_k3_parity, dev, mesh, k3_inputs)
     k3_timed = _phase("K3 timing", phase_k3_timing, dev, k3_inputs)
+    del k3_inputs
+    packed = _phase("packed main path", phase_packed_main, dev, cases, mesh,
+                    slaunches["walls"], sbatch)
+    p_worst = _phase("packed parity", phase_packed_parity, dev,
+                     packed["recorded"])
+    p_timed = _phase("packed timing", phase_packed_timing, dev,
+                     packed["recorded"], packed["launches"])
+    del packed["recorded"]
     # K1: one entry per timed shape, with the launches of the main-path
     # check at that shape (the invalid twin's, at S=19, print above);
     # K2 and K4: the launches of the whole sparse main path
@@ -2134,6 +2788,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "layout": t["insert"]})
+    # the packed kernels: one entry per kernel, lane count and shape, its
+    # launches those of the packed main path (config_pack=True)
+    for t in p_timed:
+        key = t["name"].split("[")[0]
+        kernel = {"frontier_closure": "K2", "frontier_closure_batch":
+                  "K2 batch", "hash_insert": "K3", "tiled_insert": "K4",
+                  "tiled_insert_batch": "K4 batch"}[key]
+        kernels.append({**t, "max_abs_err": p_worst[(kernel, t["lanes"])]})
+    print(f"packed walls (warm, s): {json.dumps(packed['walls'])}")
     torch.distributed.destroy_process_group()
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

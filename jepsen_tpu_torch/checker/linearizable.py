@@ -30,18 +30,22 @@ def _truncate(result: dict, n: int = 10) -> dict:
 
 class Linearizable(Checker):
     """`device` None means the card (RuntimeError when there is none);
-    "cpu" runs the plain PyTorch path. `capacity`, `max_capacity` and
-    `dedupe` go to the sparse engine (engine.analysis)."""
+    "cpu" runs the plain PyTorch path. `capacity`, `max_capacity`,
+    `dedupe` and `config_pack` (packed rows; None: the
+    JEPSEN_TPU_TORCH_CONFIG_PACK flag) go to the sparse engine
+    (engine.analysis); `config_pack` also reaches the per-key batch of
+    `independent.checker`."""
 
     def __init__(self, model=None, algorithm: str = "torch", device=None,
                  capacity: int = 1024, max_capacity: int = 1 << 20,
-                 dedupe=None):
+                 dedupe=None, config_pack=None):
         self.model = model
         self.algorithm = algorithm
         self.device = device
         self.capacity = capacity
         self.max_capacity = max_capacity
         self.dedupe = dedupe
+        self.config_pack = config_pack
 
     def check(self, test, history, opts=None):
         model = self.model or (test or {}).get("model")
@@ -65,7 +69,8 @@ class Linearizable(Checker):
             r = engine.analysis(model, h, device=self.device,
                                 capacity=self.capacity,
                                 max_capacity=self.max_capacity,
-                                dedupe=self.dedupe)
+                                dedupe=self.dedupe,
+                                config_pack=self.config_pack)
         elif algo == "wgl":
             from jepsen_tpu_torch.checker import wgl
             r = wgl.analysis(model, h)

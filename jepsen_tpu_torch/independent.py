@@ -175,7 +175,7 @@ class IndependentChecker(Checker):
         """(results, fallback): results None means the per-key path runs.
         The batch is `engine.check_batch` at its defaults (capacity 512,
         max_capacity 2^18, the port's dedupe flag), dense and sparse
-        buckets alike.
+        buckets alike, with the checker's `config_pack`.
         fallback None means the batch did not apply (not the port's device
         checker, no model, an unpackable model); else the structured
         record of why a batch that applied did not run."""
@@ -200,7 +200,8 @@ class IndependentChecker(Checker):
         ks = list(subs)
         try:
             rs = engine.check_batch(model, [subs[k] for k in ks],
-                                    device=c.device)
+                                    device=c.device,
+                                    config_pack=c.config_pack)
         except EncodeError as err:
             # not device-encodable (a set past its lane budget, a crash
             # pile-up past 64 slots): the host path is right, but slower

@@ -3,8 +3,8 @@
 // Replaces jepsen_tpu/parallel/sparse_kernels.py::frontier_closure_call
 // (the Pallas TPU kernel whose body is engine._hash_event_closure). For
 // one return event of the sparse engine it takes the frontier, N rows of
-// (state, mask_lo, mask_hi) int32 lanes with a live flag, and the
-// event's C slot tables, and computes what
+// L int32 lanes with a live flag, and the event's C slot tables, and
+// computes what
 // jepsen_tpu_torch.parallel.sparse._hash_event_closure computes, bit for
 // bit, rows in the same order:
 //
@@ -18,6 +18,17 @@
 //           frontier overflows.
 //
 // Output: the frontier lanes and meta = (count, ovf, iters, stepped).
+//
+// Rows. A row is the triple (state, mask_lo, mask_hi), L = 3, or the
+// packed word of config_pack (sparse._PackedRep), L = 1 or 2: the state
+// field (state - state_lo) in bits [0, s_bits), slot j's bit at s_bits +
+// j, the word's low and high halves in lanes 0 and 1. The kernel is a
+// template on L (one instantiation each); a packed row's model state is
+// (w0 & smask) + state_lo, and its candidate through slot j keeps w0's
+// mask bits, takes the stepped state's field and sets the bit at s_bits
+// + j, in lane 0 below bit 32 and in lane 1 from there. Everything else
+// (the table, its hash, the probes, the append) is sparse_common.cuh's,
+// generic over L.
 //
 // Batched over keys (the per-key batch, engine.check_batch): one launch
 // runs K keys' closures of one event row, a block a key (blockIdx.x).
@@ -58,11 +69,12 @@
 //     empty result at once once the history has failed or overflowed:
 //     the scan discards that event's result, and the host never waits.
 //
-// Shared memory: 12N (frontier) + 17T (table rows, claim, occupancy) +
-// 2NC (candidate offsets and flags, for insert_pass) + 1056 bytes; with
-// T = 2N that is N(46 + 2C) + 1056, so N = 1024 fits the H100's 227 KB
-// opt-in for every C <= 64 and N = 2048 for C <= 33
-// (sparse_kernels.supported).
+// Shared memory: 4LN (frontier) + (4L + 5)T (table rows, claim,
+// occupancy) + 2NC (candidate offsets and flags, for insert_pass) + 1056
+// bytes; with T = 2N that is N(12L + 10 + 2C) + 1056. For the triple,
+// N = 1024 fits the H100's 227 KB opt-in for every C <= 64 and N = 2048
+// for C <= 33; for one lane, N = 2048 for every C <= 64 and N = 4096 for
+// C <= 17 (sparse_kernels.supported).
 //
 // What bounds it: the bytes it must move are small (the frontier in and
 // out, the slot tables), and its operations are a few integer ops per
@@ -94,17 +106,18 @@ int table_size(int N) {
   return T;
 }
 
-size_t smem_bytes(int N, int C) {
+size_t smem_bytes(int N, int C, int L) {
   const size_t T = (size_t)table_size(N);
-  return 12 * (size_t)N + 17 * T + 2 * (size_t)N * C + 3 * 4 * kMaxC +
-         40 * 4 + 2 * kMaxC;
+  return 4 * (size_t)L * N + (4 * (size_t)L + 5) * T + 2 * (size_t)N * C +
+         3 * 4 * kMaxC + 40 * 4 + 2 * kMaxC;
 }
 
+template <int L>
 struct Shared {
-  int32_t *st, *ml, *mh;     // frontier rows [N]
-  int32_t *tst, *tml, *tmh;  // table rows [T]
+  int32_t* f[L];             // frontier rows [N], lane by lane
+  int32_t* t[L];             // table rows [T], lane by lane
   int32_t* claim;            // [T], kClaimFree between rounds
-  int32_t *f, *a0, *a1;      // slot tables [kMaxC]
+  int32_t *fn, *a0, *a1;     // slot tables [kMaxC]
   int32_t* scan;             // [32] warp sums, then 8 spare words
   uint8_t *off, *flags;      // per candidate [N*C]
   uint8_t* tocc;             // [T]
@@ -113,43 +126,81 @@ struct Shared {
 
 struct Event {
   int step_code, N, C, T, probe_limit;
-  const int32_t *st_in, *ml_in, *mh_in;
+  int s_bits;        // packed rows: the state field's bits
+  int32_t state_lo;  // packed rows: the state of field 0
+  uint32_t smask;    // packed rows: (1 << s_bits) - 1
+  const int32_t* in[3];
   const uint8_t* live_in;
 };
 
+// A row's model state: the triple's lane 0, or the packed word's field
+// plus state_lo (wrapping, as int32).
+template <int L>
+__device__ __forceinline__ int32_t row_state(const Event& ev,
+                                             const uint32_t (&w)[L]) {
+  if constexpr (L == 3) {
+    return (int32_t)w[0];
+  } else {
+    return (int32_t)((w[0] & ev.smask) + (uint32_t)ev.state_lo);
+  }
+}
+
+// Slot j's mask bit, lane by lane (the triple's state lane has none).
+template <int L>
+__device__ __forceinline__ void slot_bits(const Event& ev, int j,
+                                          uint32_t (&b)[L]) {
+  if constexpr (L == 3) {
+    b[0] = 0u;
+    b[1] = j < 32 ? (1u << j) : 0u;
+    b[2] = j >= 32 ? (1u << (j - 32)) : 0u;
+  } else {
+    const int p = ev.s_bits + j;
+    b[0] = p < 32 ? (1u << p) : 0u;
+    if constexpr (L == 2) b[1] = p >= 32 ? (1u << (p - 32)) : 0u;
+  }
+}
+
 // Candidate li of an expansion pass: delta row n_old + li / C through
 // slot li % C. Returns whether the candidate is live.
+template <int L>
 struct ExpandCand {
   Event ev;
-  Shared s;
+  Shared<L> s;
   int n_old;
-  __device__ __forceinline__ bool operator()(int li, int32_t& st,
-                                             uint32_t& ml,
-                                             uint32_t& mh) const {
+  __device__ __forceinline__ bool operator()(int li, uint32_t (&w)[L]) const {
     const int d = li / ev.C;
     const int j = li - d * ev.C;
     const int n = n_old + d;
-    const uint32_t ml0 = (uint32_t)s.ml[n], mh0 = (uint32_t)s.mh[n];
-    const uint32_t blo = j < 32 ? (1u << j) : 0u;
-    const uint32_t bhi = j >= 32 ? (1u << (j - 32)) : 0u;
-    ml = ml0 | blo;
-    mh = mh0 | bhi;
+    uint32_t r[L], b[L];
+    uint32_t already = 0;
+    slot_bits<L>(ev, j, b);
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      r[k] = (uint32_t)s.f[k][n];
+      already |= r[k] & b[k];
+    }
     bool ok;
-    st = step(ev.step_code, s.st[n], s.f[j], s.a0[j], s.a1[j],
-              s.wild[j] != 0, &ok);
-    return ok && s.occ[j] != 0 && ((ml0 & blo) | (mh0 & bhi)) == 0;
+    const int32_t nx = step(ev.step_code, row_state<L>(ev, r), s.fn[j],
+                            s.a0[j], s.a1[j], s.wild[j] != 0, &ok);
+    if constexpr (L == 3) {
+      w[0] = (uint32_t)nx;
+    } else {
+      w[0] = (r[0] & ~ev.smask) |
+             (((uint32_t)nx - (uint32_t)ev.state_lo) & ev.smask) | b[0];
+    }
+#pragma unroll
+    for (int k = 1; k < L; ++k) w[k] = r[k] | b[k];
+    return ok && s.occ[j] != 0 && already == 0;
   }
 };
 
 // Candidate li of the seed pass: input row li.
+template <int L>
 struct SeedCand {
   Event ev;
-  __device__ __forceinline__ bool operator()(int li, int32_t& st,
-                                             uint32_t& ml,
-                                             uint32_t& mh) const {
-    st = ev.st_in[li];
-    ml = (uint32_t)ev.ml_in[li];
-    mh = (uint32_t)ev.mh_in[li];
+  __device__ __forceinline__ bool operator()(int li, uint32_t (&w)[L]) const {
+#pragma unroll
+    for (int k = 0; k < L; ++k) w[k] = (uint32_t)ev.in[k][li];
     return ev.live_in[li] != 0;
   }
 };
@@ -188,18 +239,17 @@ struct PassOut {
 
 // The candidates [lo, hi) of this thread (at most kRegCands, in order),
 // built into registers: row, hash, offset 0, kPending when live.
-template <class Cand>
+template <int L, class Cand>
 __device__ __forceinline__ void build(const Cand& cand, int lo, int hi,
-                                      Probe (&c)[kRegCands]) {
+                                      Probe<L> (&c)[kRegCands]) {
 #pragma unroll
   for (int k = 0; k < kRegCands; ++k) {
     c[k].fl = 0;
     c[k].off = 0;
     if (lo + k < hi) {
-      int32_t st;
-      uint32_t ml, mh;
-      const bool live = cand(lo + k, st, ml, mh);
-      set_row(c[k], st, ml, mh);
+      uint32_t w[L];
+      const bool live = cand(lo + k, w);
+      set_row(c[k], w);
       c[k].fl = live ? kPending : 0;
     }
   }
@@ -214,8 +264,9 @@ __device__ __forceinline__ void build(const Cand& cand, int lo, int hi,
 // prefix of the fresh counts (one barrier), rows past N dropped, and a
 // barrier before the next pass reads them. The frontier rows the candidates came from are
 // not written: the append starts at `count`.
-__device__ PassOut probe_append(const Shared& s, const TableView& t,
-                                Probe (&c)[kRegCands], int lo, int hi,
+template <int L>
+__device__ PassOut probe_append(const Shared<L>& s, const TableView<L>& t,
+                                Probe<L> (&c)[kRegCands], int lo, int hi,
                                 int count, int N, int probe_limit) {
   // the first round needs no barrier before it: the rows and slots the
   // candidates were built from are only read, and the last pass (or the
@@ -249,11 +300,7 @@ __device__ PassOut probe_append(const Shared& s, const TableView& t,
 #pragma unroll
   for (int k = 0; k < kRegCands; ++k) {
     if (c[k].fl & kFresh) {
-      if (pos < N) {
-        s.st[pos] = c[k].st;
-        s.ml[pos] = (int32_t)c[k].ml;
-        s.mh[pos] = (int32_t)c[k].mh;
-      }
+      if (pos < N) store_row<L>(s.f, pos, c[k].w);
       ++pos;
     }
   }
@@ -267,18 +314,17 @@ __device__ PassOut probe_append(const Shared& s, const TableView& t,
 // so that is the lowest index), no claim words; the append's places from
 // a ballot. The outcome reaches the block through bc[0..1] and one
 // barrier.
-template <class Cand>
-__device__ PassOut warp_pass(const Shared& s, const TableView& t,
+template <int L, class Cand>
+__device__ PassOut warp_pass(const Shared<L>& s, const TableView<L>& t,
                              const Cand& cand, int M, int count, int N,
                              int probe_limit, int* bc) {
   const int lane = threadIdx.x & 31;
   if (threadIdx.x < 32) {
-    Probe p{};
+    Probe<L> p{};
     if (lane < M) {
-      int32_t st;
-      uint32_t ml, mh;
-      const bool live = cand(lane, st, ml, mh);
-      set_row(p, st, ml, mh);
+      uint32_t w[L];
+      const bool live = cand(lane, w);
+      set_row(p, w);
       p.fl = live ? kPending : 0;
     }
     while (true) {
@@ -289,8 +335,7 @@ __device__ PassOut warp_pass(const Shared& s, const TableView& t,
       if (act) {
         slot = (int)((p.h + (uint32_t)p.off) & t.mask);
         occ = t.occ[slot] != 0;
-        same = occ && t.st[slot] == p.st && (uint32_t)t.ml[slot] == p.ml &&
-               (uint32_t)t.mh[slot] == p.mh;
+        same = occ && row_equal<PlainLoads>(t, slot, p.w);
       }
       __syncwarp();  // every read of the round before any write
       const unsigned rivals =
@@ -301,9 +346,7 @@ __device__ PassOut warp_pass(const Shared& s, const TableView& t,
         } else if (occ) {
           p.off += 1;
         } else if (__ffs(rivals) - 1 == lane) {
-          t.st[slot] = p.st;
-          t.ml[slot] = (int32_t)p.ml;
-          t.mh[slot] = (int32_t)p.mh;
+          store_row<L>(t.lane, slot, p.w);
           t.occ[slot] = 1;
           p.fl = kFresh;
         }
@@ -314,11 +357,7 @@ __device__ PassOut warp_pass(const Shared& s, const TableView& t,
     const unsigned pend = __ballot_sync(0xffffffffu, p.fl & kPending);
     if (p.fl & kFresh) {
       const int pos = count + __popc(fresh & lanemask_lt());
-      if (pos < N) {
-        s.st[pos] = p.st;
-        s.ml[pos] = (int32_t)p.ml;
-        s.mh[pos] = (int32_t)p.mh;
-      }
+      if (pos < N) store_row<L>(s.f, pos, p.w);
     }
     if (lane == 0) {
       bc[0] = __popc(fresh);
@@ -340,41 +379,50 @@ __device__ PassOut warp_pass(const Shared& s, const TableView& t,
 // warp 0's outcome to the block, so that one pass's words are never
 // rewritten while another thread may still read them. Uniform: every
 // thread gets the result.
-template <class Cand>
-__device__ PassOut k2_pass(const Event& ev, const Shared& s,
+template <int L, class Cand>
+__device__ PassOut k2_pass(const Event& ev, const Shared<L>& s,
                            const Cand& cand, int M, int count, int pass) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  const TableView t{s.tst, s.tml, s.tmh, s.claim, s.tocc,
-                    (uint32_t)(ev.T - 1)};
+  TableView<L> t;
+#pragma unroll
+  for (int k = 0; k < L; ++k) t.lane[k] = s.t[k];
+  t.claim = s.claim;
+  t.occ = s.tocc;
+  t.mask = (uint32_t)(ev.T - 1);
   if (M <= 32) {
     return warp_pass(s, t, cand, M, count, ev.N, ev.probe_limit,
                      s.scan + 32 + 2 * (pass & 1));
   }
   if (M > nt * kRegCands) {
     bool probe_ovf;
-    const int n_fresh =
-        insert_pass(cand, t, s.off, s.flags, s.scan, M, ev.probe_limit,
-                    s.st, s.ml, s.mh, count, ev.N, &probe_ovf);
+    const int n_fresh = insert_pass(cand, t, s.off, s.flags, s.scan, M,
+                                    ev.probe_limit, s.f, count, ev.N,
+                                    &probe_ovf);
     return {n_fresh, probe_ovf};
   }
   const int per = (M + nt - 1) / nt;
   const int lo = min(M, tid * per), hi = min(M, lo + per);
-  Probe c[kRegCands];
+  Probe<L> c[kRegCands];
   build(cand, lo, hi, c);
   return probe_append(s, t, c, lo, hi, count, ev.N, ev.probe_limit);
 }
 
+struct OutLanes {
+  int32_t* p[3];
+};
+
 // Block `key` of a launch over K keys: its event's slot tables (event
 // row `row`) start at (key * R + row) * C, its rows and outputs at key * N,
 // its run flag at key and its meta at key * 4.
+template <int L>
 __global__ void __launch_bounds__(kThreads, 1)
 frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
                         const int32_t* __restrict__ a0,
                         const int32_t* __restrict__ a1,
                         const uint8_t* __restrict__ wild,
                         const uint8_t* __restrict__ occ, int row, int R,
-                        const uint8_t* __restrict__ run, int32_t* st_out,
-                        int32_t* ml_out, int32_t* mh_out, int32_t* meta) {
+                        const uint8_t* __restrict__ run, OutLanes out,
+                        int32_t* meta) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int N = ev.N, T = ev.T, C = ev.C;
@@ -386,13 +434,12 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
     a1 += at;
     wild += at;
     occ += at;
-    ev.st_in += rows;
-    ev.ml_in += rows;
-    ev.mh_in += rows;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      ev.in[k] += rows;
+      out.p[k] += rows;
+    }
     ev.live_in += rows;
-    st_out += rows;
-    ml_out += rows;
-    mh_out += rows;
     run += key;
     meta += 4 * (size_t)key;
   }
@@ -400,21 +447,28 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   if (*run == 0) {
     // the history already failed or overflowed: an empty result, which
     // the scan discards (uniform branch, no barrier)
-    for (int i = tid; i < N; i += nt) st_out[i] = ml_out[i] = mh_out[i] = 0;
+    for (int i = tid; i < N; i += nt) {
+#pragma unroll
+      for (int k = 0; k < L; ++k) out.p[k][i] = 0;
+    }
     if (tid < 4) meta[tid] = 0;
     return;
   }
 
-  Shared s;
+  Shared<L> s;
   int32_t* w = reinterpret_cast<int32_t*>(smem);
-  s.st = w; w += N;
-  s.ml = w; w += N;
-  s.mh = w; w += N;
-  s.tst = w; w += T;
-  s.tml = w; w += T;
-  s.tmh = w; w += T;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    s.f[k] = w;
+    w += N;
+  }
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    s.t[k] = w;
+    w += T;
+  }
   s.claim = w; w += T;
-  s.f = w; w += kMaxC;
+  s.fn = w; w += kMaxC;
   s.a0 = w; w += kMaxC;
   s.a1 = w; w += kMaxC;
   s.scan = w; w += 40;
@@ -431,14 +485,14 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   const bool seed_regs = N > 32 && N <= nt * kRegCands;
   const int s_per = (N + nt - 1) / nt;
   const int s_lo = min(N, tid * s_per), s_hi = min(N, s_lo + s_per);
-  Probe seed[kRegCands];
-  if (seed_regs) build(SeedCand{ev}, s_lo, s_hi, seed);
+  Probe<L> seed[kRegCands];
+  if (seed_regs) build(SeedCand<L>{ev}, s_lo, s_hi, seed);
   for (int i = tid; i < T; i += nt) {
     s.tocc[i] = 0;
     s.claim[i] = kClaimFree;
   }
   for (int j = tid; j < C; j += nt) {
-    s.f[j] = f[j];
+    s.fn[j] = f[j];
     s.a0[j] = a0[j];
     s.a1[j] = a1[j];
     s.wild[j] = wild[j];
@@ -447,18 +501,23 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   __syncthreads();
 
   int pass = 0;
-  const TableView tv{s.tst, s.tml, s.tmh, s.claim, s.tocc, (uint32_t)(T - 1)};
+  TableView<L> tv;
+#pragma unroll
+  for (int k = 0; k < L; ++k) tv.lane[k] = s.t[k];
+  tv.claim = s.claim;
+  tv.occ = s.tocc;
+  tv.mask = (uint32_t)(T - 1);
   PassOut r = seed_regs
       ? probe_append(s, tv, seed, s_lo, s_hi, 0, N, ev.probe_limit)
-      : k2_pass(ev, s, SeedCand{ev}, N, 0, pass);
+      : k2_pass(ev, s, SeedCand<L>{ev}, N, 0, pass);
   ++pass;
   int count = min(r.n_fresh, N);
   bool ovf = r.ovf || r.n_fresh > N;
   int n_old = 0, iters = 0, stepped = 0;
   bool changed = true;
   while (changed && !ovf) {
-    r = k2_pass(ev, s, ExpandCand{ev, s, n_old}, (count - n_old) * C, count,
-                pass++);
+    r = k2_pass(ev, s, ExpandCand<L>{ev, s, n_old}, (count - n_old) * C,
+                count, pass++);
     stepped += count - n_old;
     ovf = ovf || r.ovf || count + r.n_fresh > N;
     n_old = count;
@@ -469,9 +528,8 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
 
   for (int i = tid; i < N; i += nt) {
     const bool in = i < count;
-    st_out[i] = in ? s.st[i] : 0;
-    ml_out[i] = in ? s.ml[i] : 0;
-    mh_out[i] = in ? s.mh[i] : 0;
+#pragma unroll
+    for (int k = 0; k < L; ++k) out.p[k][i] = in ? s.f[k][i] : 0;
   }
   if (tid == 0) {
     meta[0] = count;
@@ -481,13 +539,21 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   }
 }
 
+template <int L>
+cudaError_t allow_optin(int optin) {
+  return cudaFuncSetAttribute((const void*)frontier_closure_kernel<L>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Once per device, before the first launch there: lets the kernel use the
-// block's whole shared-memory opt-in. Returns that opt-in in bytes (the
-// caller gates shapes by it), or minus the cudaError_t.
+// Once per device, before the first launch there: lets the kernel (each
+// of its row layouts) use the block's whole shared-memory opt-in. Returns
+// that opt-in in bytes (the caller gates shapes by it), or minus the
+// cudaError_t.
 int jt_frontier_closure_init(void) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -495,44 +561,66 @@ int jt_frontier_closure_init(void) {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute((const void*)frontier_closure_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-  }
+  if (err == cudaSuccess) err = allow_optin<1>(optin);
+  if (err == cudaSuccess) err = allow_optin<2>(optin);
+  if (err == cudaSuccess) err = allow_optin<3>(optin);
   return err == cudaSuccess ? optin : -(int)err;
 }
 
-// The kernel's dynamic shared memory at (N, C), in bytes: the layout the
-// caller's gate (sparse_kernels.k2_smem_bytes) must agree with.
-long long jt_frontier_closure_smem(int N, int C) {
-  return (long long)smem_bytes(N, C);
+// The kernel's dynamic shared memory at (N, C) with rows of `lanes`
+// lanes, in bytes: the layout the caller's gate
+// (sparse_kernels.k2_smem_bytes) must agree with.
+long long jt_frontier_closure_smem(int N, int C, int lanes) {
+  return (long long)smem_bytes(N, C, lanes);
 }
 
 // One event row's closures of K keys on `stream`, a block a key. Slot
 // tables f/a0/a1/wild/occ are the batch's [K, R, C] (row r is read),
-// rows and live [K, N], run [K] bytes, meta [K, 4]; one key's event is
-// K = R = 1, r = 0. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a shape the kernel does not take).
+// rows (in0..in2) and live [K, N], run [K] bytes, the output rows
+// (out0..out2) [K, N], meta [K, 4]; one key's event is K = R = 1, r = 0.
+// Rows have `lanes` lanes (the pointers past them are unused, null): 3
+// for the triple, 1 or 2 for the packed word of s_bits state bits and
+// state state_lo at field 0 (s_bits + C <= 32 * lanes). Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for a shape the kernel
+// does not take).
 int jt_frontier_closure_launch(int step_code, const int32_t* f,
                                const int32_t* a0, const int32_t* a1,
                                const uint8_t* wild, const uint8_t* occ, int r,
-                               int R, const int32_t* st_in,
-                               const int32_t* ml_in, const int32_t* mh_in,
-                               const uint8_t* live_in, const uint8_t* run,
-                               int32_t* st_out, int32_t* ml_out,
-                               int32_t* mh_out, int32_t* meta, int K, int N,
-                               int C, int probe_limit, void* stream) {
+                               int R, const int32_t* in0, const int32_t* in1,
+                               const int32_t* in2, const uint8_t* live_in,
+                               const uint8_t* run, int32_t* out0,
+                               int32_t* out1, int32_t* out2, int32_t* meta,
+                               int K, int N, int C, int probe_limit,
+                               int lanes, int s_bits, int state_lo,
+                               void* stream) {
+  const bool packed_ok = lanes == 3 || (lanes >= 1 && lanes <= 2 &&
+                                        s_bits >= 1 && s_bits <= 32 &&
+                                        s_bits + C <= 32 * lanes);
   if (K < 1 || R < 1 || r < 0 || r >= R || N < 1 || C < 1 || C > kMaxC ||
       probe_limit < 1 || probe_limit > 255 || step_code < kRegister ||
-      step_code > kFifo) {
+      step_code > kFifo || !packed_ok) {
     return (int)cudaErrorInvalidValue;
   }
-  Event ev{step_code, N, C, table_size(N), probe_limit,
-           st_in,     ml_in, mh_in, live_in};
-  frontier_closure_kernel<<<K, kThreads, smem_bytes(N, C),
-                            reinterpret_cast<cudaStream_t>(stream)>>>(
-      ev, f, a0, a1, wild, occ, r, R, run, st_out, ml_out, mh_out, meta);
+  const uint32_t smask =
+      lanes == 3 ? 0u : (s_bits >= 32 ? 0xFFFFFFFFu : (1u << s_bits) - 1u);
+  Event ev{step_code, N, C, table_size(N), probe_limit, s_bits, state_lo,
+           smask, {in0, in1, in2}, live_in};
+  const OutLanes out{{out0, out1, out2}};
+  const size_t smem = smem_bytes(N, C, lanes);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 1:
+      frontier_closure_kernel<1><<<K, kThreads, smem, s>>>(
+          ev, f, a0, a1, wild, occ, r, R, run, out, meta);
+      break;
+    case 2:
+      frontier_closure_kernel<2><<<K, kThreads, smem, s>>>(
+          ev, f, a0, a1, wild, occ, r, R, run, out, meta);
+      break;
+    default:
+      frontier_closure_kernel<3><<<K, kThreads, smem, s>>>(
+          ev, f, a0, a1, wild, occ, r, R, run, out, meta);
+  }
   return (int)cudaGetLastError();
 }
 

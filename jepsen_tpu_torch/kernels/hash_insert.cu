@@ -19,11 +19,14 @@
 //   meta    (count2 = min(count + n_fresh, N), n_fresh, ovf = a probe
 //           run exhausted or count + n_fresh > N).
 //
-// Inputs: candidates c_st/c_ml/c_mh int32 [M] and c_live bool [M]; the
-// frontier f_* int32 [N]; count int32 [1] (on the device, so the host
-// never waits); the table t_st/t_ml/t_mh int32 [T], t_occ bool [T].
-// Outputs: o_* [N], ot_* [T], ot_occ [T], meta int32 [3]. Scratch: one
-// device buffer (jt_hash_insert_scratch bytes).
+// Inputs: candidates, L int32 lanes [M] (L = 3: the triple (state,
+// mask_lo, mask_hi); L = 1 or 2: the packed word of config_pack), and
+// c_live bool [M]; the frontier, L lanes [N]; count int32 [1] (on the
+// device, so the host never waits); the table, L lanes [T] and t_occ
+// bool [T]. Outputs: the frontier's and the table's lanes, ot_occ [T],
+// meta int32 [3]. Scratch: one device buffer (jt_hash_insert_scratch
+// bytes). The kernels are templates on L, the hash the lane count's
+// (sparse_common.cuh table_hash).
 //
 // Design. The sharded engine cannot fuse a whole event's closure into one
 // kernel, as K2 does: the owner all-to-all runs between the expansion and
@@ -37,8 +40,9 @@
 //      buffer is mostly dead rows (buckets have 2x slack, most candidates
 //      are illegal), so the probe rounds walk only the live ones;
 //   3. insert, over the live list, in one of two layouts:
-//      * "shared" (17 T + 160 bytes fit the block's opt-in: T <= 8,192 on
-//        the H100): one block of 1,024 threads, the table, its claim
+//      * "shared" ((4L + 5) T + 160 bytes fit the block's opt-in: T <=
+//        8,192 on the H100 for the triple, 16,384 for one lane): one
+//        block of 1,024 threads, the table, its claim
 //        words and occupancy in shared memory, running the round-
 //        synchronous insert_pass of sparse_common.cuh (shared with K2)
 //        and the append by a block prefix sum. With a few live
@@ -94,14 +98,15 @@ constexpr int kMaxGrid = 1024;      // blocks of the grid insert, at most
 constexpr int kScanWords = 40;
 constexpr int kShared = 0, kDevice = 1;  // table layouts
 constexpr int kMaxDevices = 64;
-// blocks of the grid insert the card keeps resident per SM, and its SMs:
-// read by jt_hash_insert_init, per device
+// blocks of the grid insert the card keeps resident per SM (the least
+// over its row layouts), and its SMs: read by jt_hash_insert_init, per
+// device
 int g_per_sm[kMaxDevices], g_sms[kMaxDevices];
 
 size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
-size_t smem_bytes(int T, int layout) {
-  return (layout == kShared ? 17 * (size_t)T : 0) + 4 * kScanWords;
+size_t smem_bytes(int T, int layout, int L) {
+  return (layout == kShared ? (4 * (size_t)L + 5) * T : 0) + 4 * kScanWords;
 }
 
 struct Scratch {
@@ -139,24 +144,38 @@ Scratch carve(void* base, int M, int T, int layout) {
   return s;
 }
 
+// Three lane pointers; a row of L lanes uses the first L.
+struct Lanes {
+  int32_t* p[3];
+};
+
 struct Args {
-  const int32_t *c_st, *c_ml, *c_mh;
+  Lanes c;  // candidates [M] (read only)
   const uint8_t* c_live;
   int M;
-  const int32_t *f_st, *f_ml, *f_mh;
+  Lanes f;  // frontier [N] (read only)
   int N;
   const int32_t* count;
-  const int32_t *t_st, *t_ml, *t_mh;
+  Lanes t;  // table [T] (read only)
   const uint8_t* t_occ;
   int T;
-  int32_t *o_st, *o_ml, *o_mh;
-  int32_t *ot_st, *ot_ml, *ot_mh;
+  Lanes o, ot;  // output frontier [N] and table [T]
   uint8_t* ot_occ;
   int32_t* meta;
   Scratch sc;
   int probe_limit, layout;
 };
 
+template <int L>
+__device__ __forceinline__ ListCand<L> list_cand(const Args& a) {
+  ListCand<L> c;
+#pragma unroll
+  for (int k = 0; k < L; ++k) c.lane[k] = a.c.p[k];
+  c.idx = a.sc.idx;
+  return c;
+}
+
+template <int L>
 __global__ void __launch_bounds__(kListThreads)
 k3_count(Args a) {
   __shared__ int scan[kScanWords];
@@ -164,15 +183,13 @@ k3_count(Args a) {
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   for (int i = first; i < a.N; i += stride) {
-    a.o_st[i] = a.f_st[i];
-    a.o_ml[i] = a.f_ml[i];
-    a.o_mh[i] = a.f_mh[i];
+#pragma unroll
+    for (int k = 0; k < L; ++k) a.o.p[k][i] = a.f.p[k][i];
   }
   if (a.layout == kDevice) {
     for (int i = first; i < a.T; i += stride) {
-      a.ot_st[i] = a.t_st[i];
-      a.ot_ml[i] = a.t_ml[i];
-      a.ot_mh[i] = a.t_mh[i];
+#pragma unroll
+      for (int k = 0; k < L; ++k) a.ot.p[k][i] = a.t.p[k][i];
       a.ot_occ[i] = a.t_occ[i];
       a.sc.claim[i] = kClaimFree;
     }
@@ -194,44 +211,55 @@ __device__ __forceinline__ void write_meta(const Args& a, int count,
 }
 
 // The shared layout: one block, the table in shared memory.
+template <int L>
 __global__ void __launch_bounds__(kThreads, 1)
 k3_insert(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nt = blockDim.x, T = a.T;
   int* scan = reinterpret_cast<int*>(smem);
-  const int L = list_total(a.sc.counts, a.M, scan);
+  const int n_live = list_total(a.sc.counts, a.M, scan);
 
-  TableView t;
+  TableView<L> t;
   t.mask = (uint32_t)(T - 1);
   int32_t* w = reinterpret_cast<int32_t*>(smem) + kScanWords;
-  t.st = w; w += T;
-  t.ml = w; w += T;
-  t.mh = w; w += T;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    t.lane[k] = w;
+    w += T;
+  }
   t.claim = w; w += T;
   t.occ = reinterpret_cast<uint8_t*>(w);
   for (int i = tid; i < T; i += nt) {
-    t.st[i] = a.t_st[i];
-    t.ml[i] = a.t_ml[i];
-    t.mh[i] = a.t_mh[i];
+#pragma unroll
+    for (int k = 0; k < L; ++k) t.lane[k][i] = a.t.p[k][i];
     t.occ[i] = a.t_occ[i];
     t.claim[i] = kClaimFree;
   }
   __syncthreads();
 
   const int count = *a.count;
+  int32_t* out[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) out[k] = a.o.p[k];
   bool p_ovf;
-  const int n_fresh = insert_pass(
-      ListCand{a.c_st, a.c_ml, a.c_mh, a.sc.idx}, t, a.sc.off, a.sc.flags,
-      scan, L, a.probe_limit, a.o_st, a.o_ml, a.o_mh, count, a.N, &p_ovf);
+  const int n_fresh =
+      insert_pass(list_cand<L>(a), t, a.sc.off, a.sc.flags, scan, n_live,
+                  a.probe_limit, out, count, a.N, &p_ovf);
 
   for (int i = tid; i < T; i += nt) {
-    a.ot_st[i] = t.st[i];
-    a.ot_ml[i] = t.ml[i];
-    a.ot_mh[i] = t.mh[i];
+#pragma unroll
+    for (int k = 0; k < L; ++k) a.ot.p[k][i] = t.lane[k][i];
     a.ot_occ[i] = t.occ[i];
   }
   if (tid == 0) write_meta(a, count, n_fresh, p_ovf);
 }
+
+// The one table every candidate of K3's grid probes.
+template <int L>
+struct OneTable {
+  TableView<L> t;
+  __device__ __forceinline__ TableView<L> operator()(int) const { return t; }
+};
 
 // The device layout: a cooperative grid of co-resident blocks, the table
 // in the output buffers (k3_count copied it there and freed the claims).
@@ -239,29 +267,28 @@ k3_insert(Args a) {
 // 270,336 live on the H100's 264 blocks) its row, hash, offset and flags
 // stay in registers through every round and the append; past that they
 // live in the scratch and each round rebuilds the row.
-// The one table every candidate of K3's grid probes.
-struct OneTable {
-  TableView t;
-  __device__ __forceinline__ TableView operator()(int) const { return t; }
-};
-
+template <int L>
 __global__ void __launch_bounds__(kGridThreads)
 k3_grid_insert(Args a) {
   __shared__ int scan[kScanWords];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int b = blockIdx.x, G = gridDim.x;
   int* const pend = a.sc.gflags + 2;  // a probe run exhausted
-  const int L = list_total(a.sc.counts, a.M, scan);
-  const GridSpan s = grid_span(L);
+  const int n_live = list_total(a.sc.counts, a.M, scan);
+  const GridSpan s = grid_span(n_live);
   const int lo = s.lo, hi = s.hi;
   const bool in_regs = s.in_regs;
-  const ListCand cand{a.c_st, a.c_ml, a.c_mh, a.sc.idx};
+  const ListCand<L> cand = list_cand<L>(a);
   uint8_t* const flags = a.sc.flags;
-  Probe p;
-  grid_rounds(cand,
-              OneTable{{a.ot_st, a.ot_ml, a.ot_mh, a.sc.claim, a.ot_occ,
-                        (uint32_t)(a.T - 1)}},
-              s, L, p, a.sc.off, flags, a.sc.gflags, a.probe_limit);
+  OneTable<L> table;
+#pragma unroll
+  for (int k = 0; k < L; ++k) table.t.lane[k] = a.ot.p[k];
+  table.t.claim = a.sc.claim;
+  table.t.occ = a.ot_occ;
+  table.t.mask = (uint32_t)(a.T - 1);
+  Probe<L> p;
+  grid_rounds(cand, table, s, n_live, p, a.sc.off, flags, a.sc.gflags,
+              a.probe_limit);
   namespace cg = cooperative_groups;
   cg::grid_group grid = cg::this_grid();
 
@@ -295,22 +322,18 @@ k3_grid_insert(Args a) {
   block_exclusive_scan(all_part, scan, &n_fresh);
   const int count = *a.count;
   int pos = count + before + within;
+  int32_t* out[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) out[k] = a.o.p[k];
   if (in_regs) {
-    if (mine && pos < a.N) {
-      a.o_st[pos] = p.st;
-      a.o_ml[pos] = (int32_t)p.ml;
-      a.o_mh[pos] = (int32_t)p.mh;
-    }
+    if (mine && pos < a.N) store_row<L>(out, pos, p.w);
   } else {
     for (int li = tlo; li < thi; ++li) {
       if (!(flags[li] & kFresh)) continue;
       if (pos < a.N) {
-        int32_t st;
-        uint32_t ml, mh;
-        cand(li, st, ml, mh);
-        a.o_st[pos] = st;
-        a.o_ml[pos] = (int32_t)ml;
-        a.o_mh[pos] = (int32_t)mh;
+        uint32_t w[L];
+        cand(li, w);
+        store_row<L>(out, pos, w);
       }
       ++pos;
     }
@@ -318,32 +341,60 @@ k3_grid_insert(Args a) {
   if (b == 0 && tid == 0) write_meta(a, count, n_fresh, __ldcg(pend) != 0);
 }
 
+template <int L>
+cudaError_t setup(int optin, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)k3_insert<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      optin);
+  int n = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, k3_grid_insert<L>, kGridThreads, 0);
+  }
+  if (err == cudaSuccess && n < *per_sm) *per_sm = n;
+  return err;
+}
+
+template <int L>
+cudaError_t launch(const Args& a, int grid_blocks, cudaStream_t s) {
+  const int grid = list_chunks(a.M);
+  k3_count<L><<<grid, kListThreads, 0, s>>>(a);
+  k3_compact<<<grid, kListThreads, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (a.layout == kShared) {
+    k3_insert<L><<<1, kThreads, smem_bytes(a.T, a.layout, L), s>>>(a);
+    return cudaGetLastError();
+  }
+  Args arg = a;
+  void* params[] = {&arg};
+  err = cudaLaunchCooperativeKernel((const void*)k3_grid_insert<L>,
+                                    dim3(grid_blocks), dim3(kGridThreads),
+                                    params, 0, s);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Once per device, before the first launch there: lets the one-block
-// insert use the block's whole shared-memory opt-in, and reads how many
-// blocks of the grid insert the card keeps resident per SM and its SM
-// count (jt_hash_insert_grid_shape). Returns the opt-in in bytes (the
-// caller picks the layout by it), or minus the cudaError_t.
+// insert (each of its row layouts) use the block's whole shared-memory
+// opt-in, and reads how many blocks of the grid insert the card keeps
+// resident per SM (the least over its row layouts) and its SM count
+// (jt_hash_insert_grid_shape). Returns the opt-in in bytes (the caller
+// picks the layout by it), or minus the cudaError_t.
 int jt_hash_insert_init(void) {
-  int dev = 0, optin = 0, per_sm = 0, sms = 0;
+  int dev = 0, optin = 0, per_sm = 1 << 30, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute((const void*)k3_insert,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, k3_grid_insert, kGridThreads, 0);
-  }
+  if (err == cudaSuccess) err = setup<1>(optin, &per_sm);
+  if (err == cudaSuccess) err = setup<2>(optin, &per_sm);
+  if (err == cudaSuccess) err = setup<3>(optin, &per_sm);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
@@ -368,11 +419,11 @@ int jt_hash_insert_grid_shape(int* per_sm, int* sms) {
   return 0;
 }
 
-// The insert kernel's dynamic shared memory for a table of T slots in
-// `layout` (0 shared, 1 device): what sparse_kernels.k3_smem_bytes must
-// agree with in the shared layout.
-long long jt_hash_insert_smem(int T, int layout) {
-  return (long long)smem_bytes(T, layout);
+// The insert kernel's dynamic shared memory for a table of T slots of
+// `lanes`-lane rows in `layout` (0 shared, 1 device): what
+// sparse_kernels.k3_smem_bytes must agree with in the shared layout.
+long long jt_hash_insert_smem(int T, int layout, int lanes) {
+  return (long long)smem_bytes(T, layout, lanes);
 }
 
 // The scratch buffer one launch needs, in bytes.
@@ -382,44 +433,49 @@ long long jt_hash_insert_scratch(int M, int T, int layout) {
 
 // One transaction on `stream` (three kernels; the device layout's third
 // a cooperative grid of grid_blocks blocks, all of which the card must
-// keep resident). Returns the cudaError_t of the launches
+// keep resident), on rows of `lanes` lanes (1-3; the lane pointers past
+// them are unused, null). Returns the cudaError_t of the launches
 // (cudaErrorInvalidValue for arguments it does not take; a cooperative
 // launch the card refuses returns its error and runs nothing).
-int jt_hash_insert_launch(const int32_t* c_st, const int32_t* c_ml,
-                          const int32_t* c_mh, const uint8_t* c_live, int M,
-                          const int32_t* f_st, const int32_t* f_ml,
-                          const int32_t* f_mh, int N, const int32_t* count,
-                          const int32_t* t_st, const int32_t* t_ml,
-                          const int32_t* t_mh, const uint8_t* t_occ, int T,
-                          int32_t* o_st, int32_t* o_ml, int32_t* o_mh,
-                          int32_t* ot_st, int32_t* ot_ml, int32_t* ot_mh,
+int jt_hash_insert_launch(const int32_t* c0, const int32_t* c1,
+                          const int32_t* c2, const uint8_t* c_live, int M,
+                          const int32_t* f0, const int32_t* f1,
+                          const int32_t* f2, int N, const int32_t* count,
+                          const int32_t* t0, const int32_t* t1,
+                          const int32_t* t2, const uint8_t* t_occ, int T,
+                          int32_t* o0, int32_t* o1, int32_t* o2,
+                          int32_t* ot0, int32_t* ot1, int32_t* ot2,
                           uint8_t* ot_occ, int32_t* meta, void* scratch,
                           int probe_limit, int layout, int grid_blocks,
-                          void* stream) {
+                          int lanes, void* stream) {
   if (M < 1 || N < 1 || T < 2 || (T & (T - 1)) != 0 || probe_limit < 1 ||
       probe_limit > 255 || (layout != kShared && layout != kDevice) ||
-      (layout == kDevice && (grid_blocks < 1 || grid_blocks > kMaxGrid))) {
+      (layout == kDevice && (grid_blocks < 1 || grid_blocks > kMaxGrid)) ||
+      lanes < 1 || lanes > 3) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a{c_st,  c_ml,  c_mh,  c_live, M,     f_st,  f_ml,   f_mh,
-         N,     count, t_st,  t_ml,   t_mh,  t_occ, T,      o_st,
-         o_ml,  o_mh,  ot_st, ot_ml,  ot_mh, ot_occ, meta,
-         carve(scratch, M, T, layout), probe_limit, layout};
+  auto mut = [](const int32_t* p) { return const_cast<int32_t*>(p); };
+  const Args a{{{mut(c0), mut(c1), mut(c2)}},
+               c_live,
+               M,
+               {{mut(f0), mut(f1), mut(f2)}},
+               N,
+               count,
+               {{mut(t0), mut(t1), mut(t2)}},
+               t_occ,
+               T,
+               {{o0, o1, o2}},
+               {{ot0, ot1, ot2}},
+               ot_occ,
+               meta,
+               carve(scratch, M, T, layout),
+               probe_limit,
+               layout};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int grid = list_chunks(M);
-  k3_count<<<grid, kListThreads, 0, s>>>(a);
-  k3_compact<<<grid, kListThreads, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (layout == kShared) {
-    k3_insert<<<1, kThreads, smem_bytes(T, layout), s>>>(a);
-    return (int)cudaGetLastError();
-  }
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)k3_grid_insert,
-                                    dim3(grid_blocks), dim3(kGridThreads),
-                                    params, 0, s);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  const cudaError_t err = lanes == 1   ? launch<1>(a, grid_blocks, s)
+                          : lanes == 2 ? launch<2>(a, grid_blocks, s)
+                                       : launch<3>(a, grid_blocks, s);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -11,6 +11,11 @@
 // complement; shifts follow steps.py's _shl/_sar (0 past the word for a left shift,
 // sign fill for a right shift), and wrapping arithmetic goes through
 // uint32_t so that it is defined.
+//
+// A row is L uint32 lanes, L a template parameter: 3 for the triple
+// (state, mask_lo, mask_hi), 1 or 2 for the packed word of config_pack
+// (sparse._PackedRep). The tables, probes and candidates below are
+// generic over L; only K2's candidates look inside a row.
 
 #pragma once
 
@@ -24,11 +29,14 @@ constexpr uint8_t kPending = 1;          // still probing
 constexpr uint8_t kTry = 2;              // claimed an empty slot this round
 constexpr uint8_t kFresh = 4;            // won a slot: a first sighting
 
-// engine._UnpackedRep.table_hash, on uint32
-__device__ __forceinline__ uint32_t table_hash(int32_t st, uint32_t ml,
-                                               uint32_t mh) {
-  uint32_t h = ((uint32_t)st * 0x85EBCA6Bu) ^ (ml * 0xC2B2AE35u) ^
-               (mh * 0x27D4EB2Fu);
+// engine._UnpackedRep.table_hash of the triple (L = 3) and
+// engine._PackedRep.table_hash of the packed word (L = 1, 2): lane k times
+// the k-th constant, XORed, then one finaliser
+template <int L>
+__device__ __forceinline__ uint32_t table_hash(const uint32_t (&w)[L]) {
+  uint32_t h = w[0] * 0x85EBCA6Bu;
+  if (L > 1) h ^= w[L > 1 ? 1 : 0] * 0xC2B2AE35u;
+  if (L > 2) h ^= w[L > 2 ? 2 : 0] * 0x27D4EB2Fu;
   h ^= h >> 16;
   h *= 0x165667B1u;
   h ^= h >> 13;
@@ -181,13 +189,23 @@ __device__ __forceinline__ uint32_t live_bits(const uint8_t* live, int M,
 }
 
 // An open-addressed visited set of T slots (T a power of two, mask =
-// T - 1): rows, occupancy and one claim word per slot (kClaimFree between
-// rounds), in shared or device memory alike.
+// T - 1): rows of L lanes, occupancy and one claim word per slot
+// (kClaimFree between rounds), in shared or device memory alike.
+template <int L>
 struct TableView {
-  int32_t *st, *ml, *mh;
+  int32_t* lane[L];
   int32_t* claim;
   uint8_t* occ;
   uint32_t mask;
+  // the same layout n slots further on (a key's own table)
+  __device__ __forceinline__ TableView at(size_t n) const {
+    TableView v = *this;
+#pragma unroll
+    for (int k = 0; k < L; ++k) v.lane[k] += n;
+    v.claim += n;
+    v.occ += n;
+    return v;
+  }
 };
 
 // Loads of table words. PlainLoads serve a table that one block owns
@@ -206,34 +224,52 @@ struct L2Loads {
 
 // One candidate's probe state: its row and hash, its probe offset and
 // its flags (kPending, kTry, kFresh).
+template <int L>
 struct Probe {
-  int32_t st;
-  uint32_t ml, mh, h;
+  uint32_t w[L];
+  uint32_t h;
   int off;
   uint8_t fl;
 };
 
-__device__ __forceinline__ void set_row(Probe& p, int32_t st, uint32_t ml,
-                                        uint32_t mh) {
-  p.st = st;
-  p.ml = ml;
-  p.mh = mh;
-  p.h = table_hash(st, ml, mh);
+template <int L>
+__device__ __forceinline__ void set_row(Probe<L>& p, const uint32_t (&w)[L]) {
+#pragma unroll
+  for (int k = 0; k < L; ++k) p.w[k] = w[k];
+  p.h = table_hash<L>(w);
+}
+
+// Whether table slot `slot` holds the row w.
+template <class Ld, int L>
+__device__ __forceinline__ bool row_equal(const TableView<L>& t, int slot,
+                                          const uint32_t (&w)[L]) {
+  bool eq = true;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    eq = eq && (uint32_t)Ld::ld(&t.lane[k][slot]) == w[k];
+  }
+  return eq;
+}
+
+// Row i of the L lanes `out` gets w.
+template <int L>
+__device__ __forceinline__ void store_row(int32_t* const (&out)[L], int i,
+                                          const uint32_t (&w)[L]) {
+#pragma unroll
+  for (int k = 0; k < L; ++k) out[k][i] = (int32_t)w[k];
 }
 
 // Phase A of a probe round for candidate li: if it is still pending with
 // probes left, read its slot; an equal occupant drops it, a different
 // one advances it, an empty slot takes an atomicMin of li on the claim
 // word.
-template <class Ld>
-__device__ __forceinline__ void probe_a(Probe& p, const TableView& t,
+template <class Ld, int L>
+__device__ __forceinline__ void probe_a(Probe<L>& p, const TableView<L>& t,
                                         int li, int probe_limit) {
   if (!(p.fl & kPending) || p.off >= probe_limit) return;
   const int slot = (int)((p.h + (uint32_t)p.off) & t.mask);
   if (Ld::ld(&t.occ[slot])) {
-    if (Ld::ld(&t.st[slot]) == p.st &&
-        (uint32_t)Ld::ld(&t.ml[slot]) == p.ml &&
-        (uint32_t)Ld::ld(&t.mh[slot]) == p.mh) {
+    if (row_equal<Ld>(t, slot, p.w)) {
       p.fl = 0;  // already visited
     } else {
       p.off += 1;
@@ -248,15 +284,13 @@ __device__ __forceinline__ void probe_a(Probe& p, const TableView& t,
 // slot writes it and frees the claim (a loser then reads kClaimFree or
 // the winner's index, never its own); a loser stays pending. Returns
 // whether li is still pending with probes left.
-template <class Ld>
-__device__ __forceinline__ bool probe_b(Probe& p, const TableView& t,
+template <class Ld, int L>
+__device__ __forceinline__ bool probe_b(Probe<L>& p, const TableView<L>& t,
                                         int li, int probe_limit) {
   if (p.fl & kTry) {
     const int slot = (int)((p.h + (uint32_t)p.off) & t.mask);
     if (Ld::ld(&t.claim[slot]) == li) {
-      t.st[slot] = p.st;
-      t.ml[slot] = (int32_t)p.ml;
-      t.mh[slot] = (int32_t)p.mh;
+      store_row<L>(t.lane, slot, p.w);
       t.occ[slot] = 1;
       t.claim[slot] = kClaimFree;
       p.fl = kFresh;
@@ -269,17 +303,16 @@ __device__ __forceinline__ bool probe_b(Probe& p, const TableView& t,
 
 // probe_a and probe_b for candidate li whose offset and flags live in
 // off[li] and flags[li] (one byte each) and whose row `cand` rebuilds.
-template <class Ld, class Cand>
+template <class Ld, int L, class Cand>
 __device__ __forceinline__ void probe_read(const Cand& cand,
-                                           const TableView& t, uint8_t* off,
-                                           uint8_t* flags, int li,
-                                           int probe_limit) {
+                                           const TableView<L>& t,
+                                           uint8_t* off, uint8_t* flags,
+                                           int li, int probe_limit) {
   if (!(flags[li] & kPending) || off[li] >= probe_limit) return;
-  Probe p;
-  int32_t st;
-  uint32_t ml, mh;
-  cand(li, st, ml, mh);
-  set_row(p, st, ml, mh);
+  Probe<L> p;
+  uint32_t w[L];
+  cand(li, w);
+  set_row(p, w);
   p.off = off[li];
   p.fl = flags[li];
   probe_a<Ld>(p, t, li, probe_limit);
@@ -287,19 +320,18 @@ __device__ __forceinline__ void probe_read(const Cand& cand,
   flags[li] = p.fl;
 }
 
-template <class Ld, class Cand>
+template <class Ld, int L, class Cand>
 __device__ __forceinline__ bool claim_settle(const Cand& cand,
-                                             const TableView& t,
+                                             const TableView<L>& t,
                                              uint8_t* off, uint8_t* flags,
                                              int li, int probe_limit) {
-  Probe p;
+  Probe<L> p;
   p.fl = flags[li];
   p.off = off[li];
   if (p.fl & kTry) {
-    int32_t st;
-    uint32_t ml, mh;
-    cand(li, st, ml, mh);
-    set_row(p, st, ml, mh);
+    uint32_t w[L];
+    cand(li, w);
+    set_row(p, w);
   }
   const bool more = probe_b<Ld>(p, t, li, probe_limit);
   flags[li] = p.fl;
@@ -307,13 +339,13 @@ __device__ __forceinline__ bool claim_settle(const Cand& cand,
 }
 
 // One visited-set transaction of the M candidates of a pass, run by one
-// whole block: sparse._hash_insert_append, bit for bit. `cand(li, st,
-// ml, mh)` rebuilds candidate li and returns whether it is live; off and
-// flags hold one byte each per candidate; scan is 32 ints of shared
-// memory. The fresh candidates are appended after `count` to out_*, in
-// candidate order, those past N dropped. Returns the number of fresh
-// candidates; *probe_ovf says whether one exhausted its probes. Uniform:
-// every thread gets the same values.
+// whole block: sparse._hash_insert_append, bit for bit. `cand(li, w)`
+// rebuilds candidate li's L lanes in w and returns whether it is live;
+// off and flags hold one byte each per candidate; scan is 32 ints of
+// shared memory. The fresh candidates are appended after `count` to the
+// lanes `out`, in candidate order, those past N dropped. Returns the
+// number of fresh candidates; *probe_ovf says whether one exhausted its
+// probes. Uniform: every thread gets the same values.
 //
 // Probing is round-synchronous, as in the reference's while loop:
 // phase A (probe_read) for every pending candidate, a barrier, phase B
@@ -323,20 +355,18 @@ __device__ __forceinline__ bool claim_settle(const Cand& cand,
 // reference's whatever order the threads run in. The append is a block
 // prefix sum of the fresh flags in candidate order, so the rows land
 // where the reference's cumsum puts them. A candidate is read again (or
-// rebuilt) wherever it is needed, so out_* may be the rows the
+// rebuilt) wherever it is needed, so `out` may be the rows the
 // candidates come from, as long as the appended rows lie past those.
-template <class Cand>
-__device__ int insert_pass(const Cand& cand, const TableView& t,
+template <int L, class Cand>
+__device__ int insert_pass(const Cand& cand, const TableView<L>& t,
                            uint8_t* off, uint8_t* flags, int* scan, int M,
-                           int probe_limit, int32_t* out_st,
-                           int32_t* out_ml, int32_t* out_mh, int count,
-                           int N, bool* probe_ovf) {
+                           int probe_limit, int32_t* const (&out)[L],
+                           int count, int N, bool* probe_ovf) {
   const int tid = threadIdx.x, nt = blockDim.x;
   int local = 0;
   for (int li = tid; li < M; li += nt) {
-    int32_t st;
-    uint32_t ml, mh;
-    const bool live = cand(li, st, ml, mh);
+    uint32_t w[L];
+    const bool live = cand(li, w);
     flags[li] = live ? kPending : 0;
     off[li] = 0;
     local |= live;
@@ -369,12 +399,9 @@ __device__ int insert_pass(const Cand& cand, const TableView& t,
   for (int li = lo; li < hi; ++li) {
     if (!(flags[li] & kFresh)) continue;
     if (pos < N) {
-      int32_t st;
-      uint32_t ml, mh;
-      cand(li, st, ml, mh);
-      out_st[pos] = st;
-      out_ml[pos] = (int32_t)ml;
-      out_mh[pos] = (int32_t)mh;
+      uint32_t w[L];
+      cand(li, w);
+      store_row<L>(out, pos, w);
     }
     ++pos;
   }
@@ -433,26 +460,25 @@ __device__ __forceinline__ int list_total(const int32_t* counts, int M,
   for (int b = threadIdx.x; b < list_chunks(M); b += blockDim.x) {
     part += counts[b];
   }
-  int L;
-  block_exclusive_scan(part, scan, &L);
-  return L;
+  int n;
+  block_exclusive_scan(part, scan, &n);
+  return n;
 }
 
-// Live candidate li: row idx[li] of the candidates.
+// Live candidate li: row idx[li] of the candidates' L lanes.
+template <int L>
 struct ListCand {
-  const int32_t *st, *ml, *mh, *idx;
-  __device__ __forceinline__ bool operator()(int li, int32_t& s,
-                                             uint32_t& l,
-                                             uint32_t& h) const {
+  const int32_t* lane[L];
+  const int32_t* idx;
+  __device__ __forceinline__ bool operator()(int li, uint32_t (&w)[L]) const {
     const int i = idx[li];
-    s = st[i];
-    l = (uint32_t)ml[i];
-    h = (uint32_t)mh[i];
+#pragma unroll
+    for (int k = 0; k < L; ++k) w[k] = (uint32_t)lane[k][i];
     return true;
   }
 };
 
-// This block's share of the list of L live candidates: the contiguous
+// This block's share of the list of n live candidates: the contiguous
 // range [lo, hi), in order. While that leaves each thread at most one
 // candidate (in_regs, the same in every block), thread t holds
 // candidate my = lo + t in registers.
@@ -461,17 +487,17 @@ struct GridSpan {
   bool in_regs;
 };
 
-__device__ __forceinline__ GridSpan grid_span(int L) {
-  const int per = (L + gridDim.x - 1) / gridDim.x;
+__device__ __forceinline__ GridSpan grid_span(int n) {
+  const int per = (n + gridDim.x - 1) / gridDim.x;
   GridSpan s;
-  s.lo = min(L, (int)blockIdx.x * per);
-  s.hi = min(L, s.lo + per);
+  s.lo = min(n, (int)blockIdx.x * per);
+  s.hi = min(n, s.lo + per);
   s.my = s.lo + threadIdx.x;
   s.in_regs = per <= (int)blockDim.x;
   return s;
 }
 
-// The probe rounds of one visited-set transaction of the L listed
+// The probe rounds of one visited-set transaction of the n_list listed
 // candidates over a cooperative grid of co-resident blocks (the
 // reference's whole-table transaction; K3's device layout and K4). The
 // claim words take the list index, whose order is the candidates', so
@@ -491,9 +517,9 @@ __device__ __forceinline__ GridSpan grid_span(int L) {
 // probing flags and, for the caller's epilogue, a third that block 0
 // clears here with them, before the first barrier. On return the
 // candidates' outcome is in p (in_regs) or in off and flags.
-template <class Cand, class View>
+template <int L, class Cand, class View>
 __device__ void grid_rounds(const Cand& cand, const View& view,
-                            const GridSpan& s, int L, Probe& p,
+                            const GridSpan& s, int n_list, Probe<L>& p,
                             uint8_t* off, uint8_t* flags, int* gflags,
                             int probe_limit) {
   namespace cg = cooperative_groups;
@@ -502,13 +528,12 @@ __device__ void grid_rounds(const Cand& cand, const View& view,
   int* const active = gflags;  // [2], by round parity
   p.off = 0;
   p.fl = 0;
-  TableView tv{};  // the table of this thread's register candidate
+  TableView<L> tv{};  // the table of this thread's register candidate
   if (s.in_regs) {
     if (s.my < s.hi) {
-      int32_t st;
-      uint32_t ml, mh;
-      cand(s.my, st, ml, mh);
-      set_row(p, st, ml, mh);
+      uint32_t w[L];
+      cand(s.my, w);
+      set_row(p, w);
       p.fl = kPending;  // every listed candidate is live
       tv = view(s.my);
     }
@@ -523,7 +548,7 @@ __device__ void grid_rounds(const Cand& cand, const View& view,
     gflags[2] = 0;
   }
   grid.sync();
-  for (int round = 0, go = L > 0; go; ++round) {
+  for (int round = 0, go = n_list > 0; go; ++round) {
     if (s.in_regs) {
       probe_a<L2Loads>(p, tv, s.my, probe_limit);
     } else {

@@ -4,8 +4,11 @@
 // Replaces jepsen_tpu/parallel/sparse_kernels.py::tiled_insert_call (the
 // Pallas TPU kernel the sparse engine takes past the whole-event closure's
 // memory gate, batched over a tier's keys under the reference's vmap). For
-// each of K keys, M candidate rows (state, mask_lo, mask_hi) with live
-// flags go into the key's own open-addressed table of T slots. It computes
+// each of K keys, M candidate rows with live flags go into the key's own
+// open-addressed table of T slots. A row is L int32 lanes: the triple
+// (state, mask_lo, mask_hi), L = 3, or the packed word of config_pack,
+// L = 1 or 2; the kernels are templates on L, the hash the lane count's
+// (sparse_common.cuh table_hash). It computes
 // what jepsen_tpu_torch.parallel.sparse_kernels.tiled_insert_reference
 // computes, bit for bit: key by key, the reference's visited-set
 // transaction over the whole table (engine._hash_insert, the closure's
@@ -110,11 +113,11 @@ Scratch carve(void* base, int KM, size_t KT) {
 }
 
 struct Args {
-  const int32_t *c_st, *c_ml, *c_mh;
+  const int32_t* c[3];  // candidate lanes [K, M]; a row of L uses L
   const uint8_t* c_live;
   int M, K, KM, T;  // candidates a key, keys, K * M, slots a table
   size_t KT;        // K * T
-  int32_t *t_st, *t_ml, *t_mh;
+  int32_t* t[3];    // table lanes [K, T]
   uint8_t* t_occ;
   uint8_t* fresh;
   int32_t* off_out;
@@ -145,30 +148,40 @@ k4_compact(Args a) {
 
 // The table listed candidate li probes: its key's, idx[li] / M, whose
 // slots and claim words lie key * T further than key 0's.
+template <int L>
 struct KeyTable {
-  TableView t;  // key 0's
+  TableView<L> t;  // key 0's
   const int32_t* idx;
   int M;
   size_t T;
-  __device__ __forceinline__ TableView operator()(int li) const {
-    const size_t at = (size_t)(idx[li] / M) * T;
-    return {t.st + at, t.ml + at, t.mh + at, t.claim + at, t.occ + at,
-            t.mask};
+  __device__ __forceinline__ TableView<L> operator()(int li) const {
+    return t.at((size_t)(idx[li] / M) * T);
   }
 };
 
+template <int L>
 __global__ void __launch_bounds__(kGridThreads)
 k4_grid_insert(Args a) {
   __shared__ int scan[kScanWords];
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int L = list_total(a.sc.counts, a.KM, scan);
-  const GridSpan s = grid_span(L);
-  const ListCand cand{a.c_st, a.c_ml, a.c_mh, a.sc.idx};
-  const KeyTable tables{{a.t_st, a.t_ml, a.t_mh, a.sc.claim, a.t_occ,
-                         (uint32_t)(a.T - 1)},
-                        a.sc.idx, a.M, (size_t)a.T};
-  Probe p;
-  grid_rounds(cand, tables, s, L, p, a.sc.off, a.sc.flags, a.sc.gflags,
+  const int n_live = list_total(a.sc.counts, a.KM, scan);
+  const GridSpan s = grid_span(n_live);
+  ListCand<L> cand;
+  KeyTable<L> tables;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    cand.lane[k] = a.c[k];
+    tables.t.lane[k] = a.t[k];
+  }
+  cand.idx = a.sc.idx;
+  tables.t.claim = a.sc.claim;
+  tables.t.occ = a.t_occ;
+  tables.t.mask = (uint32_t)(a.T - 1);
+  tables.idx = a.sc.idx;
+  tables.M = a.M;
+  tables.T = (size_t)a.T;
+  Probe<L> p;
+  grid_rounds(cand, tables, s, n_live, p, a.sc.off, a.sc.flags, a.sc.gflags,
               a.probe_limit);
   // each candidate's outcome; one still probing flags its key
   if (s.in_regs) {
@@ -189,21 +202,29 @@ k4_grid_insert(Args a) {
   }
 }
 
+template <int L>
+cudaError_t occupancy(int* per_sm) {
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, k4_grid_insert<L>, kGridThreads, 0);
+  if (err == cudaSuccess && n < *per_sm) *per_sm = n;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Once per device, before the first launch there: reads how many blocks
-// of the insert's grid the card keeps resident per SM and its SM count.
-// Returns their product, the blocks of every launch's grid there, or
-// minus the cudaError_t.
+// of the insert's grid the card keeps resident per SM (the least over
+// its row layouts) and its SM count. Returns their product, the blocks
+// of every launch's grid there, or minus the cudaError_t.
 int jt_tiled_insert_init(void) {
-  int dev = 0, per_sm = 0, sms = 0;
+  int dev = 0, per_sm = 1 << 30, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, k4_grid_insert, kGridThreads, 0);
-  }
+  if (err == cudaSuccess) err = occupancy<1>(&per_sm);
+  if (err == cudaSuccess) err = occupancy<2>(&per_sm);
+  if (err == cudaSuccess) err = occupancy<3>(&per_sm);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
@@ -222,30 +243,32 @@ long long jt_tiled_insert_scratch(int K, int M, int T) {
 
 // K keys' transactions on `stream`: the prep and compact launches, then a
 // cooperative grid of grid_blocks blocks (all of which the card must keep
-// resident; jt_tiled_insert_init's count). The candidates c_*, fresh and
-// off_out are [K, M], the tables t_* [K, T] (T a power of two) and
-// pend_out [K]; the tables are updated in place, fresh, off_out and
-// pend_out written whole. Returns the cudaError_t of the launches
-// (cudaErrorInvalidValue for a shape it does not take: K * M must stay
-// below INT_MAX, the list's int32 range; a cooperative launch the card
-// refuses returns its error and runs nothing).
-int jt_tiled_insert_launch(const int32_t* c_st, const int32_t* c_ml,
-                           const int32_t* c_mh, const uint8_t* c_live, int M,
-                           int32_t* t_st, int32_t* t_ml, int32_t* t_mh,
+// resident; jt_tiled_insert_init's count). The candidates' lanes c0..c2,
+// fresh and off_out are [K, M], the tables' lanes t0..t2 and t_occ
+// [K, T] (T a power of two), pend_out [K]; rows have `lanes` lanes (1-3;
+// the pointers past them are unused, null). The tables are updated in
+// place, fresh, off_out and pend_out written whole. Returns the
+// cudaError_t of the launches (cudaErrorInvalidValue for a shape it does
+// not take: K * M must stay below INT_MAX, the list's int32 range; a
+// cooperative launch the card refuses returns its error and runs
+// nothing).
+int jt_tiled_insert_launch(const int32_t* c0, const int32_t* c1,
+                           const int32_t* c2, const uint8_t* c_live, int M,
+                           int32_t* t0, int32_t* t1, int32_t* t2,
                            uint8_t* t_occ, int T, uint8_t* fresh,
                            int32_t* off_out, uint8_t* pend_out,
                            void* scratch, int K, int probe_limit,
-                           int grid_blocks, void* stream) {
+                           int grid_blocks, int lanes, void* stream) {
   if (K < 1 || M < 1 || (long long)K * M >= INT_MAX || T < 2 ||
       (T & (T - 1)) != 0 || probe_limit < 1 || probe_limit > 255 ||
-      grid_blocks < 1) {
+      grid_blocks < 1 || lanes < 1 || lanes > 3) {
     return (int)cudaErrorInvalidValue;
   }
   const int KM = K * M;
   const size_t KT = (size_t)K * T;
-  Args a{c_st,   c_ml, c_mh,  c_live, M,       K,        KM,
-         T,      KT,   t_st,  t_ml,   t_mh,    t_occ,    fresh,
-         off_out, pend_out, carve(scratch, KM, KT), probe_limit};
+  Args a{{c0, c1, c2}, c_live, M,        K,        KM,
+         T,            KT,     {t0, t1, t2}, t_occ, fresh,
+         off_out,      pend_out, carve(scratch, KM, KT), probe_limit};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int grid = list_chunks(KM);
   k4_prep<<<grid, kListThreads, 0, s>>>(a);
@@ -253,9 +276,11 @@ int jt_tiled_insert_launch(const int32_t* c_st, const int32_t* c_ml,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)k4_grid_insert,
-                                    dim3(grid_blocks), dim3(kGridThreads),
-                                    params, 0, s);
+  const void* kernel = lanes == 1   ? (const void*)k4_grid_insert<1>
+                       : lanes == 2 ? (const void*)k4_grid_insert<2>
+                                    : (const void*)k4_grid_insert<3>;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid_blocks),
+                                    dim3(kGridThreads), params, 0, s);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 

@@ -48,13 +48,15 @@ _log = logging.getLogger(__name__)
 
 
 def analysis(model, history, device=None, capacity: int = 1024,
-             max_capacity: int = 1 << 20, dedupe=None) -> dict:
+             max_capacity: int = 1 << 20, dedupe=None,
+             config_pack=None) -> dict:
     """knossos-style (model, history) -> result on the device engine.
 
     `device` None means the card and raises RuntimeError when there is
-    none; the tests pass "cpu". `capacity`, `max_capacity` and `dedupe`
-    go to the sparse engine (`sparse.check_encoded`): past
-    `max_capacity` the verdict is "unknown"."""
+    none; the tests pass "cpu". `capacity`, `max_capacity`, `dedupe` and
+    `config_pack` go to the sparse engine (`sparse.check_encoded`): past
+    `max_capacity` the verdict is "unknown". The dense engine ignores
+    `config_pack`, as the reference's does."""
     dev = bitdense.resolve_device(device)
     h = history if isinstance(history, History) else History.wrap(history)
     try:
@@ -71,7 +73,7 @@ def analysis(model, history, device=None, capacity: int = 1024,
     else:
         r = sparse.check_encoded(e, capacity=capacity,
                                  max_capacity=max_capacity, dedupe=dedupe,
-                                 device=dev)
+                                 device=dev, config_pack=config_pack)
     if r["valid?"] is False:
         apply_final_paths(r, model, e, device=dev)
     return r
@@ -351,13 +353,16 @@ def check_batch(model, histories, capacity: int = 512,
                 bucket: Optional[str] = None, dedupe: Optional[str] = None,
                 pipeline: Optional[bool] = None, cache=None,
                 pipeline_stats: Optional[dict] = None,
-                steal: Optional[bool] = None) -> list:
+                steal: Optional[bool] = None,
+                config_pack: Optional[bool] = None) -> list:
     """Check many per-key histories, one batched device scan per
     slot-window bucket (`check_batch_encoded`), results in input order.
     `device` None means the card (RuntimeError without one); the tests
-    pass "cpu". `capacity`, `max_capacity` and `dedupe` steer the sparse
-    buckets, as the reference's do; an unknown `bucket` or `dedupe`
-    raises ValueError before the encode, on an empty batch too.
+    pass "cpu". `capacity`, `max_capacity`, `dedupe` and `config_pack`
+    steer the sparse buckets, as the reference's do (a dense bucket
+    ignores `config_pack`); an unknown `bucket` or `dedupe`, or a bad
+    JEPSEN_TPU_TORCH_CONFIG_PACK, raises ValueError before the encode,
+    on an empty batch too.
 
     The reference takes a `mesh` for the batch's key axis and for the
     sharded escalation rung; the port's batch runs on one device, and
@@ -367,6 +372,7 @@ def check_batch(model, histories, capacity: int = 512,
     raises NotImplementedError."""
     bucket = _resolve_bucket(bucket)   # fail fast: before the encode
     dedupe = sparse._resolve_dedupe(dedupe)   # likewise
+    config_pack = sparse._resolve_config_pack(config_pack)   # likewise
     if pipeline or (cache is not None and cache is not False) \
             or pipeline_stats is not None:
         raise NotImplementedError(
@@ -379,13 +385,15 @@ def check_batch(model, histories, capacity: int = 512,
     pre = [enc_mod.encode(model, h) for h in histories]
     return check_batch_encoded(model, pre, capacity=capacity,
                                max_capacity=max_capacity, device=device,
-                               bucket=bucket, dedupe=dedupe)
+                               bucket=bucket, dedupe=dedupe,
+                               config_pack=config_pack)
 
 
 def check_batch_encoded(model, pre, capacity: int = 512,
                         max_capacity: int = 1 << 18, device=None,
                         bucket: Optional[str] = None,
-                        dedupe: Optional[str] = None) -> list:
+                        dedupe: Optional[str] = None,
+                        config_pack: Optional[bool] = None) -> list:
     """check_batch on already-encoded keys: bucket them by slot window
     (`bucket_key`), check each bucket whose padded dims fit the dense
     engine (`bitdense.fits_bitdense(S_max, C_max)`) in one batched dense
@@ -393,6 +401,7 @@ def check_batch_encoded(model, pre, capacity: int = 512,
     (`_check_batch_sparse`), and return the results in `pre`'s order."""
     bucket = _resolve_bucket(bucket)
     dedupe = sparse._resolve_dedupe(dedupe)
+    config_pack = sparse._resolve_config_pack(config_pack)
     if not pre:
         return []
     dev = bitdense.resolve_device(device)
@@ -409,7 +418,8 @@ def check_batch_encoded(model, pre, capacity: int = 512,
             rs = bitdense.check_batch_bitdense(sub, device=dev)
         else:
             rs = _check_batch_sparse(sub, capacity, max_capacity,
-                                     dedupe=dedupe, device=dev)
+                                     dedupe=dedupe, device=dev,
+                                     config_pack=config_pack)
         for i, r in zip(idxs, rs):
             out[i] = r
     return out
@@ -417,38 +427,47 @@ def check_batch_encoded(model, pre, capacity: int = 512,
 
 def _check_batch_sparse(pre, capacity: int, max_capacity: int,
                         dedupe: Optional[str] = None, device=None,
-                        smem_budget=None) -> list:
+                        smem_budget=None,
+                        config_pack: Optional[bool] = None) -> list:
     """The sparse batch with per-key capacity retry
     (`sparse.check_batch_sparse`), its keys past `max_capacity` escalated
-    one by one (`_escalate_overflow`). `smem_budget` is the test seam of
-    the closure's route, in the batch and in the escalation."""
+    one by one (`_escalate_overflow`), the packing request with them.
+    `smem_budget` is the test seam of the closure's route, in the batch
+    and in the escalation."""
     dev = bitdense.resolve_device(device)
     dedupe = sparse._resolve_dedupe(dedupe)
+    config_pack = sparse._resolve_config_pack(config_pack)
 
     def escalate(e, batch_cap):
         return _escalate_overflow(e, batch_cap, device=dev, dedupe=dedupe,
-                                  smem_budget=smem_budget)
+                                  smem_budget=smem_budget,
+                                  config_pack=config_pack)
 
     return sparse.check_batch_sparse(pre, capacity, max_capacity,
                                      dedupe=dedupe, device=dev,
                                      smem_budget=smem_budget,
-                                     escalate=escalate)
+                                     escalate=escalate,
+                                     config_pack=config_pack)
 
 
 def _escalate_overflow(e: EncodedHistory, batch_cap: int, device=None,
-                       dedupe: str = "hash", smem_budget=None) -> dict:
+                       dedupe: str = "hash", smem_budget=None,
+                       config_pack: bool = False) -> dict:
     """A key too wide for the batch escalates instead of dying as
     "unknown": the single-key sparse engine on the batch's own device,
     from 2x the batch's ceiling up to 4x it (at most 2^21), as the
-    reference's first rung (engine.py `_escalate_overflow_impl`). A key
-    it decides is tagged "escalated": "single"; one it does not keeps
+    reference's first rung (engine.py `_escalate_overflow_impl`), with
+    the batch's packing request (the key's own `pack_spec_for` decides
+    its layout). A key it decides is tagged "escalated": "single"; one
+    it does not keeps
     the single rung's "unknown" result with the reference's error. The
     reference's second rung, the frontier-sharded engine over the
     caller's mesh, waits for ROADMAP Queue 1 item 9b."""
     ceil_single = min(batch_cap * 4, 1 << 21)
     r = sparse.check_encoded(e, capacity=min(batch_cap * 2, ceil_single),
                              max_capacity=ceil_single, device=device,
-                             dedupe=dedupe, smem_budget=smem_budget)
+                             dedupe=dedupe, smem_budget=smem_budget,
+                             config_pack=config_pack)
     if r["valid?"] != "unknown":
         r["escalated"] = "single"
         return r

@@ -33,8 +33,13 @@ The routed exchange expands only the rows a loop steps (the delta, or
 the live prefix) instead of all Nd: the dead rows would sort past every
 bucket, so the buckets, and everything after them, are the reference's.
 
+With `config_pack` a row is the packed word of `sparse._PackedRep` (one
+or two int32 lanes): the owner hash, the visited sets (K3 takes one- and
+two-lane rows) and the exchange buffers carry its lanes, so a packed
+row crosses the wire as 4 or 8 bytes and its live flag.
+
 Not ported yet: the hierarchical 2-D exchange, the elastic re-shard
-ladder, the resumable arm, the search-stats block and the packed rows.
+ladder, the resumable arm and the search-stats block.
 """
 
 from __future__ import annotations
@@ -77,11 +82,12 @@ def _owned_dedupe_compact(rows, live, Nd: int, n_dev: int, my_idx: int,
     return sp._dedupe_compact(rows, live & (owner == my_idx), Nd, rep)
 
 
-def _lanes(buf, n: int, width: int):
-    """Rows and live flags of a received [n, 4, width] buffer."""
-    v = buf.view(n, 4, width)
-    return (tuple(v[:, k].reshape(-1) for k in range(3)),
-            v[:, 3].reshape(-1) != 0)
+def _lanes(buf, n: int, width: int, L: int):
+    """Rows of L lanes and live flags of a received [n, L + 1, width]
+    buffer."""
+    v = buf.view(n, L + 1, width)
+    return (tuple(v[:, k].reshape(-1) for k in range(L)),
+            v[:, L].reshape(-1) != 0)
 
 
 def _route_stage(rows, live, dest, n_dest: int, B: int, group):
@@ -89,8 +95,8 @@ def _route_stage(rows, live, dest, n_dest: int, B: int, group):
     Rows are ordered by destination with a stable sort (the dead ones
     last), each destination's bucket is cut to B rows, and bucket d goes
     to rank d. Returns the received rows [n_dest*B], their live flags and
-    this rank's overflow flag (a bucket past B). Rows and flags travel
-    as int32, in one [n_dest, 4, B] buffer."""
+    this rank's overflow flag (a bucket past B). Rows of L lanes and
+    their flags travel as int32, in one [n_dest, L + 1, B] buffer."""
     L = live.shape[0]
     dev = live.device
     key = torch.where(live, dest.to(_I64), n_dest)
@@ -101,16 +107,17 @@ def _route_stage(rows, live, dest, n_dest: int, B: int, group):
     routed = key_s < n_dest
     in_bucket = routed & (rank < B)
     ovf = (routed & (rank >= B)).any()
-    # lane k of row (d, rank) at d*4B + k*B + rank; the rest drop into
-    # the one slot past the buffer
-    size = n_dest * 4 * B
-    at = key_s * (4 * B) + rank
+    # lane k of row (d, rank) at d*W + k*B + rank, W = (L + 1) B; the
+    # rest drop into the one slot past the buffer
+    n_lanes = len(rows) + 1
+    size = n_dest * n_lanes * B
+    at = key_s * (n_lanes * B) + rank
     send = torch.zeros(size + 1, dtype=_I32, device=dev)
     for k, lane in enumerate((*rows_s, in_bucket.to(_I32))):
         send[torch.where(in_bucket, at + k * B, size)] = lane
     recv = torch.empty(size, dtype=_I32, device=dev)
     dist.all_to_all_single(recv, send[:size], group=group)
-    c_rows, c_live = _lanes(recv, n_dest, B)
+    c_rows, c_live = _lanes(recv, n_dest, B, len(rows))
     return c_rows, c_live, ovf
 
 
@@ -123,11 +130,11 @@ def _route_to_owners(rows, live, n_dev: int, B: int, rep, group):
 def _gather(rows, live, n_dev: int, group):
     """The A/B exchange: every rank receives every rank's rows, in rank
     order [n_dev * L]. Never overflows."""
-    L = live.shape[0]
+    n = live.shape[0]
     send = torch.stack([*rows, live.to(_I32)])
-    recv = torch.empty(n_dev * 4 * L, dtype=_I32, device=live.device)
+    recv = torch.empty(n_dev * send.numel(), dtype=_I32, device=live.device)
     dist.all_gather_into_tensor(recv, send.reshape(-1), group=group)
-    c_rows, c_live = _lanes(recv, n_dev, L)
+    c_rows, c_live = _lanes(recv, n_dev, n, len(rows))
     return c_rows, c_live, torch.zeros((), dtype=torch.bool,
                                        device=live.device)
 
@@ -144,7 +151,8 @@ class _ShardedScan:
     back all-reduced and live on the host."""
 
     def __init__(self, e: EncodedHistory, Nd: int, plan: MeshPlan,
-                 exchange: str, dedupe: str, probe_limit: int, xs: dict):
+                 exchange: str, dedupe: str, probe_limit: int, xs: dict,
+                 pack=()):
         C = e.slot_f.shape[1]
         dev = plan.device
         self.e, self.Nd, self.C = e, Nd, C
@@ -152,7 +160,7 @@ class _ShardedScan:
         self.plan, self.exchange, self.dedupe = plan, exchange, dedupe
         self.probe_limit = probe_limit
         self.device = dev
-        self.rep = sp._rep((), C, dev)
+        self.rep = sp._rep(pack, C, dev)
         self.step = STEPS[e.step_name]
         self.xs = xs
         self.B_cand, self.B_front = _flat_routes(Nd, C, plan.n_dev)
@@ -190,9 +198,9 @@ class _ShardedScan:
             among = None
         else:
             among = (self.row >= lo) & (self.row < hi)
-        cand_st, cand_ok = self.step(rows[0][:, None], ev["slot_f"],
-                                     ev["slot_a0"], ev["slot_a1"],
-                                     ev["slot_wild"])
+        cand_st, cand_ok = self.step(self.rep.state(rows)[:, None],
+                                     ev["slot_f"], ev["slot_a0"],
+                                     ev["slot_a1"], ev["slot_wild"])
         legal = ev["slot_occ"][None, :] & ~self.rep.mask_test(rows) & cand_ok
         if among is not None:
             legal = legal & among[:, None]
@@ -322,14 +330,18 @@ def check_encoded_sharded(e: EncodedHistory, mesh, capacity: int = 8192,
     visited-set transaction is K3 on a card ("closure": "cuda"), the
     plain PyTorch insert on the CPU ("torch"). `probe_limit` bounds the
     hash probes (0: JEPSEN_TPU_TORCH_PROBE_LIMIT, default 32).
-    `search_stats`, `config_pack` and `reshard` are not ported yet."""
-    _flags_unported(search_stats=search_stats, config_pack=config_pack,
-                    reshard=reshard)
+    `config_pack` (None: JEPSEN_TPU_TORCH_CONFIG_PACK, default off)
+    carries the rows as the packed word of `sparse.pack_spec_for(e)` and
+    tags the result's "config-pack". `search_stats` and `reshard` are
+    not ported yet."""
+    _flags_unported(search_stats=search_stats, reshard=reshard)
     if e.n_returns == 0:
         return {"valid?": True, "max-frontier": 0, "capacity": 0}
     plan = MeshPlan.from_mesh(mesh, exchange)
     dedupe = sp._resolve_dedupe(dedupe)
     probe_limit = sp._resolve_probe_limit(probe_limit)
+    pack_req = sp._resolve_config_pack(config_pack)
+    pack = sp.pack_spec_for(e) if pack_req else ()
     n_dev = plan.n_dev
     xs = sp._xs(e, plan.device)
     tag = sp._closure_tag(dedupe, plan.device)
@@ -337,7 +349,7 @@ def check_encoded_sharded(e: EncodedHistory, mesh, capacity: int = 8192,
     while True:
         Nd = -(-N // n_dev)
         valid, fail_r, overflow, maxf, stepped = _ShardedScan(
-            e, Nd, plan, exchange, dedupe, probe_limit, xs).run()
+            e, Nd, plan, exchange, dedupe, probe_limit, xs, pack).run()
         if not overflow:
             break
         if N * 2 > max_capacity:
@@ -348,6 +360,7 @@ def check_encoded_sharded(e: EncodedHistory, mesh, capacity: int = 8192,
     out = {"valid?": valid, "max-frontier": maxf, "capacity": N,
            "devices": n_dev, "dedupe": dedupe, "configs-stepped": stepped,
            "closure": tag}
+    sp._tag_config_pack(out, pack, pack_req, e.slot_f.shape[1])
     if not valid:
         out.update(fail_op_fields(e, fail_r))
     return out

@@ -3,7 +3,9 @@
 A port of the sparse half of `jepsen_tpu.parallel.engine` (single
 history). A configuration is a row of three int32 lanes (state,
 mask_lo, mask_hi): the model state and the 64-bit mask of linearized
-open-call slots, the masks carried as int32 bit patterns. The frontier
+open-call slots, the masks carried as int32 bit patterns. With
+`config_pack` it is instead the packed word (state - state_lo) | mask
+<< state_bits in one or two int32 lanes (`_PackedRep`). The frontier
 is a fixed-capacity set of N rows with a live flag; per return event
 
   * the closure adds every configuration reachable by linearizing open
@@ -22,8 +24,7 @@ knows from the encoding; it reads the device where a loop's stop test
 needs a value (the plain and tiled closures, the sort closure), and
 otherwise once, at the end of the scan.
 
-Only the unpacked row layout is ported (`config_pack=True` raises);
-the search-stats block is not ported.
+The search-stats block is not ported.
 """
 
 from __future__ import annotations
@@ -115,57 +116,130 @@ def _mul32(x, k: int):
     return (x * (k & 0xFFFF) + (((x * (k >> 16)) & 0xFFFF) << 16)) & _U32
 
 
-def table_hash_u32(st, ml, mh):
-    """The visited-set slot mix of three uint32 values (int64 tensors in
-    [0, 2^32)); the reference's `_UnpackedRep.table_hash`, bit for
-    bit."""
-    h = _mul32(st, 0x85EBCA6B) ^ _mul32(ml, 0xC2B2AE35) \
-        ^ _mul32(mh, 0x27D4EB2F)
+# the lane constants of the visited-set and ownership mixes: lane k of a
+# row is multiplied by the k-th, the products XORed (the triple's three
+# lanes, or the packed word's one or two, take the first ones)
+_TABLE_MIX = (0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
+_OWNER_MIX = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D)
+
+
+def _mix(lanes, consts):
+    h = _mul32(lanes[0], consts[0])
+    for x, k in zip(lanes[1:], consts[1:]):
+        h = h ^ _mul32(x, k)
+    return h
+
+
+def table_hash_u32(*lanes):
+    """The visited-set slot mix of one to three uint32 lanes (int64
+    tensors in [0, 2^32)): the reference's `_UnpackedRep.table_hash` of
+    (state, mask_lo, mask_hi), or `_PackedRep.table_hash` of the packed
+    word's one or two lanes, bit for bit."""
+    h = _mix(lanes, _TABLE_MIX)
     h = h ^ (h >> 16)
     h = _mul32(h, 0x165667B1)
     return h ^ (h >> 13)
 
 
-def owner_hash_u32(st, ml, mh):
-    """The sharded engine's ownership mix of three uint32 values (int64
-    tensors in [0, 2^32)); the reference's `_UnpackedRep.owner_hash`,
-    bit for bit. A different mix from `table_hash_u32`: a rank's owned
-    rows share their owner hash modulo the ranks, and must not share
-    their table slots too."""
-    h = _mul32(st, 0x9E3779B1) ^ _mul32(ml, 0x85EBCA77) \
-        ^ _mul32(mh, 0xC2B2AE3D)
+def owner_hash_u32(*lanes):
+    """The sharded engine's ownership mix of one to three uint32 lanes
+    (int64 tensors in [0, 2^32)); the reference's `owner_hash` of either
+    row layout, bit for bit. A different mix from `table_hash_u32`: a
+    rank's owned rows share their owner hash modulo the ranks, and must
+    not share their table slots too."""
+    h = _mix(lanes, _OWNER_MIX)
     h = h ^ (h >> 15)
     h = _mul32(h, 0x2C1B3C6D)
     return h ^ (h >> 12)
 
 
-class _UnpackedRep:
+def row_table_hash(rows):
+    """[n] int64 visited-set hash in [0, 2^32) of rows of either layout:
+    the lane count tells them apart (the triple has three lanes, the
+    packed word one or two)."""
+    return table_hash_u32(*(_u32(r) for r in rows))
+
+
+def _has_bits(rows, bits):
+    """Whether each row has the bit of `bits` (one int32 pattern a lane,
+    None for a lane that carries no mask bit) in any lane."""
+    acc = None
+    for r, b in zip(rows, bits):
+        if b is not None:
+            acc = r & b if acc is None else acc | (r & b)
+    return acc != 0
+
+
+def _clear_bits(rows, bits, where):
+    return tuple(r if b is None else torch.where(where, r & ~b, r)
+                 for r, b in zip(rows, bits))
+
+
+class _RowLayout:
+    """What both row layouts share: `lanes` int32 lanes a row, the
+    hashes (the lane count's, `row_table_hash`: an insert of rows of
+    either layout needs no more of a layout than this), the initial rows
+    and the event bit's test and clear over the lanes that carry one."""
+
+    lanes = 3
+
+    def zeros(self, n):
+        return tuple(torch.zeros(n, dtype=_I32, device=self.device)
+                     for _ in range(self.lanes))
+
+    def initial_at0(self, state0: int, N: int):
+        rows = self.zeros(N)
+        rows[0][0] = self.field(state0)
+        return rows
+
+    def initial_full(self, state0: int, N: int):
+        rows = self.zeros(N)
+        rows[0].fill_(self.field(state0))
+        return rows
+
+    @staticmethod
+    def table_hash(rows):
+        """[n] int64 slot hash in [0, 2^32)."""
+        return row_table_hash(rows)
+
+    @staticmethod
+    def owner_hash(rows):
+        """[n] int64 ownership hash in [0, 2^32)."""
+        return owner_hash_u32(*(_u32(r) for r in rows))
+
+    @staticmethod
+    def has_event_bit(rows, bits):
+        return _has_bits(rows, bits)
+
+    @staticmethod
+    def clear_event_bit(rows, bits, where):
+        return _clear_bits(rows, bits, where)
+
+
+class _UnpackedRep(_RowLayout):
     """The (state, mask_lo, mask_hi) row layout: three int32 lanes."""
+
+    pack = ()
 
     def __init__(self, C: int, device=None):
         self.C = C
         self.device = device
         self.bit_lo, self.bit_hi = _slot_bits(C, device)
 
-    def zeros(self, n: int):
-        return tuple(torch.zeros(n, dtype=_I32, device=self.device)
-                     for _ in range(3))
+    @staticmethod
+    def field(st):
+        return st
 
-    def initial_at0(self, state0: int, N: int):
-        rows = self.zeros(N)
-        rows[0][0] = state0
-        return rows
-
-    def state(self, rows):
+    @staticmethod
+    def state(rows):
         return rows[0]
 
-    def table_hash(self, rows):
-        """[n] int64 slot hash in [0, 2^32)."""
-        return table_hash_u32(*(_u32(r) for r in rows))
-
-    def owner_hash(self, rows):
-        """[n] int64 ownership hash in [0, 2^32)."""
-        return owner_hash_u32(*(_u32(r) for r in rows))
+    @staticmethod
+    def sort_keys(rows):
+        """The dedupe sort's keys, minor to major: the masks unsigned,
+        the state signed (the reference's lexsort of int32 and uint32
+        lanes)."""
+        return [_u32(rows[2]), _u32(rows[1]), rows[0]]
 
     def mask_test(self, rows):
         """[..., N, C] bool: slot j already linearized in row n (rows
@@ -184,28 +258,153 @@ class _UnpackedRep:
 
     @staticmethod
     def event_bits(s: int):
-        """(lo, hi) int32 bit patterns of slot s."""
-        return (_i32(1 << s) if s < 32 else 0,
+        """Slot s's bit, an int32 pattern a lane (None: the state)."""
+        return (None, _i32(1 << s) if s < 32 else 0,
                 _i32(1 << (s - 32)) if s >= 32 else 0)
 
     @staticmethod
-    def has_event_bit(rows, bits):
-        _, ml, mh = rows
-        return ((ml & bits[0]) | (mh & bits[1])) != 0
+    def event_bits_t(s):
+        """`event_bits` of an int64 tensor of slots, lane by lane."""
+        return (None, _bit_lane(s, 0), _bit_lane(s, 32))
+
+
+class _PackedRep(_RowLayout):
+    """The packed word (config_pack): the state field (state - state_lo)
+    in bits [0, s_bits), slot j's mask bit at s_bits + j, one int32 lane
+    when the word fits 32 bits, else two (its low and high halves). The
+    reference's `_PackedRep`, on int32 bit patterns: every right shift
+    is masked, and the state field always goes through `smask`."""
+
+    def __init__(self, state_bits: int, state_lo: int, C: int, device=None):
+        self.s_bits = int(state_bits)
+        self.state_lo = int(state_lo)
+        self.C = C
+        self.device = device
+        self.width = self.s_bits + C
+        if not (1 <= self.s_bits <= 32 and 1 <= C and self.width <= 64):
+            raise ValueError(f"packed layout: {self.s_bits} state bits "
+                             f"and {C} slots do not fit 64 bits")
+        self.lanes = 1 if self.width <= 32 else 2
+        self.pack = (self.s_bits, self.state_lo)
+        self.smask = _i32((1 << self.s_bits) - 1)
+        pos = [self.s_bits + j for j in range(C)]
+        self.bits = tuple(
+            torch.tensor([_i32(1 << (p - base)) if base <= p < base + 32
+                          else 0 for p in pos], dtype=_I32, device=device)
+            for base in (0, 32)[:self.lanes])
+
+    def field(self, st):
+        """The state field of states `st` (an int32 tensor or an int):
+        (st - state_lo) & smask, which keeps any state out of the mask
+        bits."""
+        if isinstance(st, int):
+            return _i32((st - self.state_lo) & ((1 << self.s_bits) - 1))
+        return (st - self.state_lo) & self.smask
+
+    def state(self, rows):
+        return (rows[0] & self.smask) + self.state_lo
 
     @staticmethod
-    def clear_event_bit(rows, bits, where):
-        st, ml, mh = rows
-        return (st, torch.where(where, ml & ~bits[0], ml),
-                torch.where(where, mh & ~bits[1], mh))
+    def sort_keys(rows):
+        """The word's lanes, unsigned, minor to major (the reference's
+        lexsort of its uint32 lanes: the low lane is the major key)."""
+        return [_u32(r) for r in reversed(rows)]
+
+    def mask_test(self, rows):
+        acc = rows[0][..., None] & self.bits[0]
+        if self.lanes == 2:
+            acc = acc | (rows[1][..., None] & self.bits[1])
+        return acc != 0
+
+    def candidates(self, rows, cand_st):
+        lo = ((rows[0][..., None] & ~self.smask) | self.field(cand_st)
+              | self.bits[0]).flatten(-2)
+        if self.lanes == 1:
+            return (lo,)
+        return lo, (rows[1][..., None] | self.bits[1]).flatten(-2)
+
+    def event_bits(self, s: int):
+        p = s + self.s_bits
+        return (_i32(1 << p) if p < 32 else 0,
+                _i32(1 << (p - 32)) if p >= 32 else 0)[:self.lanes]
+
+    def event_bits_t(self, s):
+        p = s + self.s_bits
+        return (_bit_lane(p, 0), _bit_lane(p, 32))[:self.lanes]
 
 
 def _rep(pack, C: int, device=None):
+    """The row layout of a (pack, C) pair: pack () is the triple,
+    (state_bits, state_lo) the packed word."""
     if pack:
-        raise NotImplementedError(
-            "config_pack: the packed row layout (_PackedRep) is not "
-            "ported to jepsen_tpu_torch (ROADMAP Queue 1)")
+        return _PackedRep(pack[0], pack[1], C, device)
     return _UnpackedRep(C, device)
+
+
+# ------------------------------------------------- the packed row layout
+
+def _resolve_config_pack(config_pack=None) -> bool:
+    """Whether packed rows are asked for: an explicit argument wins, else
+    JEPSEN_TPU_TORCH_CONFIG_PACK, a strict tri-state: unset (or empty)
+    is off, "1" on, "0" off, anything else raises ValueError. Whether a
+    history then packs is `pack_spec_for`'s answer."""
+    if config_pack is not None:
+        return bool(config_pack)
+    raw = os.environ.get("JEPSEN_TPU_TORCH_CONFIG_PACK", "").strip()
+    if raw in ("", "0", "1"):
+        return raw == "1"
+    raise ValueError(f"JEPSEN_TPU_TORCH_CONFIG_PACK={raw!r}: must be '1' "
+                     f"(on) or '0' (off); unset it for the default (off)")
+
+
+def pack_layout(n_states: int, state_lo: int, C: int):
+    """The packed word's (state_bits, state_lo) for states in [state_lo,
+    state_lo + n_states) and C slots, or None when the word would not
+    fit: state_bits + C <= 64 and state_bits <= 32."""
+    if n_states <= 0 or C <= 0:
+        return None
+    state_bits = max(1, int(n_states - 1).bit_length())
+    if state_bits > 32 or state_bits + C > 64:
+        return None
+    return (state_bits, int(state_lo))
+
+
+def pack_spec_for(encs, C=None):
+    """The one packed layout of one or more encoded histories that run as
+    one program (a batch pads them to one slot width), or () when any of
+    them cannot pack: the state field covers the union [min state_lo,
+    max state_lo + n_states), at C (default: the widest key's slots)."""
+    if not isinstance(encs, (list, tuple)):
+        encs = [encs]
+    if not encs or any(e.n_states <= 0 for e in encs):
+        return ()
+    lo = min(e.state_lo for e in encs)
+    hi = max(e.state_lo + e.n_states for e in encs)
+    Cw = C if C is not None else max(e.slot_f.shape[1] for e in encs)
+    lay = pack_layout(hi - lo, lo, Cw)
+    return lay if lay is not None else ()
+
+
+def pack_lanes(pack, C: int) -> int:
+    """int32 lanes of a row: 3 for the triple (pack ()), else 1 when
+    state_bits + C fits 32 bits and 2 past that."""
+    if not pack:
+        return 3
+    return 1 if pack[0] + C <= 32 else 2
+
+
+def _tag_config_pack(out: dict, pack, requested: bool, C: int) -> dict:
+    """The result's "config-pack", only when packing was asked for:
+    "packed:{state_bits + C}b/{lanes}-lane", or "unpacked" when the
+    history's word would not fit 64 bits and the triple ran."""
+    if not requested:
+        return out
+    if pack:
+        out["config-pack"] = f"packed:{pack[0] + C}b/" \
+                             f"{pack_lanes(pack, C)}-lane"
+    else:
+        out["config-pack"] = "unpacked"
+    return out
 
 
 def _rows_eq(a_rows, b_rows):
@@ -368,10 +567,10 @@ def _hash_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
     return rows, count, ovf, iters, stepped
 
 
-def _step_batch(step, rows, ev):
+def _step_batch(step, rep, rows, ev):
     """The model step of every row of every key ([K, N] lanes) through
     every slot of its key's event (ev: [K, C] tables) -> [K, N, C]."""
-    return step(rows[0][:, :, None], ev["slot_f"][:, None, :],
+    return step(rep.state(rows)[:, :, None], ev["slot_f"][:, None, :],
                 ev["slot_a0"][:, None, :], ev["slot_a1"][:, None, :],
                 ev["slot_wild"][:, None, :])
 
@@ -401,7 +600,7 @@ def _hash_event_closure_batch(rep, step, ev, rows, live, run, N: int,
     row = torch.arange(N, device=dev)
     occ = ev["slot_occ"][:, None, :]
     while bool(active.any()):
-        cand_st, cand_ok = _step_batch(step, rows, ev)
+        cand_st, cand_ok = _step_batch(step, rep, rows, ev)
         delta = (row >= n_old[:, None]) & (row < count[:, None]) \
             & active[:, None]
         legal = delta[:, :, None] & occ & ~rep.mask_test(rows) & cand_ok
@@ -420,11 +619,12 @@ def _hash_event_closure_batch(rep, step, ev, rows, live, run, N: int,
 # ----------------------------------------------------------- sort dedupe
 
 def _dedupe_compact(rows, live, N: int, rep):
-    """Sort rows by (dead, state, mask_lo, mask_hi) — the masks as
-    unsigned — flag first occurrences and compact them into a fresh
-    [N] frontier. Returns (rows, live, count, overflow). The order is
-    the reference's lexsort, built from stable sorts from the minor key
-    to the major one."""
+    """Sort rows by (dead, lanes major to minor) — (state, mask_lo,
+    mask_hi), the masks unsigned, for the triple; the packed word's
+    lanes unsigned, the low one major — flag first occurrences and
+    compact them into a fresh [N] frontier. Returns (rows, live, count,
+    overflow). The order is the reference's lexsort, built from stable
+    sorts from the minor key to the major one."""
     out = _dedupe_compact_batch(tuple(r[None] for r in rows), live[None],
                                 N, rep)
     return tuple(r[0] for r in out[0]), out[1][0], out[2][0], out[3][0]
@@ -437,9 +637,8 @@ def _dedupe_compact_batch(rows, live, N: int, rep):
     significant key (every sort runs along a key's row). Returns (rows
     [K, N], live [K, N], count [K], overflow [K])."""
     K, M = live.shape
-    st, ml, mh = rows
     order = torch.arange(M, device=live.device).expand(K, M)
-    for key in (_u32(mh), _u32(ml), st, (~live).to(_I32)):
+    for key in (*rep.sort_keys(rows), (~live).to(_I32)):
         order = order.gather(1, torch.sort(key.gather(1, order), dim=1,
                                            stable=True).indices)
     rows_s = tuple(r.gather(1, order) for r in rows)
@@ -479,7 +678,7 @@ def _sort_event_closure_batch(rep, step, ev, rows, live, run, N: int):
     occ = ev["slot_occ"][:, None, :]
     active = run.clone()
     while bool(active.any()):
-        cand_st, cand_ok = _step_batch(step, rows, ev)
+        cand_st, cand_ok = _step_batch(step, rep, rows, ev)
         legal = live[:, :, None] & occ & ~rep.mask_test(rows) & cand_ok
         old_count = live.sum(1)
         rows2, live2, count, ovf2 = _dedupe_compact_batch(
@@ -510,16 +709,18 @@ def _xs(e: EncodedHistory, device) -> dict:
             "slot_occ": t(e.slot_occ, torch.bool)}
 
 
-def _route(N: int, C: int, dedupe: str, device, smem_budget=None):
+def _route(N: int, C: int, dedupe: str, device, smem_budget=None,
+           lanes: int = 3):
     """-> "sort", "fused" (K2) or "tiled" (K4). The hash closure is fused
-    while K2's shared-memory layout fits the budget, and tiled past it;
-    the budget is the card's opt-in on a card, Hopper's on the CPU, or
-    the test seam `smem_budget`. Both hash routes run the reference's
-    whole-table transaction, so both give the reference's results."""
+    while K2's shared-memory layout of `lanes`-lane rows fits the
+    budget, and tiled past it; the budget is the card's opt-in on a
+    card, Hopper's on the CPU, or the test seam `smem_budget`. Both hash
+    routes run the reference's whole-table transaction, so both give
+    the reference's results."""
     if dedupe == "sort":
         return "sort"
     budget = smem_budget or sk.smem_budget(device)
-    return "fused" if sk.supported(N, C, budget) else "tiled"
+    return "fused" if sk.supported(N, C, budget, lanes) else "tiled"
 
 
 class _Scan:
@@ -538,7 +739,8 @@ class _Scan:
         self.rep = _rep(pack, C, device)
         self.step = STEPS[e.step_name]
         self.xs = _xs(e, device) if xs is None else xs
-        self.closure = _route(N, C, dedupe, device, smem_budget)
+        self.closure = _route(N, C, dedupe, device, smem_budget,
+                              self.rep.lanes)
         # the fused closure on a card is the one route that never needs
         # a value on the host during the scan
         self.synced = self.closure != "fused" or device.type != "cuda"
@@ -565,7 +767,7 @@ class _Scan:
         if self.closure == "fused":
             rows2, meta = sk.frontier_closure(
                 self.e.step_name, ev, self.rows, self.live, run,
-                self.probe_limit)
+                self.probe_limit, **_pack_kw(self.rep))
         else:
             rows2, meta = sk.tiled_event_closure(
                 self.rep, self.step, ev, self.rows, self.live, run, N,
@@ -613,6 +815,12 @@ class _Scan:
                 vals[5])
 
 
+def _pack_kw(rep) -> dict:
+    """K2's layout argument: none for the triple (the wrappers' default),
+    so that a call of the unpacked scan is the same call as ever."""
+    return {"pack": rep.pack} if rep.pack else {}
+
+
 def _closure_tag(closure: str, device) -> str:
     """The result's "closure": which implementation ran the closure —
     bitdense's vocabulary plus the tiled insert. The sort closure is
@@ -635,15 +843,19 @@ def check_encoded(e: EncodedHistory, capacity: int = 1024,
     else K2's plain closure around the tiled insert K4 ("closure":
     "cuda" / "cuda-tiled" on a card, "torch" / "torch-tiled" on the
     CPU). `probe_limit` bounds the hash probes (0: the
-    JEPSEN_TPU_TORCH_PROBE_LIMIT flag, default 32). `smem_budget` is a
-    test seam that replaces the shared-memory budget of the route. Past
-    `max_capacity` the verdict is "unknown"."""
+    JEPSEN_TPU_TORCH_PROBE_LIMIT flag, default 32). `config_pack` (None:
+    JEPSEN_TPU_TORCH_CONFIG_PACK, default off) carries each row as the
+    packed word of `pack_spec_for(e)` (one or two lanes; the triple when
+    the word would pass 64 bits) and tags the result's "config-pack".
+    `smem_budget` is a test seam that replaces the shared-memory budget
+    of the route. Past `max_capacity` the verdict is "unknown"."""
     if e.n_returns == 0:
         return {"valid?": True, "max-frontier": 0, "capacity": 0}
     dev = resolve_device(device)
     dedupe = _resolve_dedupe(dedupe)
     probe_limit = _resolve_probe_limit(probe_limit)
-    pack = ("packed",) if config_pack else ()
+    pack_req = _resolve_config_pack(config_pack)
+    pack = pack_spec_for(e) if pack_req else ()
     xs = _xs(e, dev)
     N = max(64, capacity)
     while True:
@@ -662,6 +874,7 @@ def check_encoded(e: EncodedHistory, capacity: int = 1024,
            "dedupe": dedupe, "configs-stepped": stepped,
            "explored": steps_n * N * e.slot_f.shape[1],
            "closure": _closure_tag(sc.closure, dev)}
+    _tag_config_pack(out, pack, pack_req, e.slot_f.shape[1])
     if not valid:
         out.update(fail_op_fields(e, fail_r))
     return out
@@ -686,7 +899,7 @@ class _BatchScan:
     closure iteration, and skip a row no key runs."""
 
     def __init__(self, encs, xs: dict, state0, N: int, dedupe: str,
-                 probe_limit: int, device, smem_budget=None):
+                 probe_limit: int, device, smem_budget=None, pack=()):
         K, R, C = xs["slot_f"].shape
         self.K, self.R, self.N, self.C = K, R, N, C
         self.T = _next_pow2(2 * N)
@@ -694,8 +907,10 @@ class _BatchScan:
         self.device = device
         self.step_name = encs[0].step_name
         self.step = STEPS[self.step_name]
-        self.rep = _rep((), C, device)
-        self.closure = _route(N, C, dedupe, device, smem_budget)
+        # the batch's one layout, its lanes at this tier's C
+        self.rep = _rep(pack, C, device)
+        self.closure = _route(N, C, dedupe, device, smem_budget,
+                              self.rep.lanes)
         self.synced = self.closure != "fused" or device.type != "cuda"
         # key-major [K, R, C]: batched K2 reads row r of key k in place
         self.xs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
@@ -704,12 +919,11 @@ class _BatchScan:
             .to(device=device, dtype=_I64)                          # [R, K]
         self.real = ev >= 0
         # the returning slot's bit, as int32 bit patterns of each lane
-        s = ev.clamp(min=0)
-        self.bit_lo, self.bit_hi = _bit_lane(s, 0), _bit_lane(s, 32)
+        self.bits = self.rep.event_bits_t(ev.clamp(min=0))
         z = torch.zeros(K, dtype=_I64, device=device)
         self.rows = self.rep.zeros((K, N))
-        self.rows[0][:, 0] = torch.from_numpy(
-            np.asarray(state0, np.int32)).to(device)
+        s0 = torch.from_numpy(np.asarray(state0, np.int32)).to(device)
+        self.rows[0][:, 0] = self.rep.field(s0)
         self.live = (torch.arange(N, device=device) < 1).expand(K, N)
         self.ok = torch.ones(K, dtype=torch.bool, device=device)
         self.overflow = torch.zeros(K, dtype=torch.bool, device=device)
@@ -728,7 +942,7 @@ class _BatchScan:
         if self.closure == "fused":
             rows2, meta = sk.frontier_closure_batch(
                 self.step_name, self.xs, r, self.rows, self.live, run,
-                self.probe_limit)
+                self.probe_limit, **_pack_kw(self.rep))
         else:
             ev = {k: v[:, r] for k, v in self.xs.items()}
             rows2, meta = sk.tiled_event_closure_batch(
@@ -746,10 +960,10 @@ class _BatchScan:
             # a settled or padded event's probe flag must not trigger
             # escalation
             ovf = run & ovf
-            lo, hi = self.bit_lo[r][:, None], self.bit_hi[r][:, None]
-            live3 = live2 & (((rows2[1] & lo) | (rows2[2] & hi)) != 0)
-            rows3 = (rows2[0], torch.where(live3, rows2[1] & ~lo, rows2[1]),
-                     torch.where(live3, rows2[2] & ~hi, rows2[2]))
+            bits = tuple(None if b is None else b[r][:, None]
+                         for b in self.bits)
+            live3 = live2 & _has_bits(rows2, bits)
+            rows3 = _clear_bits(rows2, bits, live3)
             failed_here = run & ~live3.any(1)
             self.fail_r = torch.where(failed_here & (self.fail_r < 0), r,
                                       self.fail_r)
@@ -786,7 +1000,7 @@ def _bit_lane(s, base: int):
 def check_batch_sparse(encs, capacity: int = 512,
                        max_capacity: int = 1 << 18, dedupe=None,
                        device=None, smem_budget=None, *, escalate,
-                       probe_limit: int = 0) -> list:
+                       probe_limit: int = 0, config_pack=None) -> list:
     """The reference's sparse per-key batch with per-key capacity retry
     (`jepsen_tpu.parallel.engine._check_batch_sparse`): every key runs
     in one batched scan (`_BatchScan`) at N = max(64, capacity); a key
@@ -799,10 +1013,16 @@ def check_batch_sparse(encs, capacity: int = 512,
 
     `dedupe` "hash" (default; JEPSEN_TPU_TORCH_DEDUPE) or "sort";
     `smem_budget` is the test seam of `_route`, `probe_limit` the hash
-    probes' bound (0: the flag)."""
+    probes' bound (0: the flag). `config_pack` (None: the flag) asks for
+    packed rows: the batch's one layout is `pack_spec_for` of every key
+    at the batch's first (widest) C, fixed for every tier; a tier's
+    lanes follow its own C, and the tag names the batch's C."""
     dev = resolve_device(device)
     dedupe = _resolve_dedupe(dedupe)
     probe_limit = _resolve_probe_limit(probe_limit)
+    pack_req = _resolve_config_pack(config_pack)
+    C = max(e.slot_f.shape[1] for e in encs) if encs else 0
+    pack = pack_spec_for(list(encs), C) if pack_req and encs else ()
     out: list = [None] * len(encs)
     pending = list(range(len(encs)))
     N = max(64, capacity)
@@ -812,7 +1032,7 @@ def check_batch_sparse(encs, capacity: int = 512,
         # batch's is 5)
         xs, state0, _, _, _ = pad_batch(encs_t)
         sc = _BatchScan(encs_t, xs, state0, N, dedupe, probe_limit, dev,
-                        smem_budget).run()
+                        smem_budget, pack).run()
         valid, fail_r, overflow, maxf, stepped = sc.result()
         tag = _closure_tag(sc.closure, dev)
         retry = []
@@ -823,6 +1043,7 @@ def check_batch_sparse(encs, capacity: int = 512,
             r = {"valid?": valid[j], "max-frontier": maxf[j],
                  "capacity": N, "dedupe": dedupe,
                  "configs-stepped": stepped[j], "closure": tag}
+            _tag_config_pack(r, pack, pack_req, C)
             if not valid[j]:
                 r.update(fail_op_fields(encs[i], fail_r[j]))
             out[i] = r

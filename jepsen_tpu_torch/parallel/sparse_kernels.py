@@ -29,12 +29,19 @@ versions and shared-memory gates.
     block the card keeps resident (`k3_layout` "device", `k3_grid_blocks`),
     so it takes every shape.
 
+Each kernel takes rows of one, two or three int32 lanes: the triple
+(state, mask_lo, mask_hi), or the packed word of `config_pack`
+(`sparse._PackedRep`: one lane up to 32 bits, two up to 64). The lane
+count picks the visited-set hash (the triple's, or the packed word's),
+and K2, which also runs the model step, takes the word's layout
+(state_bits, state_lo).
+
 The gate comes from K2's shared-memory layout: it keeps the frontier
-(12 bytes a row), the table (T = next_pow2(2N) slots of 12 bytes of
-row, 4 of claim and 1 of occupancy) and two bytes per candidate (N*C of
-them) in one block. The budget is the card's opt-in on a card (232,448
-bytes on the H100) and that Hopper figure on the CPU, so the CPU tests
-take the routes the card would.
+(4L bytes a row of L lanes), the table (T = next_pow2(2N) slots of 4L
+bytes of row, 4 of claim and 1 of occupancy) and two bytes per
+candidate (N*C of them) in one block. The budget is the card's opt-in on
+a card (232,448 bytes on the H100) and that Hopper figure on the CPU,
+so the CPU tests take the routes the card would.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version, which the tests and `chip_smoke.py`
@@ -74,35 +81,43 @@ MAX_C = 64
 K2_FIXED_BYTES = 3 * 4 * MAX_C + 40 * 4 + 2 * MAX_C
 # K3: 40 words of scan scratch, and in the shared layout the table
 K3_FIXED_BYTES = 40 * 4
-K3_SLOT_BYTES = 17    # rows 12, claim 4, occupancy 1
 # K3's device layout: the blocks of its cooperative grid, at most (the
 # scratch keeps one count per block; hash_insert.cu kMaxGrid)
 K3_MAX_GRID = 1024
 
 
-def k2_smem_bytes(N: int, C: int) -> int:
-    """K2's dynamic shared memory at frontier capacity N and C slots."""
+def slot_bytes(lanes: int = 3) -> int:
+    """Shared memory of one table slot of `lanes`-lane rows: the row, a
+    claim word and an occupancy byte."""
+    return 4 * lanes + 5
+
+
+def k2_smem_bytes(N: int, C: int, lanes: int = 3) -> int:
+    """K2's dynamic shared memory at frontier capacity N, C slots and
+    rows of `lanes` lanes."""
     T = sp._next_pow2(2 * N)
-    return 12 * N + 17 * T + 2 * N * C + K2_FIXED_BYTES
+    return 4 * lanes * N + slot_bytes(lanes) * T + 2 * N * C \
+        + K2_FIXED_BYTES
 
 
-def k3_smem_bytes(Nd: int) -> int:
+def k3_smem_bytes(Nd: int, lanes: int = 3) -> int:
     """K3's dynamic shared memory with the table of per-rank capacity Nd
-    (Td = next_pow2(2 Nd) slots) in shared memory. The candidates and
-    their probe state stay in device memory, so M does not enter."""
-    return K3_SLOT_BYTES * sp._next_pow2(2 * Nd) + K3_FIXED_BYTES
+    (Td = next_pow2(2 Nd) slots of `lanes`-lane rows) in shared memory.
+    The candidates and their probe state stay in device memory, so M
+    does not enter."""
+    return slot_bytes(lanes) * sp._next_pow2(2 * Nd) + K3_FIXED_BYTES
 
 
-def k3_layout(Nd: int, device=None) -> str:
+def k3_layout(Nd: int, device=None, lanes: int = 3) -> str:
     """Where K3 keeps the visited set at per-rank capacity Nd: "shared"
-    (in one block's shared memory) while `k3_smem_bytes(Nd)` fits the
-    block's opt-in (the card's on a card, Hopper's elsewhere: Nd <= 4,096
-    on the H100), else "device" (in device memory, under the cooperative
-    grid)."""
+    (in one block's shared memory) while `k3_smem_bytes(Nd, lanes)` fits
+    the block's opt-in (the card's on a card, Hopper's elsewhere: Nd <=
+    4,096 on the H100 for the triple, 8,192 for one or two lanes), else
+    "device" (in device memory, under the cooperative grid)."""
     device = torch.device("cpu" if device is None else device)
     budget = _device_optin("hash_insert", device) \
         if device.type == "cuda" else HOPPER_SMEM_OPTIN
-    return "shared" if k3_smem_bytes(Nd) <= budget else "device"
+    return "shared" if k3_smem_bytes(Nd, lanes) <= budget else "device"
 
 
 def k3_grid_blocks(per_sm: int, n_sm: int) -> int:
@@ -117,11 +132,14 @@ def k3_grid_blocks(per_sm: int, n_sm: int) -> int:
     return min(per_sm * n_sm, K3_MAX_GRID)
 
 
-def supported(N: int, C: int, budget: int = HOPPER_SMEM_OPTIN) -> bool:
-    """Whether K2 takes frontier capacity N with C slots: its layout
-    fits `budget` bytes. On the H100 that is N = 1024 for every C <= 64
-    and N = 2048 for C <= 33."""
-    return 1 <= C <= MAX_C and k2_smem_bytes(N, C) <= budget
+def supported(N: int, C: int, budget: int = HOPPER_SMEM_OPTIN,
+              lanes: int = 3) -> bool:
+    """Whether K2 takes frontier capacity N with C slots and rows of
+    `lanes` lanes: its layout fits `budget` bytes. On the H100, for the
+    triple, that is N = 1024 for every C <= 64 and N = 2048 for C <= 33;
+    for one lane N = 2048 for every C <= 64 and N = 4096 for C <= 17."""
+    return 1 <= C <= MAX_C and lanes in (1, 2, 3) \
+        and k2_smem_bytes(N, C, lanes) <= budget
 
 
 # ----------------------------------------------------------- the libraries
@@ -146,25 +164,25 @@ def _lib(name: str):
         lib = kernels.load(name)
         if name == "frontier_closure":
             lib.jt_frontier_closure_launch.argtypes = \
-                [_I] + [_P] * 5 + [_I] * 2 + [_P] * 9 + [_I] * 4 + [_P]
+                [_I] + [_P] * 5 + [_I] * 2 + [_P] * 9 + [_I] * 7 + [_P]
             lib.jt_frontier_closure_launch.restype = _I
-            lib.jt_frontier_closure_smem.argtypes = [_I, _I]
+            lib.jt_frontier_closure_smem.argtypes = [_I, _I, _I]
             lib.jt_frontier_closure_smem.restype = ctypes.c_longlong
         elif name == "hash_insert":
             lib.jt_hash_insert_launch.argtypes = \
                 [_P] * 4 + [_I] + [_P] * 3 + [_I, _P] + [_P] * 4 + [_I] \
-                + [_P] * 8 + [_P, _I, _I, _I, _P]
+                + [_P] * 8 + [_P, _I, _I, _I, _I, _P]
             lib.jt_hash_insert_launch.restype = _I
             lib.jt_hash_insert_grid_shape.argtypes = \
                 [ctypes.POINTER(_I), ctypes.POINTER(_I)]
             lib.jt_hash_insert_grid_shape.restype = _I
             lib.jt_hash_insert_scratch.argtypes = [_I, _I, _I]
             lib.jt_hash_insert_scratch.restype = ctypes.c_longlong
-            lib.jt_hash_insert_smem.argtypes = [_I, _I]
+            lib.jt_hash_insert_smem.argtypes = [_I, _I, _I]
             lib.jt_hash_insert_smem.restype = ctypes.c_longlong
         else:
             lib.jt_tiled_insert_launch.argtypes = \
-                [_P] * 4 + [_I] + [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 \
+                [_P] * 4 + [_I] + [_P] * 4 + [_I] + [_P] * 4 + [_I] * 4 \
                 + [_P]
             lib.jt_tiled_insert_launch.restype = _I
             lib.jt_tiled_insert_scratch.argtypes = [_I] * 3
@@ -262,7 +280,30 @@ def _dev(t):
 
 # --------------------------------------------------------------------- K2
 
-def _check_closure_args(step_name, ev, rows, live, run, probe_limit):
+_LANE_WORDS = {1: "one", 2: "two", 3: "three"}
+
+
+def _lanes_ok(rows, L: int, shape) -> bool:
+    return len(rows) == L and all(r.dtype == _I32 and tuple(r.shape) ==
+                                  tuple(shape) for r in rows)
+
+
+def _lane_ptrs(rows) -> list:
+    """The lanes' device pointers, null past the row's lanes (the C
+    entry points take three)."""
+    return [_ptr(r) for r in rows] + [None] * (3 - len(rows))
+
+
+def _row_lanes(pack, C: int) -> int:
+    """The lanes of a row of layout `pack` at C slots, the layout checked
+    (a packed word must fit 64 bits)."""
+    if pack:
+        return sp._PackedRep(pack[0], pack[1], C).lanes
+    return 3
+
+
+def _check_closure_args(step_name, ev, rows, live, run, probe_limit,
+                        pack):
     _check(step_name in STEP_CODES, f"frontier_closure: unknown step "
                                     f"family {step_name!r}")
     C = ev["slot_f"].shape[0]
@@ -277,9 +318,10 @@ def _check_closure_args(step_name, ev, rows, live, run, probe_limit):
     for k in ("slot_wild", "slot_occ"):
         _check(ev[k].dtype == torch.bool and tuple(ev[k].shape) == (C,),
                f"frontier_closure: {k} must be bool [{C}]")
-    _check(len(rows) == 3 and all(r.dtype == _I32 and tuple(r.shape) == (N,)
-                                  for r in rows),
-           f"frontier_closure: rows must be three int32 [{N}] lanes")
+    L = _row_lanes(pack, C)
+    _check(_lanes_ok(rows, L, (N,)),
+           f"frontier_closure: rows must be {L} int32 [{N}] lanes (layout "
+           f"{pack or 'triple'} at C={C})")
     _check(live.dtype == torch.bool and run.dtype == torch.bool
            and run.numel() == 1,
            "frontier_closure: live must be bool [N], run one bool")
@@ -289,12 +331,13 @@ def _check_closure_args(step_name, ev, rows, live, run, probe_limit):
 
 
 def frontier_closure_reference(step_name, ev, rows, live, run,
-                               probe_limit: int):
-    """K2's plain version: `sparse._hash_event_closure` -> (rows2, meta
-    int32[4] = count, ovf, iters, stepped). With `run` False the event
-    is skipped: zero rows and zero meta, as the kernel writes."""
+                               probe_limit: int, pack=()):
+    """K2's plain version: `sparse._hash_event_closure` over rows of
+    layout `pack` -> (rows2, meta int32[4] = count, ovf, iters, stepped).
+    With `run` False the event is skipped: zero rows and zero meta, as
+    the kernel writes."""
     N = live.shape[0]
-    rep = sp._rep((), ev["slot_f"].shape[0], live.device)
+    rep = sp._rep(pack, ev["slot_f"].shape[0], live.device)
     if not bool(run):
         return rep.zeros(N), torch.zeros(4, dtype=_I32, device=live.device)
     rows2, count, ovf, iters, stepped = sp._hash_event_closure(
@@ -305,25 +348,27 @@ def frontier_closure_reference(step_name, ev, rows, live, run,
 
 
 def frontier_closure(step_name: str, ev: dict, rows, live, run,
-                     probe_limit: int):
+                     probe_limit: int, pack=()):
     """K2: one return event's whole hash closure.
 
     ev     the event's slot tables: slot_f/slot_a0/slot_a1 int32 [C],
            slot_wild/slot_occ bool [C]
-    rows   the frontier, three int32 lanes [N]; live bool [N]
+    rows   the frontier, int32 lanes [N] of layout `pack`: () the triple
+           (three lanes), (state_bits, state_lo) the packed word (one or
+           two, `sparse.pack_lanes`); live bool [N]
     run    one bool: False skips the event (zero rows and meta)
     ->     (rows2, meta int32[4] = count, ovf, iters, stepped), rows2 the
            closed frontier compacted into rows [0, count), zeros after.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel on the current stream, after the shape gate
-    (`supported(N, C)` against the card's opt-in)."""
-    _check_closure_args(step_name, ev, rows, live, run, probe_limit)
+    (`supported(N, C, lanes=L)` against the card's opt-in)."""
+    _check_closure_args(step_name, ev, rows, live, run, probe_limit, pack)
     if _dev(live).type == "cpu":
         return frontier_closure_reference(step_name, ev, rows, live, run,
-                                          probe_limit)
+                                          probe_limit, pack)
     out = _frontier_closure_launch(step_name, ev, 0, 1, rows, live, run,
-                                   probe_limit)
+                                   probe_limit, pack)
     launches["frontier_closure"] += 1
     return out
 
@@ -332,30 +377,33 @@ SLOT_TABLES = ("slot_f", "slot_a0", "slot_a1", "slot_wild", "slot_occ")
 
 
 def _frontier_closure_launch(step_name, xs, r: int, R: int, rows, live,
-                             run, probe_limit: int):
+                             run, probe_limit: int, pack=()):
     """K2's launch on CUDA tensors after the shape gate: one key's event
     (slot tables [C], rows and live [N], one run flag) or event row r of
     K keys' (tables [K, R, C], rows and live [K, N], run [K]); the
-    outputs take live's shape. Raises on a launch the card refuses;
-    counts nothing (its callers do)."""
+    outputs take live's shape and the rows' lanes. Raises on a launch the
+    card refuses; counts nothing (its callers do)."""
     C, N = xs["slot_f"].shape[-1], live.shape[-1]
     K = live.numel() // N
+    L = len(rows)
     dev = live.device
-    if not supported(N, C, _device_optin("frontier_closure", dev)):
-        raise ValueError(f"frontier_closure: N={N} C={C} needs "
-                         f"{k2_smem_bytes(N, C)} bytes of shared memory, "
-                         f"past the card's opt-in")
+    if not supported(N, C, _device_optin("frontier_closure", dev), L):
+        raise ValueError(f"frontier_closure: N={N} C={C} with {L}-lane rows "
+                         f"needs {k2_smem_bytes(N, C, L)} bytes of shared "
+                         f"memory, past the card's opt-in")
+    s_bits, state_lo = pack if pack else (0, 0)
     ins = [xs[k].contiguous() for k in SLOT_TABLES]
-    rins = [x.contiguous() for x in rows] + [live.contiguous(),
-                                              run.contiguous()]
+    rows = [x.contiguous() for x in rows]
+    flags = [live.contiguous(), run.contiguous()]
     out = [torch.empty(live.shape, dtype=_I32, device=dev)
-           for _ in range(3)]
+           for _ in range(L)]
     meta = torch.empty((*live.shape[:-1], 4), dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         err = _lib("frontier_closure").jt_frontier_closure_launch(
-            STEP_CODES[step_name], *map(_ptr, ins), r, R,
-            *map(_ptr, rins), *map(_ptr, out), _ptr(meta), K, N, C,
-            probe_limit, torch.cuda.current_stream().cuda_stream)
+            STEP_CODES[step_name], *map(_ptr, ins), r, R, *_lane_ptrs(rows),
+            *map(_ptr, flags), *_lane_ptrs(out), _ptr(meta), K, N, C,
+            probe_limit, L, s_bits, state_lo,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"frontier_closure kernel launch failed: CUDA "
                            f"error {err}")
@@ -363,20 +411,21 @@ def _frontier_closure_launch(step_name, xs, r: int, R: int, rows, live,
 
 
 def frontier_closure_batch_reference(step_name, xs, r: int, rows, live,
-                                     run, probe_limit: int):
+                                     run, probe_limit: int, pack=()):
     """Batched K2's plain version: `frontier_closure_reference` key by
-    key on event row r -> (rows2 three [K, N] lanes, meta int32 [K, 4]).
-    A key whose `run` is False gets zero rows and zero meta."""
+    key on event row r -> (rows2 [K, N] lanes, meta int32 [K, 4]). A key
+    whose `run` is False gets zero rows and zero meta."""
     outs = [frontier_closure_reference(
         step_name, {k: xs[k][i, r] for k in SLOT_TABLES},
-        tuple(x[i] for x in rows), live[i], run[i], probe_limit)
+        tuple(x[i] for x in rows), live[i], run[i], probe_limit, pack)
         for i in range(live.shape[0])]
-    return (tuple(torch.stack([o[0][j] for o in outs]) for j in range(3)),
+    return (tuple(torch.stack([o[0][j] for o in outs])
+                  for j in range(len(rows))),
             torch.stack([o[1] for o in outs]))
 
 
 def frontier_closure_batch(step_name: str, xs: dict, r: int, rows, live,
-                           run, probe_limit: int):
+                           run, probe_limit: int, pack=()):
     """Batched K2: event row r's whole hash closure for each of K keys,
     in one launch (a block a key).
 
@@ -384,15 +433,15 @@ def frontier_closure_batch(step_name: str, xs: dict, r: int, rows, live,
            [K, R, C], slot_wild/slot_occ bool [K, R, C] (read in place;
            other entries are ignored)
     r      the event row, 0 <= r < R
-    rows   three int32 lanes [K, N]; live bool [K, N]
+    rows   int32 lanes [K, N] of layout `pack` (as `frontier_closure`'s);
+           live bool [K, N]
     run    bool [K]: False skips that key (zero rows and meta)
-    ->     (rows2 three int32 lanes [K, N], meta int32 [K, 4] = count,
-           ovf, iters, stepped per key), as `frontier_closure` gives
-           each key.
+    ->     (rows2 int32 lanes [K, N], meta int32 [K, 4] = count, ovf,
+           iters, stepped per key), as `frontier_closure` gives each key.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel on the current stream, after the shape gate (`supported(N,
-    C)` against the card's opt-in), or raises."""
+    C, lanes=L)` against the card's opt-in), or raises."""
     _check(step_name in STEP_CODES, f"frontier_closure_batch: unknown "
                                     f"step family {step_name!r}")
     _check(xs["slot_f"].dim() == 3, "frontier_closure_batch: slot tables "
@@ -409,20 +458,21 @@ def frontier_closure_batch(step_name: str, xs: dict, r: int, rows, live,
         dt = _I32 if k in ("slot_f", "slot_a0", "slot_a1") else torch.bool
         _check(xs[k].dtype == dt and tuple(xs[k].shape) == (K, R, C),
                f"frontier_closure_batch: {k} must be {dt} [{K}, {R}, {C}]")
-    _check(len(rows) == 3 and all(x.dtype == _I32 and tuple(x.shape) ==
-                                  (K, N) for x in rows)
+    L = _row_lanes(pack, C)
+    _check(_lanes_ok(rows, L, (K, N))
            and live.dtype == torch.bool and tuple(live.shape) == (K, N)
            and run.dtype == torch.bool and tuple(run.shape) == (K,),
-           f"frontier_closure_batch: rows must be three int32 [{K}, N] "
-           f"lanes, live bool [{K}, N], run bool [{K}]")
+           f"frontier_closure_batch: rows must be {L} int32 [{K}, N] "
+           f"lanes (layout {pack or 'triple'} at C={C}), live bool "
+           f"[{K}, N], run bool [{K}]")
     devs = {t.device for t in (*(xs[k] for k in SLOT_TABLES), *rows, live,
                                run)}
     _check(len(devs) == 1, f"frontier_closure_batch: tensors on {devs}")
     if _dev(live).type == "cpu":
         return frontier_closure_batch_reference(step_name, xs, r, rows,
-                                                live, run, probe_limit)
+                                                live, run, probe_limit, pack)
     out = _frontier_closure_launch(step_name, xs, r, R, rows, live, run,
-                                   probe_limit)
+                                   probe_limit, pack)
     launches["frontier_closure_batch"] += 1
     return out
 
@@ -433,8 +483,7 @@ def hash_insert_reference(c_rows, c_live, f_rows, count, table,
                           probe_limit: int, N: int):
     """K3's plain version, on any device: `sparse._hash_insert_append`."""
     return sp._hash_insert_append(c_rows, c_live, f_rows, count, table,
-                                  probe_limit, N,
-                                  sp._rep((), 1, c_live.device))
+                                  probe_limit, N, sp._RowLayout())
 
 
 def hash_insert(c_rows, c_live, f_rows, count, table, probe_limit: int,
@@ -445,10 +494,11 @@ def hash_insert(c_rows, c_live, f_rows, count, table, probe_limit: int,
     the fresh ones, in candidate order, after the first `count` frontier
     rows.
 
-    c_rows  candidates, three int32 lanes [M]; c_live bool [M]
-    f_rows  the frontier, three int32 lanes [N]
+    c_rows  candidates, L int32 lanes [M] (L = 3: the triple; 1 or 2: the
+            packed word); c_live bool [M]
+    f_rows  the frontier, L int32 lanes [N]
     count   integer tensor, one value: the frontier rows in use
-    table   (three int32 lanes [T], occupancy bool [T]), T a power of two
+    table   (L int32 lanes [T], occupancy bool [T]), T a power of two
     ->      (rows2, table2, count2, n_fresh, ovf): count2 = min(count +
             n_fresh, N), ovf a probe run past `probe_limit` or an append
             past N (the rows past N are dropped).
@@ -459,19 +509,19 @@ def hash_insert(c_rows, c_live, f_rows, count, table, probe_limit: int,
     `k3_layout` says."""
     t_rows, t_occ = table
     M, T = c_live.shape[0], t_occ.shape[0]
+    L = len(c_rows)
     _check(M >= 1 and N >= 1 and T >= 2 and T & (T - 1) == 0,
            f"hash_insert: M={M} N={N} T={T} (T a power of two)")
     _check(1 <= probe_limit <= sp.MAX_PROBE_LIMIT,
            f"hash_insert: probe_limit={probe_limit} outside "
            f"1..{sp.MAX_PROBE_LIMIT}")
-    _check(len(c_rows) == 3 and len(f_rows) == 3 and len(t_rows) == 3
-           and all(r.dtype == _I32 and tuple(r.shape) == (n,)
-                   for rows, n in ((c_rows, M), (f_rows, N), (t_rows, T))
-                   for r in rows)
+    _check(L in (1, 2, 3) and _lanes_ok(c_rows, L, (M,))
+           and _lanes_ok(f_rows, L, (N,)) and _lanes_ok(t_rows, L, (T,))
            and c_live.dtype == torch.bool and t_occ.dtype == torch.bool
            and count.numel() == 1 and not count.is_floating_point(),
-           "hash_insert: rows must be three int32 lanes, flags bool, "
-           "count one integer")
+           f"hash_insert: rows must be {_LANE_WORDS.get(L, L)} int32 lanes "
+           f"(1-3, as many in the candidates, the frontier and the table; "
+           f"[{M}], [{N}], [{T}]), flags bool, count one integer")
     devs = {t.device for t in (*c_rows, c_live, *f_rows, count, *t_rows,
                                t_occ)}
     _check(len(devs) == 1, f"hash_insert: tensors on {devs}")
@@ -480,7 +530,7 @@ def hash_insert(c_rows, c_live, f_rows, count, table, probe_limit: int,
         return hash_insert_reference(c_rows, c_live, f_rows, count, table,
                                      probe_limit, N)
     return _hash_insert_launch(c_rows, c_live, f_rows, count, table,
-                               probe_limit, N, k3_layout(T // 2, dev))
+                               probe_limit, N, k3_layout(T // 2, dev, L))
 
 
 def _hash_insert_launch(c_rows, c_live, f_rows, count, table,
@@ -491,26 +541,29 @@ def _hash_insert_launch(c_rows, c_live, f_rows, count, table,
     refuses."""
     t_rows, t_occ = table
     M, T = c_live.shape[0], t_occ.shape[0]
+    L = len(c_rows)
     dev = c_live.device
     lib = _lib("hash_insert")
     layout = {"shared": 0, "device": 1}[layout_name]
     grid = k3_grid(dev) if layout_name == "device" else 0
     scratch = torch.empty(lib.jt_hash_insert_scratch(M, T, layout),
                           dtype=torch.uint8, device=dev)
-    ins = [r.contiguous() for r in c_rows] + [c_live.contiguous()]
-    fins = [r.contiguous() for r in f_rows]
-    tins = [r.contiguous() for r in t_rows] + [t_occ.contiguous()]
-    out = [torch.empty(N, dtype=_I32, device=dev) for _ in range(3)]
-    t_out = [torch.empty(T, dtype=_I32, device=dev) for _ in range(3)]
+    c_rows = [r.contiguous() for r in c_rows]
+    f_rows = [r.contiguous() for r in f_rows]
+    t_rows = [r.contiguous() for r in t_rows]
+    out = [torch.empty(N, dtype=_I32, device=dev) for _ in range(L)]
+    t_out = [torch.empty(T, dtype=_I32, device=dev) for _ in range(L)]
     occ_out = torch.empty(T, dtype=torch.bool, device=dev)
     meta = torch.empty(3, dtype=_I32, device=dev)
     cnt = count.reshape(1).to(_I32)
     with torch.cuda.device(dev):
         err = lib.jt_hash_insert_launch(
-            *map(_ptr, ins), M, *map(_ptr, fins), N, _ptr(cnt),
-            *map(_ptr, tins), T, *map(_ptr, out), *map(_ptr, t_out),
-            _ptr(occ_out), _ptr(meta), _ptr(scratch), probe_limit, layout,
-            grid, torch.cuda.current_stream().cuda_stream)
+            *_lane_ptrs(c_rows), _ptr(c_live.contiguous()), M,
+            *_lane_ptrs(f_rows), N, _ptr(cnt), *_lane_ptrs(t_rows),
+            _ptr(t_occ.contiguous()), T, *_lane_ptrs(out),
+            *_lane_ptrs(t_out), _ptr(occ_out), _ptr(meta), _ptr(scratch),
+            probe_limit, layout, grid, L,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"hash_insert kernel launch failed ({layout_name}"
                            f" layout): CUDA error {err}")
@@ -528,14 +581,15 @@ def tiled_insert_reference(c_rows, c_live, table, probe_limit: int):
     bool[M], off int32[M], probe_ovf bool) and leaves `table` as it
     is."""
     table2, fresh, p_ovf, off = sp._hash_insert(
-        c_rows, c_live, table, probe_limit, sp._rep((), 1, c_live.device))
+        c_rows, c_live, table, probe_limit, sp._RowLayout())
     return table2, fresh, off, p_ovf
 
 
 def _check_k4_args(what, c_rows, c_live, table, probe_limit, K):
     t_rows, t_occ = table
     M, T = c_live.shape[-1], t_occ.shape[-1]
-    lead = c_live.shape[:-1]
+    lead = tuple(c_live.shape[:-1])
+    L = len(c_rows)
     _check(M >= 1 and T >= 2 and T & (T - 1) == 0,
            f"{what}: M={M} T={T} (T must be a power of two)")
     _check(K * M < 2 ** 31 - 1,
@@ -543,14 +597,12 @@ def _check_k4_args(what, c_rows, c_live, table, probe_limit, K):
     _check(1 <= probe_limit <= sp.MAX_PROBE_LIMIT,
            f"{what}: probe_limit={probe_limit} outside "
            f"1..{sp.MAX_PROBE_LIMIT}")
-    _check(len(c_rows) == 3 and len(t_rows) == 3
-           and all(r.dtype == _I32 and r.shape == (*lead, M)
-                   for r in c_rows)
-           and all(r.dtype == _I32 and r.shape == (*lead, T)
-                   for r in t_rows)
+    _check(L in (1, 2, 3) and _lanes_ok(c_rows, L, (*lead, M))
+           and _lanes_ok(t_rows, L, (*lead, T))
            and c_live.dtype == torch.bool and t_occ.dtype == torch.bool
-           and t_occ.shape == (*lead, T),
-           f"{what}: rows must be three int32 lanes, flags bool")
+           and tuple(t_occ.shape) == (*lead, T),
+           f"{what}: rows must be {_LANE_WORDS.get(L, L)} int32 lanes (1-3, "
+           f"as many in the candidates and the table), flags bool")
     devs = {t.device for t in (*c_rows, c_live, *t_rows, t_occ)}
     _check(len(devs) == 1, f"{what}: tensors on {devs}")
     return _dev(c_live)
@@ -560,8 +612,9 @@ def tiled_insert(c_rows, c_live, table, probe_limit: int):
     """K4: the probe/claim half of one visited-set transaction, over the
     whole table (the reference's transaction).
 
-    c_rows  candidates, three int32 lanes [M]; c_live bool [M]
-    table   (three int32 lanes [T], occupancy bool [T]), T a power of two
+    c_rows  candidates, L int32 lanes [M] (L = 3: the triple; 1 or 2: the
+            packed word); c_live bool [M]
+    table   (L int32 lanes [T], occupancy bool [T]), T a power of two
     ->      (table2, fresh bool[M], off int32[M], probe_ovf bool [])
 
     A CPU tensor runs the plain version, which leaves `table` as it is.
@@ -588,11 +641,13 @@ def _tiled_insert_launch(c_rows, c_live, table, probe_limit: int):
     t_rows, t_occ = table
     M, T = c_live.shape[-1], t_occ.shape[-1]
     K = c_live.shape[0] if c_live.dim() == 2 else 1
+    L = len(c_rows)
     dev = c_live.device
     lib = _lib("tiled_insert")
     grid = k4_grid(dev)
-    ins = [r.contiguous() for r in c_rows] + [c_live.contiguous()]
-    tins = [r.contiguous() for r in t_rows] + [t_occ.contiguous()]
+    c_rows = [r.contiguous() for r in c_rows]
+    t_rows = [r.contiguous() for r in t_rows]
+    t_occ = t_occ.contiguous()
     fresh = torch.empty(c_live.shape, dtype=torch.bool, device=dev)
     off = torch.empty(c_live.shape, dtype=_I32, device=dev)
     pend = torch.empty(c_live.shape[:-1], dtype=torch.bool, device=dev)
@@ -600,13 +655,14 @@ def _tiled_insert_launch(c_rows, c_live, table, probe_limit: int):
                           dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = lib.jt_tiled_insert_launch(
-            *map(_ptr, ins), M, *map(_ptr, tins), T, _ptr(fresh), _ptr(off),
-            _ptr(pend), _ptr(scratch), K, probe_limit, grid,
+            *_lane_ptrs(c_rows), _ptr(c_live.contiguous()), M,
+            *_lane_ptrs(t_rows), _ptr(t_occ), T, _ptr(fresh), _ptr(off),
+            _ptr(pend), _ptr(scratch), K, probe_limit, grid, L,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"tiled_insert kernel launch failed: CUDA "
                            f"error {err}")
-    return (tuple(tins[:3]), tins[3]), fresh, off, pend
+    return (tuple(t_rows), t_occ), fresh, off, pend
 
 
 def tiled_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
@@ -637,7 +693,7 @@ def tiled_insert_batch_reference(c_rows, c_live, table, probe_limit: int):
         (tuple(x[i] for x in t_rows), t_occ[i]), probe_limit)
         for i in range(c_live.shape[0])]
     return ((tuple(torch.stack([o[0][0][j] for o in outs])
-                   for j in range(3)),
+                   for j in range(len(c_rows))),
              torch.stack([o[0][1] for o in outs])),
             *(torch.stack([o[j] for o in outs]) for j in (1, 2, 3)))
 
@@ -648,9 +704,10 @@ def tiled_insert_batch(c_rows, c_live, table, probe_limit: int):
     one cooperative grid). What key k gets is `tiled_insert` on its own
     candidates and table.
 
-    c_rows  candidates, three int32 lanes [K, M]; c_live bool [K, M]
-    table   (three int32 lanes [K, T], occupancy bool [K, T]), T a power
-            of two
+    c_rows  candidates, L int32 lanes [K, M] (as `tiled_insert`'s);
+            c_live bool [K, M]
+    table   (L int32 lanes [K, T], occupancy bool [K, T]), T a power of
+            two
     ->      (table2, fresh bool [K, M], off int32 [K, M], probe_ovf bool
             [K])
 

@@ -1,7 +1,8 @@
 """The port stands alone: no module of jepsen_tpu_torch, and neither
-chip_smoke.py, kernel_ab.py nor the parity cases chip_smoke.py loads
-(tests/torch_parity_cases.py), imports JAX or anything of the JAX
-package (jepsen_tpu).
+chip_smoke.py, kernel_ab.py, the parity cases chip_smoke.py loads
+(tests/torch_parity_cases.py) nor the packed kernels' card tests
+(tests/test_torch_config_pack_kernels.py, which the card runs without
+JAX), imports JAX or anything of the JAX package (jepsen_tpu).
 Checked twice: by importing everything in a fresh interpreter and
 reading sys.modules, and by scanning the sources' import statements."""
 
@@ -17,7 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "jepsen_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
-    ROOT / "tests" / "torch_parity_cases.py"]
+    ROOT / "tests" / "torch_parity_cases.py",
+    ROOT / "tests" / "test_torch_config_pack_kernels.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -29,6 +31,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke  # imported, not run
 import kernel_ab
+sys.path.insert(0, "tests")
+import test_torch_config_pack_kernels  # its cases are built, nothing runs
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.")

@@ -292,10 +292,12 @@ def test_route_and_gather_agree(D):
 def test_unported_options_raise():
     mesh = meshplan.local_mesh("cpu")
     e = enc.encoded_from_arrays(*_payloads()["counterexample-4op"])
-    for kw in ({"reshard": True}, {"search_stats": True},
-               {"config_pack": True}):
+    for kw in ({"reshard": True}, {"search_stats": True}):
         with pytest.raises(NotImplementedError, match="later slice"):
             sharded.check_encoded_sharded(e, mesh, **kw)
+    # packed rows are ported: the check runs and names its layout
+    r = sharded.check_encoded_sharded(e, mesh, config_pack=True)
+    assert r["config-pack"].startswith("packed:")
     with pytest.raises(ValueError, match="exchange"):
         sharded.check_encoded_sharded(e, mesh, exchange="bcast")
 

@@ -204,9 +204,16 @@ def test_empty_history_and_config_pack():
     pe.ev_slot = pe.ev_slot[:0]
     assert sparse.check_encoded(pe, device="cpu") == {
         "valid?": True, "max-frontier": 0, "capacity": 0}
-    _, pe = _encoded("uqueue")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        sparse.check_encoded(pe, device="cpu", config_pack=True)
+    assert sparse.check_encoded(pe, device="cpu", config_pack=True) == {
+        "valid?": True, "max-frontier": 0, "capacity": 0}
+    # packed rows are ported: the reference's packed result, tagged
+    re_, pe = _encoded("uqueue")
+    want = ref_engine.check_encoded(re_, capacity=64, dedupe="hash",
+                                    config_pack=True)
+    got = sparse.check_encoded(pe, capacity=64, dedupe="hash",
+                               device="cpu", config_pack=True)
+    assert _pin(got) == _pin(want)
+    assert got["config-pack"] == want["config-pack"] == "packed:13b/1-lane"
 
 
 def test_flags(monkeypatch):
