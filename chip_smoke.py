@@ -149,6 +149,32 @@ down both of its engines:
        plain version and the bound (bytes at 4L a row of L lanes); one
        kernels-line entry per packed kernel, lane count and shape, with
        its launches on the packed main path.
+  8. search stats (search_stats=True: the reference's per-event "stats"
+     block), K2's stats instantiation, the competition race and the host
+     checkers:
+     * main path, each history once: the dense 10k-op check
+       (`closure-iters` all -1 where K1 ran), the six golden queue/set
+       histories and the 1000-op FIFO (K2's stats instantiation, then K4),
+       the two-lane set with config_pack, the 84-key dense batch and the
+       28-key sparse batch (with the pad extras) through `independent`,
+       the 92-key dense batch (the 84 and eight wider keys) through
+       `engine.check_batch`, and one key escalated from the 28; every
+       block equal to the reference's (REF_STATS, recorded on the CPU by
+       tests/torch_record_stats_refs.py), `closure-iters` too but in the
+       dense engine's blocks;
+     * parity of K2's stats instantiation, single and batched, at one,
+       two and three lanes, against its plain version bit for bit (rows,
+       meta, swork and the probe-length histogram) on the seeded cases at
+       probe_limit 2 and 32 and on inputs kept from that path;
+     * timing per launch, stats on against stats off on the same inputs;
+     * the race: `Linearizable(model, "competition")` on the 10k-op
+       history, its twin and two golden invalid histories ("torch" among
+       the arms, the reference's verdicts, winner and wall printed), then
+       `"packed"` and `"linear"` on the golden invalid histories (the
+       reference's final-paths from the WGL re-search, REF_CHECKERS) with
+       linear.svg written into a temporary store. The race returns only
+       once its device arm has stopped (the race's cancel), and no
+       device arm may run on after it.
   Launch counts are zeroed just before each main-path check and read just
   after; each check must have launched the kernel of its route.
 
@@ -2658,6 +2684,488 @@ def phase_packed_timing(dev, rec, launches) -> list:
     return out
 
 
+# ------------------------------------------------------------ search stats
+
+# The reference's search-stats blocks (jepsen_tpu on the CPU,
+# search_stats=True, dedupe "hash"; tests/torch_record_stats_refs.py):
+# per check the digest of its block without "closure-iters", the digest
+# of the sparse blocks' "closure-iters" (`_stats_digest`: None for a
+# dense block, whose card path reports -1 where the reference's CPU
+# closure counts its double expansions), its events and frontier peak;
+# a batch's digests go over its keys' blocks in input order.
+REF_STATS = {
+    "adv-10k-k12": {
+        "digest": "cbf621e3ae62f679", "events": 9988,
+        "frontier-peak": 28672, "iters": "74234e98afe7498f"},
+    "fifo-valid.edn": {
+        "digest": "1f6a1682af4b3364", "events": 40,
+        "frontier-peak": 253, "iters": "e9a0f7ed7396941b"},
+    "uqueue-valid.edn": {
+        "digest": "7475a118e52811ad", "events": 45,
+        "frontier-peak": 128, "iters": "762371bee5036bfd"},
+    "gset-valid.edn": {
+        "digest": "341897ff0bf6f572", "events": 46,
+        "frontier-peak": 16, "iters": "3402fc95c0e474b3"},
+    "fifo-invalid.edn": {
+        "digest": "ffabeaf519a18627", "events": 3,
+        "frontier-peak": 5, "iters": "b3d4dc5729168c11"},
+    "uqueue-invalid.edn": {
+        "digest": "5cad4f4d75d4e2ee", "events": 8,
+        "frontier-peak": 32, "iters": "94b1bdfb096426ef"},
+    "gset-invalid.edn": {
+        "digest": "eb9df739ef448e8d", "events": 21,
+        "frontier-peak": 16, "iters": "0a46525c692182e0"},
+    "fifo-1000": {
+        "digest": "703a5c63cbfeca49", "events": 863,
+        "frontier-peak": 18610, "iters": "a48851c022f2aaa7"},
+    "gset-200 two-lane": {
+        "digest": "b8d219018041cc4c", "events": 199,
+        "frontier-peak": 16384, "iters": "c2f365d02ea24913"},
+    "multikey-84": {
+        "digest": "f8b4aa0ddb818af0", "events": 7433,
+        "frontier-peak": 49344, "iters": "d1709bfb49d99900"},
+    "multikey-84+8": {
+        "digest": "16067828a47496dd", "events": 9627,
+        "frontier-peak": 589824, "iters": "393c2bf7de5f1ad8"},
+    "uqueue-24+4": {
+        "digest": "29f7d65588a95d6e", "events": 3124,
+        "frontier-peak": 32768, "iters": "20f0e6f96a2ee2d7"},
+    "uqueue key 1 max4096": {
+        "digest": "eabd83632a5f543a", "events": 116,
+        "frontier-peak": 8192, "iters": "6fe4db5d29f862c6"},
+}
+# The race's histories and the verdicts the reference gives them (the
+# impossible-read twin and the golden files are invalid: REF_BATCH,
+# REF and the manifest agree).
+REF_RACE = {"adv-10k-k12": True, "adv-10k-k12 impossible read": False,
+            "register-invalid.edn": False, "fifo-invalid.edn": False}
+# The reference's `linear` and `packed` checkers on the golden invalid
+# histories: the analyzer and the digest of op, final-paths, configs and
+# oracle-disagreement after the WGL re-search.
+REF_CHECKERS = {
+    "register-invalid.edn linear": {"analyzer": "linear",
+        "digest": "567f912963988bd3"},
+    "register-invalid.edn packed": {"analyzer": "packed",
+        "digest": "567f912963988bd3"},
+    "mutex-invalid.edn linear": {"analyzer": "linear",
+        "digest": "4409437945dd6236"},
+    "mutex-invalid.edn packed": {"analyzer": "packed",
+        "digest": "4409437945dd6236"},
+    "fifo-invalid.edn linear": {"analyzer": "linear",
+        "digest": "e854c0dce32f98df"},
+    "fifo-invalid.edn packed": {"analyzer": "packed",
+        "digest": "e854c0dce32f98df"},
+    "uqueue-invalid.edn linear": {"analyzer": "linear",
+        "digest": "eea994812acde080"},
+    "uqueue-invalid.edn packed": {"analyzer": "packed",
+        "digest": "eea994812acde080"},
+    "gset-invalid.edn linear": {"analyzer": "linear",
+        "digest": "09a02baa4d4a0e41"},
+    "gset-invalid.edn packed": {"analyzer": "packed",
+        "digest": "09a02baa4d4a0e41"},
+}
+STATS_KEEP = 6    # K2 stats inputs kept per (wrapper, lanes, keys)
+
+
+def _digest(doc) -> str:
+    import hashlib
+    return hashlib.sha256(json.dumps(doc, sort_keys=True, default=repr)
+                          .encode()).hexdigest()[:16]
+
+
+def _stats_digest(blocks) -> dict:
+    """tests/torch_record_stats_refs.py's `stats_digest` of one block or
+    a batch's list of blocks: "closure-iters" apart, and None for a dense
+    block's (the card's K1 path reports -1 where the reference's CPU
+    closure counts)."""
+    one = isinstance(blocks, dict)
+    bs = [blocks] if one else blocks
+    rest = [{k: v for k, v in b.items() if k != "closure-iters"}
+            for b in bs]
+    iters = [None if b["engine"] == "bitdense" else b["closure-iters"]
+             for b in bs]
+    return {"digest": _digest(rest[0] if one else rest),
+            "iters": _digest(iters[0] if one else iters),
+            "events": sum(b["events"] for b in bs),
+            "frontier-peak": max(b["frontier-peak"] for b in bs)}
+
+
+def _want_stats(name) -> dict:
+    return dict(REF_STATS[name])
+
+
+class _KeepStats:
+    """Keeps copies of the inputs of K2's stats calls (single and
+    batched), every `stride`-th up to STATS_KEEP per (wrapper, lanes,
+    keys), in kept[(wrapper, lanes, keys)]. The wrappers run and count as
+    ever."""
+
+    NAMES = ("frontier_closure", "frontier_closure_batch")
+
+    def __init__(self, stride: int = 5):
+        self.stride = stride
+        self.kept, self.seen = {}, {}
+
+    def __enter__(self):
+        from jepsen_tpu_torch.parallel import sparse_kernels as sk
+        self.real = {n: getattr(sk, n) for n in self.NAMES}
+        pc = _parity_cases()
+
+        def wrap(name, real):
+            def recording(*args, **kw):
+                if kw.get("stats"):
+                    live = args[_ROWS_AT[name] + 1]
+                    key = (name, len(args[_ROWS_AT[name]]),
+                           live.numel() // live.shape[-1])
+                    n = self.seen[key] = self.seen.get(key, 0) + 1
+                    kept = self.kept.setdefault(key, [])
+                    if n % self.stride == 0 and len(kept) < STATS_KEEP:
+                        kept.append((pc._clone(args),
+                                     {k: v for k, v in kw.items()
+                                      if k != "stats"}))
+                return real(*args, **kw)
+            return recording
+
+        for n, real in self.real.items():
+            setattr(sk, n, wrap(n, real))
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.parallel import sparse_kernels as sk
+        for n, real in self.real.items():
+            setattr(sk, n, real)
+
+
+def _keyed_history(hs):
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.history import History
+    ops = []
+    for k, h in enumerate(hs):
+        for o in h:
+            o = dict(o)
+            o["value"] = independent.KV(k, o.get("value"))
+            ops.append(o)
+    return History.wrap(ops).index()
+
+
+def phase_stats_main(dev, cases) -> dict:
+    """The search-stats main path (search_stats=True), each history once:
+    through the checker, the dense 10k-op check (K1: `closure-iters` all
+    -1), the six golden queue/set histories and the 1000-op FIFO (K2's
+    stats instantiation, then K4's tiers) and the two-lane set with
+    config_pack; through `independent`, the 84-key dense batch and the
+    28-key sparse batch; through `engine.check_batch`, the 92-key dense
+    batch (the 84 and eight wider keys) and one key of the 28 escalated at
+    max_capacity 4,096. Every block equals the reference's (REF_STATS)
+    field for field, `closure-iters` too but in the dense engine's
+    blocks. Launch counts are zeroed just before each check and read
+    just after; each sparse check launches K2's stats instantiation and
+    never its stats-off one. Keeps K2's stats inputs for the parity and
+    timing phases."""
+    from jepsen_tpu_torch import histories, independent, models
+    from jepsen_tpu_torch.checker.linearizable import Linearizable
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    from jepsen_tpu_torch.parallel import engine, sparse_kernels as sk
+    keep = _KeepStats()
+    totals = {"K1": 0, "K1 batch": 0, "K2 stats": 0, "K2 batch stats": 0}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        with keep:
+            out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = dict(sk.launches, K1=ck.launches, K1_batch=ck.batch_launches)
+        _require(n["frontier_closure"] == n["frontier_closure_batch"] == 0,
+                 f"stats {name}: K2's stats-off instantiation launched")
+        for k, key in (("K1", "K1"), ("K1 batch", "K1_batch"),
+                       ("K2 stats", "frontier_closure_stats"),
+                       ("K2 batch stats", "frontier_closure_batch_stats")):
+            totals[k] += n[key]
+        return out, secs, n
+
+    def held(name, blocks, secs, n):
+        got = _stats_digest(blocks)
+        _require(got == _want_stats(name),
+                 f"stats {name}: {got} != the reference's "
+                 f"{_want_stats(name)}")
+        print(f"stats: {name}: == REF_STATS ({got['events']} events, peak "
+              f"{got['frontier-peak']}), wall {secs:.3f} s, launches "
+              + json.dumps({k: v for k, v in n.items() if v}))
+
+    reg = models.CASRegister(None)
+    name = "adv-10k-k12"
+    adv = histories.adversarial_register_history(n_ops=10000, k_crashed=12)
+    r, secs, n = run(name, lambda: Linearizable(
+        reg, "torch", device=dev, search_stats=True).check({}, adv))
+    b = r["stats"]
+    _require(b["engine"] == "bitdense" and n["K1"] == b["events"]
+             and set(b["closure-iters"]) == {-1},
+             f"stats {name}: K1 did not run every closure "
+             f"({set(b['closure-iters'])}, {n['K1']} launches)")
+    held(name, b, secs, n)
+    sparse_cases = [c for c in cases if c[0] in REF_STATS] + [
+        (PACKED_TWO_LANE, models.GSet(), histories.rand_gset_history(
+            200, n_processes=14, n_elements=20, crash_p=0.005, seed=1))]
+    for name, model, h in sparse_cases:
+        kw = {"config_pack": True} if name == PACKED_TWO_LANE else {}
+        r, secs, n = run(name, lambda model=model, h=h, kw=kw: Linearizable(
+            model, "torch", device=dev, search_stats=True, **kw).check(
+            {}, h))
+        _require(n["frontier_closure_stats"] > 0,
+                 f"stats {name}: K2's stats instantiation never ran")
+        held(name, r["stats"], secs, n)
+
+    dense, extra = _batch_keys()
+    queue = models.UnorderedQueue()
+    hs = _sparse_batch_keys()
+    for name, model, hs_ in (("multikey-84", reg, dense),
+                             ("uqueue-24+4", queue, hs)):
+        r, secs, n = run(name, lambda m=model, h=hs_:
+                         independent.checker(Linearizable(
+                             m, device=dev, search_stats=True)).check(
+                             {}, _keyed_history(h)))
+        bs = [r["results"][k]["stats"] for k in range(len(hs_))]
+        _require(n["K1_batch"] > 0 if model is reg else
+                 n["frontier_closure_batch_stats"] > 0
+                 and n["tiled_insert_batch"] > 0,
+                 f"stats {name}: the batch's kernels never ran")
+        _require(all("pad-waste" in b for b in bs),
+                 f"stats {name}: no pad extras")
+        held(name, bs, secs, n)
+    name = "multikey-84+8"
+    rs, secs, n = run(name, lambda: engine.check_batch(
+        reg, dense + extra, device=dev, search_stats=True))
+    _require(n["K1_batch"] > 0, f"stats {name}: no batched K1 launch")
+    held(name, [r["stats"] for r in rs], secs, n)
+    name = "uqueue key 1 max4096"
+    rs, secs, n = run(name, lambda: engine.check_batch(
+        queue, [hs[1]], max_capacity=SPARSE_ESC_CEILING, device=dev,
+        search_stats=True))
+    _require(rs[0].get("escalated") == "single",
+             f"stats {name}: not escalated ({rs[0].get('escalated')})")
+    held(name, rs[0]["stats"], secs, n)
+    print("stats: launches over the stats main path " + json.dumps(totals))
+    return {"launches": totals, "kept": keep.kept}
+
+
+def _k2_stats_seeded(pc, dev):
+    """K2's seeded inputs at one, two and three lanes: [(name, args,
+    kw)] for the single-key wrapper, and batched inputs of three keys
+    (the case, the case with run False, and its frontier less its first
+    live row) on two event rows (the case's, and its slots reversed)."""
+    single, batch = [], []
+    cases = [c + ((),) for c in pc.k2_cases()] + pc.packed_k2_cases()
+    for name, step, ev, rows, live, run, pl, pack in cases:
+        kw = {"pack": pack} if pack else {}
+        single.append((name, _to((step, ev, rows, live, run, pl), dev), kw))
+        if live.shape[0] > 2048:
+            continue
+        rev = {k: v.flip(0) for k, v in ev.items()}
+        xs = {k: torch.stack([ev[k], rev[k]])[None].expand(3, 2, -1)
+              .contiguous() for k in ev}
+        live2 = live.clone()
+        live2[int(live.nonzero()[0])] = False
+        for r in (0, 1):
+            batch.append((name, _to((step, xs, r, tuple(
+                torch.stack([x, x, x]) for x in rows),
+                torch.stack([live, live, live2]),
+                torch.tensor([True, False, True]), pl), dev), kw))
+    return single, batch
+
+
+def phase_stats_parity(dev, kept) -> dict:
+    """K2's stats instantiation, single and batched, at one, two and three
+    lanes, against its plain version bit for bit (rows, meta and the
+    stats outputs): on the seeded cases at probe_limit 2 and 32, and on
+    the inputs kept from the stats main path. Its rows and meta also
+    equal the stats-off launch's on the same inputs. Returns the largest
+    |difference| per wrapper (0: bit-identical)."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    pc = _parity_cases()
+    seeded, seeded_b = _k2_stats_seeded(pc, dev)
+    worst = {"K2": 0, "K2 batch": 0}
+    lanes = {"K2": set(), "K2 batch": set()}
+
+    def hold(key, fn, plain, args, kw, what):
+        got = fn(*args, stats=True, **kw)
+        off = fn(*args, **kw)
+        want = plain(*_to(args, "cpu"), stats=True, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(_flat(got), _flat(want)):
+            err = int((g.cpu().long() - w.long()).abs().max()) \
+                if g.numel() else 0
+            worst[key] = max(worst[key], err)
+        _require(all(torch.equal(g.cpu(), w)
+                     for g, w in zip(_flat(got), _flat(want))),
+                 f"K2 stats ({key}) differs from its plain version on "
+                 f"{what}")
+        _require(all(torch.equal(g, o) for g, o in zip(_flat(got[:2]),
+                                                        _flat(off))),
+                 f"K2 stats ({key}): rows or meta differ from the "
+                 f"stats-off launch on {what}")
+        lanes[key].add(len(args[_ROWS_AT[fn.__name__]]))
+
+    n = 0
+    for pl in (2, 32):
+        for name, args, kw in seeded:
+            hold("K2", sk.frontier_closure,
+                 sk.frontier_closure_reference, args[:5] + (pl,), kw,
+                 f"{name} pl{pl}")
+            n += 1
+        for name, args, kw in seeded_b:
+            hold("K2 batch", sk.frontier_closure_batch,
+                 sk.frontier_closure_batch_reference, args[:6] + (pl,), kw,
+                 f"{name} (batched) pl{pl}")
+            n += 1
+    for (name, L, _), calls in kept.items():
+        key = "K2" if name == "frontier_closure" else "K2 batch"
+        fn = getattr(sk, name)
+        plain = getattr(sk, name + "_reference")
+        for args, kw in calls:
+            hold(key, fn, plain, _to(args, dev), kw, f"kept {name} L{L}")
+            n += 1
+    _require(lanes["K2"] == lanes["K2 batch"] == {1, 2, 3},
+             f"K2 stats parity lanes {lanes}")
+    print(f"parity: K2 stats == plain, bit for bit, single and batched at "
+          f"lanes 1-3, on {n} inputs (seeded at probe_limit 2 and 32, and "
+          f"kept from the stats main path); rows and meta == stats off")
+    return worst
+
+
+def phase_stats_timing(dev, kept, launches) -> list:
+    """K2 per launch with CUDA events, stats on against stats off on the
+    same inputs (kept from the stats main path at three lanes: the
+    single-key K2 inputs, and the batched ones of the 28-key batch's
+    widest bucket), beside the plain version and the bound; one
+    kernels-line entry each."""
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    out = []
+    for name, key, line in (("frontier_closure", "K2 stats", 205),
+                            ("frontier_closure_batch", "K2 batch stats",
+                             205)):
+        L = 3
+        groups = [k for k in kept if k[:2] == (name, L)]
+        _require(groups, f"no {name} stats inputs kept at {L} lanes")
+        calls = [(_to(a, dev), kw) for a, kw in kept[max(groups)]]
+        fn = getattr(sk, name)
+        plain = getattr(sk, name + "_reference")
+        args = [a for a, _ in calls]
+        on_ms = _time_launches(lambda *a: fn(*a, stats=True), args, reps=10)
+        off_ms = _time_launches(fn, args, reps=10)
+        plain_ms = _time_host(lambda *a: plain(*_to(a, "cpu"), stats=True),
+                              args[:4])
+        # bytes: as K2's entry (slot tables, live flags and live rows in,
+        # the frontier and meta out) plus 32 bytes of stats a key;
+        # operations: K2's, plus a bucket and a count per attempted
+        # candidate (~8)
+        outs = [plain(*_to(a, "cpu"), stats=True) for a in args]
+        live = args[0][_ROWS_AT[name] + 1]
+        N = live.shape[-1]
+        K = live.numel() // N
+        C = args[0][1]["slot_f"].shape[-1]
+        nbytes = float(np.mean([
+            K * (14 * C + 12 * N + 16 + 32) + N * K
+            + 12 * int(a[_ROWS_AT[name] + 1].sum()) for a in args]))
+        ops = float(np.mean([
+            int((o[1][..., 3] * C * 16 + o[1][..., 0] * 20).sum())
+            + 8 * int(o[2][..., 1:].sum()) for o in outs]))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT32_OPS_PER_S * 1e3
+        t = {"name": f"{name}[stats,K{K},N{N},C{C},L{L}]", "route": "cuda",
+             "source": "jepsen_tpu_torch/kernels/frontier_closure.cu",
+             "replaces": f"jepsen_tpu/parallel/sparse_kernels.py:{line}",
+             "launches": launches[key], "ms": on_ms, "stats_off_ms": off_ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": None, "inputs": len(args), "key": key}
+        print("timing: " + json.dumps(t))
+        out.append(t)
+    return out
+
+
+def phase_race(dev) -> dict:
+    """The competition race on the card, through `Linearizable(model,
+    "competition")`: the 10k-op history, its impossible-read twin and
+    two golden invalid histories. "torch" must be among the arms and
+    every verdict the reference's (REF_RACE); the winner and each check's
+    wall print. Then `Linearizable(model, "packed")` and `"linear"` on
+    the golden invalid histories, each result's op, final-paths and
+    configs (from the WGL re-search) equal to the reference's
+    (REF_CHECKERS), and linear.svg written into a temporary store. The
+    race must return only once its device arm has stopped."""
+    import tempfile
+    import threading
+    from jepsen_tpu_torch import histories, models
+    from jepsen_tpu_torch.checker.linearizable import Linearizable
+    from jepsen_tpu_torch.history import History
+    reg = models.CASRegister(None)
+    adv = histories.adversarial_register_history(n_ops=10000, k_crashed=12)
+    golden = {e["file"]: (getattr(models, SPARSE_MODELS.get(
+        e["model"], {"cas-register": "CASRegister",
+                     "mutex": "Mutex"}.get(e["model"])))(),
+        History.from_edn((GOLDEN / e["file"]).read_text()).index())
+        for e in json.loads((GOLDEN / "manifest.json").read_text())
+        if not e["valid"] and e["ops"] <= 500}
+    races = [("adv-10k-k12", reg, adv),
+             ("adv-10k-k12 impossible read", reg,
+              histories.with_impossible_read(adv))]
+    races += [(f, *golden[f]) for f in ("register-invalid.edn",
+                                        "fifo-invalid.edn")]
+    out = {}
+    for name, model, h in races:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = Linearizable(model, "competition", device=dev).check({}, h)
+        secs = time.perf_counter() - t0
+        comp = r["competition"]
+        _require("torch" in comp["arms"], f"race {name}: arms {comp}")
+        _require(r["valid?"] is REF_RACE[name],
+                 f"race {name}: {r['valid?']} != {REF_RACE[name]}")
+        # the race returns once its device arm has stopped
+        _require(not [t for t in threading.enumerate()
+                      if t.name == "competition-torch"],
+                 f"race {name}: the device arm runs on after the race")
+        print(f"race: {name}: valid? {r['valid?']}, arms {comp['arms']}, "
+              f"winner {comp['winner']}, wall {secs:.3f} s")
+        out[name] = {"winner": comp["winner"], "wall_s": secs}
+
+    class Store:
+        def __init__(self, root):
+            self.root = pathlib.Path(root)
+
+        def path(self, *parts):
+            return str(self.root.joinpath(*map(str, parts)))
+
+        def write_file(self, parts, text):
+            pathlib.Path(self.path(*parts)).write_text(text)
+
+    n = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for f, (model, h) in golden.items():
+            for algo in ("linear", "packed"):
+                svg = pathlib.Path(tmp) / "linear.svg"
+                svg.unlink(missing_ok=True)
+                r = Linearizable(model, algo, device=dev).check(
+                    {"store": Store(tmp)}, h)
+                d = _digest({k: r.get(k) for k in (
+                    "op", "final-paths", "configs", "oracle-disagreement")})
+                _require(r["valid?"] is False and r["final-paths"]
+                         and {"analyzer": r["analyzer"], "digest": d}
+                         == REF_CHECKERS[f"{f} {algo}"],
+                         f"{algo} on {f}: differs from the reference's")
+                _require(svg.read_text().startswith("<svg"),
+                         f"{algo} on {f}: no linear.svg")
+                n += 1
+    print(f"checkers: linear and packed on {len(golden)} golden invalid "
+          f"histories ({n} checks): == REF_CHECKERS, final-paths from the "
+          f"re-search, linear.svg written into the store")
+    return out
+
+
 def _phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2797,6 +3305,19 @@ def main() -> int:
                   "tiled_insert_batch": "K4 batch"}[key]
         kernels.append({**t, "max_abs_err": p_worst[(kernel, t["lanes"])]})
     print(f"packed walls (warm, s): {json.dumps(packed['walls'])}")
+    stats = _phase("stats main path", phase_stats_main, dev, cases)
+    st_worst = _phase("K2 stats parity", phase_stats_parity, dev,
+                      stats["kept"])
+    st_timed = _phase("K2 stats timing", phase_stats_timing, dev,
+                      stats["kept"], stats["launches"])
+    del stats["kept"]
+    _phase("race and host checkers", phase_race, dev)
+    # K2's stats instantiation, single and batched: timed on inputs kept
+    # from the stats main path, with the launches of that path
+    for t in st_timed:
+        kernels.append({**{k: v for k, v in t.items() if k != "key"},
+                        "max_abs_err": st_worst[
+                            "K2" if t["key"] == "K2 stats" else "K2 batch"]})
     torch.distributed.destroy_process_group()
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

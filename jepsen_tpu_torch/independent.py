@@ -8,12 +8,14 @@ key: valid iff valid for all keys, results under {"results": {k: ...},
 "failures": [...]}.
 
 When the lifted checker is the port's `Linearizable` with algorithm
-"torch" and the model is packable, every key is checked in one call of
+"torch" or "competition" and the model is packable, every key is
+checked in one call of
 `engine.check_batch`: one batched device scan per slot-window bucket —
 the dense engine's where the bucket fits it, else the sparse batch with
 its per-key capacity retry and single-key escalation (Jepsen's per-key
-queue and set workloads) — each sub-result tagged "analyzer": "torch".
-Otherwise ("wgl", an
+queue and set workloads) — each sub-result tagged "analyzer": "torch",
+with its own "stats" block when the checker asks for search stats.
+Otherwise ("wgl", "linear", "packed", an
 unpackable model) each key runs the checker on its own, on the host. A
 batch that cannot be encoded (EncodeError) goes to the per-key path
 with the reference's structured "device-fallback" / "resilience" record
@@ -175,7 +177,9 @@ class IndependentChecker(Checker):
         """(results, fallback): results None means the per-key path runs.
         The batch is `engine.check_batch` at its defaults (capacity 512,
         max_capacity 2^18, the port's dedupe flag), dense and sparse
-        buckets alike, with the checker's `config_pack`.
+        buckets alike, with the checker's `config_pack` and
+        `search_stats`; a "competition" checker batches too, as the
+        reference's does (its device arm is the batch).
         fallback None means the batch did not apply (not the port's device
         checker, no model, an unpackable model); else the structured
         record of why a batch that applied did not run."""
@@ -186,7 +190,8 @@ class IndependentChecker(Checker):
         from jepsen_tpu_torch.parallel.encode import EncodeError
         c = self.checker
         if not (self.batch_device and isinstance(c, Linearizable)
-                and (c.algorithm or "torch") == "torch" and subs):
+                and (c.algorithm or "torch") in ("torch", "competition")
+                and subs):
             return None, None
         model = c.model or (test or {}).get("model")
         if model is None:
@@ -201,7 +206,8 @@ class IndependentChecker(Checker):
         try:
             rs = engine.check_batch(model, [subs[k] for k in ks],
                                     device=c.device,
-                                    config_pack=c.config_pack)
+                                    config_pack=c.config_pack,
+                                    search_stats=c.search_stats)
         except EncodeError as err:
             # not device-encodable (a set past its lane budget, a crash
             # pile-up past 64 slots): the host path is right, but slower

@@ -19,6 +19,22 @@
 //
 // Output: the frontier lanes and meta = (count, ovf, iters, stepped).
 //
+// Search stats (the reference's frontier_closure_call(..., stats=True)):
+// a second instantiation of the kernel (the template's Stats = true,
+// picked when the caller passes a stats buffer) also writes stats[8] a
+// key: swork, the sum over the closure's passes of the frontier count at
+// the pass's start (what a sort closure would have stepped), then the
+// histogram of the final probe offsets of every attempted (live)
+// candidate of the seed and of every pass, bucketed at 1, 2, 4, 8, 16
+// and 32 (search_stats.PROBE_HIST_EDGES). Each thread counts the
+// candidates it resolves in seven registers; at the end each warp adds
+// its sums into seven shared words with one atomicAdd a bucket, and
+// thread 0 stores the eight words. A candidate's final offset is where
+// its probe ended: at an equal row, at the slot it claimed (a loser of a
+// claim re-checks the same slot, so its offset does not move) or, past
+// probe_limit probes, at probe_limit. Stats = false is the stats-off
+// kernel, its code unchanged.
+//
 // Rows. A row is the triple (state, mask_lo, mask_hi), L = 3, or the
 // packed word of config_pack (sparse._PackedRep), L = 1 or 2: the state
 // field (state - state_lo) in bits [0, s_bits), slot j's bit at s_bits +
@@ -232,6 +248,24 @@ __device__ __forceinline__ int scan_one_barrier(int v, int* ws, int* total) {
 
 constexpr int kRegCands = 4;  // candidates a thread holds, at most
 
+// A thread's probe-length histogram (Stats = true): the candidates whose
+// probe it saw end, by final offset; nothing at all when Stats = false.
+template <bool Stats>
+struct Hist {
+  __device__ __forceinline__ void add(int) {}
+};
+
+template <>
+struct Hist<true> {
+  int n[7] = {0, 0, 0, 0, 0, 0, 0};
+  __device__ __forceinline__ void add(int off) {
+    const int b = (off >= 1) + (off >= 2) + (off >= 4) + (off >= 8) +
+                  (off >= 16) + (off >= 32);
+#pragma unroll
+    for (int i = 0; i < 7; ++i) n[i] += b == i;
+  }
+};
+
 struct PassOut {
   int n_fresh;
   bool ovf;  // a candidate exhausted its probes
@@ -264,10 +298,19 @@ __device__ __forceinline__ void build(const Cand& cand, int lo, int hi,
 // prefix of the fresh counts (one barrier), rows past N dropped, and a
 // barrier before the next pass reads them. The frontier rows the candidates came from are
 // not written: the append starts at `count`.
-template <int L>
+template <int L, bool Stats>
 __device__ PassOut probe_append(const Shared<L>& s, const TableView<L>& t,
                                 Probe<L> (&c)[kRegCands], int lo, int hi,
-                                int count, int N, int probe_limit) {
+                                int count, int N, int probe_limit,
+                                Hist<Stats>& hist) {
+  // the live candidates (build left them pending), for the histogram
+  unsigned attempted = 0;
+  if constexpr (Stats) {
+#pragma unroll
+    for (int k = 0; k < kRegCands; ++k) {
+      if (lo + k < hi && (c[k].fl & kPending)) attempted |= 1u << k;
+    }
+  }
   // the first round needs no barrier before it: the rows and slots the
   // candidates were built from are only read, and the last pass (or the
   // prologue) ended with one
@@ -286,6 +329,12 @@ __device__ PassOut probe_append(const Shared<L>& s, const TableView<L>& t,
       }
     }
     active = __syncthreads_or(local);
+  }
+  if constexpr (Stats) {
+#pragma unroll
+    for (int k = 0; k < kRegCands; ++k) {
+      if (attempted & (1u << k)) hist.add(c[k].off);
+    }
   }
   // fresh counts in the low 16 bits, threads still pending above
   int n_mine = 0, pend = 0;
@@ -314,18 +363,20 @@ __device__ PassOut probe_append(const Shared<L>& s, const TableView<L>& t,
 // so that is the lowest index), no claim words; the append's places from
 // a ballot. The outcome reaches the block through bc[0..1] and one
 // barrier.
-template <int L, class Cand>
+template <int L, bool Stats, class Cand>
 __device__ PassOut warp_pass(const Shared<L>& s, const TableView<L>& t,
                              const Cand& cand, int M, int count, int N,
-                             int probe_limit, int* bc) {
+                             int probe_limit, int* bc, Hist<Stats>& hist) {
   const int lane = threadIdx.x & 31;
   if (threadIdx.x < 32) {
     Probe<L> p{};
+    bool attempted = false;
     if (lane < M) {
       uint32_t w[L];
       const bool live = cand(lane, w);
       set_row(p, w);
       p.fl = live ? kPending : 0;
+      attempted = live;
     }
     while (true) {
       const bool act = (p.fl & kPending) && p.off < probe_limit;
@@ -353,6 +404,9 @@ __device__ PassOut warp_pass(const Shared<L>& s, const TableView<L>& t,
       }
       __syncwarp();  // the round's writes before the next round's reads
     }
+    if constexpr (Stats) {
+      if (attempted) hist.add(p.off);
+    }
     const unsigned fresh = __ballot_sync(0xffffffffu, p.fl & kFresh);
     const unsigned pend = __ballot_sync(0xffffffffu, p.fl & kPending);
     if (p.fl & kFresh) {
@@ -379,9 +433,10 @@ __device__ PassOut warp_pass(const Shared<L>& s, const TableView<L>& t,
 // warp 0's outcome to the block, so that one pass's words are never
 // rewritten while another thread may still read them. Uniform: every
 // thread gets the result.
-template <int L, class Cand>
+template <int L, bool Stats, class Cand>
 __device__ PassOut k2_pass(const Event& ev, const Shared<L>& s,
-                           const Cand& cand, int M, int count, int pass) {
+                           const Cand& cand, int M, int count, int pass,
+                           Hist<Stats>& hist) {
   const int tid = threadIdx.x, nt = blockDim.x;
   TableView<L> t;
 #pragma unroll
@@ -391,20 +446,35 @@ __device__ PassOut k2_pass(const Event& ev, const Shared<L>& s,
   t.mask = (uint32_t)(ev.T - 1);
   if (M <= 32) {
     return warp_pass(s, t, cand, M, count, ev.N, ev.probe_limit,
-                     s.scan + 32 + 2 * (pass & 1));
+                     s.scan + 32 + 2 * (pass & 1), hist);
   }
   if (M > nt * kRegCands) {
     bool probe_ovf;
     const int n_fresh = insert_pass(cand, t, s.off, s.flags, s.scan, M,
                                     ev.probe_limit, s.f, count, ev.N,
                                     &probe_ovf);
+    if constexpr (Stats) {
+      // every candidate's final offset and flags are still in s.off and
+      // s.flags (this thread's own li, as in insert_pass); a candidate
+      // that moved or ended pending or fresh was live, and one at offset
+      // 0 with no flag is rebuilt to tell a duplicate from a dead one
+      for (int li = tid; li < M; li += nt) {
+        const int o = s.off[li];
+        bool live = o > 0 || s.flags[li] != 0;
+        if (!live) {
+          uint32_t w[L];
+          live = cand(li, w);
+        }
+        if (live) hist.add(o);
+      }
+    }
     return {n_fresh, probe_ovf};
   }
   const int per = (M + nt - 1) / nt;
   const int lo = min(M, tid * per), hi = min(M, lo + per);
   Probe<L> c[kRegCands];
   build(cand, lo, hi, c);
-  return probe_append(s, t, c, lo, hi, count, ev.N, ev.probe_limit);
+  return probe_append(s, t, c, lo, hi, count, ev.N, ev.probe_limit, hist);
 }
 
 struct OutLanes {
@@ -413,8 +483,9 @@ struct OutLanes {
 
 // Block `key` of a launch over K keys: its event's slot tables (event
 // row `row`) start at (key * R + row) * C, its rows and outputs at key * N,
-// its run flag at key and its meta at key * 4.
-template <int L>
+// its run flag at key, its meta at key * 4 and (Stats) its stats at
+// key * 8.
+template <int L, bool Stats>
 __global__ void __launch_bounds__(kThreads, 1)
 frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
                         const int32_t* __restrict__ a0,
@@ -422,7 +493,7 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
                         const uint8_t* __restrict__ wild,
                         const uint8_t* __restrict__ occ, int row, int R,
                         const uint8_t* __restrict__ run, OutLanes out,
-                        int32_t* meta) {
+                        int32_t* meta, int32_t* stats) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int N = ev.N, T = ev.T, C = ev.C;
@@ -442,6 +513,7 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
     ev.live_in += rows;
     run += key;
     meta += 4 * (size_t)key;
+    if constexpr (Stats) stats += 8 * (size_t)key;
   }
 
   if (*run == 0) {
@@ -452,6 +524,9 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
       for (int k = 0; k < L; ++k) out.p[k][i] = 0;
     }
     if (tid < 4) meta[tid] = 0;
+    if constexpr (Stats) {
+      if (tid < 8) stats[tid] = 0;
+    }
     return;
   }
 
@@ -501,6 +576,7 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   __syncthreads();
 
   int pass = 0;
+  Hist<Stats> hist;
   TableView<L> tv;
 #pragma unroll
   for (int k = 0; k < L; ++k) tv.lane[k] = s.t[k];
@@ -508,17 +584,18 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   tv.occ = s.tocc;
   tv.mask = (uint32_t)(T - 1);
   PassOut r = seed_regs
-      ? probe_append(s, tv, seed, s_lo, s_hi, 0, N, ev.probe_limit)
-      : k2_pass(ev, s, SeedCand<L>{ev}, N, 0, pass);
+      ? probe_append(s, tv, seed, s_lo, s_hi, 0, N, ev.probe_limit, hist)
+      : k2_pass(ev, s, SeedCand<L>{ev}, N, 0, pass, hist);
   ++pass;
   int count = min(r.n_fresh, N);
   bool ovf = r.ovf || r.n_fresh > N;
-  int n_old = 0, iters = 0, stepped = 0;
+  int n_old = 0, iters = 0, stepped = 0, swork = 0;
   bool changed = true;
   while (changed && !ovf) {
     r = k2_pass(ev, s, ExpandCand<L>{ev, s, n_old}, (count - n_old) * C,
-                count, pass++);
+                count, pass++, hist);
     stepped += count - n_old;
+    if constexpr (Stats) swork += count;
     ovf = ovf || r.ovf || count + r.n_fresh > N;
     n_old = count;
     count = min(count + r.n_fresh, N);
@@ -537,13 +614,45 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
     meta[2] = iters;
     meta[3] = stepped;
   }
+  if constexpr (Stats) {
+    // the last pass ended with a barrier, after which no thread reads the
+    // scan words again: they hold the block's seven sums
+    if (tid < 7) s.scan[tid] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int b = 0; b < 7; ++b) {
+      const int v = __reduce_add_sync(0xffffffffu, hist.n[b]);
+      if ((tid & 31) == 0 && v != 0) atomicAdd(&s.scan[b], v);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      stats[0] = swork;
+#pragma unroll
+      for (int b = 0; b < 7; ++b) stats[1 + b] = s.scan[b];
+    }
+  }
+}
+
+template <int L, bool Stats>
+cudaError_t allow_optin(int optin) {
+  return cudaFuncSetAttribute(
+      (const void*)frontier_closure_kernel<L, Stats>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
 }
 
 template <int L>
-cudaError_t allow_optin(int optin) {
-  return cudaFuncSetAttribute((const void*)frontier_closure_kernel<L>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              optin);
+void launch_lanes(int K, size_t smem, cudaStream_t s, const Event& ev,
+                  const int32_t* f, const int32_t* a0, const int32_t* a1,
+                  const uint8_t* wild, const uint8_t* occ, int r, int R,
+                  const uint8_t* run, const OutLanes& out, int32_t* meta,
+                  int32_t* stats) {
+  if (stats != nullptr) {
+    frontier_closure_kernel<L, true><<<K, kThreads, smem, s>>>(
+        ev, f, a0, a1, wild, occ, r, R, run, out, meta, stats);
+  } else {
+    frontier_closure_kernel<L, false><<<K, kThreads, smem, s>>>(
+        ev, f, a0, a1, wild, occ, r, R, run, out, meta, stats);
+  }
 }
 
 }  // namespace
@@ -561,9 +670,12 @@ int jt_frontier_closure_init(void) {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  if (err == cudaSuccess) err = allow_optin<1>(optin);
-  if (err == cudaSuccess) err = allow_optin<2>(optin);
-  if (err == cudaSuccess) err = allow_optin<3>(optin);
+  if (err == cudaSuccess) err = allow_optin<1, false>(optin);
+  if (err == cudaSuccess) err = allow_optin<2, false>(optin);
+  if (err == cudaSuccess) err = allow_optin<3, false>(optin);
+  if (err == cudaSuccess) err = allow_optin<1, true>(optin);
+  if (err == cudaSuccess) err = allow_optin<2, true>(optin);
+  if (err == cudaSuccess) err = allow_optin<3, true>(optin);
   return err == cudaSuccess ? optin : -(int)err;
 }
 
@@ -578,6 +690,8 @@ long long jt_frontier_closure_smem(int N, int C, int lanes) {
 // tables f/a0/a1/wild/occ are the batch's [K, R, C] (row r is read),
 // rows (in0..in2) and live [K, N], run [K] bytes, the output rows
 // (out0..out2) [K, N], meta [K, 4]; one key's event is K = R = 1, r = 0.
+// `stats` null runs the stats-off kernel; else it receives [K, 8] (swork,
+// then the probe-length histogram) from the Stats instantiation.
 // Rows have `lanes` lanes (the pointers past them are unused, null): 3
 // for the triple, 1 or 2 for the packed word of s_bits state bits and
 // state state_lo at field 0 (s_bits + C <= 32 * lanes). Returns the
@@ -590,7 +704,8 @@ int jt_frontier_closure_launch(int step_code, const int32_t* f,
                                const int32_t* in2, const uint8_t* live_in,
                                const uint8_t* run, int32_t* out0,
                                int32_t* out1, int32_t* out2, int32_t* meta,
-                               int K, int N, int C, int probe_limit,
+                               int32_t* stats, int K, int N, int C,
+                               int probe_limit,
                                int lanes, int s_bits, int state_lo,
                                void* stream) {
   const bool packed_ok = lanes == 3 || (lanes >= 1 && lanes <= 2 &&
@@ -610,16 +725,16 @@ int jt_frontier_closure_launch(int step_code, const int32_t* f,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (lanes) {
     case 1:
-      frontier_closure_kernel<1><<<K, kThreads, smem, s>>>(
-          ev, f, a0, a1, wild, occ, r, R, run, out, meta);
+      launch_lanes<1>(K, smem, s, ev, f, a0, a1, wild, occ, r, R, run, out,
+                      meta, stats);
       break;
     case 2:
-      frontier_closure_kernel<2><<<K, kThreads, smem, s>>>(
-          ev, f, a0, a1, wild, occ, r, R, run, out, meta);
+      launch_lanes<2>(K, smem, s, ev, f, a0, a1, wild, occ, r, R, run, out,
+                      meta, stats);
       break;
     default:
-      frontier_closure_kernel<3><<<K, kThreads, smem, s>>>(
-          ev, f, a0, a1, wild, occ, r, R, run, out, meta);
+      launch_lanes<3>(K, smem, s, ev, f, a0, a1, wild, occ, r, R, run, out,
+                      meta, stats);
   }
   return (int)cudaGetLastError();
 }

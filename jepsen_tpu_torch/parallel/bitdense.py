@@ -22,6 +22,13 @@ events, which it knows from the encoding, and reads the device once, at
 the end. After a failure the kernel skips its work by reading `ok`
 itself.
 
+With `search_stats` each event also writes, on the device, its frontier
+width (the popcount of B after the filter, -1 on an event that did not
+run) and its closure iterations (`closure_kernels.closure_fixpoint`'s
+`iters`: the plain version's counted double expansions, -1 where K1
+ran) into a preallocated [R, 2] tensor, read once after the scan: the
+reference's `_stats_block_bitdense`.
+
 The batch (`check_batch_bitdense`, a port of the reference's
 `check_batch_bitdense` and its vmapped `_check_bitdense_batch`) runs K
 keys' scans as one: B is [K, S, W], every event row makes one batched K1
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from jepsen_tpu_torch.parallel import closure_kernels as ck
+from jepsen_tpu_torch.parallel import search_stats as st
 from jepsen_tpu_torch.parallel.encode import (
     EncodedHistory, fail_op_fields, pad_batch,
 )
@@ -172,6 +180,60 @@ def _xs_dense(e: EncodedHistory, C: int) -> dict:
     }
 
 
+def _popcount(B, dims):
+    """The set bits of int32 words B, summed over `dims`."""
+    shifts = torch.arange(32, dtype=_I32, device=B.device)
+    return ((B.unsqueeze(-1) >> shifts) & 1).sum([*dims, -1])
+
+
+def _stats_block_bitdense(ys, S: int, C: int, extra: dict = None) -> dict:
+    """The dense engine's stats block (the reference's
+    `_stats_block_bitdense`): the reachable set is a complete visited
+    set, so the trajectory is the per-event popcount and occupancy is
+    measured against the S * 2^C configuration space; the hash-table
+    fields stay None. `ys` holds one key's [R] "width" and "iters"."""
+    w = np.asarray(ys["width"]).reshape(-1)
+    real = w >= 0
+    widths = [int(x) for x in w[real]]
+    iters = [int(x) for x in np.asarray(ys["iters"]).reshape(-1)[real]]
+    peak = max(widths, default=0)
+    space = S * (1 << C)
+    block = {
+        "engine": "bitdense",
+        "events": len(widths),
+        "frontier-width": widths,
+        "closure-iters": iters,
+        "frontier-peak": peak,
+        "config-space": space,
+        "peak-occupancy": round(peak / space, 9) if space else None,
+        "dedupe": "dense",
+        "delta-split-ratio": None,
+        "table-capacity": None,
+        "load-factor-peak": None,
+        "probe-hist": None,
+    }
+    if extra:
+        block.update(extra)
+    return block
+
+
+def _ys(traj) -> dict:
+    t = traj.cpu().numpy()
+    return {"width": t[..., 0], "iters": t[..., 1]}
+
+
+class Cancelled(Exception):
+    """A scan stopped at its caller's `cancel`."""
+
+
+def poll_cancel(cancel) -> None:
+    """Raise Cancelled once `cancel` (an object with `is_set()`, such as
+    a threading.Event) is set: the scans call it once an event, on the
+    host, with no read of the device."""
+    if cancel is not None and cancel.is_set():
+        raise Cancelled
+
+
 def resolve_device(device) -> torch.device:
     """None means the card. There is no silent CPU run: without CUDA the
     caller must ask for the CPU."""
@@ -186,8 +248,10 @@ def resolve_device(device) -> torch.device:
 class _Scan:
     """The per-event state of one history's scan on one device."""
 
-    def __init__(self, e: EncodedHistory, S: int, C: int, device):
+    def __init__(self, e: EncodedHistory, S: int, C: int, device,
+                 stats: bool = False, cancel=None):
         self.step = STEPS[e.step_name]
+        self.cancel = cancel
         self.S, self.C, self.lo = S, C, e.state_lo
         self.device = device
         xs = _xs_dense(e, C)
@@ -202,6 +266,16 @@ class _Scan:
         self.B[e.state0 - self.lo, 0] = 1
         self.ok = torch.ones((), dtype=torch.bool, device=device)
         self.fail_r = torch.full((), -1, dtype=_I32, device=device)
+        # per event (width, closure-iters); width -1: the event did not run
+        # (the closure's `iters` output only with stats: the stats-off
+        # call is the same as ever)
+        self.traj, self._iters_kw = None, {}
+        if stats:
+            self.traj = torch.zeros((e.n_returns, 2), dtype=_I32,
+                                    device=device)
+            self.traj[:, 0] = -1
+            self._iters = torch.zeros((), dtype=_I32, device=device)
+            self._iters_kw = {"iters": self._iters}
 
     def compute_sel(self, r0: int, r1: int):
         """The selects of events r0..r1-1: [E, C, S, S]."""
@@ -223,12 +297,19 @@ class _Scan:
             r1 = min(n_events, r0 + chunk)
             sel = self.compute_sel(r0, r1)
             for r in range(r0, r1):
+                poll_cancel(self.cancel)
                 s = int(self.ev_slot[r])
                 # in place; skipped by the kernel once ok is False
                 B2 = ck.closure_fixpoint(sel[r - r0], self.B, C,
-                                         run=self.ok, out=self.B)
+                                         run=self.ok, out=self.B,
+                                         **self._iters_kw)
                 B3 = self.filter_at(s, B2)
                 alive = B3.any()
+                if self.traj is not None:
+                    # width -1 (not run) drops the event's row, iters too
+                    self.traj[r] = torch.stack([torch.where(
+                        self.ok, _popcount(B3, (0, 1)), -1).to(_I32),
+                        self._iters])
                 # while ok holds no event has failed, so the first
                 # event that empties B is the failing one
                 self.fail_r = torch.where(self.ok & ~alive, r, self.fail_r)
@@ -237,18 +318,22 @@ class _Scan:
         return self
 
 
-def check_encoded_bitdense(e: EncodedHistory, device=None) -> dict:
+def check_encoded_bitdense(e: EncodedHistory, device=None,
+                           search_stats=None, cancel=None) -> dict:
     """Single-key bit-packed check, the result schema of
     `jepsen_tpu.parallel.bitdense.check_encoded_bitdense`. `closure`
     says which closure ran: "cuda" when the scan launched K1, "torch"
-    when the plain version ran (on the CPU)."""
+    when the plain version ran (on the CPU). `search_stats` (None: the
+    JEPSEN_TPU_TORCH_SEARCH_STATS flag) adds the "stats" block. The scan
+    raises Cancelled at the first event after `cancel` is set."""
     if e.n_returns == 0:
         return {"valid?": True, "engine": "bitdense"}
     dev = resolve_device(device)
+    ss = st._resolve_search_stats(search_stats)
     S = n_states(e)
     C = max(5, e.n_slots)  # at least one full word
     before = ck.launches
-    sc = _Scan(e, S, C, dev).run(e.n_returns)
+    sc = _Scan(e, S, C, dev, stats=ss, cancel=cancel).run(e.n_returns)
     valid = sc.ok & (sc.B != 0).any()
     # the one device read of the whole check
     valid_i, fail_r = torch.stack([valid.to(_I32), sc.fail_r]).tolist()
@@ -257,6 +342,8 @@ def check_encoded_bitdense(e: EncodedHistory, device=None) -> dict:
            # the dense reachable-set tensor is a complete visited set
            "dedupe": "dense",
            "closure": "cuda" if ck.launches > before else "torch"}
+    if ss:
+        out["stats"] = _stats_block_bitdense(_ys(sc.traj), S, C)
     if not out["valid?"]:
         out.update(fail_op_fields(e, int(fail_r)))
     return out
@@ -293,7 +380,7 @@ class _BatchScan:
     carry, and the kernel skips its closure."""
 
     def __init__(self, encs, xs: dict, state0, S: int, C: int, R: int,
-                 device):
+                 device, stats: bool = False):
         e0 = encs[0]
         self.step = STEPS[e0.step_name]
         self.K, self.S, self.C, self.R = len(encs), S, C, R
@@ -317,6 +404,14 @@ class _BatchScan:
         self.B[keys, s0 - self.lo, 0] = 1
         self.ok = torch.ones(self.K, dtype=torch.bool, device=device)
         self.fail_r = torch.full((self.K,), -1, dtype=_I32, device=device)
+        # per key and event row (width, closure-iters), as _Scan's
+        self.traj, self._iters_kw = None, {}
+        if stats:
+            self.traj = torch.zeros((self.K, R, 2), dtype=_I32,
+                                    device=device)
+            self.traj[..., 0] = -1
+            self._iters = torch.zeros(self.K, dtype=_I32, device=device)
+            self._iters_kw = {"iters": self._iters}
 
     def run(self):
         K, C = self.K, self.C
@@ -331,8 +426,13 @@ class _BatchScan:
                 run = self.ok & self.real[r]
                 # in place; a key that does not run is left as it is
                 B2 = ck.closure_fixpoint_batch(sel[r - r0], self.B, C,
-                                               run=run, out=self.B)
+                                               run=run, out=self.B,
+                                               **self._iters_kw)
                 B3 = self.tables.filter_keys(self.slot[r], B2)
+                if self.traj is not None:
+                    self.traj[:, r] = torch.stack([torch.where(
+                        run, _popcount(B3, (1, 2)), -1).to(_I32),
+                        self._iters], 1)
                 failed = run & ~B3.flatten(1).any(1)
                 # a running key has not failed before, so its fail_r is
                 # still -1: this is its first failure
@@ -348,16 +448,19 @@ class PendingBitdenseBatch:
     the whole scan (on a card the host runs ahead of the device);
     `finalize()` makes the one device read and builds the per-key
     results. A trimmed port of the reference's class: no supervisor, no
-    decision ledger, no search-stats block, no mesh, and no closure
-    fallback — a launch the card refuses raises to the caller."""
+    decision ledger, no mesh, and no closure fallback — a launch the
+    card refuses raises to the caller. With `search_stats` each key's
+    result carries its stats block, with the reference's pad extras
+    ("pad-waste", "pad-events", "pad-slots")."""
 
-    def __init__(self, encs, device):
+    def __init__(self, encs, device, search_stats: bool = False):
         self.encs = encs
         self.device = device
+        self.search_stats = search_stats
         # C >= 5: at least one full 32-mask word
         xs, state0, self.S, self.C, self.R = pad_batch(encs, min_slots=5)
         self._scan = _BatchScan(encs, xs, state0, self.S, self.C, self.R,
-                                device).run()
+                                device, stats=search_stats).run()
         self._results = None
 
     def finalize(self) -> list:
@@ -368,10 +471,21 @@ class PendingBitdenseBatch:
         # the one device read of the whole batch
         valid_l, fail_l = torch.stack([valid.to(_I32), sc.fail_r]).tolist()
         closure = "cuda" if self.device.type == "cuda" else "torch"
+        ys = _ys(sc.traj) if self.search_stats else None
         out = []
         for k, e in enumerate(self.encs):
             r = {"valid?": bool(valid_l[k]), "engine": "bitdense",
                  "dedupe": "dense", "closure": closure}
+            if ys is not None:
+                C_k = max(5, e.n_slots)
+                waste = 1.0 - ((e.n_returns * C_k)
+                               / max(1, self.R * self.C))
+                r["stats"] = _stats_block_bitdense(
+                    {"width": ys["width"][k], "iters": ys["iters"][k]},
+                    self.S, self.C,
+                    extra={"pad-waste": round(waste, 6),
+                           "pad-events": int(self.R - e.n_returns),
+                           "pad-slots": int(self.C - C_k)})
             if not r["valid?"]:
                 r.update(fail_op_fields(e, int(fail_l[k])))
             out.append(r)
@@ -379,21 +493,25 @@ class PendingBitdenseBatch:
         return out
 
 
-def dispatch_batch_bitdense(encs, device=None) -> PendingBitdenseBatch:
+def dispatch_batch_bitdense(encs, device=None,
+                            search_stats=None) -> PendingBitdenseBatch:
     """Pad and issue a batched per-key check without reading its
     results: `finalize()` on the returned PendingBitdenseBatch reads
-    them. `device` None means the card (RuntimeError without one)."""
-    return PendingBitdenseBatch(encs, resolve_device(device))
+    them. `device` None means the card (RuntimeError without one);
+    `search_stats` None reads JEPSEN_TPU_TORCH_SEARCH_STATS."""
+    return PendingBitdenseBatch(encs, resolve_device(device),
+                                st._resolve_search_stats(search_stats))
 
 
-def check_batch_bitdense(encs, device=None) -> list:
+def check_batch_bitdense(encs, device=None, search_stats=None) -> list:
     """Batched per-key check, the result schema of the reference's
     batch: per key {"valid?", "engine": "bitdense", "dedupe": "dense",
     "closure"} plus the failing op's fields when the key is invalid
     (no `states`/`slots`, no counterexample paths). `closure` is "cuda"
     on the card, "torch" on the CPU. The caller makes sure the padded
     dims fit (`fits_bitdense(max S, max C)`); `engine.check_batch`
-    does."""
+    does. `search_stats` adds each key's "stats" block."""
     if not encs:
         return []
-    return dispatch_batch_bitdense(encs, device=device).finalize()
+    return dispatch_batch_bitdense(encs, device=device,
+                                   search_stats=search_stats).finalize()

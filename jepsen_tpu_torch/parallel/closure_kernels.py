@@ -135,14 +135,36 @@ def closure_fixpoint_reference(sel, B, C: int):
     return closure_reference_expansions(sel, B, C)[0]
 
 
+def double_expansion_iters(n: int) -> int:
+    """The search-stats `closure-iters` of a closure that ran `n`
+    expansions (`closure_reference_expansions`), under the reference's
+    rule for its counted loop (bitdense.py `iters = 2 * n`): that loop
+    runs double expansions until one changes nothing, so n - 1 changing
+    expansions take n // 2 + 1 of them."""
+    return 2 * (n // 2 + 1)
+
+
+def _batch_reference_counted(sel, B, C: int, run=None):
+    """The plain batched closure and each key's `closure-iters` (0 for a
+    key whose `run` flag is False, which is returned as it is)."""
+    _check_batch_args(sel, B, C, run)
+    keep = [True] * B.shape[0] if run is None else run.tolist()
+    outs, iters = [], []
+    for k in range(B.shape[0]):
+        if keep[k]:
+            res, n = closure_reference_expansions(sel[k], B[k], C)
+            outs.append(res)
+            iters.append(double_expansion_iters(n))
+        else:
+            outs.append(B[k].clone())
+            iters.append(0)
+    return torch.stack(outs), iters
+
+
 def closure_fixpoint_batch_reference(sel, B, C: int, run=None):
     """The plain batched closure: `closure_fixpoint_reference` key by
     key; a key whose `run` flag is False is returned as it is."""
-    _check_batch_args(sel, B, C, run)
-    keep = [True] * B.shape[0] if run is None else run.tolist()
-    return torch.stack([closure_fixpoint_reference(sel[k], B[k], C)
-                        if keep[k] else B[k].clone()
-                        for k in range(B.shape[0])])
+    return _batch_reference_counted(sel, B, C, run)[0]
 
 
 # ----------------------------------------------------------------- kernel
@@ -349,7 +371,7 @@ def _launch(sel, B, out, C: int, run=None, plan=None) -> None:
     launches += 1
 
 
-def closure_fixpoint(sel, B, C: int, *, run=None, out=None):
+def closure_fixpoint(sel, B, C: int, *, run=None, out=None, iters=None):
     """K1: the closure fixpoint of one return event (contract in the
     module docstring). A CPU tensor runs the plain version; a CUDA
     tensor launches the kernel, on the current stream.
@@ -358,10 +380,18 @@ def closure_fixpoint(sel, B, C: int, *, run=None, out=None):
     in-place update), and `run`, a one-element bool tensor on B's
     device, makes the kernel leave B unchanged when it is False, without
     the host reading it. The plain version ignores `run`: the scan
-    discards a non-running event's closure anyway."""
+    discards a non-running event's closure anyway. `iters`, a
+    one-element int32 tensor on B's device, receives the search-stats
+    `closure-iters` under the reference's rule for the path that ran:
+    the plain version's counted double expansions
+    (`double_expansion_iters`), or -1 where the kernel ran, as the
+    reference's Pallas path reports (its count never leaves the
+    kernel)."""
     _check_args(sel, B, C)
     if B.device.type == "cpu":
-        res = closure_fixpoint_reference(sel, B, C)
+        res, n = closure_reference_expansions(sel, B, C)
+        if iters is not None:
+            iters.fill_(double_expansion_iters(n))
         if out is None:
             return res
         out.copy_(res)
@@ -371,6 +401,8 @@ def closure_fixpoint(sel, B, C: int, *, run=None, out=None):
     if out is None:
         out = torch.empty_like(B)
     _launch(sel, B, out, C, run)
+    if iters is not None:
+        iters.fill_(-1)
     return out
 
 
@@ -384,17 +416,22 @@ def _launch_batch(sel, B, out, C: int, run=None, plan=None) -> None:
     batch_launches += 1
 
 
-def closure_fixpoint_batch(sel, B, C: int, *, run=None, out=None):
+def closure_fixpoint_batch(sel, B, C: int, *, run=None, out=None,
+                           iters=None):
     """K1 over K keys of one padded shape: sel [K, C, S, S] and B [K, S,
     W] int32 -> B' [K, S, W], each key's closure fixpoint (contract in
     the module docstring). `run`, bool [K] on B's device, leaves a key
     whose flag is False as it is, without the host reading it; `out`
-    receives B' (it may be B itself). A CPU tensor runs the plain
-    version; a CUDA tensor makes one launch of the kernel, on the current
-    stream, in the layout `device_plan(S, C)` gives, or raises."""
+    receives B' (it may be B itself); `iters`, int32 [K] on B's device,
+    each key's `closure-iters`, as `closure_fixpoint`'s (0 for a key the
+    plain version does not run). A CPU tensor runs the plain version; a
+    CUDA tensor makes one launch of the kernel, on the current stream,
+    in the layout `device_plan(S, C)` gives, or raises."""
     _check_batch_args(sel, B, C, run)
     if B.device.type == "cpu":
-        res = closure_fixpoint_batch_reference(sel, B, C, run)
+        res, n = _batch_reference_counted(sel, B, C, run)
+        if iters is not None:
+            iters.copy_(torch.tensor(n, dtype=_I32))
         if out is None:
             return res
         out.copy_(res)
@@ -404,4 +441,6 @@ def closure_fixpoint_batch(sel, B, C: int, *, run=None, out=None):
     if out is None:
         out = torch.empty_like(B)
     _launch_batch(sel, B, out, C, run)
+    if iters is not None:
+        iters.fill_(-1)
     return out

@@ -28,6 +28,11 @@ closure is K2 or K4 batched over keys) and, past its ceiling, the
 single-key escalation (`_escalate_overflow`). Results keep the input
 order. The sharded escalation rung, the pipelined and work-stealing
 executors are not ported yet: the latter two raise NotImplementedError.
+
+`search_stats` (None: the JEPSEN_TPU_TORCH_SEARCH_STATS flag, off by
+default) gives every result the reference's "stats" block
+(`parallel.search_stats`): the dense engine's or the sparse engine's,
+each key of a batch its own. With it off a result has no "stats" key.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from jepsen_tpu_torch import models as model_ns
 from jepsen_tpu_torch.checker import wgl
 from jepsen_tpu_torch.history import Call, History
 from jepsen_tpu_torch.parallel import bitdense, sparse
+from jepsen_tpu_torch.parallel import search_stats as st
 from jepsen_tpu_torch.parallel import encode as enc_mod
 from jepsen_tpu_torch.parallel.encode import EncodedHistory, EncodeError
 
@@ -49,14 +55,19 @@ _log = logging.getLogger(__name__)
 
 def analysis(model, history, device=None, capacity: int = 1024,
              max_capacity: int = 1 << 20, dedupe=None,
-             config_pack=None) -> dict:
+             config_pack=None, search_stats=None, cancel=None) -> dict:
     """knossos-style (model, history) -> result on the device engine.
 
     `device` None means the card and raises RuntimeError when there is
     none; the tests pass "cpu". `capacity`, `max_capacity`, `dedupe` and
     `config_pack` go to the sparse engine (`sparse.check_encoded`): past
     `max_capacity` the verdict is "unknown". The dense engine ignores
-    `config_pack`, as the reference's does."""
+    `config_pack`, as the reference's does. `search_stats` (None: the
+    flag) adds the engine's "stats" block. `cancel` (an object with
+    `is_set()`, such as a threading.Event; polled once an event) stops
+    the check early with {"valid?": "unknown", "error": "cancelled"},
+    as the host checkers' `cancel` does: the competition race's device
+    arm stops so when another arm has decided."""
     dev = bitdense.resolve_device(device)
     h = history if isinstance(history, History) else History.wrap(history)
     try:
@@ -65,15 +76,21 @@ def analysis(model, history, device=None, capacity: int = 1024,
         _log.warning(
             "history not device-checkable (%s) — using the host WGL "
             "engine; expect it to be orders of magnitude slower", err)
-        r = wgl.analysis(model, h)
+        r = wgl.analysis(model, h, cancel=cancel)
         r["fallback"] = str(err)
         return r
-    if bitdense.fits_bitdense(bitdense.n_states(e), e.n_slots):
-        r = bitdense.check_encoded_bitdense(e, device=dev)
-    else:
-        r = sparse.check_encoded(e, capacity=capacity,
-                                 max_capacity=max_capacity, dedupe=dedupe,
-                                 device=dev, config_pack=config_pack)
+    try:
+        if bitdense.fits_bitdense(bitdense.n_states(e), e.n_slots):
+            r = bitdense.check_encoded_bitdense(
+                e, device=dev, search_stats=search_stats, cancel=cancel)
+        else:
+            r = sparse.check_encoded(
+                e, capacity=capacity, max_capacity=max_capacity,
+                dedupe=dedupe, device=dev, config_pack=config_pack,
+                search_stats=search_stats, cancel=cancel)
+        bitdense.poll_cancel(cancel)
+    except bitdense.Cancelled:
+        return {"valid?": "unknown", "error": "cancelled"}
     if r["valid?"] is False:
         apply_final_paths(r, model, e, device=dev)
     return r
@@ -354,15 +371,18 @@ def check_batch(model, histories, capacity: int = 512,
                 pipeline: Optional[bool] = None, cache=None,
                 pipeline_stats: Optional[dict] = None,
                 steal: Optional[bool] = None,
-                config_pack: Optional[bool] = None) -> list:
+                config_pack: Optional[bool] = None,
+                search_stats: Optional[bool] = None) -> list:
     """Check many per-key histories, one batched device scan per
     slot-window bucket (`check_batch_encoded`), results in input order.
     `device` None means the card (RuntimeError without one); the tests
     pass "cpu". `capacity`, `max_capacity`, `dedupe` and `config_pack`
     steer the sparse buckets, as the reference's do (a dense bucket
     ignores `config_pack`); an unknown `bucket` or `dedupe`, or a bad
-    JEPSEN_TPU_TORCH_CONFIG_PACK, raises ValueError before the encode,
-    on an empty batch too.
+    JEPSEN_TPU_TORCH_CONFIG_PACK or JEPSEN_TPU_TORCH_SEARCH_STATS,
+    raises ValueError before the encode, on an empty batch too.
+    `search_stats` gives each key's result its own "stats" block, with
+    the batch's pad extras.
 
     The reference takes a `mesh` for the batch's key axis and for the
     sharded escalation rung; the port's batch runs on one device, and
@@ -373,6 +393,7 @@ def check_batch(model, histories, capacity: int = 512,
     bucket = _resolve_bucket(bucket)   # fail fast: before the encode
     dedupe = sparse._resolve_dedupe(dedupe)   # likewise
     config_pack = sparse._resolve_config_pack(config_pack)   # likewise
+    search_stats = st._resolve_search_stats(search_stats)    # likewise
     if pipeline or (cache is not None and cache is not False) \
             or pipeline_stats is not None:
         raise NotImplementedError(
@@ -386,14 +407,16 @@ def check_batch(model, histories, capacity: int = 512,
     return check_batch_encoded(model, pre, capacity=capacity,
                                max_capacity=max_capacity, device=device,
                                bucket=bucket, dedupe=dedupe,
-                               config_pack=config_pack)
+                               config_pack=config_pack,
+                               search_stats=search_stats)
 
 
 def check_batch_encoded(model, pre, capacity: int = 512,
                         max_capacity: int = 1 << 18, device=None,
                         bucket: Optional[str] = None,
                         dedupe: Optional[str] = None,
-                        config_pack: Optional[bool] = None) -> list:
+                        config_pack: Optional[bool] = None,
+                        search_stats: Optional[bool] = None) -> list:
     """check_batch on already-encoded keys: bucket them by slot window
     (`bucket_key`), check each bucket whose padded dims fit the dense
     engine (`bitdense.fits_bitdense(S_max, C_max)`) in one batched dense
@@ -402,6 +425,7 @@ def check_batch_encoded(model, pre, capacity: int = 512,
     bucket = _resolve_bucket(bucket)
     dedupe = sparse._resolve_dedupe(dedupe)
     config_pack = sparse._resolve_config_pack(config_pack)
+    search_stats = st._resolve_search_stats(search_stats)
     if not pre:
         return []
     dev = bitdense.resolve_device(device)
@@ -415,11 +439,13 @@ def check_batch_encoded(model, pre, capacity: int = 512,
         S_max = max(bitdense.n_states(e) for e in sub)
         C_max = max(e.n_slots for e in sub)
         if bitdense.fits_bitdense(S_max, C_max):
-            rs = bitdense.check_batch_bitdense(sub, device=dev)
+            rs = bitdense.check_batch_bitdense(sub, device=dev,
+                                               search_stats=search_stats)
         else:
             rs = _check_batch_sparse(sub, capacity, max_capacity,
                                      dedupe=dedupe, device=dev,
-                                     config_pack=config_pack)
+                                     config_pack=config_pack,
+                                     search_stats=search_stats)
         for i, r in zip(idxs, rs):
             out[i] = r
     return out
@@ -428,38 +454,43 @@ def check_batch_encoded(model, pre, capacity: int = 512,
 def _check_batch_sparse(pre, capacity: int, max_capacity: int,
                         dedupe: Optional[str] = None, device=None,
                         smem_budget=None,
-                        config_pack: Optional[bool] = None) -> list:
+                        config_pack: Optional[bool] = None,
+                        search_stats: Optional[bool] = None) -> list:
     """The sparse batch with per-key capacity retry
     (`sparse.check_batch_sparse`), its keys past `max_capacity` escalated
-    one by one (`_escalate_overflow`), the packing request with them.
-    `smem_budget` is the test seam of the closure's route, in the batch
-    and in the escalation."""
+    one by one (`_escalate_overflow`), the packing and stats requests
+    with them. `smem_budget` is the test seam of the closure's route, in
+    the batch and in the escalation."""
     dev = bitdense.resolve_device(device)
     dedupe = sparse._resolve_dedupe(dedupe)
     config_pack = sparse._resolve_config_pack(config_pack)
+    search_stats = st._resolve_search_stats(search_stats)
 
     def escalate(e, batch_cap):
         return _escalate_overflow(e, batch_cap, device=dev, dedupe=dedupe,
                                   smem_budget=smem_budget,
-                                  config_pack=config_pack)
+                                  config_pack=config_pack,
+                                  search_stats=search_stats)
 
     return sparse.check_batch_sparse(pre, capacity, max_capacity,
                                      dedupe=dedupe, device=dev,
                                      smem_budget=smem_budget,
                                      escalate=escalate,
-                                     config_pack=config_pack)
+                                     config_pack=config_pack,
+                                     search_stats=search_stats)
 
 
 def _escalate_overflow(e: EncodedHistory, batch_cap: int, device=None,
                        dedupe: str = "hash", smem_budget=None,
-                       config_pack: bool = False) -> dict:
+                       config_pack: bool = False,
+                       search_stats: bool = False) -> dict:
     """A key too wide for the batch escalates instead of dying as
     "unknown": the single-key sparse engine on the batch's own device,
     from 2x the batch's ceiling up to 4x it (at most 2^21), as the
     reference's first rung (engine.py `_escalate_overflow_impl`), with
-    the batch's packing request (the key's own `pack_spec_for` decides
-    its layout). A key it decides is tagged "escalated": "single"; one
-    it does not keeps
+    the batch's packing and stats requests (the key's own `pack_spec_for`
+    decides its layout; its stats block is the single rung's). A key it
+    decides is tagged "escalated": "single"; one it does not keeps
     the single rung's "unknown" result with the reference's error. The
     reference's second rung, the frontier-sharded engine over the
     caller's mesh, waits for ROADMAP Queue 1 item 9b."""
@@ -467,7 +498,8 @@ def _escalate_overflow(e: EncodedHistory, batch_cap: int, device=None,
     r = sparse.check_encoded(e, capacity=min(batch_cap * 2, ceil_single),
                              max_capacity=ceil_single, device=device,
                              dedupe=dedupe, smem_budget=smem_budget,
-                             config_pack=config_pack)
+                             config_pack=config_pack,
+                             search_stats=search_stats)
     if r["valid?"] != "unknown":
         r["escalated"] = "single"
         return r

@@ -1,0 +1,196 @@
+"""Search telemetry: the per-event stats block of the engines.
+
+A port of the search-stats vocabulary and accumulator of
+`jepsen_tpu.parallel.engine` (`_resolve_search_stats`,
+`PROBE_HIST_EDGES`, `_probe_hist`, `SearchStats`,
+`_finish_search_stats`), shared by the dense and the sparse engines.
+
+With `search_stats` on (the argument, else the flag
+JEPSEN_TPU_TORCH_SEARCH_STATS) a check's result gains a "stats" block
+built from per-event trajectories the scan writes on the device: the
+frontier width after the filter (-1 on an event that did not run), the
+closure's peak, iterations and configurations stepped, the work a sort
+closure would have done (`swork`) and the histogram of the visited-set
+probes' final offsets. With it off nothing changes and the result has no
+"stats" key.
+
+The reference also fans a block into its obs registry, Perfetto counter
+tracks and the run directory's record; those sinks wait for the port's
+tracer (ROADMAP item 10), and the resumable sessions' `splice` for its
+checkpoints (item 8).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+# Probe-length histogram buckets (final linear-probe offset per attempted
+# insert): upper-exclusive split at these edges, plus an overflow bucket.
+PROBE_HIST_EDGES = (1, 2, 4, 8, 16, 32)
+PROBE_HIST_LABELS = ("0", "1", "2-3", "4-7", "8-15", "16-31", "32+")
+N_PROBE_BUCKETS = len(PROBE_HIST_LABELS)
+
+# Per-key trajectories stop growing past this many events; the block then
+# says "truncated": True.
+SEARCH_STATS_MAX_EVENTS = 32768
+
+# the columns of a scan's per-event trajectory tensor [R, 5]
+TRAJ_FIELDS = ("width", "peak", "iters", "stepped", "swork")
+
+
+def _resolve_search_stats(search_stats=None) -> bool:
+    """Whether the stats block is asked for: an explicit argument wins,
+    else JEPSEN_TPU_TORCH_SEARCH_STATS, a strict tri-state: unset (or
+    empty) is off, "1" on, "0" off, anything else raises ValueError."""
+    if search_stats is not None:
+        return bool(search_stats)
+    raw = os.environ.get("JEPSEN_TPU_TORCH_SEARCH_STATS", "").strip()
+    if raw in ("", "0", "1"):
+        return raw == "1"
+    raise ValueError(f"JEPSEN_TPU_TORCH_SEARCH_STATS={raw!r}: must be '1' "
+                     f"(on) or '0' (off); unset it for the default (off)")
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(1, (int(n) - 1).bit_length())
+
+
+# PROBE_HIST_EDGES and the bucket numbers as tensors, per (device, dtype)
+_CONST: dict = {}
+
+
+def _probe_hist(off, attempted):
+    """[..., N_PROBE_BUCKETS] int64 histogram of the final probe offsets
+    `off` [..., M] of the attempted candidates (`attempted` bool [..., M]):
+    each offset's bucket is the count of PROBE_HIST_EDGES at or below it.
+    Four kernels and no host read, whatever the leading dims (one
+    histogram per leading index): a bucket index, then a one-hot compare
+    summed over M (a scatter-add into the few bins would serialize its
+    atomics on the card: almost every candidate of a tiled insert is not
+    live)."""
+    key = (off.device, off.dtype)
+    const = _CONST.get(key)
+    if const is None:
+        const = _CONST[key] = (
+            torch.tensor(PROBE_HIST_EDGES, dtype=off.dtype,
+                         device=off.device),
+            torch.arange(N_PROBE_BUCKETS, device=off.device))
+    edges, buckets = const
+    idx = torch.where(attempted, torch.bucketize(off, edges, right=True),
+                      N_PROBE_BUCKETS)
+    return (idx.unsqueeze(-1) == buckets).sum(-2)
+
+
+def new_trajectories(R: int, device, lead=()):
+    """The preallocated per-event trajectories of a scan of R events
+    (`lead` = (K,) for a batch): int32 [*lead, R, 5] (TRAJ_FIELDS, width
+    -1: not run) and int32 [*lead, R, N_PROBE_BUCKETS]."""
+    traj = torch.zeros((*lead, R, len(TRAJ_FIELDS)), dtype=torch.int32,
+                       device=device)
+    traj[..., 0] = -1
+    phist = torch.zeros((*lead, R, N_PROBE_BUCKETS), dtype=torch.int32,
+                        device=device)
+    return traj, phist
+
+
+def trajectories_np(traj, phist) -> dict:
+    """One scan's trajectories as the reference's per-event stats dict of
+    numpy arrays, read from the device once."""
+    t = traj.cpu().numpy()
+    out = {k: t[..., i] for i, k in enumerate(TRAJ_FIELDS)}
+    out["phist"] = phist.cpu().numpy()
+    return out
+
+
+class SearchStats:
+    """Host-side accumulator over a scan's per-event stats arrays, one
+    per searched key. Rows with width < 0 (pads, post-failure) are
+    dropped here; trajectories cap at SEARCH_STATS_MAX_EVENTS."""
+
+    def __init__(self, dedupe: str):
+        self.dedupe = dedupe
+        self.width: list = []
+        self.peak: list = []
+        self.iters: list = []
+        self.stepped: list = []
+        self.swork: list = []     # per-event sort-equivalent work
+        self.phist: list = []     # per-event [N_PROBE_BUCKETS] rows
+        self.capacity = 0
+        self.escalations = 0
+        self.truncated = False
+
+    def add_chunk(self, ys, N: int) -> None:
+        """One chunk's stats dict (np arrays, [R] / [R, B])."""
+        room = SEARCH_STATS_MAX_EVENTS - len(self.width)
+        w = np.asarray(ys["width"]).reshape(-1)
+        real = w >= 0
+        if int(real.sum()) > max(0, room):
+            # freeze at the cap: aggregates and lists both describe the
+            # first MAX events
+            self.truncated = True
+            keep = np.flatnonzero(real)[:max(0, room)]
+            real = np.zeros_like(real)
+            real[keep] = True
+        self.width.extend(int(x) for x in w[real])
+        for attr in ("peak", "iters", "stepped", "swork"):
+            getattr(self, attr).extend(
+                int(x) for x in np.asarray(ys[attr]).reshape(-1)[real])
+        self.phist.extend(
+            [int(v) for v in row] for row in
+            np.asarray(ys["phist"]).reshape(-1, N_PROBE_BUCKETS)[real])
+        self.capacity = max(self.capacity, int(N))
+
+    def block(self) -> dict:
+        """The result's "stats" block, the reference's schema."""
+        peak = max(self.peak, default=0)
+        stepped = sum(self.stepped)
+        swork = sum(self.swork)
+        phist = np.asarray(self.phist, np.int64).reshape(
+            -1, N_PROBE_BUCKETS).sum(axis=0)
+        out = {
+            "events": len(self.width),
+            "frontier-width": list(self.width),
+            "closure-iters": list(self.iters),
+            "configs-stepped-per-event": list(self.stepped),
+            "closure-peak": list(self.peak),
+            "frontier-peak": peak,
+            "capacity": self.capacity,
+            "capacity-tier": self.escalations,
+            "peak-occupancy": (round(peak / self.capacity, 6)
+                               if self.capacity else None),
+            "dedupe": self.dedupe,
+            "delta-split-ratio": (round(stepped / swork, 6)
+                                  if swork else None),
+            "table-capacity": None,
+            "load-factor-peak": None,
+            "load-factor-final": None,
+            "probe-hist": None,
+            "probes": None,
+        }
+        if self.truncated:
+            out["truncated"] = True
+        if self.dedupe == "hash" and self.capacity:
+            # under hash the closure peak is the visited table's occupancy
+            T = _next_pow2(2 * self.capacity)
+            out["table-capacity"] = T
+            out["load-factor-peak"] = round(peak / T, 6)
+            out["load-factor-final"] = (round(self.peak[-1] / T, 6)
+                                        if self.peak else None)
+            out["probe-hist"] = {lab: int(n) for lab, n in
+                                 zip(PROBE_HIST_LABELS, phist)}
+            out["probes"] = int(phist.sum())
+        return out
+
+
+def _finish_search_stats(acc: SearchStats, engine: str = "sparse",
+                         extra: Optional[dict] = None) -> dict:
+    """The block of `acc` with "engine" set (and `extra`'s fields)."""
+    block = acc.block()
+    if extra:
+        block.update(extra)
+    block["engine"] = engine
+    return block

@@ -24,7 +24,11 @@ knows from the encoding; it reads the device where a loop's stop test
 needs a value (the plain and tiled closures, the sort closure), and
 otherwise once, at the end of the scan.
 
-The search-stats block is not ported.
+With `search_stats` each event also writes its stats (frontier width,
+closure peak, iterations, configurations stepped, the sort-equivalent
+work and the probe-length histogram: `parallel.search_stats`) into
+preallocated tensors on the device, read once after the scan; with it
+off the scan issues nothing more.
 """
 
 from __future__ import annotations
@@ -34,8 +38,9 @@ import os
 import numpy as np
 import torch
 
+from jepsen_tpu_torch.parallel import search_stats as st
 from jepsen_tpu_torch.parallel import sparse_kernels as sk
-from jepsen_tpu_torch.parallel.bitdense import resolve_device
+from jepsen_tpu_torch.parallel.bitdense import poll_cancel, resolve_device
 from jepsen_tpu_torch.parallel.encode import (
     EncodedHistory, fail_op_fields, pad_batch,
 )
@@ -514,39 +519,48 @@ def _append_fresh(c_rows, fresh, f_rows, count, N: int):
 
 
 def _hash_insert_append(c_rows, c_live, f_rows, count, table,
-                        probe_limit: int, N: int, rep):
+                        probe_limit: int, N: int, rep, stats: bool = False):
     """One closure iteration's whole visited-set transaction: the insert
     and the append of its fresh rows. Returns (rows2, table2, count2,
     n_fresh, ovf), `ovf` being probe exhaustion or the append running
-    past the N-row frontier."""
-    table2, fresh, p_ovf, _ = _hash_insert(c_rows, c_live, table,
-                                           probe_limit, rep)
+    past the N-row frontier; with `stats` a sixth element, the
+    probe-length histogram of the attempted (live) candidates."""
+    table2, fresh, p_ovf, off = _hash_insert(c_rows, c_live, table,
+                                             probe_limit, rep)
     rows2, count2, n_fresh, a_ovf = _append_fresh(c_rows, fresh, f_rows,
                                                   count, N)
-    return rows2, table2, count2, n_fresh, p_ovf | a_ovf
+    out = (rows2, table2, count2, n_fresh, p_ovf | a_ovf)
+    if stats:
+        return out + (st._probe_hist(off, c_live),)
+    return out
 
 
 def _hash_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
-                        probe_limit: int, insert=None):
+                        probe_limit: int, insert=None, stats: bool = False):
     """The whole per-event delta-frontier closure (dedupe="hash"), the
     plain version of K2: seed a fresh visited set with the live
     frontier (compacting it), then expand only the delta — the rows
     found by the last iteration — until no fresh row appears. With the
     `insert` hook each iteration's visited-set transaction is K4's
-    instead.
+    instead (with `stats` the hook returns the histogram too).
 
     Returns (rows2, count, ovf, iters, stepped), `stepped` counting the
-    configurations expanded during this closure."""
+    configurations expanded during this closure. With `stats` two more:
+    `swork`, the configurations a sort closure would have stepped (the
+    whole frontier at the start of each iteration), and the
+    probe-length histogram [N_PROBE_BUCKETS] over the seed insert and
+    every iteration's transaction."""
     if insert is None:
         def insert(c_rows, c_live, f_rows, count, table):
             return _hash_insert_append(c_rows, c_live, f_rows, count,
-                                       table, probe_limit, N, rep)
+                                       table, probe_limit, N, rep, stats)
     dev = live.device
     zero = torch.zeros((), dtype=_I64, device=dev)
-    rows, table, count, _, ovf = insert(rows, live, rep.zeros(N), zero,
-                                        _empty_table(T, rep))
+    seed = insert(rows, live, rep.zeros(N), zero, _empty_table(T, rep))
+    rows, table, count, _, ovf = seed[:5]
     n_old = zero
-    iters = stepped = zero
+    iters = stepped = swork = zero
+    phist = seed[5] if stats else None
     changed = bool(run)
     row = torch.arange(N, device=dev)
     while changed and not bool(ovf):
@@ -556,14 +570,19 @@ def _hash_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
         delta = (row >= n_old) & (row < count)
         legal = (delta[:, None] & ev["slot_occ"][None, :]
                  & ~rep.mask_test(rows) & cand_ok)
-        rows, table, count2, n_fresh, ins_ovf = insert(
-            rep.candidates(rows, cand_st), legal.reshape(-1), rows, count,
-            table)
+        ins = insert(rep.candidates(rows, cand_st), legal.reshape(-1),
+                     rows, count, table)
+        rows, table, count2, n_fresh, ins_ovf = ins[:5]
         stepped = stepped + (count - n_old)
+        if stats:
+            swork = swork + count
+            phist = phist + ins[5]
         n_old, count = count, count2
         ovf = ovf | ins_ovf
         iters = iters + 1
         changed = bool(n_fresh > 0)
+    if stats:
+        return rows, count, ovf, iters, stepped, swork, phist
     return rows, count, ovf, iters, stepped
 
 
@@ -576,7 +595,7 @@ def _step_batch(step, rep, rows, ev):
 
 
 def _hash_event_closure_batch(rep, step, ev, rows, live, run, N: int,
-                              T: int, insert):
+                              T: int, insert, stats: bool = False):
     """K keys' hash closures of one event row at once (ev: [K, C] slot
     tables, rows [K, N] lanes, live [K, N], run [K]): each key's is
     `_hash_event_closure`'s, with `insert` a batched visited-set
@@ -588,14 +607,18 @@ def _hash_event_closure_batch(rep, step, ev, rows, live, run, N: int,
     zero meta, as K2 writes. The host reads one flag an iteration (does
     any key still close).
 
-    Returns (rows2, count, ovf, iters, stepped), each [K]-leading."""
+    Returns (rows2, count, ovf, iters, stepped), each [K]-leading; with
+    `stats` (the insert then returns each key's histogram [K, 7] too)
+    also swork [K] and phist [K, N_PROBE_BUCKETS], as
+    `_hash_event_closure` gives each key."""
     K = live.shape[0]
     dev = live.device
     zero = torch.zeros(K, dtype=_I64, device=dev)
-    rows, table, count, _, ovf = insert(rows, live & run[:, None],
-                                        rep.zeros((K, N)), zero,
-                                        _empty_table((K, T), rep))
-    n_old = iters = stepped = zero
+    seed = insert(rows, live & run[:, None], rep.zeros((K, N)), zero,
+                  _empty_table((K, T), rep))
+    rows, table, count, _, ovf = seed[:5]
+    n_old = iters = stepped = swork = zero
+    phist = seed[5] if stats else None
     active = run & ~ovf
     row = torch.arange(N, device=dev)
     occ = ev["slot_occ"][:, None, :]
@@ -604,15 +627,20 @@ def _hash_event_closure_batch(rep, step, ev, rows, live, run, N: int,
         delta = (row >= n_old[:, None]) & (row < count[:, None]) \
             & active[:, None]
         legal = delta[:, :, None] & occ & ~rep.mask_test(rows) & cand_ok
-        rows, table, count2, n_fresh, ins_ovf = insert(
-            rep.candidates(rows, cand_st), legal.flatten(1), rows, count,
-            table)
+        ins = insert(rep.candidates(rows, cand_st), legal.flatten(1), rows,
+                     count, table)
+        rows, table, count2, n_fresh, ins_ovf = ins[:5]
         stepped = stepped + torch.where(active, count - n_old, 0)
+        if stats:
+            swork = swork + torch.where(active, count, 0)
+            phist = phist + ins[5]
         iters = iters + active.to(_I64)
         n_old = torch.where(active, count, n_old)
         count = count2
         ovf = ovf | ins_ovf
         active = active & (n_fresh > 0) & ~ovf
+    if stats:
+        return rows, count, ovf, iters, stepped, swork, phist
     return rows, count, ovf, iters, stepped
 
 
@@ -723,16 +751,27 @@ def _route(N: int, C: int, dedupe: str, device, smem_budget=None,
     return "fused" if sk.supported(N, C, budget, lanes) else "tiled"
 
 
+def _sort_extra(d):
+    """The stats a sort closure gives (swork, then the histogram): swork
+    is the configurations it stepped, the histogram zeros."""
+    return torch.cat([d.reshape(*d.shape, 1).to(_I64),
+                      torch.zeros((*d.shape, st.N_PROBE_BUCKETS),
+                                  dtype=_I64, device=d.device)], -1)
+
+
 class _Scan:
     """One history's scan at frontier capacity N on one device. The
     carry — rows, live, ok, fail_r, max-frontier, iterations,
-    configs-stepped and the overflow flag — stays on the device."""
+    configs-stepped and the overflow flag — stays on the device. With
+    `stats` each event writes its stats row into `traj` [R, 5] and
+    `phist` [R, 7] (`search_stats.new_trajectories`), on the device."""
 
     def __init__(self, e: EncodedHistory, N: int, dedupe: str,
                  probe_limit: int, device, smem_budget=None, xs=None,
-                 pack=()):
+                 pack=(), stats: bool = False, cancel=None):
         C = e.slot_f.shape[1]
         self.e, self.N, self.C = e, N, C
+        self.cancel = cancel
         self.T = _next_pow2(2 * N)
         self.probe_limit = probe_limit
         self.device = device
@@ -753,27 +792,35 @@ class _Scan:
         self.maxf = z + 1
         self.steps_n = z
         self.stepped = z
+        self.stats = stats
+        if stats:
+            self.traj, self.phist = st.new_trajectories(e.n_returns, device)
 
     def _ev(self, r: int) -> dict:
         return {k: v[r] for k, v in self.xs.items()}
 
     def _closure(self, r: int, run):
-        """-> (rows2, live2, ovf, iters, stepped) of event r."""
+        """-> (rows2, live2, ovf, iters, stepped, extra) of event r; with
+        stats `extra` is [8]: swork, then the probe-length histogram."""
         ev = self._ev(r)
         N = self.N
         if self.closure == "sort":
-            return _sort_event_closure(self.rep, self.step, ev, self.rows,
-                                       self.live, run, N)
+            out = _sort_event_closure(self.rep, self.step, ev, self.rows,
+                                      self.live, run, N)
+            return out + ((_sort_extra(out[4]) if self.stats else None),)
+        kw = {"stats": True} if self.stats else {}
         if self.closure == "fused":
-            rows2, meta = sk.frontier_closure(
+            res = sk.frontier_closure(
                 self.e.step_name, ev, self.rows, self.live, run,
-                self.probe_limit, **_pack_kw(self.rep))
+                self.probe_limit, **_pack_kw(self.rep), **kw)
         else:
-            rows2, meta = sk.tiled_event_closure(
+            res = sk.tiled_event_closure(
                 self.rep, self.step, ev, self.rows, self.live, run, N,
-                self.T, self.probe_limit)
+                self.T, self.probe_limit, **kw)
+        rows2, meta = res[:2]
         live2 = torch.arange(N, device=self.device) < meta[0]
-        return rows2, live2, meta[1] != 0, meta[2], meta[3]
+        return (rows2, live2, meta[1] != 0, meta[2], meta[3],
+                res[2] if self.stats else None)
 
     def run(self, n_events: int):
         """Scan return events 0..n_events-1. The fused closure never
@@ -781,10 +828,11 @@ class _Scan:
         scan once it is False (nothing changes after that)."""
         ev_slot = self.e.ev_slot
         for r in range(n_events):
+            poll_cancel(self.cancel)
             if self.synced and not bool(self.ok):
                 break
             run = self.ok
-            rows2, live2, ovf, iters, d = self._closure(r, run)
+            rows2, live2, ovf, iters, d, extra = self._closure(r, run)
             # a settled event's probe flag must not trigger escalation
             ovf = run & ovf
             bits = self.rep.event_bits(int(ev_slot[r]))
@@ -801,6 +849,13 @@ class _Scan:
             self.steps_n = self.steps_n + torch.where(run, iters, 0)
             self.stepped = self.stepped + torch.where(run, d, 0)
             self.overflow = self.overflow | ovf
+            if self.stats:
+                # width -1 (not run) drops the event's whole row
+                row = torch.cat([torch.stack([
+                    torch.where(run, live3.sum(), -1), live2.sum(),
+                    iters.to(_I64), d.to(_I64)]), extra.to(_I64)])
+                self.traj[r] = row[:5]
+                self.phist[r] = row[5:]
         return self
 
     def result(self):
@@ -833,7 +888,8 @@ def _closure_tag(closure: str, device) -> str:
 def check_encoded(e: EncodedHistory, capacity: int = 1024,
                   max_capacity: int = 1 << 20, device=None,
                   dedupe=None, probe_limit: int = 0,
-                  config_pack=None, smem_budget=None) -> dict:
+                  config_pack=None, smem_budget=None,
+                  search_stats=None, cancel=None) -> dict:
     """Check one encoded history on the sparse engine, doubling the
     frontier capacity on overflow, with the result schema of
     `jepsen_tpu.parallel.engine.check_encoded`.
@@ -848,18 +904,25 @@ def check_encoded(e: EncodedHistory, capacity: int = 1024,
     packed word of `pack_spec_for(e)` (one or two lanes; the triple when
     the word would pass 64 bits) and tags the result's "config-pack".
     `smem_budget` is a test seam that replaces the shared-memory budget
-    of the route. Past `max_capacity` the verdict is "unknown"."""
+    of the route. Past `max_capacity` the verdict is "unknown".
+    `search_stats` (None: JEPSEN_TPU_TORCH_SEARCH_STATS, default off)
+    adds the "stats" block of the deciding tier, "capacity-tier" the
+    doublings before it. The scan raises `bitdense.Cancelled` at the
+    first event after `cancel` is set."""
     if e.n_returns == 0:
         return {"valid?": True, "max-frontier": 0, "capacity": 0}
     dev = resolve_device(device)
     dedupe = _resolve_dedupe(dedupe)
     probe_limit = _resolve_probe_limit(probe_limit)
     pack_req = _resolve_config_pack(config_pack)
+    ss = st._resolve_search_stats(search_stats)
     pack = pack_spec_for(e) if pack_req else ()
     xs = _xs(e, dev)
     N = max(64, capacity)
+    n_esc = 0
     while True:
-        sc = _Scan(e, N, dedupe, probe_limit, dev, smem_budget, xs, pack)
+        sc = _Scan(e, N, dedupe, probe_limit, dev, smem_budget, xs, pack,
+                   stats=ss, cancel=cancel)
         valid, fail_r, overflow, maxf, steps_n, stepped = \
             sc.run(e.n_returns).result()
         if not overflow:
@@ -870,11 +933,17 @@ def check_encoded(e: EncodedHistory, capacity: int = 1024,
                     "capacity": N, "dedupe": dedupe,
                     "closure": _closure_tag(sc.closure, dev)}
         N *= 2
+        n_esc += 1
     out = {"valid?": valid, "max-frontier": maxf, "capacity": N,
            "dedupe": dedupe, "configs-stepped": stepped,
            "explored": steps_n * N * e.slot_f.shape[1],
            "closure": _closure_tag(sc.closure, dev)}
     _tag_config_pack(out, pack, pack_req, e.slot_f.shape[1])
+    if ss:
+        acc = st.SearchStats(dedupe)
+        acc.escalations = n_esc
+        acc.add_chunk(st.trajectories_np(sc.traj, sc.phist), N)
+        out["stats"] = st._finish_search_stats(acc)
     if not valid:
         out.update(fail_op_fields(e, fail_r))
     return out
@@ -896,10 +965,13 @@ class _BatchScan:
     every key) or the sort closure — then the filter and carry of
     `_Scan.run` on [K, ...] tensors. The fused route on a card reads
     nothing from the device until the end; the others read a flag a
-    closure iteration, and skip a row no key runs."""
+    closure iteration, and skip a row no key runs. With `stats` each
+    row writes every key's stats into `traj` [K, R, 5] and `phist`
+    [K, R, 7], on the device."""
 
     def __init__(self, encs, xs: dict, state0, N: int, dedupe: str,
-                 probe_limit: int, device, smem_budget=None, pack=()):
+                 probe_limit: int, device, smem_budget=None, pack=(),
+                 stats: bool = False):
         K, R, C = xs["slot_f"].shape
         self.K, self.R, self.N, self.C = K, R, N, C
         self.T = _next_pow2(2 * N)
@@ -930,33 +1002,41 @@ class _BatchScan:
         self.fail_r = z - 1
         self.maxf = z + 1
         self.stepped = z
+        self.stats = stats
+        if stats:
+            self.traj, self.phist = st.new_trajectories(R, device, (K,))
 
     def _closure(self, r: int, run):
-        """-> (rows2, live2, ovf, stepped) of event row r, [K]-leading."""
+        """-> (rows2, live2, ovf, iters, stepped, extra) of event row r,
+        [K]-leading; with stats `extra` is [K, 8] (swork, then the
+        histogram)."""
         N = self.N
         if self.closure == "sort":
             ev = {k: v[:, r] for k, v in self.xs.items()}
-            rows2, live2, ovf, _, d = _sort_event_closure_batch(
+            out = _sort_event_closure_batch(
                 self.rep, self.step, ev, self.rows, self.live, run, N)
-            return rows2, live2, ovf, d
+            return out + ((_sort_extra(out[4]) if self.stats else None),)
+        kw = {"stats": True} if self.stats else {}
         if self.closure == "fused":
-            rows2, meta = sk.frontier_closure_batch(
+            res = sk.frontier_closure_batch(
                 self.step_name, self.xs, r, self.rows, self.live, run,
-                self.probe_limit, **_pack_kw(self.rep))
+                self.probe_limit, **_pack_kw(self.rep), **kw)
         else:
             ev = {k: v[:, r] for k, v in self.xs.items()}
-            rows2, meta = sk.tiled_event_closure_batch(
+            res = sk.tiled_event_closure_batch(
                 self.rep, self.step, ev, self.rows, self.live, run, N,
-                self.T, self.probe_limit)
+                self.T, self.probe_limit, **kw)
+        rows2, meta = res[:2]
         live2 = torch.arange(N, device=self.device) < meta[:, 0, None]
-        return rows2, live2, meta[:, 1] != 0, meta[:, 3].to(_I64)
+        return (rows2, live2, meta[:, 1] != 0, meta[:, 2].to(_I64),
+                meta[:, 3].to(_I64), res[2] if self.stats else None)
 
     def run(self):
         for r in range(self.R):
             run = self.ok & self.real[r]
             if self.synced and not bool(run.any()):
                 continue     # no key runs: the carry stays as it is
-            rows2, live2, ovf, d = self._closure(r, run)
+            rows2, live2, ovf, iters, d, extra = self._closure(r, run)
             # a settled or padded event's probe flag must not trigger
             # escalation
             ovf = run & ovf
@@ -975,6 +1055,12 @@ class _BatchScan:
                 self.maxf, torch.where(run, live2.sum(1), 0))
             self.stepped = self.stepped + torch.where(run, d, 0)
             self.overflow = self.overflow | ovf
+            if self.stats:
+                row = torch.cat([torch.stack([
+                    torch.where(run, live3.sum(1), -1), live2.sum(1), iters,
+                    d], 1), extra.to(_I64)], 1)
+                self.traj[:, r] = row[:, :5]
+                self.phist[:, r] = row[:, 5:]
         return self
 
     def result(self):
@@ -1000,7 +1086,8 @@ def _bit_lane(s, base: int):
 def check_batch_sparse(encs, capacity: int = 512,
                        max_capacity: int = 1 << 18, dedupe=None,
                        device=None, smem_budget=None, *, escalate,
-                       probe_limit: int = 0, config_pack=None) -> list:
+                       probe_limit: int = 0, config_pack=None,
+                       search_stats=None) -> list:
     """The reference's sparse per-key batch with per-key capacity retry
     (`jepsen_tpu.parallel.engine._check_batch_sparse`): every key runs
     in one batched scan (`_BatchScan`) at N = max(64, capacity); a key
@@ -1016,25 +1103,31 @@ def check_batch_sparse(encs, capacity: int = 512,
     probes' bound (0: the flag). `config_pack` (None: the flag) asks for
     packed rows: the batch's one layout is `pack_spec_for` of every key
     at the batch's first (widest) C, fixed for every tier; a tier's
-    lanes follow its own C, and the tag names the batch's C."""
+    lanes follow its own C, and the tag names the batch's C.
+    `search_stats` (None: the flag) gives each key decided here the
+    stats block of its tier ("capacity-tier" the tiers climbed) with the
+    reference's pad extras against the tier's padded R and C."""
     dev = resolve_device(device)
     dedupe = _resolve_dedupe(dedupe)
     probe_limit = _resolve_probe_limit(probe_limit)
     pack_req = _resolve_config_pack(config_pack)
+    ss = st._resolve_search_stats(search_stats)
     C = max(e.slot_f.shape[1] for e in encs) if encs else 0
     pack = pack_spec_for(list(encs), C) if pack_req and encs else ()
     out: list = [None] * len(encs)
     pending = list(range(len(encs)))
     N = max(64, capacity)
+    n_tier = 0
     while pending:
         encs_t = [encs[i] for i in pending]
         # C is the widest pending key's, with no floor (the dense
         # batch's is 5)
-        xs, state0, _, _, _ = pad_batch(encs_t)
+        xs, state0, _, C_pad, R_pad = pad_batch(encs_t)
         sc = _BatchScan(encs_t, xs, state0, N, dedupe, probe_limit, dev,
-                        smem_budget, pack).run()
+                        smem_budget, pack, stats=ss).run()
         valid, fail_r, overflow, maxf, stepped = sc.result()
         tag = _closure_tag(sc.closure, dev)
+        ys = st.trajectories_np(sc.traj, sc.phist) if ss else None
         retry = []
         for j, i in enumerate(pending):
             if overflow[j]:
@@ -1044,6 +1137,18 @@ def check_batch_sparse(encs, capacity: int = 512,
                  "capacity": N, "dedupe": dedupe,
                  "configs-stepped": stepped[j], "closure": tag}
             _tag_config_pack(r, pack, pack_req, C)
+            if ys is not None:
+                e = encs[i]
+                acc = st.SearchStats(dedupe)
+                acc.escalations = n_tier
+                acc.add_chunk({k: v[j] for k, v in ys.items()}, N)
+                waste = 1.0 - ((e.n_returns * e.slot_f.shape[1])
+                               / max(1, R_pad * C_pad))
+                r["stats"] = st._finish_search_stats(
+                    acc, extra={"pad-waste": round(waste, 6),
+                                "pad-events": int(R_pad - e.n_returns),
+                                "pad-slots": int(C_pad
+                                                 - e.slot_f.shape[1])})
             if not valid[j]:
                 r.update(fail_op_fields(encs[i], fail_r[j]))
             out[i] = r
@@ -1055,6 +1160,7 @@ def check_batch_sparse(encs, capacity: int = 512,
             break
         pending = retry
         N *= 2
+        n_tier += 1
     return out
 
 

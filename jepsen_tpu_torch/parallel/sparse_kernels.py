@@ -8,6 +8,9 @@ versions and shared-memory gates.
     `frontier_closure_batch`: one event row of K keys in one launch, a
     block a key (the reference's K2 under vmap); its plain version is
     `frontier_closure_batch_reference`, the single key's key by key.
+    With `stats=True` both also return the reference's stats outputs,
+    int32 [8] a key (`swork`, then the probe-length histogram), from the
+    kernel's Stats instantiation.
   * K4, `tiled_insert` — the probe/claim half of the visited-set
     transaction past K2's gate (`kernels/tiled_insert.cu`; replaces
     `jepsen_tpu.parallel.sparse_kernels.tiled_insert_call`): the
@@ -47,7 +50,9 @@ On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version, which the tests and `chip_smoke.py`
 hold the kernel against. Each wrapper counts its launches, and nothing
 else, in a plain integer: `launches["frontier_closure"]`,
-`launches["frontier_closure_batch"]`, `launches["hash_insert"]`,
+`launches["frontier_closure_batch"]` (K2's stats instantiation counts
+apart, in `launches["frontier_closure_stats"]` and
+`launches["frontier_closure_batch_stats"]`), `launches["hash_insert"]`,
 `launches["tiled_insert"]` and `launches["tiled_insert_batch"]` (its
 three kernels count once); K3 also counts them per table layout, in
 `hash_insert_launches["shared"]` and `hash_insert_launches["device"]`.
@@ -60,6 +65,7 @@ import ctypes
 import torch
 
 from jepsen_tpu_torch.parallel import sparse as sp
+from jepsen_tpu_torch.parallel.search_stats import _probe_hist
 
 _I32 = torch.int32
 
@@ -71,6 +77,7 @@ STEP_CODES = {"register": 0, "mutex": 1, "gset": 2, "uqueue": 3, "fifo": 4}
 
 # kernel launches since the last reset, per wrapper
 launches = {"frontier_closure": 0, "frontier_closure_batch": 0,
+            "frontier_closure_stats": 0, "frontier_closure_batch_stats": 0,
             "hash_insert": 0, "tiled_insert": 0, "tiled_insert_batch": 0}
 # K3's launches since the last reset, per table layout
 hash_insert_launches = {"shared": 0, "device": 0}
@@ -164,7 +171,7 @@ def _lib(name: str):
         lib = kernels.load(name)
         if name == "frontier_closure":
             lib.jt_frontier_closure_launch.argtypes = \
-                [_I] + [_P] * 5 + [_I] * 2 + [_P] * 9 + [_I] * 7 + [_P]
+                [_I] + [_P] * 5 + [_I] * 2 + [_P] * 10 + [_I] * 7 + [_P]
             lib.jt_frontier_closure_launch.restype = _I
             lib.jt_frontier_closure_smem.argtypes = [_I, _I, _I]
             lib.jt_frontier_closure_smem.restype = ctypes.c_longlong
@@ -330,25 +337,40 @@ def _check_closure_args(step_name, ev, rows, live, run, probe_limit,
     return N, C
 
 
+def _meta(out, stats: bool):
+    """(rows2, meta int32 [..., 4]) of a closure's (rows2, count, ovf,
+    iters, stepped), + its stats int32 [..., 8] (swork, then the
+    histogram) with `stats`."""
+    rows2, count, ovf, iters, stepped = out[:5]
+    meta = torch.stack([count, ovf.to(count.dtype), iters, stepped],
+                       -1).to(_I32)
+    if not stats:
+        return rows2, meta
+    return rows2, meta, torch.cat([out[5][..., None].to(_I32),
+                                   out[6].to(_I32)], -1)
+
+
 def frontier_closure_reference(step_name, ev, rows, live, run,
-                               probe_limit: int, pack=()):
+                               probe_limit: int, pack=(),
+                               stats: bool = False):
     """K2's plain version: `sparse._hash_event_closure` over rows of
-    layout `pack` -> (rows2, meta int32[4] = count, ovf, iters, stepped).
-    With `run` False the event is skipped: zero rows and zero meta, as
-    the kernel writes."""
+    layout `pack` -> (rows2, meta int32[4] = count, ovf, iters, stepped),
+    + with `stats` the int32 [8] stats (swork, then the probe-length
+    histogram). With `run` False the event is skipped: zero rows, zero
+    meta and zero stats, as the kernel writes."""
     N = live.shape[0]
     rep = sp._rep(pack, ev["slot_f"].shape[0], live.device)
     if not bool(run):
-        return rep.zeros(N), torch.zeros(4, dtype=_I32, device=live.device)
-    rows2, count, ovf, iters, stepped = sp._hash_event_closure(
+        zeros = rep.zeros(N), torch.zeros(4, dtype=_I32, device=live.device)
+        return zeros + ((torch.zeros(8, dtype=_I32, device=live.device),)
+                        if stats else ())
+    return _meta(sp._hash_event_closure(
         rep, sp.STEPS[step_name], ev, rows, live, run, N,
-        sp._next_pow2(2 * N), probe_limit)
-    return rows2, torch.stack([count, ovf.to(count.dtype), iters,
-                               stepped]).to(_I32)
+        sp._next_pow2(2 * N), probe_limit, stats=stats), stats)
 
 
 def frontier_closure(step_name: str, ev: dict, rows, live, run,
-                     probe_limit: int, pack=()):
+                     probe_limit: int, pack=(), stats: bool = False):
     """K2: one return event's whole hash closure.
 
     ev     the event's slot tables: slot_f/slot_a0/slot_a1 int32 [C],
@@ -357,19 +379,25 @@ def frontier_closure(step_name: str, ev: dict, rows, live, run,
            (three lanes), (state_bits, state_lo) the packed word (one or
            two, `sparse.pack_lanes`); live bool [N]
     run    one bool: False skips the event (zero rows and meta)
+    stats  True: also the reference's stats outputs
     ->     (rows2, meta int32[4] = count, ovf, iters, stepped), rows2 the
-           closed frontier compacted into rows [0, count), zeros after.
+           closed frontier compacted into rows [0, count), zeros after;
+           with `stats` + int32 [8]: swork (the frontier count at the
+           start of each pass, summed), then the histogram of the final
+           probe offsets of the attempted candidates of the seed and
+           every pass (buckets `search_stats.PROBE_HIST_LABELS`).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel on the current stream, after the shape gate
-    (`supported(N, C, lanes=L)` against the card's opt-in)."""
+    kernel (its stats-off or its stats instantiation) on the current
+    stream, after the shape gate (`supported(N, C, lanes=L)` against
+    the card's opt-in)."""
     _check_closure_args(step_name, ev, rows, live, run, probe_limit, pack)
     if _dev(live).type == "cpu":
         return frontier_closure_reference(step_name, ev, rows, live, run,
-                                          probe_limit, pack)
+                                          probe_limit, pack, stats)
     out = _frontier_closure_launch(step_name, ev, 0, 1, rows, live, run,
-                                   probe_limit, pack)
-    launches["frontier_closure"] += 1
+                                   probe_limit, pack, stats)
+    launches["frontier_closure_stats" if stats else "frontier_closure"] += 1
     return out
 
 
@@ -377,12 +405,14 @@ SLOT_TABLES = ("slot_f", "slot_a0", "slot_a1", "slot_wild", "slot_occ")
 
 
 def _frontier_closure_launch(step_name, xs, r: int, R: int, rows, live,
-                             run, probe_limit: int, pack=()):
+                             run, probe_limit: int, pack=(),
+                             stats: bool = False):
     """K2's launch on CUDA tensors after the shape gate: one key's event
     (slot tables [C], rows and live [N], one run flag) or event row r of
     K keys' (tables [K, R, C], rows and live [K, N], run [K]); the
-    outputs take live's shape and the rows' lanes. Raises on a launch the
-    card refuses; counts nothing (its callers do)."""
+    outputs take live's shape and the rows' lanes, with `stats` a third,
+    [..., 8], from the kernel's stats instantiation. Raises on a launch
+    the card refuses; counts nothing (its callers do)."""
     C, N = xs["slot_f"].shape[-1], live.shape[-1]
     K = live.numel() // N
     L = len(rows)
@@ -398,34 +428,41 @@ def _frontier_closure_launch(step_name, xs, r: int, R: int, rows, live,
     out = [torch.empty(live.shape, dtype=_I32, device=dev)
            for _ in range(L)]
     meta = torch.empty((*live.shape[:-1], 4), dtype=_I32, device=dev)
+    st = torch.empty((*live.shape[:-1], 8), dtype=_I32, device=dev) \
+        if stats else None
     with torch.cuda.device(dev):
         err = _lib("frontier_closure").jt_frontier_closure_launch(
             STEP_CODES[step_name], *map(_ptr, ins), r, R, *_lane_ptrs(rows),
-            *map(_ptr, flags), *_lane_ptrs(out), _ptr(meta), K, N, C,
-            probe_limit, L, s_bits, state_lo,
-            torch.cuda.current_stream().cuda_stream)
+            *map(_ptr, flags), *_lane_ptrs(out), _ptr(meta),
+            None if st is None else _ptr(st), K, N, C, probe_limit, L,
+            s_bits, state_lo, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"frontier_closure kernel launch failed: CUDA "
                            f"error {err}")
-    return tuple(out), meta
+    return (tuple(out), meta) + ((st,) if stats else ())
 
 
 def frontier_closure_batch_reference(step_name, xs, r: int, rows, live,
-                                     run, probe_limit: int, pack=()):
+                                     run, probe_limit: int, pack=(),
+                                     stats: bool = False):
     """Batched K2's plain version: `frontier_closure_reference` key by
-    key on event row r -> (rows2 [K, N] lanes, meta int32 [K, 4]). A key
-    whose `run` is False gets zero rows and zero meta."""
+    key on event row r -> (rows2 [K, N] lanes, meta int32 [K, 4]), + with
+    `stats` int32 [K, 8]. A key whose `run` is False gets zero rows, zero
+    meta and zero stats."""
     outs = [frontier_closure_reference(
         step_name, {k: xs[k][i, r] for k in SLOT_TABLES},
-        tuple(x[i] for x in rows), live[i], run[i], probe_limit, pack)
+        tuple(x[i] for x in rows), live[i], run[i], probe_limit, pack,
+        stats)
         for i in range(live.shape[0])]
     return (tuple(torch.stack([o[0][j] for o in outs])
                   for j in range(len(rows))),
-            torch.stack([o[1] for o in outs]))
+            *(torch.stack([o[m] for o in outs])
+              for m in range(1, len(outs[0]))))
 
 
 def frontier_closure_batch(step_name: str, xs: dict, r: int, rows, live,
-                           run, probe_limit: int, pack=()):
+                           run, probe_limit: int, pack=(),
+                           stats: bool = False):
     """Batched K2: event row r's whole hash closure for each of K keys,
     in one launch (a block a key).
 
@@ -436,8 +473,10 @@ def frontier_closure_batch(step_name: str, xs: dict, r: int, rows, live,
     rows   int32 lanes [K, N] of layout `pack` (as `frontier_closure`'s);
            live bool [K, N]
     run    bool [K]: False skips that key (zero rows and meta)
+    stats  True: also each key's stats outputs
     ->     (rows2 int32 lanes [K, N], meta int32 [K, 4] = count, ovf,
-           iters, stepped per key), as `frontier_closure` gives each key.
+           iters, stepped per key), + with `stats` int32 [K, 8], as
+           `frontier_closure` gives each key.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel on the current stream, after the shape gate (`supported(N,
@@ -470,10 +509,12 @@ def frontier_closure_batch(step_name: str, xs: dict, r: int, rows, live,
     _check(len(devs) == 1, f"frontier_closure_batch: tensors on {devs}")
     if _dev(live).type == "cpu":
         return frontier_closure_batch_reference(step_name, xs, r, rows,
-                                                live, run, probe_limit, pack)
+                                                live, run, probe_limit, pack,
+                                                stats)
     out = _frontier_closure_launch(step_name, xs, r, R, rows, live, run,
-                                   probe_limit, pack)
-    launches["frontier_closure_batch"] += 1
+                                   probe_limit, pack, stats)
+    launches["frontier_closure_batch_stats" if stats
+             else "frontier_closure_batch"] += 1
     return out
 
 
@@ -665,22 +706,33 @@ def _tiled_insert_launch(c_rows, c_live, table, probe_limit: int):
     return (tuple(t_rows), t_occ), fresh, off, pend
 
 
-def tiled_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
-                        probe_limit: int):
-    """The hash closure of one event with K4 as its visited-set insert:
-    `sparse._hash_event_closure` whose insert hook is `tiled_insert`
-    followed by the plain append. -> (rows2, meta int32[4])."""
+def _tiled_hook(insert_fn, probe_limit: int, N: int, stats: bool):
+    """The closure's insert hook around K4 (`insert_fn`: `tiled_insert`
+    or `tiled_insert_batch`) and the plain append; with `stats` its
+    probe-length histogram, bucketed in torch from K4's `off` output, as
+    the reference's `make_tiled_insert` does."""
     def insert(c_rows, c_live, f_rows, count, table):
-        table2, fresh, _, p_ovf = tiled_insert(c_rows, c_live, table,
-                                               probe_limit)
+        table2, fresh, off, p_ovf = insert_fn(c_rows, c_live, table,
+                                              probe_limit)
         rows2, count2, n_fresh, a_ovf = sp._append_fresh(
             c_rows, fresh, f_rows, count, N)
-        return rows2, table2, count2, n_fresh, p_ovf | a_ovf
+        out = (rows2, table2, count2, n_fresh, p_ovf | a_ovf)
+        if stats:
+            return out + (_probe_hist(off, c_live),)
+        return out
+    return insert
 
-    rows2, count, ovf, iters, stepped = sp._hash_event_closure(
-        rep, step, ev, rows, live, run, N, T, probe_limit, insert=insert)
-    return rows2, torch.stack([count, ovf.to(count.dtype), iters,
-                               stepped]).to(_I32)
+
+def tiled_event_closure(rep, step, ev, rows, live, run, N: int, T: int,
+                        probe_limit: int, stats: bool = False):
+    """The hash closure of one event with K4 as its visited-set insert:
+    `sparse._hash_event_closure` whose insert hook is `tiled_insert`
+    followed by the plain append. -> (rows2, meta int32[4]), + with
+    `stats` int32 [8] as `frontier_closure`'s."""
+    return _meta(sp._hash_event_closure(
+        rep, step, ev, rows, live, run, N, T, probe_limit,
+        insert=_tiled_hook(tiled_insert, probe_limit, N, stats),
+        stats=stats), stats)
 
 
 def tiled_insert_batch_reference(c_rows, c_live, table, probe_limit: int):
@@ -727,22 +779,15 @@ def tiled_insert_batch(c_rows, c_live, table, probe_limit: int):
 
 
 def tiled_event_closure_batch(rep, step, ev, rows, live, run, N: int,
-                              T: int, probe_limit: int):
+                              T: int, probe_limit: int, stats: bool = False):
     """The hash closures of one event row for K keys with batched K4 as
     their visited-set insert: `sparse._hash_event_closure_batch` whose
     insert is `tiled_insert_batch` followed by the plain append, one
     launch an iteration for every key. ev [K, C] slot tables, rows
-    and live [K, N], run [K] -> (rows2 [K, N] lanes, meta int32 [K, 4]);
-    a key whose closure ended early is frozen, one that does not run
-    gets zero rows and meta."""
-    def insert(c_rows, c_live, f_rows, count, table):
-        table2, fresh, _, p_ovf = tiled_insert_batch(c_rows, c_live, table,
-                                                     probe_limit)
-        rows2, count2, n_fresh, a_ovf = sp._append_fresh(
-            c_rows, fresh, f_rows, count, N)
-        return rows2, table2, count2, n_fresh, p_ovf | a_ovf
-
-    rows2, count, ovf, iters, stepped = sp._hash_event_closure_batch(
-        rep, step, ev, rows, live, run, N, T, insert)
-    return rows2, torch.stack([count, ovf.to(count.dtype), iters,
-                               stepped], 1).to(_I32)
+    and live [K, N], run [K] -> (rows2 [K, N] lanes, meta int32 [K, 4]),
+    + with `stats` int32 [K, 8]; a key whose closure ended early is
+    frozen, one that does not run gets zero rows and meta."""
+    return _meta(sp._hash_event_closure_batch(
+        rep, step, ev, rows, live, run, N, T,
+        _tiled_hook(tiled_insert_batch, probe_limit, N, stats),
+        stats=stats), stats)

@@ -43,7 +43,8 @@ build directory.
           candidates, where the tree has one, and timed whole
           (`variant_ms`; the timing alone, results unchecked;
           chip_smoke.py, which shares these timers, times only the cuts
-          it prints). Prints one JSON line;
+          it prints), and, in a tree whose K2 has search-stats outputs,
+          timed with them on (`stats_ms`). Prints one JSON line;
   walls   the dense 10k-op check through the checker: cold, then the
           median of three warm runs; one JSON line.
 
@@ -55,6 +56,8 @@ Every line carries the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import functools
+import inspect
 import json
 import os
 import subprocess
@@ -337,6 +340,10 @@ def _time_k2(torch, sk, inputs: list, warp_ab: bool = False) -> dict:
                 _time_launches(torch, sk.frontier_closure, inputs, reps=10)
     finally:
         sk._libs["frontier_closure"] = full
+    if "stats" in inspect.signature(sk.frontier_closure).parameters:
+        res["stats_ms"] = _time_launches(
+            torch, functools.partial(sk.frontier_closure, stats=True),
+            inputs, reps=10)
     metas = [sk.frontier_closure(*a)[1].tolist() for a in inputs]
     res["mean_iters"] = sum(m[2] for m in metas) / len(metas)
     res["mean_rows_out"] = sum(m[0] for m in metas) / len(metas)
