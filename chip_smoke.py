@@ -1638,7 +1638,8 @@ def phase_sparse_batch_timing(dev, rec) -> list:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t = {"name": f"frontier_closure_batch[K{K},N{N},C{C}]", "K": K, "N": N,
-         "C": C, "rows": len(k2), "ms": ms, "plain_ms": plain_ms,
+         "C": C, "cluster": sk.k2_cluster(dev, K, N, C, 3, False),
+         "rows": len(k2), "ms": ms, "plain_ms": plain_ms,
          "bound_ms": max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
          "bytes_ms": t_bytes, "ops_ms": t_ops,
@@ -1669,7 +1670,8 @@ def phase_sparse_batch_timing(dev, rec) -> list:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t = {"name": f"tiled_insert_batch[K{K},T{T},M{M}]", "K": K, "T": T,
-         "M": M, "inputs": len(k4), "mean_live": live,
+         "M": M, "grid": sk.k4_grid(dev), "inputs": len(k4),
+         "mean_live": live,
          "mean_probes": probes, "mean_fresh": n_fresh, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -2620,7 +2622,8 @@ def phase_packed_timing(dev, rec, launches) -> list:
                              for m in metas]))
         entry(f"frontier_closure_batch[packed L{L},K{K},N{N},C{C}]",
               "K2 batch", L, "frontier_closure.cu", 205, ms, plain_ms,
-              *per_s(nbytes, ops), inputs=len(k2))
+              *per_s(nbytes, ops), inputs=len(k2),
+              cluster=sk.k2_cluster(dev, K, N, C, L, False))
     for name, key in (("tiled_insert", "K4"),
                       ("tiled_insert_batch", "K4 batch")):
         fn, ref_fn = getattr(sk, name), getattr(sk, name + "_reference")
@@ -2654,7 +2657,8 @@ def phase_packed_timing(dev, rec, launches) -> list:
             shape = f"K{c_live.shape[0]}," if c_live.dim() == 2 else ""
             entry(f"{name}[packed L{L},{shape}T{T},M{c_live.shape[-1]}]",
                   key, L, "tiled_insert.cu", 345, ms, plain_ms,
-                  *per_s(nbytes, ops), inputs=len(k4), mean_live=live)
+                  *per_s(nbytes, ops), inputs=len(k4), mean_live=live,
+                  grid=sk.k4_grid(dev))
     k3 = {}
     for a in _all_kept(rec, "hash_insert"):
         L, T = len(a[0]), a[4][1].shape[0]
@@ -3081,7 +3085,8 @@ def phase_stats_timing(dev, kept, launches) -> list:
              "launches": launches[key], "ms": on_ms, "stats_off_ms": off_ms,
              "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "library_ms": None, "inputs": len(args), "key": key}
+             "library_ms": None, "inputs": len(args), "key": key,
+             "cluster": sk.k2_cluster(dev, K, N, C, L, True)}
         print("timing: " + json.dumps(t))
         out.append(t)
     return out

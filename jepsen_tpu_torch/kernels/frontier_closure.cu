@@ -47,12 +47,26 @@
 // generic over L.
 //
 // Batched over keys (the per-key batch, engine.check_batch): one launch
-// runs K keys' closures of one event row, a block a key (blockIdx.x).
-// Block `key` reads its event's slot tables in place at (key * R + r) * C
-// of the batch's [K, R, C] tables, and its own rows, live flags, run
-// flag and meta at key * N, key and key * 4; its table lives in its own
-// shared memory. The single-key launch is the same entry with K = R = 1,
-// so one body serves both.
+// runs K keys' closures of one event row, a block or a thread-block
+// cluster a key. Key `key` reads its event's slot tables in place at
+// (key * R + r) * C of the batch's [K, R, C] tables, and its own rows,
+// live flags, run flag and meta at key * N, key and key * 4; its table
+// lives in its own shared memory. The single-key launch is the same
+// entry with K = R = 1, so one body serves both.
+//
+// The batch's cluster (sparse_kernels.k2_cluster: 8 blocks a key where
+// K > 1 and N * C > 4,096, else one). A row's launch lasts as long as
+// its slowest key, and one block a key leaves most SMs idle (26 keys of
+// the sparse batch on 26 of 132): a key's widest passes, past the
+// registers' 2,048 candidates, rebuilt every candidate each round in
+// insert_pass on one SM. So every block of a key's cluster keeps a copy
+// of the key's frontier and table and runs the narrow passes whole (the
+// same transaction on the same state leaves every copy the same, and
+// needs no barrier across the cluster), and a pass of more than
+// kSplitMin candidates that the cluster's registers hold is split over
+// it (split_pass): reads stay local, claims meet on the leader's claim
+// words through distributed shared memory, and the winners' rows and
+// the appended rows are written into every copy.
 //
 // Design (one thread block of 512 threads owns the event's closure, as
 // K1 owns a history's closure, so one of the H100's 132 SMs; a batch of
@@ -115,6 +129,11 @@ using namespace jt;
 // 2,048 candidates still fits the registers
 constexpr int kThreads = 512;
 constexpr int kMaxC = 64;
+constexpr int kMaxCluster = 8;
+// A pass of more candidates than this is split over the key's cluster
+// (when it has more than one block and the pass fits its registers);
+// every block runs a smaller one whole, on its own copy.
+constexpr int kSplitMin = 2048;
 
 int table_size(int N) {
   int T = 2;
@@ -128,6 +147,12 @@ size_t smem_bytes(int N, int C, int L) {
          3 * 4 * kMaxC + 40 * 4 + 2 * kMaxC;
 }
 
+// The largest cluster of each instantiation (index 2 * (L - 1) + Stats)
+// the card runs at the block's whole opt-in, per device
+// (jt_frontier_closure_init).
+constexpr int kMaxDevices = 64;
+int g_max_cluster[kMaxDevices][6];
+
 template <int L>
 struct Shared {
   int32_t* f[L];             // frontier rows [N], lane by lane
@@ -135,7 +160,12 @@ struct Shared {
   int32_t* claim;            // [T], kClaimFree between rounds
   int32_t *fn, *a0, *a1;     // slot tables [kMaxC]
   int32_t* scan;             // [32] warp sums, then 8 spare words
-  uint8_t *off, *flags;      // per candidate [N*C]
+  uint8_t *off, *flags;      // per candidate [N*C] (insert_pass)
+  int32_t* act;              // [2] split rounds' "still probing", by
+                             // parity: spare scan words 36-37
+  int32_t* wtot;             // [kMaxCluster] a split pass's block totals,
+                             // at the start of off (no insert_pass runs
+                             // then)
   uint8_t* tocc;             // [T]
   uint8_t *wild, *occ;       // [kMaxC]
 };
@@ -249,21 +279,26 @@ __device__ __forceinline__ int scan_one_barrier(int v, int* ws, int* total) {
 constexpr int kRegCands = 4;  // candidates a thread holds, at most
 
 // A thread's probe-length histogram (Stats = true): the candidates whose
-// probe it saw end, by final offset; nothing at all when Stats = false.
+// probe it saw end, by final offset, each counted `w` times (0 in a
+// cluster's blocks other than the leader, for the passes every block
+// runs whole); nothing at all when Stats = false.
 template <bool Stats>
 struct Hist {
   __device__ __forceinline__ void add(int) {}
+  __device__ __forceinline__ void weigh(int) {}
 };
 
 template <>
 struct Hist<true> {
   int n[7] = {0, 0, 0, 0, 0, 0, 0};
+  int w = 1;
   __device__ __forceinline__ void add(int off) {
     const int b = (off >= 1) + (off >= 2) + (off >= 4) + (off >= 8) +
                   (off >= 16) + (off >= 32);
 #pragma unroll
-    for (int i = 0; i < 7; ++i) n[i] += b == i;
+    for (int i = 0; i < 7; ++i) n[i] += b == i ? w : 0;
   }
+  __device__ __forceinline__ void weigh(int v) { w = v; }
 };
 
 struct PassOut {
@@ -357,6 +392,161 @@ __device__ PassOut probe_append(const Shared<L>& s, const TableView<L>& t,
   return {sum & 0xFFFF, (sum >> 16) != 0};
 }
 
+// The key's cluster: its size and this block's rank (1 and 0 for a
+// launch without clusters).
+struct Cl {
+  int c, rank;
+};
+
+// barrier.cluster arrive and wait, split: a block arrives once it has
+// set up its shared memory and waits before its first remote access, so
+// no block touches another's before that one has started.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A pass of more than kSplitMin candidates on a cluster of c > 1 blocks,
+// each holding a copy of the key's frontier and table: the candidates
+// are spread over the cluster's c * 512 threads (global thread g = rank
+// * 512 + tid holds a contiguous run of at most kRegCands, so thread
+// order is candidate order across the cluster) and built from the local
+// frontier copy. A round reads the local table copy (phase A), claims an
+// empty slot with atomicMin on the leader's claim word, cluster barrier;
+// in phase B the lowest claimant writes its row into every block's copy
+// and frees the leader's word (a loser re-checks the slot next round),
+// and each block ORs "still probing" into every block's act word,
+// cluster barrier. The append's places come from a cluster-wide prefix
+// (each block's total of fresh rows and pending candidates into every
+// block's wtot, one cluster barrier), and each fresh row is written into
+// every copy of the frontier, cluster barrier: every block then holds
+// the same frontier and table, and the same outcome, as one block
+// running the pass whole. `rnd` numbers the split rounds of the launch
+// (the act words' parity; both 0 before the first). The caller has
+// waited on the cluster barrier every block arrived at once set up.
+template <int L, bool Stats, class Cand>
+__device__ PassOut split_pass(const Shared<L>& s, const TableView<L>& t,
+                              const Cand& cand, int M, int count, int N,
+                              int probe_limit, const Cl& cl, int& rnd,
+                              Hist<Stats>& hist) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int g = cl.rank * nt + tid;
+  const int per = (M + cl.c * nt - 1) / (cl.c * nt);
+  const int lo = min(M, g * per), hi = min(M, lo + per);
+  Probe<L> c[kRegCands];
+  build(cand, lo, hi, c);
+  unsigned attempted = 0;
+  if constexpr (Stats) {
+#pragma unroll
+    for (int k = 0; k < kRegCands; ++k) {
+      if (lo + k < hi && (c[k].fl & kPending)) attempted |= 1u << k;
+    }
+  }
+  int32_t* const claim0 = cluster.map_shared_rank(s.claim, 0);
+  int active = 1;
+  while (active) {
+#pragma unroll
+    for (int k = 0; k < kRegCands; ++k) {
+      Probe<L>& p = c[k];
+      if (lo + k >= hi || !(p.fl & kPending) || p.off >= probe_limit) {
+        continue;
+      }
+      const int slot = (int)((p.h + (uint32_t)p.off) & t.mask);
+      if (t.occ[slot]) {
+        if (row_equal<PlainLoads>(t, slot, p.w)) {
+          p.fl = 0;  // already visited
+        } else {
+          p.off += 1;
+        }
+      } else {
+        atomicMin(&claim0[slot], lo + k);
+        p.fl = kPending | kTry;
+      }
+    }
+    cluster.sync();
+    int local = 0;
+#pragma unroll
+    for (int k = 0; k < kRegCands; ++k) {
+      Probe<L>& p = c[k];
+      if (lo + k >= hi) continue;
+      if (p.fl & kTry) {
+        const int slot = (int)((p.h + (uint32_t)p.off) & t.mask);
+        if (claim0[slot] == lo + k) {
+          for (int b = 0; b < cl.c; ++b) {
+#pragma unroll
+            for (int q = 0; q < L; ++q) {
+              cluster.map_shared_rank(s.t[q], b)[slot] = (int32_t)p.w[q];
+            }
+            cluster.map_shared_rank(s.tocc, b)[slot] = 1;
+          }
+          claim0[slot] = kClaimFree;
+          p.fl = kFresh;
+        } else {
+          p.fl = kPending;
+        }
+      }
+      local |= (p.fl & kPending) && p.off < probe_limit;
+    }
+    // the other parity's word was last read before the barrier above;
+    // it is written next only after the barrier below
+    const int q = rnd & 1;
+    if (tid == 0) s.act[q ^ 1] = 0;
+    if (__syncthreads_or(local) && tid < cl.c) {
+      atomicOr(cluster.map_shared_rank(&s.act[q], tid), 1);
+    }
+    cluster.sync();
+    active = *(volatile int32_t*)&s.act[q];
+    ++rnd;
+  }
+  if constexpr (Stats) {
+#pragma unroll
+    for (int k = 0; k < kRegCands; ++k) {
+      if (attempted & (1u << k)) hist.add(c[k].off);
+    }
+  }
+  // the append: this block's fresh rows and pending threads, then the
+  // cluster's prefix of the block totals
+  int n_mine = 0, pend = 0;
+#pragma unroll
+  for (int k = 0; k < kRegCands; ++k) {
+    n_mine += (c[k].fl & kFresh) != 0;
+    pend |= (c[k].fl & kPending) != 0;
+  }
+  int sum;
+  const int mine = scan_one_barrier(n_mine | (pend << 16), s.scan, &sum);
+  if (tid < cl.c) *cluster.map_shared_rank(&s.wtot[cl.rank], tid) = sum;
+  cluster.sync();
+  int before = 0, all = 0;
+  for (int b = 0; b < cl.c; ++b) {
+    const int v = s.wtot[b];
+    before += b < cl.rank ? (v & 0xFFFF) : 0;
+    all += v;
+  }
+  int pos = count + before + (mine & 0xFFFF);
+#pragma unroll
+  for (int k = 0; k < kRegCands; ++k) {
+    if (c[k].fl & kFresh) {
+      if (pos < N) {
+        for (int b = 0; b < cl.c; ++b) {
+#pragma unroll
+          for (int q = 0; q < L; ++q) {
+            cluster.map_shared_rank(s.f[q], b)[pos] = (int32_t)c[k].w[q];
+          }
+        }
+      }
+      ++pos;
+    }
+  }
+  // every copy of the frontier complete before any block reads it
+  cluster.sync();
+  return {all & 0xFFFF, (all >> 16) != 0};
+}
+
 // A pass of at most 32 candidates in warp 0 alone: lane li builds
 // candidate li; rounds separated by __syncwarp, a claim won by the lowest
 // lane trying the slot (__match_any_sync: lanes are in candidate order,
@@ -433,9 +623,19 @@ __device__ PassOut warp_pass(const Shared<L>& s, const TableView<L>& t,
 // warp 0's outcome to the block, so that one pass's words are never
 // rewritten while another thread may still read them. Uniform: every
 // thread gets the result.
-template <int L, bool Stats, class Cand>
+//
+// On a cluster of c > 1 blocks a pass of more than kSplitMin candidates
+// that the cluster's registers hold is split over it (split_pass); every
+// other pass runs whole in each block, on its own copy of the frontier
+// and table, which it leaves as every other block's (the same
+// transaction on the same state), and counts in the stats of the leader
+// (rank 0) alone: the others weigh them 0. `waited`: this thread has
+// waited on the cluster barrier it arrived at once set up (before the
+// first remote access of a split pass).
+template <int L, bool Stats, bool Split, class Cand>
 __device__ PassOut k2_pass(const Event& ev, const Shared<L>& s,
                            const Cand& cand, int M, int count, int pass,
+                           const Cl& cl, int& rnd, bool& waited,
                            Hist<Stats>& hist) {
   const int tid = threadIdx.x, nt = blockDim.x;
   TableView<L> t;
@@ -444,6 +644,16 @@ __device__ PassOut k2_pass(const Event& ev, const Shared<L>& s,
   t.claim = s.claim;
   t.occ = s.tocc;
   t.mask = (uint32_t)(ev.T - 1);
+  if (Split && M > kSplitMin && M <= cl.c * nt * kRegCands) {
+    if (!waited) {
+      cluster_wait();
+      waited = true;
+    }
+    hist.weigh(1);
+    return split_pass(s, t, cand, M, count, ev.N, ev.probe_limit, cl, rnd,
+                      hist);
+  }
+  hist.weigh(!Split || cl.rank == 0 ? 1 : 0);
   if (M <= 32) {
     return warp_pass(s, t, cand, M, count, ev.N, ev.probe_limit,
                      s.scan + 32 + 2 * (pass & 1), hist);
@@ -481,11 +691,14 @@ struct OutLanes {
   int32_t* p[3];
 };
 
-// Block `key` of a launch over K keys: its event's slot tables (event
-// row `row`) start at (key * R + row) * C, its rows and outputs at key * N,
-// its run flag at key, its meta at key * 4 and (Stats) its stats at
-// key * 8.
-template <int L, bool Stats>
+// Key `key` of a launch over K keys (block `key`, or with Split the
+// cluster of blocks [key * c, (key + 1) * c)): its event's slot tables
+// (event row `row`) start at (key * R + row) * C, its rows and outputs at
+// key * N, its run flag at key, its meta at key * 4 and (Stats) its stats
+// at key * 8. With Split every block of the cluster keeps a copy of the
+// key's frontier and table (k2_pass); the leader (rank 0) writes the
+// outputs.
+template <int L, bool Stats, bool Split>
 __global__ void __launch_bounds__(kThreads, 1)
 frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
                         const int32_t* __restrict__ a0,
@@ -497,7 +710,12 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int N = ev.N, T = ev.T, C = ev.C;
-  const int key = blockIdx.x;
+  Cl cl{1, 0};
+  if constexpr (Split) {
+    cl.c = (int)cooperative_groups::this_cluster().num_blocks();
+    cl.rank = (int)cooperative_groups::this_cluster().block_rank();
+  }
+  const int key = (int)blockIdx.x / cl.c;
   if (key != 0 || row != 0) {  // one key's event (K = R = 1) is in place
     const size_t at = ((size_t)key * R + row) * C, rows = (size_t)key * N;
     f += at;
@@ -518,7 +736,8 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
 
   if (*run == 0) {
     // the history already failed or overflowed: an empty result, which
-    // the scan discards (uniform branch, no barrier)
+    // the scan discards (uniform branch over the cluster, no barrier)
+    if (cl.rank != 0) return;
     for (int i = tid; i < N; i += nt) {
 #pragma unroll
       for (int k = 0; k < L; ++k) out.p[k][i] = 0;
@@ -547,7 +766,9 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   s.a0 = w; w += kMaxC;
   s.a1 = w; w += kMaxC;
   s.scan = w; w += 40;
+  s.act = s.scan + 36;
   uint8_t* b = reinterpret_cast<uint8_t*>(w);
+  s.wtot = reinterpret_cast<int32_t*>(b);
   s.off = b; b += (size_t)N * C;
   s.flags = b; b += (size_t)N * C;
   s.tocc = b; b += T;
@@ -573,9 +794,12 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
     s.wild[j] = wild[j];
     s.occ[j] = occ[j];
   }
+  if (tid < 2) s.act[tid] = 0;
   __syncthreads();
+  bool waited = !Split;
+  if constexpr (Split) cluster_arrive();
 
-  int pass = 0;
+  int pass = 0, rnd = 0;
   Hist<Stats> hist;
   TableView<L> tv;
 #pragma unroll
@@ -584,16 +808,19 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   tv.occ = s.tocc;
   tv.mask = (uint32_t)(T - 1);
   PassOut r = seed_regs
-      ? probe_append(s, tv, seed, s_lo, s_hi, 0, N, ev.probe_limit, hist)
-      : k2_pass(ev, s, SeedCand<L>{ev}, N, 0, pass, hist);
+      ? (hist.weigh(!Split || cl.rank == 0 ? 1 : 0),
+         probe_append(s, tv, seed, s_lo, s_hi, 0, N, ev.probe_limit, hist))
+      : k2_pass<L, Stats, Split>(ev, s, SeedCand<L>{ev}, N, 0, pass, cl,
+                                 rnd, waited, hist);
   ++pass;
   int count = min(r.n_fresh, N);
   bool ovf = r.ovf || r.n_fresh > N;
   int n_old = 0, iters = 0, stepped = 0, swork = 0;
   bool changed = true;
   while (changed && !ovf) {
-    r = k2_pass(ev, s, ExpandCand<L>{ev, s, n_old}, (count - n_old) * C,
-                count, pass++, hist);
+    r = k2_pass<L, Stats, Split>(ev, s, ExpandCand<L>{ev, s, n_old},
+                                 (count - n_old) * C, count, pass++, cl,
+                                 rnd, waited, hist);
     stepped += count - n_old;
     if constexpr (Stats) swork += count;
     ovf = ovf || r.ovf || count + r.n_fresh > N;
@@ -603,29 +830,46 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
     changed = r.n_fresh > 0;
   }
 
-  for (int i = tid; i < N; i += nt) {
-    const bool in = i < count;
+  // every block of the cluster holds the same frontier and counts
+  if (!waited) cluster_wait();
+  if (cl.rank == 0) {
+    for (int i = tid; i < N; i += nt) {
+      const bool in = i < count;
 #pragma unroll
-    for (int k = 0; k < L; ++k) out.p[k][i] = in ? s.f[k][i] : 0;
-  }
-  if (tid == 0) {
-    meta[0] = count;
-    meta[1] = ovf ? 1 : 0;
-    meta[2] = iters;
-    meta[3] = stepped;
+      for (int k = 0; k < L; ++k) out.p[k][i] = in ? s.f[k][i] : 0;
+    }
+    if (tid == 0) {
+      meta[0] = count;
+      meta[1] = ovf ? 1 : 0;
+      meta[2] = iters;
+      meta[3] = stepped;
+    }
   }
   if constexpr (Stats) {
     // the last pass ended with a barrier, after which no thread reads the
-    // scan words again: they hold the block's seven sums
+    // scan words again: they hold the cluster's seven sums, in the
+    // leader's (each block adds its split passes' counts there)
     if (tid < 7) s.scan[tid] = 0;
-    __syncthreads();
+    if constexpr (Split) {
+      cooperative_groups::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+    int* sums = s.scan;
+    if constexpr (Split) {
+      sums = cooperative_groups::this_cluster().map_shared_rank(s.scan, 0);
+    }
 #pragma unroll
     for (int b = 0; b < 7; ++b) {
       const int v = __reduce_add_sync(0xffffffffu, hist.n[b]);
-      if ((tid & 31) == 0 && v != 0) atomicAdd(&s.scan[b], v);
+      if ((tid & 31) == 0 && v != 0) atomicAdd(&sums[b], v);
     }
-    __syncthreads();
-    if (tid == 0) {
+    if constexpr (Split) {
+      cooperative_groups::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+    if (cl.rank == 0 && tid == 0) {
       stats[0] = swork;
 #pragma unroll
       for (int b = 0; b < 7; ++b) stats[1 + b] = s.scan[b];
@@ -633,26 +877,93 @@ frontier_closure_kernel(Event ev, const int32_t* __restrict__ f,
   }
 }
 
-template <int L, bool Stats>
+template <int L, bool Stats, bool Split>
 cudaError_t allow_optin(int optin) {
   return cudaFuncSetAttribute(
-      (const void*)frontier_closure_kernel<L, Stats>,
+      (const void*)frontier_closure_kernel<L, Stats, Split>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
 }
 
-template <int L>
-void launch_lanes(int K, size_t smem, cudaStream_t s, const Event& ev,
-                  const int32_t* f, const int32_t* a0, const int32_t* a1,
-                  const uint8_t* wild, const uint8_t* occ, int r, int R,
-                  const uint8_t* run, const OutLanes& out, int32_t* meta,
-                  int32_t* stats) {
-  if (stats != nullptr) {
-    frontier_closure_kernel<L, true><<<K, kThreads, smem, s>>>(
-        ev, f, a0, a1, wild, occ, r, R, run, out, meta, stats);
-  } else {
-    frontier_closure_kernel<L, false><<<K, kThreads, smem, s>>>(
-        ev, f, a0, a1, wild, occ, r, R, run, out, meta, stats);
+cudaLaunchConfig_t cluster_config(int c, int K, size_t smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c * K);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The largest cluster (8, 4, 2; else 1) of the Split kernel at (L,
+// Stats) the card runs at the block's whole opt-in.
+template <int L, bool Stats>
+cudaError_t find_max_cluster(int optin, int* best) {
+  cudaError_t err = allow_optin<L, Stats, false>(optin);
+  if (err == cudaSuccess) err = allow_optin<L, Stats, true>(optin);
+  if (err != cudaSuccess) return err;
+  *best = 1;
+  for (int c = kMaxCluster; c >= 2 && *best == 1; c /= 2) {
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(c, 1, optin, 0, &attr);
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(
+            &n, frontier_closure_kernel<L, Stats, true>, &cfg) ==
+            cudaSuccess &&
+        n > 0) {
+      *best = c;
+    }
   }
+  (void)cudaGetLastError();  // a refused probe leaves no sticky error
+  return cudaSuccess;
+}
+
+template <int L, bool Stats, bool Split>
+cudaError_t launch_one(int K, int c, size_t smem, cudaStream_t s,
+                       const Event& ev, const int32_t* f, const int32_t* a0,
+                       const int32_t* a1, const uint8_t* wild,
+                       const uint8_t* occ, int r, int R, const uint8_t* run,
+                       const OutLanes& out, int32_t* meta, int32_t* stats) {
+  if constexpr (!Split) {
+    frontier_closure_kernel<L, Stats, false><<<K, kThreads, smem, s>>>(
+        ev, f, a0, a1, wild, occ, r, R, run, out, meta, stats);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(c, K, smem, s, &attr);
+    return cudaLaunchKernelEx(&cfg, frontier_closure_kernel<L, Stats, true>,
+                              ev, f, a0, a1, wild, occ, r, R, run, out,
+                              meta, stats);
+  }
+}
+
+template <int L>
+cudaError_t launch_lanes(int K, int c, size_t smem, cudaStream_t s,
+                         const Event& ev, const int32_t* f,
+                         const int32_t* a0, const int32_t* a1,
+                         const uint8_t* wild, const uint8_t* occ, int r,
+                         int R, const uint8_t* run, const OutLanes& out,
+                         int32_t* meta, int32_t* stats) {
+  if (stats != nullptr) {
+    return c > 1 ? launch_one<L, true, true>(K, c, smem, s, ev, f, a0, a1,
+                                             wild, occ, r, R, run, out,
+                                             meta, stats)
+                 : launch_one<L, true, false>(K, c, smem, s, ev, f, a0, a1,
+                                              wild, occ, r, R, run, out,
+                                              meta, stats);
+  }
+  return c > 1 ? launch_one<L, false, true>(K, c, smem, s, ev, f, a0, a1,
+                                            wild, occ, r, R, run, out, meta,
+                                            stats)
+               : launch_one<L, false, false>(K, c, smem, s, ev, f, a0, a1,
+                                             wild, occ, r, R, run, out, meta,
+                                             stats);
 }
 
 }  // namespace
@@ -660,23 +971,38 @@ void launch_lanes(int K, size_t smem, cudaStream_t s, const Event& ev,
 extern "C" {
 
 // Once per device, before the first launch there: lets the kernel (each
-// of its row layouts) use the block's whole shared-memory opt-in. Returns
-// that opt-in in bytes (the caller gates shapes by it), or minus the
-// cudaError_t.
+// of its instantiations) use the block's whole shared-memory opt-in, and
+// finds the largest cluster each runs at it (jt_frontier_closure_max_
+// cluster). Returns that opt-in in bytes (the caller gates shapes by
+// it), or minus the cudaError_t.
 int jt_frontier_closure_init(void) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= kMaxDevices) err = cudaErrorInvalidDevice;
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  if (err == cudaSuccess) err = allow_optin<1, false>(optin);
-  if (err == cudaSuccess) err = allow_optin<2, false>(optin);
-  if (err == cudaSuccess) err = allow_optin<3, false>(optin);
-  if (err == cudaSuccess) err = allow_optin<1, true>(optin);
-  if (err == cudaSuccess) err = allow_optin<2, true>(optin);
-  if (err == cudaSuccess) err = allow_optin<3, true>(optin);
+  int* best = g_max_cluster[dev < kMaxDevices ? dev : 0];
+  if (err == cudaSuccess) err = find_max_cluster<1, false>(optin, &best[0]);
+  if (err == cudaSuccess) err = find_max_cluster<1, true>(optin, &best[1]);
+  if (err == cudaSuccess) err = find_max_cluster<2, false>(optin, &best[2]);
+  if (err == cudaSuccess) err = find_max_cluster<2, true>(optin, &best[3]);
+  if (err == cudaSuccess) err = find_max_cluster<3, false>(optin, &best[4]);
+  if (err == cudaSuccess) err = find_max_cluster<3, true>(optin, &best[5]);
   return err == cudaSuccess ? optin : -(int)err;
+}
+
+// The largest cluster jt_frontier_closure_init found on the current
+// device for rows of `lanes` lanes, with stats outputs or without (0
+// before it ran there).
+int jt_frontier_closure_max_cluster(int lanes, int stats) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices ||
+      lanes < 1 || lanes > 3) {
+    return 0;
+  }
+  return g_max_cluster[dev][2 * (lanes - 1) + (stats != 0)];
 }
 
 // The kernel's dynamic shared memory at (N, C) with rows of `lanes`
@@ -686,17 +1012,18 @@ long long jt_frontier_closure_smem(int N, int C, int lanes) {
   return (long long)smem_bytes(N, C, lanes);
 }
 
-// One event row's closures of K keys on `stream`, a block a key. Slot
-// tables f/a0/a1/wild/occ are the batch's [K, R, C] (row r is read),
-// rows (in0..in2) and live [K, N], run [K] bytes, the output rows
-// (out0..out2) [K, N], meta [K, 4]; one key's event is K = R = 1, r = 0.
-// `stats` null runs the stats-off kernel; else it receives [K, 8] (swork,
-// then the probe-length histogram) from the Stats instantiation.
-// Rows have `lanes` lanes (the pointers past them are unused, null): 3
-// for the triple, 1 or 2 for the packed word of s_bits state bits and
-// state state_lo at field 0 (s_bits + C <= 32 * lanes). Returns the
-// cudaError_t of the launch (cudaErrorInvalidValue for a shape the kernel
-// does not take).
+// One event row's closures of K keys on `stream`, a cluster of `cluster`
+// blocks a key (1: a block a key; at most what jt_frontier_closure_max_
+// cluster says). Slot tables f/a0/a1/wild/occ are the batch's [K, R, C]
+// (row r is read), rows (in0..in2) and live [K, N], run [K] bytes, the
+// output rows (out0..out2) [K, N], meta [K, 4]; one key's event is K = R
+// = 1, r = 0. `stats` null runs the stats-off kernel; else it receives
+// [K, 8] (swork, then the probe-length histogram) from the Stats
+// instantiation. Rows have `lanes` lanes (the pointers past them are
+// unused, null): 3 for the triple, 1 or 2 for the packed word of s_bits
+// state bits and state state_lo at field 0 (s_bits + C <= 32 * lanes).
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for a
+// shape the kernel does not take).
 int jt_frontier_closure_launch(int step_code, const int32_t* f,
                                const int32_t* a0, const int32_t* a1,
                                const uint8_t* wild, const uint8_t* occ, int r,
@@ -705,7 +1032,7 @@ int jt_frontier_closure_launch(int step_code, const int32_t* f,
                                const uint8_t* run, int32_t* out0,
                                int32_t* out1, int32_t* out2, int32_t* meta,
                                int32_t* stats, int K, int N, int C,
-                               int probe_limit,
+                               int probe_limit, int cluster,
                                int lanes, int s_bits, int state_lo,
                                void* stream) {
   const bool packed_ok = lanes == 3 || (lanes >= 1 && lanes <= 2 &&
@@ -713,7 +1040,8 @@ int jt_frontier_closure_launch(int step_code, const int32_t* f,
                                         s_bits + C <= 32 * lanes);
   if (K < 1 || R < 1 || r < 0 || r >= R || N < 1 || C < 1 || C > kMaxC ||
       probe_limit < 1 || probe_limit > 255 || step_code < kRegister ||
-      step_code > kFifo || !packed_ok) {
+      step_code > kFifo || !packed_ok || cluster < 1 ||
+      cluster > kMaxCluster || (long long)cluster * K >= 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   const uint32_t smask =
@@ -723,20 +1051,21 @@ int jt_frontier_closure_launch(int step_code, const int32_t* f,
   const OutLanes out{{out0, out1, out2}};
   const size_t smem = smem_bytes(N, C, lanes);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (lanes) {
     case 1:
-      launch_lanes<1>(K, smem, s, ev, f, a0, a1, wild, occ, r, R, run, out,
-                      meta, stats);
+      err = launch_lanes<1>(K, cluster, smem, s, ev, f, a0, a1, wild, occ,
+                            r, R, run, out, meta, stats);
       break;
     case 2:
-      launch_lanes<2>(K, smem, s, ev, f, a0, a1, wild, occ, r, R, run, out,
-                      meta, stats);
+      err = launch_lanes<2>(K, cluster, smem, s, ev, f, a0, a1, wild, occ,
+                            r, R, run, out, meta, stats);
       break;
     default:
-      launch_lanes<3>(K, smem, s, ev, f, a0, a1, wild, occ, r, R, run, out,
-                      meta, stats);
+      err = launch_lanes<3>(K, cluster, smem, s, ev, f, a0, a1, wild, occ,
+                            r, R, run, out, meta, stats);
   }
-  return (int)cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

@@ -6,8 +6,9 @@
 // candidate's state in registers or, through probe_read and
 // claim_settle, in memory), the one-block transaction insert_pass (K2's
 // and K3's shared layout), and the whole-table transaction over a
-// cooperative grid (the live list, then grid_rounds: K3's device layout
-// and K4). Integers are 32-bit two's
+// cooperative grid (the live list: K3's device layout and K4; then
+// grid_rounds: K3's; K4 runs the probe phases in rounds of its own).
+// Integers are 32-bit two's
 // complement; shifts follow steps.py's _shl/_sar (0 past the word for a left shift,
 // sign fill for a right shift), and wrapping arithmetic goes through
 // uint32_t so that it is defined.
@@ -499,7 +500,7 @@ __device__ __forceinline__ GridSpan grid_span(int n) {
 
 // The probe rounds of one visited-set transaction of the n_list listed
 // candidates over a cooperative grid of co-resident blocks (the
-// reference's whole-table transaction; K3's device layout and K4). The
+// reference's whole-table transaction; K3's device layout). The
 // claim words take the list index, whose order is the candidates', so
 // the lowest index wins a race as in the one-block insert_pass. A
 // candidate of the span's registers keeps its row, hash, offset and
@@ -513,7 +514,7 @@ __device__ __forceinline__ GridSpan grid_span(int n) {
 // buffered by round parity so that clearing it needs no third barrier.
 //
 // `view(li)` is the table candidate li probes: the one table (K3), or
-// its key's among K tables (K4). gflags is 3 ints of device memory: the
+// its key's among K tables. gflags is 3 ints of device memory: the
 // probing flags and, for the caller's epilogue, a third that block 0
 // clears here with them, before the first barrier. On return the
 // candidates' outcome is in p (in_regs) or in off and flags.

@@ -36,6 +36,14 @@
 // H100 keeps the whole table in device memory, read through L2, so K4 runs
 // the one-table transaction.
 //
+// Where the time went (the sparse batch's recorded inputs, PERF.md): a
+// launch of K12 T32768 spent 10 us listing the live candidates and 57 us
+// in the grid's rounds, as many as the worst key's probe run (up to 33),
+// each two barriers across the whole grid, though after the first few
+// rounds only a few hundred candidates still probe. A thread-block
+// cluster a key instead was 3-4x slower: a key with tens of thousands of
+// live candidates has only its cluster's few SMs for them.
+//
 // Design: three launches on the stream, as K3's device layout:
 //   1. prep (one block of 256 threads per 4,096 of the K*M candidates):
 //      counts the live flags of its chunk (sparse_common.cuh's live
@@ -46,17 +54,34 @@
 //      it;
 //   3. insert: a cooperative grid of every block the card keeps resident
 //      (blocks per SM x SMs, read once per device by
-//      jt_tiled_insert_init) runs sparse_common.cuh's grid_rounds, the
-//      whole-table transaction of K3's device layout, over the list.
-//      Each block owns a contiguous range of it, and each candidate
-//      probes its own key's table (key = index / M, k * T slots in; its
-//      claim words k * T words into the scratch). The claim words take
-//      the list index: a key's candidates keep their order in the list
-//      and only they claim its slots, so the lowest index wins each race
-//      as in one key's transaction, and what key k gets is what one
-//      key's launch on its own candidates and table gives. Then each
-//      candidate writes its fresh flag and offset, and one still probing
-//      sets its key's flag.
+//      jt_tiled_insert_init) over the list. Each block owns a contiguous
+//      range of it, and each candidate probes its own key's table (key =
+//      index / M, k * T slots in; its claim words k * T words into the
+//      scratch). The claim words take the list index: a key's candidates
+//      keep their order in the list and only they claim its slots, so
+//      the lowest index wins each race as in one key's transaction, and
+//      what key k gets is what one key's launch on its own candidates and
+//      table gives.
+//      a. While more than kLocal (1,024) candidates still probe, the
+//         grid runs round-synchronous rounds (sparse_common.cuh's probe
+//         phases, two grid barriers a round, a grid-wide count of those
+//         still probing after the second).
+//      b. Then the candidates still probing go to one list with their
+//         offsets, the others write their outcome, and block 0 alone
+//         runs the rest of the rounds with block barriers, a candidate a
+//         thread. A round runs only where a candidate is due: slots are
+//         never emptied and rows never change within a transaction, so a
+//         candidate that reads occupied slots holding other rows ahead
+//         of it would walk past them in the next rounds whatever else
+//         happens; it reads a window of them at once (1 slot, doubling
+//         while it walks, at most kWindowMax), moves its offset past them
+//         and is due again in the round the reference reaches the first
+//         slot it has not read. Every claim still happens in the round
+//         the reference makes it, against the same rivals, so the
+//         tables, fresh, off and the flags are the reference's; the
+//         block's clock jumps to the earliest round a candidate is due.
+//      Each candidate writes its fresh flag and offset, and one that
+//      exhausted its probes sets its key's flag.
 // One key is K = 1.
 //
 // What bounds it: bytes. The least it must move is every live flag,
@@ -80,6 +105,10 @@ using namespace jt;
 
 constexpr int kGridThreads = 1024;  // each block of the insert's grid
 constexpr int kScanWords = 40;
+// candidates still probing that one block takes over from the grid
+constexpr int kLocal = kGridThreads;
+constexpr int kWindowMax = 8;  // slots a due candidate reads at once
+constexpr int kNoWake = INT_MAX;
 
 size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
@@ -87,7 +116,9 @@ struct Scratch {
   int32_t* counts;       // [list_chunks(K*M)] live flags per chunk
   int32_t* idx;          // [K*M] the live candidates' indices, in order
   int32_t* claim;        // [K*T] claim words
-  int32_t* gflags;       // [4] still probing (by round parity), spare
+  int32_t* gflags;       // [4] candidates still probing (by round
+                         // parity), the hand-off list's length, spare
+  int32_t* hand;         // [kLocal] the hand-off list
   uint8_t *off, *flags;  // [K*M] per live candidate
   size_t bytes;
 };
@@ -104,6 +135,8 @@ Scratch carve(void* base, int KM, size_t KT) {
   o = align16(o + 4 * KT);
   s.gflags = reinterpret_cast<int32_t*>(p + o);
   o = align16(o + 4 * 4);
+  s.hand = reinterpret_cast<int32_t*>(p + o);
+  o = align16(o + 4 * (size_t)kLocal);
   s.off = reinterpret_cast<uint8_t*>(p + o);
   o = align16(o + (size_t)KM);
   s.flags = reinterpret_cast<uint8_t*>(p + o);
@@ -159,9 +192,100 @@ struct KeyTable {
   }
 };
 
+// The earliest of the block's values v (kNoWake: none); every thread
+// calls it and gets it. `words` is 2 ints of shared memory, both
+// kNoWake before the first call; `parity` alternates them, so that a
+// call's word is reset only after every thread has read it.
+__device__ __forceinline__ int block_min(int v, int* words, int& parity) {
+  const int p = parity;
+  parity ^= 1;
+  if (threadIdx.x == 0) words[p ^ 1] = kNoWake;
+  const int m = __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0 && m != kNoWake) atomicMin(&words[p], m);
+  __syncthreads();
+  return words[p];
+}
+
+// One handed-off candidate of the block's rounds: its probe state, the
+// round it probes next and the slots it reads then.
+template <int L>
+struct Local {
+  Probe<L> p;
+  int wake, win;
+};
+
+// Phase A of a block round for candidate li due this round: read `win`
+// slots from its offset (occupancy, then the rows of the occupied ones)
+// and walk past those holding other rows. Slots are never emptied and
+// rows never change in a transaction, so the reference's candidate
+// walks past the same slots in the next rounds whatever else happens;
+// this one jumps there at once and is due again in the round the
+// reference reaches the first slot it has not read (its window doubling
+// while it walks, at most kWindowMax). Then, as the reference: an equal
+// row drops it, probe_limit exhausts it, an empty slot this round takes
+// an atomicMin of li.
+template <int L>
+__device__ __forceinline__ void window_probe(Local<L>& c,
+                                             const TableView<L>& t, int li,
+                                             int round, int probe_limit) {
+  Probe<L>& p = c.p;
+  const int span = min(c.win, probe_limit - p.off);
+  uint8_t occ[kWindowMax];
+  bool eq[kWindowMax];
+#pragma unroll
+  for (int j = 0; j < kWindowMax; ++j) {
+    occ[j] = j < span
+        ? __ldcg(&t.occ[(p.h + (uint32_t)(p.off + j)) & t.mask]) : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kWindowMax; ++j) {
+    eq[j] = occ[j] &&
+            row_equal<L2Loads>(
+                t, (int)((p.h + (uint32_t)(p.off + j)) & t.mask), p.w);
+  }
+  int j = 0;
+  while (j < span && occ[j] && !eq[j]) ++j;
+  p.off += j;
+  if (j == span) {
+    // every slot read holds another row: exhausted, or walk on
+    if (p.off < probe_limit) {
+      c.wake = round + j;
+      c.win = min(2 * c.win, kWindowMax);
+    }
+  } else if (eq[j]) {
+    p.fl = 0;  // already visited
+  } else if (j == 0) {
+    atomicMin(&t.claim[(p.h + (uint32_t)p.off) & t.mask], li);
+    p.fl = kPending | kTry;
+  } else {
+    c.wake = round + j;
+  }
+}
+
+// Each listed candidate's outcome: its fresh flag and final offset; one
+// that exhausted its probes flags its key.
+__device__ __forceinline__ void outcome(const Args& a, int i, uint8_t fl,
+                                        int off) {
+  a.fresh[i] = (fl & kFresh) ? 1 : 0;
+  a.off_out[i] = off;
+  if (fl & kPending) a.pend_out[i / a.M] = 1;
+}
+
+// The transaction of every key's listed candidates: while more than
+// kLocal still probe, round-synchronous rounds over the cooperative grid
+// (sparse_common.cuh's phases, two grid barriers a round, the count of
+// candidates still probing read after the second); then the ones left
+// go to one list and block 0 runs their rounds alone, with block
+// barriers, a round only where a candidate is due (block_min of the
+// rounds they are due: rounds in which every one walks past occupied
+// slots are skipped, window_probe). Claims take the list index, whose
+// order is each key's candidates' order, so the lowest index wins a race
+// as in one key's transaction, on either side of the hand-off.
 template <int L>
 __global__ void __launch_bounds__(kGridThreads)
 k4_grid_insert(Args a) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
   __shared__ int scan[kScanWords];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int n_live = list_total(a.sc.counts, a.KM, scan);
@@ -180,26 +304,133 @@ k4_grid_insert(Args a) {
   tables.idx = a.sc.idx;
   tables.M = a.M;
   tables.T = (size_t)a.T;
+  const int pl = a.probe_limit;
+  int* const probing_at = a.sc.gflags;  // [2], by round parity
+  int* const n_hand = a.sc.gflags + 2;
+
+  // 1. grid rounds while more than kLocal candidates probe
   Probe<L> p;
-  grid_rounds(cand, tables, s, n_live, p, a.sc.off, a.sc.flags, a.sc.gflags,
-              a.probe_limit);
-  // each candidate's outcome; one still probing flags its key
+  p.off = 0;
+  p.fl = 0;
+  TableView<L> tv{};  // the table of this thread's register candidate
   if (s.in_regs) {
     if (s.my < s.hi) {
-      const int i = a.sc.idx[s.my];
-      a.fresh[i] = (p.fl & kFresh) ? 1 : 0;
-      a.off_out[i] = p.off;
-      if (p.fl & kPending) a.pend_out[i / a.M] = 1;
+      uint32_t w[L];
+      cand(s.my, w);
+      set_row(p, w);
+      p.fl = kPending;  // every listed candidate is live
+      tv = tables(s.my);
     }
   } else {
     for (int li = s.lo + tid; li < s.hi; li += nt) {
-      const int i = a.sc.idx[li];
-      const uint8_t fl = a.sc.flags[li];
-      a.fresh[i] = (fl & kFresh) ? 1 : 0;
-      a.off_out[i] = a.sc.off[li];
-      if (fl & kPending) a.pend_out[i / a.M] = 1;
+      a.sc.flags[li] = kPending;
+      a.sc.off[li] = 0;
     }
   }
+  if (blockIdx.x == 0 && tid == 0) {
+    probing_at[0] = probing_at[1] = 0;
+    *n_hand = 0;
+  }
+  grid.sync();
+  int round = 0;
+  for (int probing = n_live; probing > kLocal; ++round) {
+    if (s.in_regs) {
+      probe_a<L2Loads>(p, tv, s.my, pl);
+    } else {
+      for (int li = s.lo + tid; li < s.hi; li += nt) {
+        probe_read<L2Loads>(cand, tables(li), a.sc.off, a.sc.flags, li, pl);
+      }
+    }
+    grid.sync();
+    int mine = 0;
+    if (s.in_regs) {
+      mine = probe_b<L2Loads>(p, tv, s.my, pl);
+    } else {
+      for (int li = s.lo + tid; li < s.hi; li += nt) {
+        mine += claim_settle<L2Loads>(cand, tables(li), a.sc.off,
+                                      a.sc.flags, li, pl);
+      }
+    }
+    // the other parity's count was last read before the barrier above;
+    // it is added to again only after the barrier below
+    if (blockIdx.x == 0 && tid == 0) probing_at[(round + 1) & 1] = 0;
+    int total;
+    block_exclusive_scan(mine, scan, &total);
+    if (tid == 0 && total) atomicAdd(&probing_at[round & 1], total);
+    grid.sync();
+    probing = __ldcg(&probing_at[round & 1]);
+  }
+
+  // 2. the hand-off: the candidates still probing go to one list, with
+  // their offsets; the others write their outcome
+  if (s.in_regs) {
+    if (s.my < s.hi) {
+      if ((p.fl & kPending) && p.off < pl) {
+        a.sc.hand[atomicAdd(n_hand, 1)] = s.my;
+        a.sc.off[s.my] = (uint8_t)p.off;
+      } else {
+        outcome(a, a.sc.idx[s.my], p.fl, p.off);
+      }
+    }
+  } else {
+    for (int li = s.lo + tid; li < s.hi; li += nt) {
+      const uint8_t fl = a.sc.flags[li];
+      if ((fl & kPending) && a.sc.off[li] < pl) {
+        a.sc.hand[atomicAdd(n_hand, 1)] = li;
+      } else {
+        outcome(a, a.sc.idx[li], fl, a.sc.off[li]);
+      }
+    }
+  }
+  grid.sync();
+  if (blockIdx.x != 0) return;
+
+  // 3. block 0: the rounds of the candidates handed off, thread t the
+  // t-th of them
+  const int n = __ldcg(n_hand);
+  int* const mins = scan + 32;
+  if (tid < 2) mins[tid] = kNoWake;
+  Local<L> c;
+  c.p.fl = 0;
+  c.p.off = 0;
+  c.wake = round;
+  c.win = 1;
+  int li = 0;
+  TableView<L> ct{};
+  if (tid < n) {
+    li = __ldcg(&a.sc.hand[tid]);
+    uint32_t w[L];
+    cand(li, w);
+    set_row(c.p, w);
+    c.p.off = __ldcg(&a.sc.off[li]);
+    c.p.fl = kPending;
+    ct = tables(li);
+  }
+  __syncthreads();
+  int parity = 0;
+  int due = tid < n ? round : kNoWake;
+  for (;;) {
+    const int r = block_min(due, mins, parity);
+    if (r == kNoWake) break;
+    if ((c.p.fl & kPending) && c.p.off < pl && c.wake == r) {
+      window_probe<L>(c, ct, li, r, pl);
+    }
+    __syncthreads();
+    if (c.p.fl & kTry) {
+      const int slot = (int)((c.p.h + (uint32_t)c.p.off) & ct.mask);
+      if (__ldcg(&ct.claim[slot]) == li) {
+        store_row<L>(ct.lane, slot, c.p.w);
+        ct.occ[slot] = 1;
+        ct.claim[slot] = kClaimFree;
+        c.p.fl = kFresh;
+      } else {
+        c.p.fl = kPending;  // re-check the slot next round
+        c.wake = r + 1;
+      }
+    }
+    due = (c.p.fl & kPending) && c.p.off < pl ? c.wake : kNoWake;
+  }
+  if (tid < n) outcome(a, a.sc.idx[li], c.p.fl, c.p.off);
 }
 
 template <int L>

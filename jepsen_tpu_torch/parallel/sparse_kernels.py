@@ -6,7 +6,9 @@ versions and shared-memory gates.
     `jepsen_tpu.parallel.sparse_kernels.frontier_closure_call`). Its
     plain version is `sparse._hash_event_closure`. Batched over keys,
     `frontier_closure_batch`: one event row of K keys in one launch, a
-    block a key (the reference's K2 under vmap); its plain version is
+    thread-block cluster of `k2_cluster` blocks a key, each pass of more
+    than K2_SPLIT_MIN candidates split over it (the reference's K2 under
+    vmap); its plain version is
     `frontier_closure_batch_reference`, the single key's key by key.
     With `stats=True` both also return the reference's stats outputs,
     int32 [8] a key (`swork`, then the probe-length histogram), from the
@@ -14,10 +16,11 @@ versions and shared-memory gates.
   * K4, `tiled_insert` — the probe/claim half of the visited-set
     transaction past K2's gate (`kernels/tiled_insert.cu`; replaces
     `jepsen_tpu.parallel.sparse_kernels.tiled_insert_call`): the
-    reference's transaction over the whole table, run by a cooperative
-    grid (`k4_grid`) over the live candidates, as K3's device layout
-    runs it (one body, sparse_common.cuh's grid_rounds). Its plain
-    version is `tiled_insert_reference`. The closure around it
+    reference's transaction over the whole table: a cooperative grid
+    (`k4_grid`) runs its rounds over the live candidates of every key
+    while more than a block's threads still probe, then one block runs
+    the rest, skipping the rounds in which every one walks past occupied
+    slots. Its plain version is `tiled_insert_reference`. The closure around it
     (`tiled_event_closure`) is the plain closure with K4 as its insert.
     Batched over keys, `tiled_insert_batch`: K keys' transactions, a
     table each, in one launch (plain version
@@ -83,6 +86,9 @@ launches = {"frontier_closure": 0, "frontier_closure_batch": 0,
 hash_insert_launches = {"shared": 0, "device": 0}
 
 MAX_C = 64
+# batched K2 splits a pass of more candidates than this over its cluster
+# (frontier_closure.cu kSplitMin)
+K2_SPLIT_MIN = 2048
 # K2: the slot tables (3 int32 + 2 bytes per slot, for 64 slots) and 40
 # words of scan scratch
 K2_FIXED_BYTES = 3 * 4 * MAX_C + 40 * 4 + 2 * MAX_C
@@ -159,6 +165,8 @@ _optin: dict = {}
 _k3_grid: dict = {}
 # device index -> the blocks of K4's cooperative grid there
 _k4_grid: dict = {}
+# (device index, lanes, stats) -> the largest cluster K2 runs there
+_k2_max_cluster: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -171,8 +179,10 @@ def _lib(name: str):
         lib = kernels.load(name)
         if name == "frontier_closure":
             lib.jt_frontier_closure_launch.argtypes = \
-                [_I] + [_P] * 5 + [_I] * 2 + [_P] * 10 + [_I] * 7 + [_P]
+                [_I] + [_P] * 5 + [_I] * 2 + [_P] * 10 + [_I] * 8 + [_P]
             lib.jt_frontier_closure_launch.restype = _I
+            lib.jt_frontier_closure_max_cluster.argtypes = [_I, _I]
+            lib.jt_frontier_closure_max_cluster.restype = _I
             lib.jt_frontier_closure_smem.argtypes = [_I, _I, _I]
             lib.jt_frontier_closure_smem.restype = ctypes.c_longlong
         elif name == "hash_insert":
@@ -234,6 +244,38 @@ def k3_grid(device) -> int:
                                f"shape on device {index}: CUDA error {err}")
         v = _k3_grid[index] = k3_grid_blocks(per_sm.value, n_sm.value)
     return v
+
+
+def k2_cluster_size(K: int, N: int, C: int, max_cluster: int) -> int:
+    """Blocks of batched K2's cluster a key at K keys, frontier capacity N
+    and C slots: the largest cluster the card runs (`max_cluster`, 8 on
+    the H100) where the launch has more than one key and its passes can
+    outgrow the split threshold (N * C > 2 * K2_SPLIT_MIN: a pass steps
+    the rows the one before it appended, on the sparse batch's inputs at
+    most about half the frontier); else one block, the single key's
+    layout. A cluster costs its keys ~0.001 ms a launch where no pass
+    splits (PERF.md)."""
+    return max_cluster if K > 1 and N * C > 2 * K2_SPLIT_MIN else 1
+
+
+def k2_cluster(device, K: int, N: int, C: int, lanes: int,
+               stats: bool) -> int:
+    """Blocks of K2's cluster a key for a launch of K keys on `device`."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (index, lanes, bool(stats))
+    most = _k2_max_cluster.get(key)
+    if most is None:
+        _device_optin("frontier_closure", torch.device("cuda", index))
+        with torch.cuda.device(index):
+            most = _lib("frontier_closure").jt_frontier_closure_max_cluster(
+                lanes, int(bool(stats)))
+        if most < 1:
+            raise RuntimeError(f"frontier_closure kernel: no cluster size "
+                               f"read on device {index}")
+        _k2_max_cluster[key] = most
+    return k2_cluster_size(K, N, C, most)
 
 
 def k4_grid(device) -> int:
@@ -406,13 +448,15 @@ SLOT_TABLES = ("slot_f", "slot_a0", "slot_a1", "slot_wild", "slot_occ")
 
 def _frontier_closure_launch(step_name, xs, r: int, R: int, rows, live,
                              run, probe_limit: int, pack=(),
-                             stats: bool = False):
+                             stats: bool = False, cluster=None):
     """K2's launch on CUDA tensors after the shape gate: one key's event
     (slot tables [C], rows and live [N], one run flag) or event row r of
     K keys' (tables [K, R, C], rows and live [K, N], run [K]); the
     outputs take live's shape and the rows' lanes, with `stats` a third,
-    [..., 8], from the kernel's stats instantiation. Raises on a launch
-    the card refuses; counts nothing (its callers do)."""
+    [..., 8], from the kernel's stats instantiation. A key takes a
+    cluster of `cluster` blocks (None: `k2_cluster`'s; the cuda tests
+    and kernel_ab.py force others). Raises on a launch the card refuses;
+    counts nothing (its callers do)."""
     C, N = xs["slot_f"].shape[-1], live.shape[-1]
     K = live.numel() // N
     L = len(rows)
@@ -421,6 +465,8 @@ def _frontier_closure_launch(step_name, xs, r: int, R: int, rows, live,
         raise ValueError(f"frontier_closure: N={N} C={C} with {L}-lane rows "
                          f"needs {k2_smem_bytes(N, C, L)} bytes of shared "
                          f"memory, past the card's opt-in")
+    if cluster is None:
+        cluster = k2_cluster(dev, K, N, C, L, stats)
     s_bits, state_lo = pack if pack else (0, 0)
     ins = [xs[k].contiguous() for k in SLOT_TABLES]
     rows = [x.contiguous() for x in rows]
@@ -434,8 +480,9 @@ def _frontier_closure_launch(step_name, xs, r: int, R: int, rows, live,
         err = _lib("frontier_closure").jt_frontier_closure_launch(
             STEP_CODES[step_name], *map(_ptr, ins), r, R, *_lane_ptrs(rows),
             *map(_ptr, flags), *_lane_ptrs(out), _ptr(meta),
-            None if st is None else _ptr(st), K, N, C, probe_limit, L,
-            s_bits, state_lo, torch.cuda.current_stream().cuda_stream)
+            None if st is None else _ptr(st), K, N, C, probe_limit,
+            cluster, L, s_bits, state_lo,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"frontier_closure kernel launch failed: CUDA "
                            f"error {err}")
@@ -464,7 +511,7 @@ def frontier_closure_batch(step_name: str, xs: dict, r: int, rows, live,
                            run, probe_limit: int, pack=(),
                            stats: bool = False):
     """Batched K2: event row r's whole hash closure for each of K keys,
-    in one launch (a block a key).
+    in one launch (a cluster of `k2_cluster` blocks a key).
 
     xs     the padded batch's slot tables: slot_f/slot_a0/slot_a1 int32
            [K, R, C], slot_wild/slot_occ bool [K, R, C] (read in place;

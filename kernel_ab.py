@@ -2,9 +2,10 @@
 one NVIDIA GPU, for comparing two trees of the port (say a commit and
 its parent) on the same inputs in one run.
 
-    python3 kernel_ab.py [--tree DIR] record [--out FILE] [--kernels k1,k2,k3,k4]
+    python3 kernel_ab.py [--tree DIR] record [--out FILE]
+                                      [--kernels k1,k2,k3,k4,k2b,k4b]
     python3 kernel_ab.py [--tree DIR] time [--inputs FILE]
-    python3 kernel_ab.py [--tree DIR] walls
+    python3 kernel_ab.py [--tree DIR] walls [--sparse-batch]
 
 `--tree DIR` imports `jepsen_tpu_torch` from DIR (a checkout, or a
 `git archive` of another commit unpacked into a directory that
@@ -23,7 +24,11 @@ build directory.
           section starts) and at T=1,024 (a 60-op register history's);
           K4 on every 97th expansion insert of the 1000-op FIFO history's
           capacity-32,768 tier (T=65,536, M=393,216; 6 at most), as
-          chip_smoke.py records them;
+          chip_smoke.py records them; batched K2 (k2b) on the 28-key
+          sparse batch of chip_smoke.py, triple, packed and with stats,
+          by shape (60 rows a shape at most), and batched K4 (k4b) on
+          its every 97th expansion insert a shape (4 at most), triple
+          and packed;
   time    loads them and times each kernel through its wrapper
           (`closure_kernels.closure_fixpoint`, `sparse_kernels.
           frontier_closure`, `hash_insert`, `tiled_insert`) with CUDA
@@ -44,9 +49,20 @@ build directory.
           (`variant_ms`; the timing alone, results unchecked;
           chip_smoke.py, which shares these timers, times only the cuts
           it prints), and, in a tree whose K2 has search-stats outputs,
-          timed with them on (`stats_ms`). Prints one JSON line;
+          timed with them on (`stats_ms`), and at K = 1 on a cluster of
+          8 where the tree's K2 takes one (`cluster8_ms`). Batched K2:
+          per launch the keys running, their passes and live rows, the
+          slowest key's pass widths (plain closure), the launch with no
+          key and with only the slowest key running, cut to 0 and 1
+          passes, split from 512 and 32 candidates (`variant_ms`), and
+          at every cluster size (`cluster_ms`). Batched K4: each key's
+          live candidates and rounds (the reference's loop, counted),
+          its host cost and its kernels under torch.profiler. Prints one
+          JSON line;
   walls   the dense 10k-op check through the checker: cold, then the
-          median of three warm runs; one JSON line.
+          median of three warm runs; with --sparse-batch the 28-key
+          sparse batch, triple and packed, cold and three warm runs;
+          one JSON line.
 
 The sharded 10k-op check's walls and busy share come from
 `python3 -m jepsen_tpu_torch.profile_check --sharded`, run in each tree.
@@ -67,6 +83,8 @@ import time
 DEFAULT_INPUTS = "build/kernel_ab_inputs.pt"
 K1_PAIRS = 200
 K3_KEEP = 3
+K2B_KEEP = 60   # batched K2 calls kept per shape
+K4B_KEEP = 4    # batched K4 calls kept per shape
 
 
 def _card() -> str:
@@ -182,6 +200,76 @@ def _record_k4(torch, sk, h, T_want: int, stride: int, keep: int):
     return kept
 
 
+def _sparse_batch_keys():
+    """The 28 keys of chip_smoke.py's sparse per-key batch
+    (sparse-batch-28: 24 of the bench's multi-key layout on
+    UnorderedQueue and 4 corrupted twins)."""
+    import chip_smoke
+    return chip_smoke._sparse_batch_keys()
+
+
+def _check_sparse_batch(torch, pack: bool, stats: bool):
+    from jepsen_tpu_torch.models import UnorderedQueue
+    from jepsen_tpu_torch.parallel import engine
+    return engine.check_batch(UnorderedQueue(), _sparse_batch_keys(),
+                              device=torch.device("cuda"),
+                              config_pack=pack, search_stats=stats)
+
+
+def _record_k2_batch(torch, sk, pack: bool, stats: bool) -> dict:
+    """Batched K2's calls in the sparse-batch-28 check through
+    `engine.check_batch` (rows packed with `pack`, search stats on with
+    `stats`), by shape "K{K}N{N}L{lanes}[S]": every row of a tier, at
+    most K2B_KEEP of them at an even stride. Each call keeps the batch's
+    slot tables (the same tensors every row) and its keyword arguments."""
+    real, kept = sk.frontier_closure_batch, {}
+
+    def recording(step_name, xs, r, rows, live, run, pl, **kw):
+        shape = f"K{live.shape[0]}N{live.shape[1]}L{len(rows)}" + \
+            ("S" if kw.get("stats") else "")
+        kept.setdefault(shape, []).append(
+            (step_name, {k: xs[k] for k in sk.SLOT_TABLES}, r,
+             tuple(x.clone() for x in rows), live.clone(), run.clone(), pl,
+             dict(kw)))
+        return real(step_name, xs, r, rows, live, run, pl, **kw)
+
+    sk.frontier_closure_batch = recording
+    try:
+        _check_sparse_batch(torch, pack, stats)
+    finally:
+        sk.frontier_closure_batch = real
+    return {s: v[::max(1, len(v) // K2B_KEEP)][:K2B_KEEP]
+            for s, v in kept.items()}
+
+
+def _record_k4_batch(torch, sk, pack: bool) -> dict:
+    """Batched K4's expansion inserts (M = N*C candidates a key, not an
+    event's seed) in the sparse-batch-28 check, by shape
+    "K{K}T{T}M{M}L{lanes}": every 97th of a shape, K4B_KEEP at most."""
+    real, kept, seen = sk.tiled_insert_batch, {}, {}
+
+    def recording(c_rows, c_live, table, pl):
+        T = table[1].shape[1]
+        if c_live.shape[1] != T // 2:
+            shape = f"K{c_live.shape[0]}T{T}M{c_live.shape[1]}" \
+                f"L{len(c_rows)}"
+            seen[shape] = seen.get(shape, 0) + 1
+            got = kept.setdefault(shape, [])
+            if seen[shape] % 97 == 0 and len(got) < K4B_KEEP:
+                got.append((tuple(r.clone() for r in c_rows),
+                            c_live.clone(),
+                            (tuple(r.clone() for r in table[0]),
+                             table[1].clone()), pl))
+        return real(c_rows, c_live, table, pl)
+
+    sk.tiled_insert_batch = recording
+    try:
+        _check_sparse_batch(torch, pack, False)
+    finally:
+        sk.tiled_insert_batch = real
+    return {s: v for s, v in kept.items() if v}
+
+
 def cmd_record(args, torch) -> dict:
     from jepsen_tpu_torch import histories, models
     from jepsen_tpu_torch.parallel import closure_kernels as ck
@@ -203,6 +291,13 @@ def cmd_record(args, torch) -> dict:
         out["k4"]["T65536"] = _record_k4(
             torch, sk, histories.rand_fifo_history(
                 1000, n_processes=8, crash_p=0.005, seed=1), 1 << 16, 97, 6)
+    if "k2b" in want:
+        out["k2b"] = {**_record_k2_batch(torch, sk, False, False),
+                      **_record_k2_batch(torch, sk, True, False),
+                      **_record_k2_batch(torch, sk, False, True)}
+    if "k4b" in want:
+        out["k4b"] = {**_record_k4_batch(torch, sk, False),
+                      **_record_k4_batch(torch, sk, True)}
     if "k3" in want:
         out["k3"]["T262144"] = _record_k3(
             torch, sk, encode.encode(models.CASRegister(None),
@@ -265,13 +360,29 @@ K2_CUTS = {
 }
 # each kernel without its one-warp path (kernel_ab.py time)
 K2_WARP_AB = {"no_warp_pass": (r"if \(M <= 32\) \{", "if (false) {")}
-_C_FUNCS = ("launch", "init", "smem", "scratch")
+# batched K2 splitting smaller passes over its cluster (a tree that has
+# split passes; kernel_ab.py time)
+K2_SPLIT_AB = {
+    f"split_min_{n}": (r"constexpr int kSplitMin = 2048;",
+                       f"constexpr int kSplitMin = {n};")
+    for n in (512, 32)}
+_C_FUNCS = ("launch", "init", "smem", "scratch", "max_cluster")
+
+
+_VARIANTS: dict = {}
 
 
 def _variant_libs(sk, kernel: str, variants: dict) -> dict:
     """The tree's own source of `kernel` rebuilt as each variant it
-    holds (one nvcc each, all at once), loaded and set up on the current
-    device like the wrapper's own library."""
+    holds (one nvcc each, all at once, once a run), loaded and set up on
+    the current device like the wrapper's own library."""
+    memo = (kernel, tuple(sorted(variants)))
+    if memo not in _VARIANTS:
+        _VARIANTS[memo] = _build_variants(sk, kernel, variants)
+    return _VARIANTS[memo]
+
+
+def _build_variants(sk, kernel: str, variants: dict) -> dict:
     import ctypes
     import re
     from jepsen_tpu_torch import kernels
@@ -344,6 +455,12 @@ def _time_k2(torch, sk, inputs: list, warp_ab: bool = False) -> dict:
         res["stats_ms"] = _time_launches(
             torch, functools.partial(sk.frontier_closure, stats=True),
             inputs, reps=10)
+    if _has_clusters(sk):
+        # the one key on a cluster of 8 (the wrapper keeps one block)
+        def eight(step_name, ev, rows, live, run, pl):
+            return sk._frontier_closure_launch(step_name, ev, 0, 1, rows,
+                                               live, run, pl, cluster=8)
+        res["cluster8_ms"] = _time_launches(torch, eight, inputs, reps=10)
     metas = [sk.frontier_closure(*a)[1].tolist() for a in inputs]
     res["mean_iters"] = sum(m[2] for m in metas) / len(metas)
     res["mean_rows_out"] = sum(m[0] for m in metas) / len(metas)
@@ -405,6 +522,194 @@ def _time_k4(torch, sk, inputs: list) -> dict:
                                 n=500)}
 
 
+def _has_clusters(sk) -> bool:
+    """Whether the tree's K2 takes a cluster size (a later tree than the
+    one-block batched K2)."""
+    return "cluster" in inspect.signature(
+        sk._frontier_closure_launch).parameters
+
+
+def _k2b_call(sk):
+    def fn(step_name, xs, r, rows, live, run, pl, kw):
+        return sk.frontier_closure_batch(step_name, xs, r, rows, live, run,
+                                         pl, **kw)
+    return fn
+
+
+def _k2_pass_widths(torch, a) -> list:
+    """The candidates (the pass's delta rows times C, as the kernel
+    builds them) and the live ones of every pass of each running key of
+    batched K2 call `a`, from the plain closure: [[(M, live), ...] a
+    running key]."""
+    from jepsen_tpu_torch.parallel import sparse as sp
+    step_name, xs, r, rows, live, run, pl, kw = a
+    C, N = xs["slot_f"].shape[2], live.shape[1]
+    rep = sp._rep(kw.get("pack", ()), C, live.device)
+    out = []
+    for k in torch.nonzero(run).flatten().tolist():
+        passes = []
+
+        def insert(c_rows, c_live, f_rows, count, table):
+            passes.append((int(count), int(c_live.sum())))
+            return sp._hash_insert_append(c_rows, c_live, f_rows, count,
+                                          table, pl, N, rep)
+        sp._hash_event_closure(
+            rep, sp.STEPS[step_name], {n: xs[n][k, r] for n in xs},
+            tuple(x[k] for x in rows), live[k], run[k], N,
+            sp._next_pow2(2 * N), pl, insert=insert)
+        # the seed (count 0) is not a pass; a pass steps the rows the
+        # one before it appended
+        out.append([((c - b) * C, n) for (b, _), (c, n)
+                    in zip(passes, passes[1:])])
+    return out
+
+
+def _time_k2_batch(torch, sk, inputs: list) -> dict:
+    """Batched K2 per launch on the recorded rows of one shape, and where
+    its time goes: the launch with no key running (an empty result
+    written), with only each row's slowest key running (the most passes),
+    the closure loop cut to 0 and 1 passes; per launch the keys running,
+    their passes (meta's iters) and live input rows; the widths of the
+    slowest key's passes on a few rows, from the plain closure."""
+    fn = _k2b_call(sk)
+    a0 = inputs[0]
+    res = {"ms": _time_launches(torch, fn, inputs, reps=5),
+           "inputs": len(inputs), "K": a0[4].shape[0], "N": a0[4].shape[1],
+           "C": a0[1]["slot_f"].shape[2], "lanes": len(a0[3]),
+           "stats": bool(a0[7].get("stats")), "variant_ms": {}}
+    metas = [fn(*a)[1].cpu() for a in inputs]
+    running = [a[5].cpu() for a in inputs]
+    iters = [m[:, 2][rn].tolist() for m, rn in zip(metas, running)]
+    res["running_keys"] = [int(rn.sum()) for rn in running]
+    res["iters_max"] = [max(i, default=0) for i in iters]
+    res["iters_mean"] = sum(sum(i) for i in iters) / max(
+        1, sum(len(i) for i in iters))
+    res["live_rows"] = [int((a[4] & a[5][:, None]).sum()) for a in inputs]
+    none = [a[:5] + (torch.zeros_like(a[5]),) + a[6:] for a in inputs]
+    res["cut_ms"] = {"run_none": _time_launches(torch, fn, none, reps=5)}
+    slowest = []
+    for a, m in zip(inputs, metas):
+        one = torch.zeros_like(a[5])
+        one[int(torch.argmax(torch.where(a[5].cpu(), m[:, 2], -1)))] = True
+        slowest.append(a[:5] + (one & a[5],) + a[6:])
+    res["cut_ms"]["slowest_key_only"] = _time_launches(torch, fn, slowest,
+                                                      reps=5)
+    full = sk._libs["frontier_closure"]
+    try:
+        for n, lib in _variant_libs(sk, "frontier_closure",
+                                    {**K2_CUTS, **K2_SPLIT_AB}).items():
+            sk._libs["frontier_closure"] = lib
+            res["cut_ms" if n.startswith("passes") else "variant_ms"][n] = \
+                _time_launches(torch, fn, inputs, reps=5)
+    finally:
+        sk._libs["frontier_closure"] = full
+    if _has_clusters(sk):
+        # every cluster size forced (1: the parent's block a key)
+        res["cluster"] = sk.k2_cluster(a0[4].device, res["K"], res["N"],
+                                       res["C"], res["lanes"], res["stats"])
+        res["cluster_ms"] = {}
+        for c in (1, 2, 4, 8):
+            def forced(step_name, xs, r, rows, live, run, pl, kw, c=c):
+                return sk._frontier_closure_launch(
+                    step_name, xs, r, xs["slot_f"].shape[1], rows, live, run,
+                    pl, kw.get("pack", ()), bool(kw.get("stats")), cluster=c)
+            res["cluster_ms"][c] = _time_launches(torch, forced, inputs,
+                                                  reps=5)
+    order = sorted(range(len(inputs)), key=lambda i: -res["iters_max"][i])
+    res["slowest_key_passes"] = {}
+    for i in order[:3]:
+        widths = _k2_pass_widths(torch, slowest[i])
+        res["slowest_key_passes"][inputs[i][2]] = widths[0] if widths \
+            else []
+    return res
+
+
+def _k4_rounds(torch, a) -> list:
+    """The probe rounds of each key's transaction in batched K4 call `a`
+    (the plain transaction's loop, counted)."""
+    from jepsen_tpu_torch.parallel import sparse as sp
+    c_rows, c_live, table, pl = a
+    rep = sp._RowLayout()
+    out = []
+    for k in range(c_live.shape[0]):
+        rows = tuple(x[k] for x in c_rows)
+        h0 = rep.table_hash(rows)
+        T = table[1].shape[1]
+        t_rows = tuple(x[k].clone() for x in table[0])
+        t_occ = table[1][k].clone()
+        M = c_live.shape[1]
+        idx = torch.arange(M, device=c_live.device)
+        pending = c_live[k].clone()
+        off = torch.zeros(M, dtype=torch.int32, device=c_live.device)
+        rounds = 0
+        while bool((pending & (off < pl)).any()):
+            rounds += 1
+            act = pending & (off < pl)
+            slot = (h0 + off) & (T - 1)
+            occ = t_occ[slot]
+            same = occ & sp._rows_eq(sp._rows_take(t_rows, slot), rows)
+            try_claim = act & ~occ
+            claim = torch.full((T + 1,), M, dtype=torch.int64,
+                               device=c_live.device)
+            claim.scatter_reduce_(0, torch.where(try_claim, slot, T), idx,
+                                  "amin")
+            won = try_claim & (claim[slot] == idx)
+            for r, c in zip(t_rows, rows):
+                r[slot[won]] = c[won]
+            t_occ[slot[won]] = True
+            pending = pending & ~(act & same) & ~won
+            off = off + (act & occ & ~same).to(torch.int32)
+        out.append(rounds)
+    return out
+
+
+def _kernel_profile(torch, fn, inputs: list) -> dict:
+    """Device microseconds a call of each CUDA kernel the calls of fn over
+    `inputs` launch, from torch.profiler (its CUPTI trace); {} where the
+    trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for a in inputs[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for a in inputs:
+            fn(*a)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0)
+        if dev_us and not e.key.startswith(("aten::", "cuda")):
+            out[e.key[:80]] = {"us_per_call": dev_us / max(1, e.count),
+                               "count": e.count}
+    return out
+
+
+def _time_k4_batch(torch, sk, inputs: list) -> dict:
+    """Batched K4 per launch on fresh copies of the recorded tables, the
+    host's cost of a launch, each key's live candidates and probe rounds,
+    and the device time of each kernel a launch runs (torch.profiler)."""
+    fn = sk.tiled_insert_batch
+    a0 = inputs[0]
+    res = {"ms": _time_once_each(torch, fn, _fresh_tables(torch, inputs, 1),
+                                 _fresh_tables(torch, inputs, 3)),
+           "inputs": len(inputs), "K": a0[1].shape[0],
+           "M": a0[1].shape[1], "T": a0[2][1].shape[1],
+           "lanes": len(a0[0]),
+           "live_per_key": [a[1].sum(1).tolist() for a in inputs],
+           "rounds_per_key": [_k4_rounds(torch, a) for a in inputs],
+           "host_us": _host_us(torch, fn, _fresh_tables(torch, inputs, 1),
+                               n=200)}
+    try:
+        res["profile"] = _kernel_profile(torch, fn,
+                                         _fresh_tables(torch, inputs, 2))
+    except Exception as e:    # the trace is a diagnosis, not a result
+        res["profile"] = {"error": repr(e)[:200]}
+    return res
+
+
 def cmd_time(args, torch) -> dict:
     from jepsen_tpu_torch.parallel import closure_kernels as ck
     from jepsen_tpu_torch.parallel import sparse_kernels as sk
@@ -446,6 +751,10 @@ def cmd_time(args, torch) -> dict:
         out[f"K2 {shape}"] = _time_k2(torch, sk, inputs, warp_ab=True)
     for shape, inputs in rec.get("k4", {}).items():
         out[f"K4 {shape}"] = _time_k4(torch, sk, inputs)
+    for shape, inputs in rec.get("k2b", {}).items():
+        out[f"K2 batch {shape}"] = _time_k2_batch(torch, sk, inputs)
+    for shape, inputs in rec.get("k4b", {}).items():
+        out[f"K4 batch {shape}"] = _time_k4_batch(torch, sk, inputs)
     for shape, inputs in rec["k3"].items():
         T = inputs[0][4][1].shape[0]
         out[f"K3 {shape}"] = {
@@ -457,7 +766,29 @@ def cmd_time(args, torch) -> dict:
     return out
 
 
+def _sparse_batch_walls(torch) -> dict:
+    """The sparse-batch-28 check through `engine.check_batch`, triple and
+    packed: cold, then three warm runs each (seconds, the card
+    synchronised)."""
+    out = {}
+    for name, pack in (("triple", False), ("packed", True)):
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs = _check_sparse_batch(torch, pack, False)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[f"sparse_batch_28_{name}"] = {
+            "cold_s": walls[0], "warm_s": walls[1:],
+            "valid": [r["valid?"] for r in rs],
+            "capacity": [r["capacity"] for r in rs]}
+    return out
+
+
 def cmd_walls(args, torch) -> dict:
+    if args.sparse_batch:
+        return _sparse_batch_walls(torch)
     from jepsen_tpu_torch import histories
     from jepsen_tpu_torch.checker.linearizable import Linearizable
     from jepsen_tpu_torch.models import CASRegister
@@ -484,10 +815,13 @@ def main() -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("record")
     r.add_argument("--out", default=DEFAULT_INPUTS)
-    r.add_argument("--kernels", default="k1,k2,k3,k4")
+    r.add_argument("--kernels", default="k1,k2,k3,k4,k2b,k4b")
     t = sub.add_parser("time")
     t.add_argument("--inputs", default=DEFAULT_INPUTS)
-    sub.add_parser("walls")
+    w = sub.add_parser("walls")
+    w.add_argument("--sparse-batch", action="store_true",
+                   help="the 28-key sparse batch (triple and packed) in "
+                        "place of the dense 10k-op check")
     args = ap.parse_args()
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))

@@ -7,9 +7,16 @@ against theirs, and batched K4's plain version (`tiled_insert_batch`)
 against `tiled_insert`, on the rows the sparse batch itself hands them
 (the reference's escalation keys, recorded with
 `torch_parity_cases.record_calls`) and on the seeded `k4_batch_cases`.
+Plain-ops models of the orders the kernels run a transaction in, each
+held against the plain versions on the seeded cases: the grid
+transaction over K tables (K3's device layout), K4's (the grid's
+rounds, then one block's with the rounds skipped while every candidate
+left walks past occupied slots) and batched K2's split passes (a pass
+over a cluster's blocks, the append's places from the cluster's
+prefix).
 On the card only (`cuda`): batched K2 and K4 bit for bit against their
 plain versions, and the batch on the card against the batch on the
-CPU."""
+CPU (more card cases in `test_torch_sparse_batch_cuda.py`)."""
 
 import dataclasses
 
@@ -224,7 +231,8 @@ def test_whole_plan_is_the_references_one_table_insert(case):
 
 
 def grid_insert_model(c_rows, c_live, table, probe_limit: int):
-    """K4's cooperative grid as plain ops (tiled_insert.cu): every key's
+    """The grid transaction's order (sparse_common.cuh's grid_rounds, K3's
+    device layout) over K tables as plain ops: every key's
     live candidates in one list, key-major and in index order; probe
     rounds over the K tables laid end to end, listed candidate li of key
     k probing slot k * T + ((h + off) & (T - 1)), a claim race won by the
@@ -282,9 +290,10 @@ def _k4_as_batches():
 @pytest.mark.parametrize("case", [c[0] for c in cases.k4_batch_cases()]
                          + [c[0] for c in cases.k4_cases()])
 def test_k4_grid_order_is_each_keys_own_transaction(case):
-    """The order K4's grid runs the transaction in — one list of every
-    key's live candidates, claims won by the lowest list index, each key
-    on its own table — gives each key what its own transaction gives:
+    """The order the grid transaction runs in over K tables — one list
+    of every key's live candidates, claims won by the lowest list index,
+    each key on its own table — gives each key what its own transaction
+    gives:
     table, fresh, off and probe flag (single keys: the seeded K4 cases
     as K = 1)."""
     c_rows, c_live, table, pl = _k4_as_batches()[case]
@@ -294,6 +303,220 @@ def test_k4_grid_order_is_each_keys_own_transaction(case):
         assert torch.equal(g, w)
     for g, w in zip((got[0][1],) + got[1:], (want[0][1],) + want[1:]):
         assert torch.equal(g, w)
+
+
+K4_LOCAL = 1024      # tiled_insert.cu kLocal
+K4_WINDOW_MAX = 8    # tiled_insert.cu kWindowMax
+
+
+def k4_handoff_model(c_rows, c_live, table, probe_limit: int,
+                     local: int = K4_LOCAL, rounds=None):
+    """K4's order (tiled_insert.cu) as plain ops: every key's live
+    candidates in one list, key-major and in index order, a claim won by
+    the lowest list index, each key on its own table; round-synchronous
+    rounds over every key while more than `local` candidates still probe
+    (the grid); then the ones left on a clock that jumps to the earliest
+    round one of them is due (one block): a candidate due reads `win`
+    slots from its offset (1, doubling each time it walks past all of
+    them, at most 8), walks past the occupied ones holding other rows and
+    then drops (an equal row), exhausts (probe_limit), claims (an empty
+    slot now; a loser is due again next round) or is due again in the
+    round it reaches the first slot it has not read. -> (table2, fresh
+    [K, M], off [K, M], probe_ovf [K]), as `tiled_insert_batch` returns
+    them; `rounds`, a list, gets the grid's rounds and the block's."""
+    t_rows, t_occ = table
+    K, M = c_live.shape
+    T = t_occ.shape[1]
+    listed = torch.nonzero(c_live.reshape(-1)).flatten()
+    n = listed.numel()
+    key = listed // M
+    rows = tuple(r.reshape(-1)[listed] for r in c_rows)
+    h = sparse._RowLayout().table_hash(rows).to(torch.int64) & 0xFFFFFFFF
+    f_rows = tuple(r.reshape(-1).clone() for r in t_rows)
+    f_occ = t_occ.reshape(-1).clone()
+    li = torch.arange(n)
+    off = torch.zeros(n, dtype=torch.int64)
+    pend = torch.ones(n, dtype=torch.bool)
+    won_any = torch.zeros(n, dtype=torch.bool)
+
+    def claim(try_claim, slot):
+        cl = torch.full((K * T + 1,), 1 << 40, dtype=torch.int64)
+        cl.scatter_reduce_(0, torch.where(try_claim, slot, K * T), li,
+                           "amin")
+        won = try_claim & (cl[slot] == li)
+        for fr, r in zip(f_rows, rows):
+            fr[slot[won]] = r[won]
+        f_occ[slot[won]] = True
+        return won
+
+    grid = 0
+    while int((pend & (off < probe_limit)).sum()) > local:
+        grid += 1
+        act = pend & (off < probe_limit)
+        slot = key * T + ((h + off) & (T - 1))
+        occ = f_occ[slot]
+        same = occ.clone()
+        for fr, r in zip(f_rows, rows):
+            same &= fr[slot] == r
+        won = claim(act & ~occ, slot)
+        pend = pend & ~(act & same) & ~won
+        off = off + (act & occ & ~same).to(torch.int64)
+        won_any |= won
+    wake = torch.full((n,), grid, dtype=torch.int64)
+    win = torch.ones(n, dtype=torch.int64)
+    js = torch.arange(K4_WINDOW_MAX)
+    block = 0
+    while True:
+        act = pend & (off < probe_limit)
+        if not bool(act.any()):
+            break
+        block += 1
+        rnd = int(wake[act].min())
+        due = act & (wake == rnd)
+        span = torch.minimum(win, probe_limit - off)
+        slots = key[:, None] * T + ((h[:, None] + off[:, None] + js[None, :])
+                                    & (T - 1))
+        in_span = js[None, :] < span[:, None]
+        occ = f_occ[slots] & in_span
+        same = occ.clone()
+        for fr, r in zip(f_rows, rows):
+            same &= fr[slots] == r[:, None]
+        stop = in_span & (~occ | same)
+        j = torch.where(stop.any(1), stop.int().argmax(1), span)
+        at_end = j == span
+        eq = same.gather(1, torch.clamp(j, max=K4_WINDOW_MAX - 1)[:, None])
+        eq = eq[:, 0] & ~at_end
+        claim_now = due & ~at_end & ~eq & (j == 0)
+        walk_on = due & at_end & (off + j < probe_limit)
+        sleep = due & ((~at_end & ~eq & (j > 0)) | walk_on)
+        off = torch.where(due, off + j, off)
+        pend = pend & ~(due & eq)
+        wake = torch.where(sleep, rnd + j, wake)
+        win = torch.where(walk_on, torch.clamp(2 * win, max=K4_WINDOW_MAX),
+                          win)
+        won = claim(claim_now, slots[:, 0])
+        pend = pend & ~won
+        won_any |= won
+        wake = torch.where(claim_now & ~won, rnd + 1, wake)
+    if rounds is not None:
+        rounds += [grid, block]
+    fresh = torch.zeros(K * M, dtype=torch.bool)
+    fresh[listed] = won_any
+    off_all = torch.zeros(K * M, dtype=torch.int32)
+    off_all[listed] = off.to(torch.int32)
+    pend_all = torch.zeros(K, dtype=torch.bool)
+    pend_all[key[pend]] = True
+    return ((tuple(r.reshape(K, T) for r in f_rows), f_occ.reshape(K, T)),
+            fresh.reshape(K, M), off_all.reshape(K, M), pend_all)
+
+
+def _k4_all_batches():
+    out = _k4_as_batches()
+    for name, c_rows, c_live, table, pl in cases.packed_k4_batch_cases():
+        out[name] = (c_rows, c_live, table, pl)
+    return out
+
+
+K4_ALL = _k4_all_batches()
+
+
+@pytest.mark.parametrize("local", [0, 64, K4_LOCAL])
+@pytest.mark.parametrize("case", sorted(K4_ALL))
+def test_k4_handoff_order_is_each_keys_own_transaction(case, local):
+    """The order K4 runs the transaction in — one list of every key's
+    live candidates, claims by list index, grid rounds while more than
+    `local` still probe, then rounds skipped while every one left walks
+    past occupied slots — gives each key what its own transaction gives:
+    table, fresh, off and probe flag, wherever the hand-off falls (0:
+    the grid's rounds alone; the kernel's 1,024: most cases in the block
+    from the start). Single keys: the seeded K4 cases as K = 1; one and
+    two lanes: the packed batch cases."""
+    c_rows, c_live, table, pl = K4_ALL[case]
+    want = sk.tiled_insert_batch_reference(c_rows, c_live, table, pl)
+    got = k4_handoff_model(c_rows, c_live, table, pl, local)
+    for g, w in zip(got[0][0], want[0][0]):
+        assert torch.equal(g, w)
+    for g, w in zip((got[0][1],) + got[1:], (want[0][1],) + want[1:]):
+        assert torch.equal(g, w)
+
+
+def test_k4_block_rounds_skip_the_walks():
+    """The skipped rounds are real: on the seeded batch whose fourth key
+    fills a table already holding 1,000 rows of 2,048, and on the 40
+    live candidates on a half-full table, the block's clock (every
+    candidate handed off at once) runs fewer rounds than the
+    transaction takes (the grid's rounds alone)."""
+    fewer = 0
+    for case in ("4 keys, probe_limit 32",
+                 "40 live of 50,000 on a half-full table"):
+        c_rows, c_live, table, pl = K4_ALL[case]
+        grid_only, block_only = [], []
+        k4_handoff_model(c_rows, c_live, table, pl, 0, rounds=grid_only)
+        k4_handoff_model(c_rows, c_live, table, pl, 1 << 30,
+                         rounds=block_only)
+        assert grid_only[1] == 0 and block_only[0] == 0
+        assert 0 < block_only[1] <= grid_only[0]
+        fewer += block_only[1] < grid_only[0]
+    assert fewer > 0
+
+
+K2_CASES = {c[0]: c[:7] + ((),) for c in cases.k2_cases()}
+K2_CASES.update({c[0]: c for c in cases.packed_k2_cases()})
+
+
+def split_insert_model(c: int, threads: int = 512):
+    """A split pass of K2's cluster (frontier_closure.cu split_pass) as
+    plain ops, as a visited-set insert hook of `sparse._hash_event_closure`:
+    the pass's M candidates spread over c blocks of `threads` threads,
+    global thread g holding the contiguous run [g * per, (g + 1) * per),
+    per = ceil(M / (c * threads)); round-synchronous probes on one table,
+    a claim won by the lowest candidate index; the fresh rows' places
+    from the blocks' totals, a prefix over the cluster's blocks, then
+    each block's own prefix in candidate order."""
+    def insert(c_rows, c_live, f_rows, count, table, probe_limit, N, rep):
+        M = c_live.shape[0]
+        table2, fresh, p_ovf, _ = sparse._hash_insert(
+            c_rows, c_live, table, probe_limit, rep)
+        per = -(-M // (c * threads))
+        block = torch.arange(M) // (per * threads)
+        totals = torch.zeros(c, dtype=torch.int64).index_add_(
+            0, block, fresh.to(torch.int64))
+        before = torch.cumsum(totals, 0) - totals
+        in_block = torch.zeros(M, dtype=torch.int64)
+        for b in range(c):
+            sel = block == b
+            in_block[sel] = torch.cumsum(fresh[sel].to(torch.int64), 0) - 1
+        pos = torch.where(fresh, count + before[block] + in_block, N)
+        n_fresh = totals.sum()
+        rows2 = sparse._rows_at_set(f_rows, pos, c_rows)
+        return (rows2, table2, torch.clamp(count + n_fresh, max=N), n_fresh,
+                p_ovf | (count + n_fresh > N))
+    return insert
+
+
+@pytest.mark.parametrize("c", [2, 8])
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_split_pass_order_is_the_closures(case, c):
+    """The order batched K2's split passes run a transaction in — the
+    candidates over c blocks, claims by the lowest candidate index, the
+    append's places from the cluster's prefix of the block totals —
+    closes every seeded K2 case (triple and packed, probe_limit 32 and 2,
+    overflow included) as the plain closure does: rows, count, overflow,
+    passes and stepped."""
+    name, step_name, ev, rows, live, run, pl, pack = K2_CASES[case]
+    N = live.shape[0]
+    rep = sparse._rep(pack, ev["slot_f"].shape[0])
+    hook = split_insert_model(c)
+    got = sparse._hash_event_closure(
+        rep, sparse.STEPS[step_name], ev, rows, live, run, N,
+        sparse._next_pow2(2 * N), pl,
+        insert=lambda cr, cl, fr, cnt, tb: hook(cr, cl, fr, cnt, tb, pl, N,
+                                                rep))
+    want = sk.frontier_closure_reference(step_name, ev, rows, live, run, pl,
+                                         pack)
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g, w)
+    assert [int(x) for x in got[1:5]] == want[1].tolist()
 
 
 def _cuda():
