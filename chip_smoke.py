@@ -28,8 +28,10 @@ down both of its engines:
        from the main path's own scans, in the gate's layout and in each
        other layout the shape can take;
   3. the per-key batch (jepsen.independent's shape) on the dense engine,
-     whose closure is K1 batched over keys (one launch per event row for
-     every key of a bucket, kernels/closure.cu):
+     whose scan is one launch of K1's persistent batched scan per chunk
+     of event rows for every key of a bucket (kernels/closure.cu: each
+     key walks the chunk's rows with its reachable set in shared memory,
+     closing, filtering and testing for failure row after row):
      * main path: the bench's 84 keys (`sec_multikey`: 120 ops, 14
        processes) through `engine.check_batch`, cold and warm (median of
        3), beside the same keys checked one by one through
@@ -39,17 +41,18 @@ down both of its engines:
        `engine.check_batch` and through `independent.checker(
        linearizable(CASRegister()))`. Every key's result equals the
        reference's (REF_BATCH, recorded on the CPU) and the port's own
-       single-key dense check; the batch launches K1 once per event row
-       of each bucket, exactly;
-     * parity of the batched K1 against its plain version, bit for bit,
-       in every layout each bucket's shape can take, on inputs recorded
-       from the 92-key batch — among them rows where keys past their
-       last event and keys past their failure do not run — and on the
-       84-key batch's own rows (K84, S6, C15: the first, a middle one,
-       the first with a key past its last event, and the last), which
-       give its kernels-line entry its max_abs_err;
-     * timing per launch on every event row of the 84-key batch, beside
-       the plain version and the bound;
+       single-key dense check; the batch launches the scan once per
+       chunk of event rows of each bucket, exactly (one for the 84 keys);
+     * parity of the batched scan against its plain version (run on the
+       card), bit for bit, in every layout each bucket's shape can take
+       (one block a key, a cluster a key — at S=23 C=17 one of 16 blocks,
+       whose filter pairs straddle its blocks — and device memory), on
+       every chunk of the 92-key batch — among them keys past their last
+       event (pad rows) and keys that fail inside the chunk — and with
+       stats on (each row's width);
+     * timing per launch on the 84-key batch's chunk (K84, S6, C15, 99
+       rows) in every layout, beside the plain scan and the bound, held
+       against the plain scan bit for bit: its kernels-line entry;
   4. K2 and K4 (the sparse engine's hash closure, kernels/
      frontier_closure.cu, and its tiled visited-set insert, kernels/
      tiled_insert.cu):
@@ -112,9 +115,11 @@ down both of its engines:
      * main path, full width: the bench's sharded shape,
        `adversarial_register_history(10000, 12)` through
        `sharded.analysis` at capacity 2^17 (K3's table in device
-       memory, its insert a cooperative grid), once, and its
-       impossible-read twin through `check_encoded_sharded`, each with
-       the dense engine's verdict, op and fail-event on the card;
+       memory, its insert a cooperative grid), once, and the
+       impossible-read twin of `adversarial_register_history(2500, 12)`
+       (the same width: 12 crashed writes, K3's grid) through
+       `check_encoded_sharded`, each with the dense engine's verdict, op
+       and fail-event on the card;
      * parity against its plain version, bit for bit, on inputs recorded
        from those checks at both table layouts, through the wrapper and
        through the cooperative grid forced (on the one-block layout's
@@ -489,20 +494,18 @@ def phase_timing(dev, shape, h, stride: int) -> dict:
     plain_ms = _time_launches(ck.closure_fixpoint_reference,
                               pairs[:PLAIN_TIMED_PAIRS], reps=1)
     # the least time: each input read once and B' written once; and the
-    # operations these very inputs need: one pass over sel, then per
-    # expansion (as many as the plain closure ran) one OR per selected
-    # (j, s, t) and target word — all W words for j < 5, the W/2 words
-    # with mask bit j set for j >= 5
+    # operations these very inputs need at least: one pass over sel, then
+    # one OR pass, an OR per selected (j, s, t) and target word — all W
+    # words for j < 5, the W/2 words with mask bit j set for j >= 5 (the
+    # plain closure's expansions, reported beside, are more)
     nbytes = (C * S * S + 2 * S * W) * 4
     words = torch.tensor([W if j < 5 else W // 2 for j in range(C)],
                          dtype=torch.float64)
     ops, exps = [], []
     for sel, B, _ in pairs:
-        n_exp = ck.closure_reference_expansions(sel, B, C)[1]
-        per_exp = float(((sel != 0).sum((1, 2)).double().cpu()
-                         * words).sum())
-        ops.append(C * S * S + n_exp * per_exp)
-        exps.append(n_exp)
+        exps.append(ck.closure_reference_expansions(sel, B, C)[1])
+        ops.append(C * S * S + float(((sel != 0).sum((1, 2)).double().cpu()
+                                      * words).sum()))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = float(np.mean(ops)) / INT32_OPS_PER_S * 1e3
     out = {"S": S, "C": C, "W": W, "layout": ck.kernel_layout(S, C),
@@ -578,15 +581,21 @@ def _batch_digest(rs: list) -> dict:
                         for i, r in enumerate(rs) if r["valid?"] is False}}
 
 
-def _bucket_rows(encs) -> int:
-    """The event rows of every bucket of the batch: one batched K1 launch
-    each."""
-    from jepsen_tpu_torch.parallel import engine
-    rows: dict = {}
+def _bucket_chunks(encs) -> int:
+    """The chunks of event rows of every bucket of the batch (sel built
+    at most `bitdense.SEL_CHUNK_ELEMS` int32s at once): one batched scan
+    launch each."""
+    from jepsen_tpu_torch.parallel import bitdense, engine
+    from jepsen_tpu_torch.parallel import encode as enc
+    buckets: dict = {}
     for e in encs:
-        b = engine.bucket_key(e.n_slots, "tier")
-        rows[b] = max(rows.get(b, 0), e.n_returns)
-    return sum(rows.values())
+        buckets.setdefault(engine.bucket_key(e.n_slots, "tier"), []).append(e)
+    n = 0
+    for sub in buckets.values():
+        _, _, S, C, R = enc.pad_batch(sub, min_slots=5)
+        chunk = max(1, bitdense.SEL_CHUNK_ELEMS // (len(sub) * C * S * S))
+        n += -(-R // chunk)
+    return n
 
 
 def _batch_check(model, hs, dev):
@@ -602,27 +611,27 @@ def _batch_check(model, hs, dev):
     return rs, time.perf_counter() - t0, ck.batch_launches, ck.launches
 
 
-def _record_batch_inputs(model, encs, dev, rows) -> list:
-    """Run the batch once and keep (sel, B, run) of the batched K1 calls
-    numbered in `rows` (every call when None), as the scan hands them to
-    the kernel."""
+def _record_batch_inputs(model, encs, dev) -> list:
+    """Run the batch once and keep the inputs of every batched scan call
+    (one a chunk of event rows) as the scan hands them to the kernel:
+    (sel, B, ok, fail_r, slot, real, r0, C), the carry as it was before
+    the call."""
     from jepsen_tpu_torch.parallel import closure_kernels as ck
     from jepsen_tpu_torch.parallel import engine
-    real = ck.closure_fixpoint_batch
-    kept, calls = [], [0]
+    real = ck.closure_scan_batch
+    kept = []
 
-    def recording(sel, B, C, **kw):
-        if rows is None or calls[0] in rows:
-            kept.append((sel.clone(), B.clone(), kw["run"].clone(), C))
-        calls[0] += 1
-        return real(sel, B, C, **kw)
+    def recording(sel, B, ok, fail_r, slot, real_, r0, C, **kw):
+        kept.append((sel.clone(), B.clone(), ok.clone(), fail_r.clone(),
+                     slot.clone(), real_.clone(), r0, C))
+        return real(sel, B, ok, fail_r, slot, real_, r0, C, **kw)
 
-    ck.closure_fixpoint_batch = recording
+    ck.closure_scan_batch = recording
     try:
         engine.check_batch_encoded(model, encs, device=dev)
         torch.cuda.synchronize()
     finally:
-        ck.closure_fixpoint_batch = real
+        ck.closure_scan_batch = real
     return kept
 
 
@@ -632,8 +641,8 @@ def phase_batch_main(dev) -> dict:
     keys alone (a cold run, then the warm wall, median of 3), the same
     84 keys one by one through `check_encoded_bitdense`, and the 92-key
     batch; each result equal to the reference's (REF_BATCH) and to the
-    port's own single-key dense check of that key; one batched K1 launch
-    per event row of each bucket, exactly."""
+    port's own single-key dense check of that key; one batched scan
+    launch per chunk of event rows of each bucket, exactly."""
     from jepsen_tpu_torch import independent
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.history import History
@@ -654,13 +663,14 @@ def phase_batch_main(dev) -> dict:
                                               "fail-event")})
     for name, hs in (("multikey-84", multikey),
                      ("multikey-84+8", multikey + extra)):
-        rows = _bucket_rows(encs[:len(hs)])
+        chunks = _bucket_chunks(encs[:len(hs)])
         walls = []
         for _ in range(4 if name == "multikey-84" else 1):
             rs, secs, n, n1 = _batch_check(model, hs, dev)
             walls.append(secs)
-            _require(n == rows, f"{name}: {n} batched K1 launches, "
-                                f"{rows} event rows in its buckets")
+            _require(n == chunks, f"{name}: {n} batched scan launches, "
+                                  f"{chunks} chunks of event rows in its "
+                                  f"buckets")
             _require(n1 == 0, f"{name}: {n1} single-key K1 launches")
         got = _batch_digest(rs)
         _require(got == REF_BATCH[name],
@@ -673,14 +683,15 @@ def phase_batch_main(dev) -> dict:
                      f"{r} {singles[i]}")
         warm = sorted(walls[1:])[len(walls[1:]) // 2] if len(walls) > 1 \
             else None
-        out[name] = {"launches": n, "rows": rows, "cold_s": walls[0],
+        out[name] = {"launches": n, "chunks": chunks, "cold_s": walls[0],
                      "warm_s": warm, "warm_runs": walls[1:],
                      "invalid": len(got["invalid"])}
         print(f"main: batch {name}: {len(hs)} keys, {len(got['invalid'])} "
               f"invalid, == REF_BATCH and the single-key checks; batched "
-              f"K1 launches {n} (= event rows of its buckets); wall cold "
-              f"{walls[0]:.3f} s" + (f", warm median of 3 {warm:.3f} s "
-                                     f"{walls[1:]}" if warm else ""))
+              f"scan launches {n} (= chunks of event rows of its buckets); "
+              f"wall cold {walls[0]:.3f} s" + (
+                  f", warm median of 3 {warm:.3f} s {walls[1:]}" if warm
+                  else ""))
     # the 84 keys one by one, as a caller without the batch would
     walls = []
     for _ in range(3):
@@ -717,170 +728,174 @@ def phase_batch_main(dev) -> dict:
           for k in range(len(encs))]
     _require(_batch_digest(rs) == REF_BATCH["multikey-84+8"],
              "independent: results differ from the reference's")
-    _require(ck.batch_launches == _bucket_rows(encs),
-             f"independent: {ck.batch_launches} batched K1 launches")
+    _require(ck.batch_launches == _bucket_chunks(encs),
+             f"independent: {ck.batch_launches} batched scan launches")
     _require(r["failures"] == sorted(REF_BATCH["multikey-84+8"]["invalid"])
              and r["valid?"] is False, f"independent: {r['failures']}")
     _require("device-fallback" not in r, "independent: device fallback")
     print(f"main: independent.checker(linearizable(CASRegister())) over "
           f"{len(encs)} keys: failures {r['failures']}, == REF_BATCH, "
-          f"batched K1 launches {ck.batch_launches}, wall {secs:.3f} s")
+          f"batched scan launches {ck.batch_launches}, wall {secs:.3f} s")
     out["independent"] = {"wall_s": secs, "launches": ck.batch_launches}
     out["encs"] = encs
     return out
 
 
+def _plain_scan(sel, B, ok, fail_r, slot, real, r0, C, traj=None):
+    """The plain batched scan on the card (the plain torch closure runs
+    far faster there than on the host), row by row. Returns the carry
+    after the chunk and the keys that ran each row, [E, K] (for the
+    bound's operation count)."""
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    carry = [B.clone(), ok.clone(), fail_r.clone()]
+    ran = []
+    for i in range(sel.shape[0]):
+        ran.append(carry[1] & real[i])
+        ck.closure_scan_batch_reference(sel[i:i + 1], *carry, slot[i:i + 1],
+                                        real[i:i + 1], r0 + i, C, traj)
+    return carry, torch.stack(ran)
+
+
+def _scan_differs(got, want) -> int:
+    """The largest |difference| over the carry (0: bit-identical)."""
+    return max(int((g.long() - w.long()).abs().max()) for g, w in
+               zip(got, want))
+
+
 def phase_batch_parity(dev, encs) -> dict:
-    """The batched K1 against its plain version, bit for bit, in every
-    layout each bucket's shape can take (`closure_plans`), on inputs
-    recorded from the 92-key batch: its first rows, and its last rows,
-    where keys past their last event (pad events) and keys past their
-    failure do not run and must be left as they were. Returns per (S, C)
-    the largest |difference| (0: bit-identical)."""
+    """The batched scan against its plain version, bit for bit, in every
+    layout each bucket's shape can take (`closure_plans_batch`), on every
+    chunk of the 92-key batch — among them keys
+    past their last event (pad rows) and keys past their failure, which
+    must be left as they were — and once more with stats on in the gate's
+    layout (each row's width; iterations -1). Returns per (S, C) the
+    largest |difference| (0: bit-identical)."""
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.parallel import closure_kernels as ck
-    from jepsen_tpu_torch.parallel import engine
-    rows: dict = {}
-    for e in encs:
-        b = engine.bucket_key(e.n_slots, "tier")
-        rows[b] = max(rows.get(b, 0), e.n_returns)
-    first = sorted(rows)
-    r16 = rows[first[0]]
-    picks = {0, 1, r16 // 2, r16 - 1, r16, r16 + 500, r16 + rows[first[1]] - 1}
-    kept = _record_batch_inputs(CASRegister(), encs, dev, picks)
-    _require(len(kept) == len(picks), f"recorded {len(kept)} inputs")
-    # at the first bucket's last row: which of its keys are past their
-    # last event (pads), which past their failure
-    bad = REF_BATCH["multikey-84+8"]["invalid"]
-    first_keys = [i for i, e in enumerate(encs)
-                  if engine.bucket_key(e.n_slots, "tier") == first[0]]
-    last = kept[sorted(picks).index(r16 - 1)][2].cpu().tolist()
-    pads = sum(1 for i, go in zip(first_keys, last)
-               if not go and encs[i].n_returns < r16)
-    fails = sum(1 for i, go in zip(first_keys, last)
-                if not go and i in bad and bad[i]["fail-event"] < r16 - 1)
-    _require(pads > 0 and fails > 0, f"the last row leaves out {pads} "
-                                     f"pad keys and {fails} failed keys")
+    kept = _record_batch_inputs(CASRegister(), encs, dev)
+    _require(len(kept) == _bucket_chunks(encs),
+             f"recorded {len(kept)} chunks")
     limits = ck.card_limits(dev)
     worst: dict = {}
-    for sel, B, run, C in kept:
-        K, S = B.shape[0], B.shape[1]
-        want = ck.closure_fixpoint_batch_reference(sel, B, C, run)
-        got = ck.closure_fixpoint_batch(sel, B, C, run=run)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        for name, plan in ck.closure_plans(S, C, *limits).items():
-            out = B.clone()
-            ck._launch_batch(sel, out, out, C, run=run, plan=plan)
+    n_pad = n_fail = 0
+    for sel, B, ok, fail_r, slot, real, r0, C in kept:
+        E, K, _, S, _ = sel.shape
+        R = r0 + E
+        traj_w = torch.full((K, R, 2), 7, dtype=torch.int32, device=dev)
+        want, _ = _plain_scan(sel, B, ok, fail_r, slot, real, r0, C, traj_w)
+        n_pad += int((ok & ~real[-1]).sum())
+        n_fail += int(((want[2] >= r0) & ~want[1]).sum())
+        plans = {"gate": None, **ck.closure_plans_batch(
+            K, S, C, *limits, ck.sm_count(dev))}
+        err = 0
+        for name, plan in plans.items():
+            got = [B.clone(), ok.clone(), fail_r.clone()]
+            ck._launch_scan(sel, *got, slot, real, r0, C, plan=plan)
             torch.cuda.synchronize()
-            err = max(err, int((out.long() - want.long()).abs().max()))
-            _require(torch.equal(out, want), f"batched K1 ({name}) differs "
-                                             f"at K={K} S={S} C={C}")
-        _require(err == 0 and torch.equal(got[~run], B[~run]),
-                 f"batched K1 differs at K={K} S={S} C={C}")
+            e = _scan_differs(got, want)
+            _require(e == 0, f"batched scan ({name}) differs at K={K} S={S} "
+                             f"C={C}, rows {r0}..{R - 1}")
+            err = max(err, e)
+        got = [B.clone(), ok.clone(), fail_r.clone()]
+        traj = torch.full((K, R, 2), 7, dtype=torch.int32, device=dev)
+        ck.closure_scan_batch(sel, *got, slot, real, r0, C, traj=traj)
+        torch.cuda.synchronize()
+        _require(_scan_differs(got, want) == 0
+                 and torch.equal(traj[..., 0], traj_w[..., 0])
+                 and bool((traj[:, r0:, 1] == -1).all()),
+                 f"batched scan with stats differs at K={K} S={S} C={C}")
         worst[(S, C)] = max(worst.get((S, C), 0), err)
-        print(f"parity: batched K1 == plain closure at K={K} S={S} C={C} "
-              f"(layouts {sorted(ck.closure_plans(S, C, *limits))}; gate "
-              f"{ck.kernel_layout(S, C)}), {int((~run).sum())} keys not "
-              f"running")
-    print(f"parity: the first bucket's last row leaves out {pads} keys past "
-          f"their last event and {fails} past their failure, unchanged")
+        print(f"parity: batched scan == plain scan at K={K} S={S} C={C}, "
+              f"rows {r0}..{R - 1} (layouts {sorted(plans)}; gate "
+              f"{ck.device_plan_batch(K, S, C, dev)}), stats widths too")
+    _require(n_pad > 0 and n_fail > 0, f"the chunks leave out {n_pad} pad "
+                                       f"keys and fail {n_fail} keys")
+    print(f"parity: {n_pad} keys end their chunk on pad rows, {n_fail} fail "
+          f"inside one: each left as the plain scan leaves it")
     return worst
 
 
 def phase_batch_timing(dev, encs) -> dict:
-    """The batched K1 on every event row of the 84-key batch: per launch
-    (CUDA events) in the gate's layout and in every layout the shape can
-    take, beside its plain version and its bound; and held against the
-    plain version, bit for bit in every layout, on the first row, a
-    middle one, the first row where a key is past its last event and the
-    last row (keys past their last event must be left as they were)."""
+    """The batched scan on the 84-key batch's one chunk: per launch (CUDA
+    events, each launch on its own copy of the carry) in the gate's
+    layout and in every layout the shape can take, beside the plain scan
+    (timed on the card, once) and the bound, and held against the plain
+    scan bit for bit (keys past their last event left as they were)."""
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.parallel import closure_kernels as ck
-    kept = _record_batch_inputs(CASRegister(), encs, dev, None)
-    sel0, B0, _, C = kept[0]
-    K, S, W = B0.shape
-    R = len(kept)
-    _require((S, C) == (6, 15), f"84-key batch at S={S} C={C}")
-    _require(R == max(e.n_returns for e in encs),
-             f"{R} batched K1 calls for {max(e.n_returns for e in encs)} "
-             f"event rows")
-    first_pad = min(e.n_returns for e in encs)
-    picks = sorted({0, R // 2, first_pad, R - 1})
-    plans = ck.closure_plans(S, C, *ck.card_limits(dev))
-    # the plain version on the picked rows, timed on the host clock (it
-    # waits on the card), its results kept for the comparison
+    kept = _record_batch_inputs(CASRegister(), encs, dev)
+    _require(len(kept) == 1, f"{len(kept)} chunks for the 84 keys")
+    sel, B, ok, fail_r, slot, real, r0, C = kept[0]
+    E, K, _, S, _ = sel.shape
+    W = B.shape[2]
+    _require((S, C, E) == (6, 15, max(e.n_returns for e in encs)),
+             f"84-key batch at S={S} C={C}, {E} rows")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    wants = [ck.closure_fixpoint_batch_reference(*kept[r][:2], C,
-                                                 kept[r][2]) for r in picks]
+    want, ran = _plain_scan(sel, B, ok, fail_r, slot, real, r0, C)
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / len(picks)
-    err, pads = 0, 0
-    for r, want in zip(picks, wants):
-        sel, B, run, _ = kept[r]
-        idle = ~run
-        _require(torch.equal(want[idle], B[idle]),
-                 f"row {r}: the plain version changed a key not running")
-        got = ck.closure_fixpoint_batch(sel, B, C, run=run)
-        outs = {"gate": got}
-        for name, plan in plans.items():
-            out = B.clone()
-            ck._launch_batch(sel, out, out, C, run=run, plan=plan)
-            outs[name] = out
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    pads = int((~real[-1]).sum())
+    _require(pads > 0, "no key of the 84 ends on pad rows")
+
+    def fresh(n):
+        return [(B.clone(), ok.clone(), fail_r.clone()) for _ in range(n)]
+
+    def timed(plan):
+        def launch(b, o, f):
+            ck._launch_scan(sel, b, o, f, slot, real, r0, C, plan=plan)
+        runs = fresh(5)
+        for a in fresh(1):
+            launch(*a)
         torch.cuda.synchronize()
-        for name, out in outs.items():
-            e = int((out.long() - want.long()).abs().max())
-            err = max(err, e)
-            _require(e == 0, f"batched K1 ({name}) differs from the plain "
-                             f"version at K={K} S={S} C={C}, row {r}")
-        n_pad = sum(1 for k, go in enumerate(run.tolist())
-                    if not go and encs[k].n_returns <= r)
-        pads += n_pad
-        print(f"parity: batched K1 == plain closure at K={K} S={S} C={C}, "
-              f"row {r} of {R}, in layouts {sorted(outs)}; {n_pad} keys "
-              f"past their last event, unchanged")
-    _require(pads > 0, "no picked row has a key past its last event")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for a in runs:
+            launch(*a)
+        end.record()
+        torch.cuda.synchronize()
+        e = max(_scan_differs(list(a), want) for a in runs)
+        return start.elapsed_time(end) / len(runs), e
 
-    def kernel(sel, B, run, out):
-        ck.closure_fixpoint_batch(sel, B, C, run=run, out=out)
-
-    ms = _time_launches(kernel, [(sel, B, run, torch.empty_like(B))
-                                 for sel, B, run, _ in kept], reps=3)
-    # every layout the shape can take (the gate's too), forced
+    plans = ck.closure_plans_batch(K, S, C, *ck.card_limits(dev),
+                                   ck.sm_count(dev))
+    got = [B.clone(), ok.clone(), fail_r.clone()]
+    ck.closure_scan_batch(sel, *got, slot, real, r0, C)
+    torch.cuda.synchronize()
+    err = _scan_differs(got, want)
+    ms, e = timed(None)
+    err = max(err, e)
     layout_ms = {}
     for name, plan in plans.items():
-        def forced(sel, B, run, out, plan=plan):
-            ck._launch_batch(sel, B, out, C, run=run, plan=plan)
-        layout_ms[name] = _time_launches(
-            forced, [(sel, B, run, torch.empty_like(B))
-                     for sel, B, run, _ in kept], reps=3)
-    # bytes: each key's sel and B read and B' written once; operations,
-    # as K1's: one pass over sel, then per expansion (as many as the plain
-    # closure ran) one OR per selected (j, s, t) and target word, for the
-    # keys that run, on every 10th row
-    nbytes = K * (4 * C * S * S + 2 * 4 * S * W)
+        layout_ms[name], e = timed(plan)
+        err = max(err, e)
+    _require(err == 0, f"batched scan differs from the plain scan at K={K} "
+                       f"S={S} C={C}")
+    print(f"parity: batched scan == plain scan at K={K} S={S} C={C} over "
+          f"{E} rows in layouts {sorted(['gate', *plans])}; {pads} keys "
+          f"end on pad rows, unchanged")
+    # bytes: the chunk's sel, slot and real read once, the carry read and
+    # written once; operations, as K1's: per running key and row one pass
+    # over its selects and one OR pass, an OR per selected (j, s, t) and
+    # target word — the least a closure does; the plain closure's Jacobi
+    # passes, and the kernel's sweeps, are more
+    nbytes = 4 * E * K * C * S * S + 5 * E * K + 2 * (4 * K * S * W + 5 * K)
     words = torch.tensor([W if j < 5 else W // 2 for j in range(C)],
-                         dtype=torch.float64)
-    ops = []
-    for sel, B, run, _ in kept[::10]:
-        n = 0.0
-        for k in torch.nonzero(run).flatten().tolist():
-            n_exp = ck.closure_reference_expansions(sel[k], B[k], C)[1]
-            n += C * S * S + n_exp * float(
-                ((sel[k] != 0).sum((1, 2)).double().cpu() * words).sum())
-        ops.append(n)
+                         dtype=torch.float64, device=dev)
+    per_row = ((sel != 0).sum((3, 4)).double() * words).sum(2)   # [E, K]
+    ops = float((ran.double() * (C * S * S + per_row)).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = float(np.mean(ops)) / INT32_OPS_PER_S * 1e3
-    out = {"name": f"closure_fixpoint_batch[K{K},S{S},C{C}]", "K": K,
-           "S": S, "C": C, "W": W, "rows": len(kept),
-           "layout": ck.kernel_layout(S, C), "plan": ck.device_plan(S, C),
-           "layout_ms": layout_ms, "ms": ms, "plain_ms": plain_ms,
-           "plain_rows": picks, "max_abs_err": err,
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    plan = ck.device_plan_batch(K, S, C, dev)
+    out = {"name": f"closure_scan_batch[K{K},S{S},C{C},E{E}]", "K": K,
+           "S": S, "C": C, "W": W, "rows": E, "layout": plan["layout"],
+           "plan": plan, "layout_ms": layout_ms, "ms": ms,
+           "plain_ms": plain_ms, "max_abs_err": err,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes_ms": t_bytes, "ops_ms": t_ops, "mean_ops": float(
-               np.mean(ops))}
+           "bytes_ms": t_bytes, "ops_ms": t_ops, "ops": ops}
     print("timing: " + json.dumps(out))
     return out
 
@@ -1729,6 +1744,9 @@ REF_SHARDED = {
 }
 FULL_OPS = 10000        # the bench's sharded shape (bench.py:617-694)
 FULL_CAPACITY = 1 << 17
+# the impossible-read twin's depth: the full width at a quarter of the
+# ops (a 10k-op twin took up to ~190 s of the smoke on a slow host)
+TWIN_OPS = FULL_OPS // 4
 K3_KEEP = 6             # K3 inputs recorded per table size
 
 
@@ -1839,9 +1857,10 @@ def phase_sharded_small(dev, mesh) -> dict:
 
 def phase_sharded_full(dev, mesh) -> dict:
     """The bench's shape at full width: the valid history through
-    `sharded.analysis` once (counted, recording K3 inputs) and its
-    impossible-read twin through check_encoded_sharded; each against the
-    dense engine on the card. (One run of the valid history: a warm
+    `sharded.analysis` once (counted, recording K3 inputs) and the
+    impossible-read twin of a TWIN_OPS-op history of the same width
+    through check_encoded_sharded; each against the dense engine on the
+    card. (One run of the valid history: a warm
     re-run took a third of this phase, up to ~185 s on a slow host.)"""
     from jepsen_tpu_torch import histories, models
     from jepsen_tpu_torch.parallel import bitdense, sharded
@@ -1876,10 +1895,12 @@ def phase_sharded_full(dev, mesh) -> dict:
              f"full width: {r}")
     _require({k: r.get(k) for k in keys} == {k: dense.get(k) for k in keys},
              f"full width: sharded {r} != dense {dense}")
-    e_bad = enc.encode(model, histories.with_impossible_read(h))
+    e_bad = enc.encode(model, histories.with_impossible_read(
+        histories.adversarial_register_history(n_ops=TWIN_OPS,
+                                               k_crashed=12)))
     rb, secs, n = _sharded_check(e_bad, mesh, **kw)
     dense_b = bitdense.check_encoded_bitdense(e_bad, device=dev)
-    print(f"sharded: adv-{FULL_OPS}-k12 impossible read: valid?="
+    print(f"sharded: adv-{TWIN_OPS}-k12 impossible read: valid?="
           f"{rb['valid?']} fail-event={rb.get('fail-event')} op="
           f"{rb.get('op')} max-frontier={rb.get('max-frontier')} wall "
           f"{secs:.3f} s, K3 launches {n}")
@@ -3201,8 +3222,8 @@ def main() -> int:
                histories.adversarial_register_history(n_ops=1000,
                                                       k_crashed=16), 5)]
     batch = _phase("batch main path", phase_batch_main, dev)
-    _phase("batched K1 parity", phase_batch_parity, dev, batch["encs"])
-    btimed = _phase("batched K1 timing", phase_batch_timing, dev,
+    _phase("batched scan parity", phase_batch_parity, dev, batch["encs"])
+    btimed = _phase("batched scan timing", phase_batch_timing, dev,
                     batch["encs"][:BATCH_KEYS])
     cases = _sparse_cases()
     rec = _phase("sparse record", _record_sparse, cases, dev)
@@ -3244,9 +3265,9 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None, "layout": t["layout"]} for t in timed]
-    # the batched K1: timed and held against its plain version on the
-    # 84-key batch's rows, with the launches of the 84-key check (one per
-    # event row)
+    # the batched scan: timed and held against its plain version on the
+    # 84-key batch's chunk, with the launches of the 84-key check (one per
+    # chunk of event rows)
     kernels.append({
         "name": btimed["name"], "route": "cuda",
         "source": "jepsen_tpu_torch/kernels/closure.cu",

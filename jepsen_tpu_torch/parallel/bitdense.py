@@ -31,13 +31,13 @@ reference's `_stats_block_bitdense`.
 
 The batch (`check_batch_bitdense`, a port of the reference's
 `check_batch_bitdense` and its vmapped `_check_bitdense_batch`) runs K
-keys' scans as one: B is [K, S, W], every event row makes one batched K1
-launch for all keys (`closure_kernels.closure_fixpoint_batch`), and
-each key filters on its own returning slot. A key past its last event
-or its failure has run = False: its closure is skipped by the kernel
-and its carry kept, so pad events change nothing. The single and the
-batched scans build their selects and filters from the same tables
-(`_compute_sel`, `_Tables`).
+keys' scans as one: B is [K, S, W], and every chunk of event rows whose
+selects the host builds at once is one launch of the batched scan for
+all keys (`closure_kernels.closure_scan_batch`), in which each key
+closes, filters on its own returning slot and tests for failure row
+after row. A key past its last event or its failure does not run: its
+carry is kept, so pad events change nothing. The single and the
+batched scans build their selects from the same `_compute_sel`.
 """
 
 from __future__ import annotations
@@ -77,20 +77,15 @@ def n_states(e: EncodedHistory) -> int:
     return e.n_states
 
 
-def _intra_clear(j: int) -> int:
-    """32-bit constant with 1s at bit-positions whose mask-bit j is 0."""
-    out = 0
-    for p in range(32):
-        if (p >> j) & 1 == 0:
-            out |= 1 << p
-    return out
+_intra_clear = ck.intra_clear
 
 
 def _plan(C: int):
     """Static per-slot tables for shift/filter/select, as numpy (the
-    same tables as the reference's `_plan`, words as uint32)."""
-    W = max(1, (1 << C) // 32)
-    widx = np.arange(W, dtype=np.int32)
+    same tables as the reference's `_plan`, words as uint32), from the
+    filter's tables (`closure_kernels.filter_tables`)."""
+    widx, mask = ck.filter_tables(C, "cpu")
+    clearw = mask.numpy().view(np.uint32)
     plan = []
     for j in range(C):
         if j < 5:
@@ -100,53 +95,31 @@ def _plan(C: int):
                 "shift": np.int32(1 << j),
             })
         else:
-            jb = 1 << (j - 5)
-            clear_words = ((widx >> (j - 5)) & 1) == 0
             plan.append({
                 "intra": False,
-                "clearw": np.where(clear_words, 0xFFFFFFFF, 0).astype(np.uint32),
-                "fwd_idx": (widx ^ jb).astype(np.int32),
-                "setw": np.where(~clear_words, 0xFFFFFFFF, 0).astype(np.uint32),
+                "clearw": clearw[j],
+                "fwd_idx": widx[j].numpy().astype(np.int32),
+                "setw": ~clearw[j],
             })
-    return W, plan
+    return ck.n_words(C), plan
 
 
 class _Tables:
-    """The filter's per-slot tables on a device, from `_plan`: for slot j
-    the word gather `widx[j]` (the identity for j < 5), the right shift
-    `shift[j]` (1 << j for j < 5, else 0) and the mask `mask[j]` (the
-    intra-word clear for j < 5, the word clear for j >= 5), so that
-    keeping the configurations in which slot j has linearized, with its
-    bit cleared, is (B[..., widx[j]] >> shift[j]) & mask[j]."""
+    """The single scan's filter tables on a device
+    (`closure_kernels.filter_tables`): for slot j >= 5 the word gather
+    `widx[j]` and the word clear `mask[j]`, so that keeping the
+    configurations in which slot j has linearized, with its bit cleared,
+    is B[..., widx[j]] & mask[j] (`filter_at`; a slot j < 5 shifts within
+    the word)."""
 
     def __init__(self, C: int, device):
-        W, plan = _plan(C)
-        widx = np.tile(np.arange(W, dtype=np.int64), (C, 1))
-        mask = np.full((C, W), 0xFFFFFFFF, np.uint32)
-        shift = np.zeros(C, np.int32)
-        for j, pj in enumerate(plan):
-            if pj["intra"]:
-                shift[j] = pj["shift"]
-                mask[j] = pj["clear"]
-            else:
-                widx[j] = pj["fwd_idx"]
-                mask[j] = pj["clearw"]
-        self.widx = torch.from_numpy(widx).to(device)
-        self.mask = torch.from_numpy(mask.view(np.int32)).to(device)
-        self.shift = torch.from_numpy(shift).to(device)
+        self.widx, self.mask = ck.filter_tables(C, device)
 
     def filter_at(self, s: int, B):
         """One key's filter, B [S, W], on a slot the host knows."""
         if s < 5:
             return (B >> (1 << s)) & _intra_clear(s)
         return torch.index_select(B, 1, self.widx[s]) & self.mask[s]
-
-    def filter_keys(self, s, B):
-        """Each key's filter on its own slot: s int64 [K] (in [0, C)), B
-        [K, S, W]."""
-        K, S, W = B.shape
-        g = torch.gather(B, 2, self.widx[s].unsqueeze(1).expand(K, S, W))
-        return (g >> self.shift[s].view(K, 1, 1)) & self.mask[s].unsqueeze(1)
 
 
 def _compute_sel(step, x: dict, states, t_idx, lo: int):
@@ -178,12 +151,6 @@ def _xs_dense(e: EncodedHistory, C: int) -> dict:
         "slot_occ": padc(e.slot_occ, False),
         "ev_slot": np.asarray(e.ev_slot),
     }
-
-
-def _popcount(B, dims):
-    """The set bits of int32 words B, summed over `dims`."""
-    shifts = torch.arange(32, dtype=_I32, device=B.device)
-    return ((B.unsqueeze(-1) >> shifts) & 1).sum([*dims, -1])
 
 
 def _stats_block_bitdense(ys, S: int, C: int, extra: dict = None) -> dict:
@@ -308,7 +275,7 @@ class _Scan:
                 if self.traj is not None:
                     # width -1 (not run) drops the event's row, iters too
                     self.traj[r] = torch.stack([torch.where(
-                        self.ok, _popcount(B3, (0, 1)), -1).to(_I32),
+                        self.ok, ck.popcount(B3, (0, 1)), -1).to(_I32),
                         self._iters])
                 # while ok holds no event has failed, so the first
                 # event that empties B is the failing one
@@ -373,11 +340,11 @@ class _BatchScan:
     uses the first key's state offset and step family, as the
     reference's batch does (`encs[0].state_lo`, `encs[0].step_name`).
 
-    Per event row the host issues one batched K1 launch and a fixed
-    handful of torch ops for all K keys; it reads nothing back. A key
-    runs an event when it has not failed and the event is real
-    (ev_slot >= 0): a key past its last event or its failure keeps its
-    carry, and the kernel skips its closure."""
+    Per chunk of event rows the host builds the rows' selects and issues
+    one batched scan for all K keys (`closure_kernels.closure_scan_batch`);
+    it reads nothing back. A key runs an event when it has not failed and
+    the event is real (ev_slot >= 0): a key past its last event or its
+    failure keeps its carry."""
 
     def __init__(self, encs, xs: dict, state0, S: int, C: int, R: int,
                  device, stats: bool = False):
@@ -386,7 +353,6 @@ class _BatchScan:
         self.K, self.S, self.C, self.R = len(encs), S, C, R
         self.lo = e0.state_lo
         self.device = device
-        self.tables = _Tables(C, device)
         # event-major [R, K, C], so that one row's selects are contiguous
         self.xs = {k: torch.from_numpy(np.ascontiguousarray(
             np.swapaxes(v, 0, 1))).to(device)
@@ -394,7 +360,7 @@ class _BatchScan:
         ev = torch.from_numpy(np.ascontiguousarray(xs["ev_slot"].T)) \
             .to(device)                                           # [R, K]
         self.real = ev >= 0
-        self.slot = ev.clamp(0, C - 1).long()
+        self.slot = ev.clamp(0, C - 1)
         self.states = torch.arange(S, dtype=_I32, device=device) + self.lo
         self.t_idx = torch.arange(S, dtype=_I32, device=device)
         W = max(1, (1 << C) // 32)
@@ -404,41 +370,23 @@ class _BatchScan:
         self.B[keys, s0 - self.lo, 0] = 1
         self.ok = torch.ones(self.K, dtype=torch.bool, device=device)
         self.fail_r = torch.full((self.K,), -1, dtype=_I32, device=device)
-        # per key and event row (width, closure-iters), as _Scan's
-        self.traj, self._iters_kw = None, {}
-        if stats:
-            self.traj = torch.zeros((self.K, R, 2), dtype=_I32,
-                                    device=device)
-            self.traj[..., 0] = -1
-            self._iters = torch.zeros(self.K, dtype=_I32, device=device)
-            self._iters_kw = {"iters": self._iters}
+        # per key and event row (width, closure-iters), as _Scan's; every
+        # row's pair is written by the scan
+        self.traj = torch.empty((self.K, R, 2), dtype=_I32,
+                                device=device) if stats else None
 
     def run(self):
-        K, C = self.K, self.C
-        per_row = K * C * self.S * self.S
+        per_row = self.K * self.C * self.S * self.S
         chunk = max(1, SEL_CHUNK_ELEMS // per_row)
         for r0 in range(0, self.R, chunk):
             r1 = min(self.R, r0 + chunk)
             sel = _compute_sel(self.step,
                                {k: v[r0:r1] for k, v in self.xs.items()},
                                self.states, self.t_idx, self.lo)
-            for r in range(r0, r1):
-                run = self.ok & self.real[r]
-                # in place; a key that does not run is left as it is
-                B2 = ck.closure_fixpoint_batch(sel[r - r0], self.B, C,
-                                               run=run, out=self.B,
-                                               **self._iters_kw)
-                B3 = self.tables.filter_keys(self.slot[r], B2)
-                if self.traj is not None:
-                    self.traj[:, r] = torch.stack([torch.where(
-                        run, _popcount(B3, (1, 2)), -1).to(_I32),
-                        self._iters], 1)
-                failed = run & ~B3.flatten(1).any(1)
-                # a running key has not failed before, so its fail_r is
-                # still -1: this is its first failure
-                self.fail_r = torch.where(failed, r, self.fail_r)
-                self.B = torch.where(run.view(K, 1, 1), B3, B2)
-                self.ok = self.ok & ~failed
+            # the carry is updated in place
+            ck.closure_scan_batch(sel, self.B, self.ok, self.fail_r,
+                                  self.slot[r0:r1], self.real[r0:r1], r0,
+                                  self.C, traj=self.traj)
         return self
 
 

@@ -3,9 +3,9 @@ one NVIDIA GPU, for comparing two trees of the port (say a commit and
 its parent) on the same inputs in one run.
 
     python3 kernel_ab.py [--tree DIR] record [--out FILE]
-                                      [--kernels k1,k2,k3,k4,k2b,k4b]
+                                      [--kernels k1,k2,k3,k4,k2b,k4b,k1b]
     python3 kernel_ab.py [--tree DIR] time [--inputs FILE]
-    python3 kernel_ab.py [--tree DIR] walls [--sparse-batch]
+    python3 kernel_ab.py [--tree DIR] walls [--sparse-batch | --dense-batch]
 
 `--tree DIR` imports `jepsen_tpu_torch` from DIR (a checkout, or a
 `git archive` of another commit unpacked into a directory that
@@ -28,7 +28,11 @@ build directory.
           sparse batch of chip_smoke.py, triple, packed and with stats,
           by shape (60 rows a shape at most), and batched K4 (k4b) on
           its every 97th expansion insert a shape (4 at most), triple
-          and packed;
+          and packed; the batched dense scan (k1b) on every chunk of
+          event rows of chip_smoke.py's 84-key and 92-key batches, as
+          `bitdense._BatchScan.run` builds it: the chunk's selects, the
+          carry (B, ok, fail_r) at its start, its rows' returning slots
+          and run flags, and r0;
   time    loads them and times each kernel through its wrapper
           (`closure_kernels.closure_fixpoint`, `sparse_kernels.
           frontier_closure`, `hash_insert`, `tiled_insert`) with CUDA
@@ -57,12 +61,27 @@ build directory.
           passes, split from 512 and 32 candidates (`variant_ms`), and
           at every cluster size (`cluster_ms`). Batched K4: each key's
           live candidates and rounds (the reference's loop, counted),
-          its host cost and its kernels under torch.profiler. Prints one
-          JSON line;
+          its host cost and its kernels under torch.profiler. The batched
+          dense scan (k1b), per chunk: in a tree with the per-row batched
+          K1 (`closure_fixpoint_batch`), its rows as the scan issues them
+          (a launch and the torch ops of the filter and carry a row),
+          device ms and host issue us a row, their kernels under
+          torch.profiler, and the launch taken apart on the rows' own
+          inputs (no key running, the sweeps cut to 0, in every layout
+          the shape can take, the plain closure's expansions a running
+          key); in a tree with the persistent scan (`closure_scan_batch`)
+          its one launch a chunk, in every layout `closure_plans_batch`
+          gives, at every cluster size whose blocks hold their shares
+          (`cluster_ms`) and with no key running; in both a digest of the carry
+          at the chunk's end, equal across trees. Prints one JSON line;
   walls   the dense 10k-op check through the checker: cold, then the
           median of three warm runs; with --sparse-batch the 28-key
           sparse batch, triple and packed, cold and three warm runs;
-          one JSON line.
+          with --dense-batch the 84-key and 92-key dense batches of
+          chip_smoke.py, cold and three warm runs each, and one more warm
+          run of the 84 keys under torch.profiler: device time by kernel,
+          and the host's seconds in the encode, pad_batch, the scan's
+          set-up, its issue and the finalize; one JSON line.
 
 The sharded 10k-op check's walls and busy share come from
 `python3 -m jepsen_tpu_torch.profile_check --sharded`, run in each tree.
@@ -85,6 +104,7 @@ K1_PAIRS = 200
 K3_KEEP = 3
 K2B_KEEP = 60   # batched K2 calls kept per shape
 K4B_KEEP = 4    # batched K4 calls kept per shape
+K1B_EXP_STRIDE = 10   # rows between the expansion counts of batched K1
 
 
 def _card() -> str:
@@ -270,6 +290,281 @@ def _record_k4_batch(torch, sk, pack: bool) -> dict:
     return {s: v for s, v in kept.items() if v}
 
 
+def _dense_batches():
+    """chip_smoke.py's dense per-key batches: {"84": the bench's 84 keys,
+    "92": those and its eight wider keys}."""
+    import chip_smoke
+    multikey, extra = chip_smoke._batch_keys()
+    return {"84": multikey, "92": multikey + extra}
+
+
+def _record_k1_batch(torch) -> dict:
+    """Every chunk of event rows of the batched dense scans of the 84-key
+    and 92-key checks through `engine.check_batch`, as
+    `bitdense._BatchScan.run` builds it (the tree's own scan, recorded as
+    it calls `_compute_sel`): the chunk's selects sel [E, K, C, S, S], the
+    carry at its start (B [K, S, W], ok [K], fail_r [K]), its rows'
+    returning slots slot [E, K] (int32) and run flags real [E, K], r0, C,
+    by name "{keys} K{K}S{S}C{C} r{r0}"."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.parallel import bitdense, engine
+    real_run, real_sel = bitdense._BatchScan.run, bitdense._compute_sel
+    cur = {"scan": None, "r0": 0, "keys": ""}
+    kept = {}
+
+    def run(self):
+        cur["scan"], cur["r0"] = self, 0
+        try:
+            return real_run(self)
+        finally:
+            cur["scan"] = None
+
+    def sel(step, x, *a):
+        out = real_sel(step, x, *a)
+        sc = cur["scan"]
+        if sc is not None:
+            r0, E = cur["r0"], out.shape[0]
+            cur["r0"] += E
+            K, S, _ = sc.B.shape
+            kept[f"{cur['keys']} K{K}S{S}C{sc.C} r{r0}"] = {
+                "sel": out.clone(), "B": sc.B.clone(), "ok": sc.ok.clone(),
+                "fail_r": sc.fail_r.clone(),
+                "slot": sc.slot[r0:r0 + E].to(torch.int32).clone(),
+                "real": sc.real[r0:r0 + E].clone(), "r0": r0, "C": sc.C}
+        return out
+
+    bitdense._BatchScan.run, bitdense._compute_sel = run, sel
+    try:
+        for keys, hs in _dense_batches().items():
+            cur["keys"] = keys
+            engine.check_batch(CASRegister(), hs, device=torch.device("cuda"))
+    finally:
+        bitdense._BatchScan.run, bitdense._compute_sel = real_run, real_sel
+    return kept
+
+
+def _carry(c: dict) -> tuple:
+    """A fresh copy of chunk c's carry (B, ok, fail_r)."""
+    return c["B"].clone(), c["ok"].clone(), c["fail_r"].clone()
+
+
+def _digest(torch, B, ok, fail_r) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in (B, ok.to(torch.int32), fail_r):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _k1b_rows(torch, ck, bitdense, c: dict):
+    """The per-row batched scan of a tree with `closure_fixpoint_batch`,
+    as its `_BatchScan.run` issues it for chunk c: f(B, ok, fail_r) ->
+    the carry after the chunk, and the per-row launch inputs (sel, B,
+    run) it made."""
+    C, r0 = c["C"], c["r0"]
+    tables = bitdense._Tables(C, c["B"].device)
+    sel, slot, real = c["sel"], c["slot"].long(), c["real"]
+
+    def rows(B, ok, fail_r, keep=None):
+        K = B.shape[0]
+        for i in range(sel.shape[0]):
+            run = ok & real[i]
+            if keep is not None:
+                keep.append((sel[i], B.clone(), run.clone()))
+            B2 = ck.closure_fixpoint_batch(sel[i], B, C, run=run, out=B)
+            B3 = tables.filter_keys(slot[i], B2)
+            failed = run & ~B3.flatten(1).any(1)
+            fail_r = torch.where(failed, r0 + i, fail_r)
+            B = torch.where(run.view(K, 1, 1), B3, B2)
+            ok = ok & ~failed
+        return B, ok, fail_r
+    return rows
+
+
+def _device_kernels(torch, fn, n: int = 1) -> dict:
+    """Device microseconds and calls of each CUDA kernel that n calls of
+    fn() launch, read raw from torch.profiler's trace (as
+    profile_check.py does), and the host seconds of the calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            k = out.setdefault(ev.name()[:60], {"us": 0.0, "calls": 0})
+            k["us"] += ev.duration_ns() / 1e3 / n
+            k["calls"] += 1
+    for k in out.values():
+        k["calls"] //= n
+    return {"kernels": out, "host_s": host_s / n,
+            "device_us": sum(k["us"] for k in out.values())}
+
+
+def _time_k1_rows(torch, ck, bitdense, c: dict) -> dict:
+    """The parent's batched scan over chunk c: the rows as its scan issues
+    them (device ms and host issue us a row, kernels under the profiler),
+    and its per-row launch taken apart on the rows' own inputs."""
+    dev = c["B"].device
+    E, C = c["sel"].shape[0], c["C"]
+    K, S, _ = c["B"].shape
+    rows = _k1b_rows(torch, ck, bitdense, c)
+    kept: list = []
+    res = {"digest": _digest(torch, *rows(*_carry(c), keep=kept))}
+    carries = [_carry(c) for _ in range(3)]
+    torch.cuda.synchronize()
+    res["rows_ms"] = _time_once_each(torch, rows, [_carry(c)], carries) / E
+    t_host = []
+    for _ in range(3):
+        B, ok, fail_r = _carry(c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows(B, ok, fail_r)
+        t_host.append((time.perf_counter() - t0) * 1e6 / E)
+        torch.cuda.synchronize()
+    res["host_issue_us_per_row"] = t_host
+    pool = [_carry(c) for _ in range(2)]     # copies made off the trace
+    prof = _device_kernels(torch, lambda: rows(*pool.pop()))
+    res["profile_per_row"] = {
+        n: {"us": v["us"] / E, "calls": v["calls"] / E}
+        for n, v in prof["kernels"].items()}
+    k1_us = sum(v["us"] for n, v in prof["kernels"].items()
+                if "closure" in n)
+    res["k1_us_per_row"] = k1_us / E
+    res["ops_us_per_row"] = (prof["device_us"] - k1_us) / E
+    res["kernels_per_row"] = sum(v["calls"] for v in
+                                 prof["kernels"].values()) / E
+
+    def launch(sel, B, run, out):
+        ck.closure_fixpoint_batch(sel, B, C, run=run, out=out)
+    args = [(s, B, run, torch.empty_like(B)) for s, B, run in kept]
+    res["launch_ms"] = _time_launches(torch, launch, args, reps=3)
+    off = [(s, B, torch.zeros_like(run), o) for s, B, run, o in args]
+    res["cut_ms"] = {"no_key_running": _time_launches(torch, launch, off,
+                                                      reps=3)}
+    full = ck._lib
+    try:
+        for n, lib in _closure_variants(ck, K1_CUTS).items():
+            ck._lib = lib
+            res["cut_ms"][n] = _time_launches(torch, launch, args, reps=3)
+    finally:
+        ck._lib = full
+    res["layout_ms"] = {}
+    for name, plan in ck.closure_plans(S, C, *ck.card_limits(dev)).items():
+        def forced(sel, B, run, out, plan=plan):
+            ck._launch_batch(sel, B, out, C, run=run, plan=plan)
+        res["layout_ms"][f"{name}{plan['cluster']}"] = _time_launches(
+            torch, forced, args, reps=3)
+    res["gate"] = ck.device_plan(S, C, dev)["layout"]
+    exps, running = [], []
+    for s, B, run in kept[::K1B_EXP_STRIDE]:
+        running.append(int(run.sum()))
+        for k in torch.nonzero(run).flatten().tolist():
+            exps.append(ck.closure_reference_expansions(s[k], B[k], C)[1])
+    res["running_keys_per_row"] = sum(int(r.sum()) for _, _, r in kept) / E
+    res["expansions_per_key"] = {
+        "rows": len(running), "min": min(exps, default=0),
+        "mean": sum(exps) / max(1, len(exps)), "max": max(exps, default=0)}
+    return res
+
+
+def _time_k1_scan(torch, ck, c: dict) -> dict:
+    """The persistent batched scan over chunk c: its one launch, in every
+    layout `closure_plans_batch` gives and with no key running."""
+    dev = c["B"].device
+    E, C = c["sel"].shape[0], c["C"]
+    K, S, _ = c["B"].shape
+
+    def scan(B, ok, fail_r, plan=None):
+        if plan is None:
+            ck.closure_scan_batch(c["sel"], B, ok, fail_r, c["slot"],
+                                  c["real"], c["r0"], C)
+        else:
+            ck._launch_scan(c["sel"], B, ok, fail_r, c["slot"], c["real"],
+                            c["r0"], C, plan=plan)
+    B, ok, fail_r = _carry(c)
+    scan(B, ok, fail_r)
+    res = {"digest": _digest(torch, B, ok, fail_r), "rows": E}
+    carries = [_carry(c) for _ in range(5)]
+    res["ms"] = _time_once_each(torch, scan, [_carry(c)], carries)
+    res["ms_per_row"] = res["ms"] / E
+    off = [(B, torch.zeros_like(ok), f) for B, ok, f in
+           (_carry(c) for _ in range(5))]
+    res["cut_ms"] = {"no_key_running": _time_once_each(
+        torch, scan, [_carry(c)], off)}
+    plans = ck.closure_plans_batch(K, S, C, *ck.card_limits(dev),
+                                   ck.sm_count(dev))
+    res["plan"] = ck.device_plan_batch(K, S, C, dev)
+    res["layout_ms"] = {}
+    gate = res["plan"]
+    for t in (256, 512):      # the gate's layout on fewer threads
+        if t < gate["threads"]:
+            plans[f"{gate['layout']} t{t}"] = dict(gate, threads=t)
+    for name, plan in plans.items():
+        res["layout_ms"][f"{name}{plan['cluster']}"] = _time_once_each(
+            torch, functools.partial(scan, plan=plan), [_carry(c)],
+            [_carry(c) for _ in range(5)])
+    # every cluster size whose blocks hold their shares of B twice over
+    optin, max_cluster = ck.card_limits(dev)
+    W = c["B"].shape[2]
+    res["cluster_ms"] = {}
+    for k in (1, 2, 4, 8, 16):
+        if k <= min(max_cluster, W // ck.MIN_BLOCK_WORDS) and \
+                ck.k1_block_bytes(S, C, W // k, 2) <= optin:
+            res["cluster_ms"][k] = _time_once_each(
+                torch, functools.partial(
+                    scan, plan=ck._scan_split_plan(S, C, k)),
+                [_carry(c)], [_carry(c) for _ in range(5)])
+    full = ck._lib
+    try:
+        for n, lib in _closure_variants(ck, K1_SCAN_GROUPS).items():
+            ck._lib = lib
+            res["layout_ms"][n] = _time_once_each(
+                torch, scan, [_carry(c)], [_carry(c) for _ in range(5)])
+    finally:
+        ck._lib = full
+    # where a key's walk goes, from the clock64() variant
+    names = ("repack", "pairs", "sweeps", "filter", "rows_run", "total",
+             "sweeps_n")
+    full = ck._lib
+    try:
+        for lib in _closure_variants(ck, K1_SCAN_PHASES).values():
+            ck._lib = lib
+            B, ok, fail_r = _carry(c)
+            traj = torch.zeros((K, c["r0"] + E, 2), dtype=torch.int32,
+                               device=dev)
+            ck.closure_scan_batch(c["sel"], B, ok, fail_r, c["slot"],
+                                  c["real"], c["r0"], C, traj=traj)
+            torch.cuda.synchronize()
+            v = traj[:, c["r0"]:c["r0"] + 4].reshape(K, 8).cpu()
+            v = v[v[:, 4] > 0]                     # keys that ran a row
+            res["phases_cycles"] = {
+                "slowest_key": dict(zip(names, v[int(v[:, 5].argmax())]
+                                        .tolist())),
+                "mean": dict(zip(names, v.double().mean(0).tolist())),
+                "keys": int(v.shape[0])}
+    finally:
+        ck._lib = full
+    return res
+
+
+def _time_k1_batch(torch, ck, c: dict) -> dict:
+    from jepsen_tpu_torch.parallel import bitdense
+    K, S, W = c["B"].shape
+    res = {"K": K, "S": S, "C": c["C"], "W": W, "rows": c["sel"].shape[0],
+           "r0": c["r0"], "keys_ok_at_start": int(c["ok"].sum())}
+    if hasattr(ck, "closure_fixpoint_batch"):
+        res["per_row"] = _time_k1_rows(torch, ck, bitdense, c)
+    if hasattr(ck, "closure_scan_batch"):
+        res["scan"] = _time_k1_scan(torch, ck, c)
+    return res
+
+
 def cmd_record(args, torch) -> dict:
     from jepsen_tpu_torch import histories, models
     from jepsen_tpu_torch.parallel import closure_kernels as ck
@@ -298,6 +593,8 @@ def cmd_record(args, torch) -> dict:
     if "k4b" in want:
         out["k4b"] = {**_record_k4_batch(torch, sk, False),
                       **_record_k4_batch(torch, sk, True)}
+    if "k1b" in want:
+        out["k1b"] = _record_k1_batch(torch)
     if "k3" in want:
         out["k3"]["T262144"] = _record_k3(
             torch, sk, encode.encode(models.CASRegister(None),
@@ -366,7 +663,70 @@ K2_SPLIT_AB = {
     f"split_min_{n}": (r"constexpr int kSplitMin = 2048;",
                        f"constexpr int kSplitMin = {n};")
     for n in (512, 32)}
-_C_FUNCS = ("launch", "init", "smem", "scratch", "max_cluster")
+# K1's sweeps cut to none: the launch loads B, builds its source masks and
+# pair list and writes B back (the sweep loop of the tree's closure.cu,
+# single-key and batched)
+K1_CUTS = {"sweeps_le_0": (r"for \(int sweep = 0;; \+\+sweep\) \{",
+                           "for (int sweep = 0; sweep < 0; ++sweep) {")}
+
+
+
+
+def _after(anchor: str, code: str) -> tuple:
+    """A substitution that adds `code` after the source text `anchor`."""
+    import re
+    return (re.escape(anchor), (anchor + code).replace("\\", "\\\\"))
+
+
+# The persistent batched scan with clock64() counters: for each key the
+# cycles of its rows' repack, pair list, sweeps and filter (with the
+# cluster's count), the rows it ran, all its cycles and its sweeps,
+# written over its first 4 stats rows (traj[key, r0:r0+4]) at the end
+# (kernel_ab.py time; a timing tool, its results unchecked)
+K1_SCAN_PHASES = {"phases": [
+    _after("#include \"sparse_common.cuh\"\n",
+           "__device__ int jt_sweeps[1 << 16];\n"),
+    _after("  for (int sweep = 0;; ++sweep) {\n",
+           "    if (threadIdx.x == 0) ++jt_sweeps[blockIdx.x];\n"),
+    (r"    int fr = fail_r\[key\];\n    for \(int x = tid; x < nb;",
+     "    int fr = fail_r[key];\n"
+     "    long long prp = 0, ppr = 0, psw = 0, pfi = 0;\n"
+     "    const long long t_start = clock64();\n"
+     "    const int sw0 = jt_sweeps[blockIdx.x];\n    int nrun = 0;\n"
+     "    for (int x = tid; x < nb;"),
+    (r"      repack_sel\(sel_k \+ i \* row, src, S, C\);\n",
+     "      const long long c1 = clock64();\n      ++nrun;\n"
+     "      repack_sel(sel_k + i * row, src, S, C);\n"),
+    (r"      const int n_items = build_pairs\(",
+     "      const long long c2 = clock64();\n      prp += c2 - c1;\n"
+     "      const int n_items = build_pairs("),
+    (r"      if \(Wb >= 2 \* kScanGroup\) \{",
+     "      const long long c3 = clock64();\n      ppr += c3 - c2;\n"
+     "      if (Wb >= 2 * kScanGroup) {"),
+    (r"      const int acc = filter_split<kCluster>\(",
+     "      const long long c4 = clock64();\n      psw += c4 - c3;\n"
+     "      const int acc = filter_split<kCluster>("),
+    (r"      if \(tr != nullptr && r == 0 && tid == 0\) \{\n        tr\[2 \* i\] = n_left;",
+     "      pfi += clock64() - c4;\n"
+     "      if (tr != nullptr && r == 0 && tid == 0) {\n        tr[2 * i] = n_left;"),
+    (r"    for \(int x = tid; x < nb; x \+= nt\) \{\n      g\[",
+     "    __syncthreads();\n"
+     "    if (tr != nullptr && r == 0 && tid == 0 && E >= 4) {\n"
+     "      const long long v[8] = {prp, ppr, psw, pfi, nrun,\n"
+     "                              clock64() - t_start,\n"
+     "                              jt_sweeps[blockIdx.x] - sw0, 0};\n"
+     "      for (int q = 0; q < 8; ++q) tr[q] = (int)v[q];\n"
+     "      i = E;\n"
+     "    }\n"
+     "    for (int x = tid; x < nb; x += nt) {\n      g["),
+]}
+
+
+# the batched scan's sweeps taking 1 (one item a thread at a time, as the
+# single-key sweep) or 4 items of a pair at a time
+K1_SCAN_GROUPS = {f"group_{n}": (r"constexpr int kScanGroup = 2;",
+                                 f"constexpr int kScanGroup = {n};")
+                  for n in (1, 4)}
 
 
 _VARIANTS: dict = {}
@@ -378,11 +738,21 @@ def _variant_libs(sk, kernel: str, variants: dict) -> dict:
     the current device like the wrapper's own library."""
     memo = (kernel, tuple(sorted(variants)))
     if memo not in _VARIANTS:
-        _VARIANTS[memo] = _build_variants(sk, kernel, variants)
+        _VARIANTS[memo] = _build_variants(kernel, variants,
+                                          sk._lib(kernel))
     return _VARIANTS[memo]
 
 
-def _build_variants(sk, kernel: str, variants: dict) -> dict:
+def _closure_variants(ck, variants: dict) -> dict:
+    """_variant_libs for K1's closure.cu (`ck._lib` is its library)."""
+    memo = ("closure", tuple(sorted(variants)))
+    if memo not in _VARIANTS:
+        _VARIANTS[memo] = _build_variants("closure", variants,
+                                          ck._kernel_lib())
+    return _VARIANTS[memo]
+
+
+def _build_variants(kernel: str, variants: dict, full) -> dict:
     import ctypes
     import re
     from jepsen_tpu_torch import kernels
@@ -390,10 +760,15 @@ def _build_variants(sk, kernel: str, variants: dict) -> dict:
     out_dir = kernels.BUILD_DIR / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for n, (pat, new) in variants.items():
-        if len(re.findall(pat, src)) != 1:
-            continue
-        var = re.sub(pat, new, src)
+    for n, subs in variants.items():
+        # one (pattern, replacement) or a list of them, each pattern
+        # found once in the source
+        var = src
+        for pat, new in [subs] if isinstance(subs, tuple) else subs:
+            if len(re.findall(pat, var)) != 1:
+                var = src
+                break
+            var = re.sub(pat, new, var)
         if var == src:
             continue
         cu = out_dir / f"{kernel}_{n}.cu"
@@ -403,7 +778,6 @@ def _build_variants(sk, kernel: str, variants: dict) -> dict:
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
              str(kernels.KERNEL_DIR), "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    full = sk._lib(kernel)
     libs = {}
     for n, (so, p) in procs.items():
         log, _ = p.communicate()
@@ -411,13 +785,12 @@ def _build_variants(sk, kernel: str, variants: dict) -> dict:
             raise SystemExit(f"kernel_ab: nvcc failed on {kernel}'s {n}:\n"
                              f"{log}")
         lib = ctypes.CDLL(str(so))
-        for f in _C_FUNCS:
-            try:
-                ref = getattr(full, f"jt_{kernel}_{f}")
-            except AttributeError:
-                continue
-            getattr(lib, f"jt_{kernel}_{f}").argtypes = ref.argtypes
-            getattr(lib, f"jt_{kernel}_{f}").restype = ref.restype
+        # every C function the wrapper has set up (ctypes keeps each one
+        # it was asked for as an attribute of the library)
+        for f, ref in vars(full).items():
+            if f.startswith("jt_"):
+                getattr(lib, f).argtypes = ref.argtypes
+                getattr(lib, f).restype = ref.restype
         if getattr(lib, f"jt_{kernel}_init")() <= 0:
             raise SystemExit(f"kernel_ab: {kernel}'s {n} did not set up on "
                              f"the card")
@@ -717,7 +1090,7 @@ def cmd_time(args, torch) -> dict:
     dev = torch.device("cuda")
     off = torch.zeros((), dtype=torch.bool, device=dev)
     out: dict = {}
-    for shape, pairs in rec["k1"].items():
+    for shape, pairs in rec.get("k1", {}).items():
         C = pairs[0][2]
         S = pairs[0][1].shape[0]
 
@@ -755,7 +1128,9 @@ def cmd_time(args, torch) -> dict:
         out[f"K2 batch {shape}"] = _time_k2_batch(torch, sk, inputs)
     for shape, inputs in rec.get("k4b", {}).items():
         out[f"K4 batch {shape}"] = _time_k4_batch(torch, sk, inputs)
-    for shape, inputs in rec["k3"].items():
+    for name, chunk in rec.get("k1b", {}).items():
+        out[f"K1 batch {name}"] = _time_k1_batch(torch, ck, chunk)
+    for shape, inputs in rec.get("k3", {}).items():
         T = inputs[0][4][1].shape[0]
         out[f"K3 {shape}"] = {
             "ms": _time_launches(torch, sk.hash_insert, inputs,
@@ -786,9 +1161,69 @@ def _sparse_batch_walls(torch) -> dict:
     return out
 
 
+def _dense_batch_walls(torch) -> dict:
+    """The 84-key and 92-key dense batches through `engine.check_batch`:
+    cold, then three warm runs each (seconds, the card synchronised); and
+    one more warm run of the 84 keys traced, its device time by kernel
+    (torch.profiler) and its host seconds by step: the encode, pad_batch,
+    the scan's set-up (`_BatchScan.__init__`), its issue (`run`) and the
+    finalize (the one device read and the results)."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.parallel import bitdense, engine
+    dev = torch.device("cuda")
+    out = {}
+    for name, hs in _dense_batches().items():
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs = engine.check_batch(CASRegister(), hs, device=dev)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[f"dense_batch_{name}"] = {
+            "cold_s": walls[0], "warm_s": walls[1:],
+            "invalid": [i for i, r in enumerate(rs) if not r["valid?"]]}
+    hs = _dense_batches()["84"]
+    steps: dict = {}
+    patched = [(engine.enc_mod, "encode"), (bitdense, "pad_batch"),
+               (bitdense._BatchScan, "__init__"), (bitdense._BatchScan, "run"),
+               (bitdense.PendingBitdenseBatch, "finalize")]
+    saved = [(o, n, getattr(o, n)) for o, n in patched]
+
+    def timed(name, fn):
+        def f(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                steps[name] = steps.get(name, 0.0) + time.perf_counter() - t0
+        return f
+    for o, n, fn in saved:
+        setattr(o, n, timed(n.strip("_"), fn))
+    try:
+        prof = _device_kernels(torch, lambda: engine.check_batch(
+            CASRegister(), hs, device=dev))
+    finally:
+        for o, n, fn in saved:
+            setattr(o, n, fn)
+    # the device's busy share of the unprofiled warm wall (the profiler
+    # slows the host, not the kernels)
+    warm = sorted(out["dense_batch_84"]["warm_s"])[1]
+    out["dense_batch_84_traced"] = {
+        "traced_wall_s": prof["host_s"],
+        "host_steps_s": {k: v / 2 for k, v in steps.items()},
+        "device_busy_s": prof["device_us"] / 1e6,
+        "device_busy_share": prof["device_us"] / 1e6 / warm,
+        "kernels": dict(sorted(prof["kernels"].items(),
+                               key=lambda kv: -kv[1]["us"])[:12])}
+    return out
+
+
 def cmd_walls(args, torch) -> dict:
     if args.sparse_batch:
         return _sparse_batch_walls(torch)
+    if args.dense_batch:
+        return _dense_batch_walls(torch)
     from jepsen_tpu_torch import histories
     from jepsen_tpu_torch.checker.linearizable import Linearizable
     from jepsen_tpu_torch.models import CASRegister
@@ -815,13 +1250,16 @@ def main() -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("record")
     r.add_argument("--out", default=DEFAULT_INPUTS)
-    r.add_argument("--kernels", default="k1,k2,k3,k4,k2b,k4b")
+    r.add_argument("--kernels", default="k1,k2,k3,k4,k2b,k4b,k1b")
     t = sub.add_parser("time")
     t.add_argument("--inputs", default=DEFAULT_INPUTS)
     w = sub.add_parser("walls")
     w.add_argument("--sparse-batch", action="store_true",
                    help="the 28-key sparse batch (triple and packed) in "
                         "place of the dense 10k-op check")
+    w.add_argument("--dense-batch", action="store_true",
+                   help="the 84-key and 92-key dense batches in place of "
+                        "the dense 10k-op check")
     args = ap.parse_args()
     if args.tree:
         sys.path.insert(0, os.path.abspath(args.tree))

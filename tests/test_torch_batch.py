@@ -1,5 +1,5 @@
 """The port's per-key batch on the dense engine (jepsen_tpu_torch:
-`encode.pad_batch`, `closure_kernels.closure_fixpoint_batch`,
+`encode.pad_batch`, `closure_kernels.closure_scan_batch`,
 `bitdense.check_batch_bitdense`, `engine.check_batch` and
 `check_batch_encoded`), on the CPU with the plain closure, against the
 reference's (jepsen_tpu, its XLA closure) on the identical encoded input,
@@ -8,7 +8,7 @@ must match, key for key and in input order. Also the padding hazards
 (pad events and pad slots change nothing, C's floor of 5, the first
 key's state offset and step family, sel's chunk counting the keys), the
 bucketing and its flag, the raises for what is not ported, and — on the
-card only — the batched K1 against its plain version in every
+card only — the batched scan against its plain version in every
 layout."""
 
 import dataclasses
@@ -143,26 +143,51 @@ def test_batch_reference_equals_single_calls(S, C):
         want = ck.closure_fixpoint_reference(sel[k], B[k], C) if run[k] \
             else B[k]
         assert torch.equal(got[k], want), k
-    # the CPU wrapper runs the plain version, in place, and counts nothing
+    # the CPU scan of one row runs the plain closure, filters the running
+    # keys, in place, and counts nothing
     before = (ck.launches, ck.batch_launches)
-    out = B.clone()
-    ck.closure_fixpoint_batch(sel, out, C, run=run, out=out)
-    assert torch.equal(out, got)
-    assert torch.equal(ck.closure_fixpoint_batch(sel, B, C),
-                       ck.closure_fixpoint_batch_reference(sel, B, C))
+    out, ok = B.clone(), run.clone()
+    fail_r = torch.full((5,), -1, dtype=torch.int32)
+    slot = (torch.arange(5, dtype=torch.int32) % C)[None]
+    ck.closure_scan_batch(sel[None], out, ok, fail_r, slot,
+                          torch.ones((1, 5), dtype=torch.bool), 0, C)
+    assert torch.equal(out, torch.where(
+        run.view(5, 1, 1), ck.filter_keys(got, slot[0], C), got))
     assert (ck.launches, ck.batch_launches) == before
 
 
 def test_batch_wrapper_checks_its_arguments():
     sel, B = _rand_batch(np.random.default_rng(1), 3, 4, 6)
-    with pytest.raises(ValueError, match="run must be bool"):
-        ck.closure_fixpoint_batch(sel, B, 6, run=torch.ones(2, dtype=bool))
+    sel = sel[None]
+    ok = torch.ones(3, dtype=torch.bool)
+    fail_r = torch.full((3,), -1, dtype=torch.int32)
+    slot = torch.zeros((1, 3), dtype=torch.int32)
+    real = torch.ones((1, 3), dtype=torch.bool)
+
+    def scan(C=6, r0=0, traj=None, **kw):
+        args = dict(zip(("sel", "B", "ok", "fail_r", "slot", "real"),
+                        (sel, B, ok, fail_r, slot, real)))
+        args.update(kw)
+        ck.closure_scan_batch(*args.values(), r0, C, traj=traj)
+
+    with pytest.raises(ValueError, match="ok must be"):
+        scan(ok=torch.ones(2, dtype=torch.bool))
+    with pytest.raises(ValueError, match=r"\[E, K, C, S, S\]"):
+        scan(sel=sel[0])
     with pytest.raises(ValueError, match=r"\[K, C, S, S\]"):
-        ck.closure_fixpoint_batch(sel[0], B, 6)
+        scan(sel=sel[:, :2])
     with pytest.raises(ValueError, match="closure"):
-        ck.closure_fixpoint_batch(sel, B, 7)
+        scan(C=7)
+    with pytest.raises(ValueError, match="slot must be"):
+        scan(slot=slot.long())
+    with pytest.raises(ValueError, match="real must be"):
+        scan(real=real[:, :2])
+    with pytest.raises(ValueError, match="traj must be"):
+        scan(r0=4, traj=torch.zeros((3, 4, 2), dtype=torch.int32))
     with pytest.raises(RuntimeError, match="no kernel"):
-        ck.closure_fixpoint_batch(sel.to("meta"), B.to("meta"), 6)
+        scan(sel=sel.to("meta"), B=B.to("meta"), ok=ok.to("meta"),
+             fail_r=fail_r.to("meta"), slot=slot.to("meta"),
+             real=real.to("meta"))
 
 
 # ------------------------------------------------------------ the batch
@@ -444,22 +469,30 @@ def _cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,C", [(6, 15), (22, 17), (6, 7), (40, 12)])
 def test_cuda_batched_k1_matches_plain_in_every_layout(S, C):
+    """One row of the batched scan (the closure, then each key's filter
+    on its own slot) bit for bit against its plain version, in every
+    layout, two keys not running."""
     dev = _cuda()
     rng = np.random.default_rng(S + C)
     sel, B = _rand_batch(rng, 5, S, C, density=0.15)
     run = torch.tensor([True, False, True, True, False])
-    want = ck.closure_fixpoint_batch_reference(sel, B, C, run)
-    sel_d, B_d, run_d = sel.to(dev), B.to(dev), run.to(dev)
-    before = ck.batch_launches
-    got = ck.closure_fixpoint_batch(sel_d, B_d, C, run=run_d)
-    torch.cuda.synchronize()
-    assert ck.batch_launches == before + 1
-    assert torch.equal(got.cpu(), want)
-    for name, plan in ck.closure_plans(S, C, *ck.card_limits(dev)).items():
-        out = B_d.clone()
-        ck._launch_batch(sel_d, out, out, C, run=run_d, plan=plan)
+    slot = torch.tensor([[0, 1, C - 1, 5 % C, C // 2]], dtype=torch.int32)
+    real = torch.ones((1, 5), dtype=torch.bool)
+    carry = (B, run, torch.full((5,), -1, dtype=torch.int32))
+    want = [t.clone() for t in carry]
+    ck.closure_scan_batch(sel[None], *want, slot, real, 0, C)
+    d = [t.to(dev) for t in (sel[None], slot, real)]
+    plans = {"gate": None,
+             **ck.closure_plans_batch(5, S, C, *ck.card_limits(dev),
+                                      ck.sm_count(dev))}
+    for name, plan in plans.items():
+        got = [t.to(dev) for t in carry]
+        before = ck.batch_launches
+        ck._launch_scan(d[0], *got, d[1], d[2], 0, C, plan=plan)
         torch.cuda.synchronize()
-        assert torch.equal(out.cpu(), want), name
+        assert ck.batch_launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), name
 
 
 @pytest.mark.cuda
@@ -471,7 +504,7 @@ def test_cuda_check_batch_equals_the_cpu():
             for h in hs]
     ck.reset_launches()
     got = engine.check_batch_encoded(None, encs, device=dev)
-    assert ck.batch_launches == max(e.n_returns for e in encs)
+    assert ck.batch_launches == 1        # one chunk of event rows
     assert all(r["closure"] == "cuda" for r in got)
     assert _strip(got) == _strip(engine.check_batch_encoded(None, encs,
                                                             device=CPU))

@@ -199,7 +199,7 @@ def test_a_device_error_surfaces(monkeypatch):
     def boom(*a, **kw):
         raise RuntimeError("closure kernel batched launch failed")
 
-    monkeypatch.setattr(ck, "closure_fixpoint_batch", boom)
+    monkeypatch.setattr(ck, "closure_scan_batch", boom)
     c = independent.checker(linearizable(models.CASRegister(),
                                          device="cpu"))
     with pytest.raises(RuntimeError, match="batched launch failed"):
