@@ -112,8 +112,8 @@ down both of its engines:
        two golden queue histories through `check_encoded_sharded`, each
        equal field for field to the reference's results recorded on the
        CPU at one device (below);
-     * main path, full width: the bench's sharded shape,
-       `adversarial_register_history(10000, 12)` through
+     * main path, full width: the bench's sharded shape at half its
+       depth, `adversarial_register_history(5000, 12)` through
        `sharded.analysis` at capacity 2^17 (K3's table in device
        memory, its insert a cooperative grid), once, and the
        impossible-read twin of `adversarial_register_history(2500, 12)`
@@ -180,6 +180,30 @@ down both of its engines:
        linear.svg written into a temporary store. The race returns only
        once its device arm has stopped (the race's cancel), and no
        device arm may run on after it.
+  9. resumable checks, streaming sessions and the pipelined batch, over
+     the kernels above started from resumed carries:
+     * "resumable": `engine.check_encoded_resumable` on the 1000-op FIFO
+       (K2, then K4) with a checkpoint every 256 events saved to .npz, a
+       resume from the second file, both equal to the one-shot check;
+       the 400-op unordered queue from capacity 64 (the capacity doubles
+       inside chunks) with every checkpoint equal, array for array, to
+       the reference's (REF_CHECKPOINTS, tests/torch_record_checkpoint_
+       refs.py), again after a resume;
+     * "stream": `extend.HistorySession` fed deltas of 50 ops of the
+       unordered queue and the corrupted FIFO, each check equal to the
+       one-shot check of its prefix, the FIFO's early counterexample
+       final, and a freeze/thaw mid-stream that resumes without a
+       launch;
+     * "stream batch": the 28 sparse-batch keys in four deltas through
+       `extend.advance_sessions` (batched K2 and K4 from each key's
+       carry, launches printed), each key equal to a solo session's
+       check and to REF_SPARSE_BATCH's verdicts;
+     * "pipeline": the 92-key batch through `engine.check_batch(
+       pipeline=True)` equal to REF_BATCH (K1's persistent batched scan
+       issued a chunk at a time), a second call all cache hits and no
+       encode; the 84 keys' pipelined and serial walls with the
+       encode / issue / device split, and their encode on one thread
+       and on eight.
   Launch counts are zeroed just before each main-path check and read just
   after; each check must have launched the kernel of its route.
 
@@ -1173,13 +1197,14 @@ def phase_sparse_parity(dev, rec) -> dict:
 
 def phase_sparse_main(dev, cases) -> dict:
     """The sparse checks; returns the K2 and K4 launches of the run, and
-    each check's wall ("walls")."""
+    each check's wall ("walls") and result ("results")."""
     from jepsen_tpu_torch.parallel import encode as enc
     from jepsen_tpu_torch.parallel import sparse
-    total = {"K2": 0, "K4": 0, "walls": {}}
+    total = {"K2": 0, "K4": 0, "walls": {}, "results": {}}
     for name, model, h in cases:
         r, secs, n = _sparse_check(model, h, dev)
         total["walls"][name] = secs
+        total["results"][name] = r
         want = REF[name]
         route = want.get("route", "cuda")
         kernel = {"cuda": "K2", "cuda-tiled": "K4"}.get(r.get("closure"))
@@ -1742,11 +1767,14 @@ REF_SHARDED = {
         "fail-event": 2, "max-frontier": 5, "capacity": 1024, "devices": 1,
         "configs-stepped": 10},
 }
-FULL_OPS = 10000        # the bench's sharded shape (bench.py:617-694)
+# the bench's sharded shape (bench.py:617-694) at half its depth: the
+# full width (12 crashed writes, K3's grid) over 5,000 ops; the 10k-op
+# check took up to 245 s of a smoke that passed 1,000 s on a slow host
+FULL_OPS = 5000
 FULL_CAPACITY = 1 << 17
 # the impossible-read twin's depth: the full width at a quarter of the
-# ops (a 10k-op twin took up to ~190 s of the smoke on a slow host)
-TWIN_OPS = FULL_OPS // 4
+# bench's ops (a 10k-op twin took up to ~190 s of the smoke on a slow host)
+TWIN_OPS = 2500
 K3_KEEP = 6             # K3 inputs recorded per table size
 
 
@@ -3192,6 +3220,425 @@ def phase_race(dev) -> dict:
     return out
 
 
+# ------------------------------------------------- resumable and streaming
+
+# The reference's checkpoints of the 400-op unordered queue's resumable
+# check from capacity 64, one every 32 events (jepsen_tpu on the CPU,
+# dedupe "hash"; tests/torch_record_checkpoint_refs.py): per checkpoint
+# (event index, capacity, ok, fail_r, maxf, steps_n, stepped, the digest
+# of its arrays: _cp_digest), and the result.
+REF_CHECKPOINTS = {
+    "result": {"valid?": True, "max-frontier": 256, "capacity": 256, "configs-stepped": 25467, "fail-event": None},
+    "checkpoints": [
+        [32, 128, True, -1, 124, 70, 671, "04d96ae68e48d3c3"],
+        [64, 256, True, -1, 256, 135, 3471, "dc9952cc549daa2a"],
+        [96, 256, True, -1, 256, 197, 4877, "2a9bd52a11b7b3ab"],
+        [128, 256, True, -1, 256, 260, 5195, "23ddc0467168dfc2"],
+        [160, 256, True, -1, 256, 327, 7061, "382b68b282772ecf"],
+        [192, 256, True, -1, 256, 388, 8269, "22a665236ce3bd69"],
+        [224, 256, True, -1, 256, 456, 8815, "ba20afca986daaf5"],
+        [256, 256, True, -1, 256, 522, 14191, "c6865e121a0627e2"],
+        [288, 256, True, -1, 256, 584, 16727, "7fcb7b2667c9ae1e"],
+        [320, 256, True, -1, 256, 647, 19175, "0f2c5cdc5445cce3"],
+        [352, 256, True, -1, 256, 710, 22743, "603b35f69b8456fc"],
+        [384, 256, True, -1, 256, 776, 25335, "4fcb74e627c375fa"],
+        [392, 256, True, -1, 256, 787, 25467, "7be218960ef05db4"]],
+}
+CP_OPS, CP_CAPACITY, CP_EVERY = 400, 64, 32
+RESUME_EVERY = 256         # the 1000-op FIFO's checkpoint interval
+STREAM_DELTA = 50          # ops a delta
+STREAM_BATCH_DELTAS = 4
+
+
+def _cp_digest(cp) -> str:
+    """tests/torch_record_checkpoint_refs.py's digest of a checkpoint's
+    arrays (dtype and bytes of st, ml, mh, live)."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in (cp.st, cp.ml, cp.mh, cp.live):
+        a = np.ascontiguousarray(a)
+        h.update(str(a.dtype).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def _cp_row(cp) -> list:
+    return [cp.event_index, cp.capacity, cp.ok, cp.fail_r, cp.maxf,
+            cp.steps_n, cp.stepped, _cp_digest(cp)]
+
+
+def _sparse_counts_all() -> dict:
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    return dict(sk.launches)
+
+
+ONE_SHOT_KEYS = ("valid?", "fail-event", "op", "max-frontier", "capacity",
+                 "configs-stepped")
+# what a streamed check shares with the one-shot check of its prefix: not
+# the capacity, which a session keeps at the largest any earlier prefix
+# needed (a queue's packing, so its table's probes, change with the
+# history)
+STREAM_KEYS = ("valid?", "fail-event", "op", "max-frontier",
+               "configs-stepped")
+
+
+def phase_resumable(dev, sparse_results) -> dict:
+    """The resumable check (`engine.check_encoded_resumable`) on the card:
+    the 1000-op FIFO (K2, then K4 past K2's gate from capacity 4,096)
+    from capacity 1,024 with a checkpoint every 256 events, each saved
+    to .npz, and a resume from the second file; both equal to the card's
+    one-shot check of the sparse main path. Then the 400-op unordered
+    queue from capacity 64, a checkpoint every 32 events (the capacity
+    doubles inside chunks, each chunk re-run from the checkpoint before
+    it): every checkpoint equal, array for array (a digest), to the
+    reference's (REF_CHECKPOINTS), and again from a resume of its middle
+    checkpoint — K2's claim order through a resume."""
+    import tempfile
+    from jepsen_tpu_torch.models import FIFOQueue, UnorderedQueue
+    from jepsen_tpu_torch import histories
+    from jepsen_tpu_torch.parallel import encode as enc
+    from jepsen_tpu_torch.parallel import engine
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    out = {}
+    fifo = histories.rand_fifo_history(1000, n_processes=8, crash_p=0.005,
+                                       seed=1)
+    e = enc.encode(FIFOQueue(), fifo)
+    one = sparse_results["fifo-1000"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+
+        def save(cp):
+            paths.append(cp.save(f"{tmp}/fifo-1000-{len(paths)}"))
+
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        r = engine.check_encoded_resumable(e, checkpoint_every=RESUME_EVERY,
+                                           checkpoint_cb=save, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = _sparse_counts_all()
+        _require(n["frontier_closure"] > 0 and n["tiled_insert"] > 0,
+                 f"fifo-1000 resumable: K2 and K4 must both run: {n}")
+        _require(len(paths) >= 3, f"fifo-1000: {len(paths)} checkpoints")
+        cp = engine.FrontierCheckpoint.load(paths[1])
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        r2 = engine.check_encoded_resumable(e,
+                                            checkpoint_every=RESUME_EVERY,
+                                            resume=cp, device=dev)
+        torch.cuda.synchronize()
+        secs2 = time.perf_counter() - t0
+        n2 = _sparse_counts_all()
+    for name, got in (("fifo-1000 resumable", r),
+                      ("fifo-1000 resumed", r2)):
+        _require({k: got.get(k) for k in ONE_SHOT_KEYS}
+                 == {k: one.get(k) for k in ONE_SHOT_KEYS},
+                 f"{name}: differs from the one-shot check: {got}")
+    _require(n2["tiled_insert"] > 0, f"fifo-1000 resumed: K4 {n2}")
+    out["fifo-1000"] = {"wall_s": secs, "resumed_wall_s": secs2,
+                        "checkpoints": len(paths), "resumed_from":
+                        cp.event_index, "launches": n,
+                        "resumed_launches": n2}
+    print(f"resumable: fifo-1000: {len(paths)} checkpoints (.npz), "
+          f"capacity {r['capacity']}, == the one-shot check; wall "
+          f"{secs:.3f} s, launches K2 {n['frontier_closure']} K4 "
+          f"{n['tiled_insert']}; resumed from event {cp.event_index}: "
+          f"{secs2:.3f} s, K2 {n2['frontier_closure']} K4 "
+          f"{n2['tiled_insert']}")
+    uq = histories.rand_queue_history(CP_OPS, n_processes=8,
+                                      crash_p=0.005, seed=1)
+    e = enc.encode(UnorderedQueue(), uq)
+    cps = []
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    r = engine.check_encoded_resumable(e, capacity=CP_CAPACITY,
+                                       checkpoint_every=CP_EVERY,
+                                       checkpoint_cb=cps.append,
+                                       dedupe="hash", device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = _sparse_counts_all()
+    want = REF_CHECKPOINTS
+    rows = [_cp_row(cp) for cp in cps]
+    _require(rows == want["checkpoints"],
+             f"uqueue-400 checkpoints differ from the reference's: "
+             f"{[i for i, (a, b) in enumerate(zip(rows, want['checkpoints'])) if a != b]}")
+    _require({k: r.get(k) for k in want["result"]} == want["result"],
+             f"uqueue-400 resumable: {r}")
+    _require(n["frontier_closure"] > 0, f"uqueue-400: K2 {n}")
+    mid = len(cps) // 2
+    again = []
+    engine.check_encoded_resumable(e, resume=cps[mid],
+                                   checkpoint_every=CP_EVERY,
+                                   checkpoint_cb=again.append,
+                                   dedupe="hash", device=dev)
+    _require([_cp_row(cp) for cp in again] == want["checkpoints"][mid + 1:],
+             "uqueue-400: the checkpoints after a resume differ")
+    caps = sorted({cp.capacity for cp in cps})
+    out["uqueue-400"] = {"wall_s": secs, "checkpoints": len(cps),
+                         "capacities": caps, "launches": n}
+    print(f"resumable: uqueue-400 from capacity {CP_CAPACITY}: {len(cps)} "
+          f"checkpoints == REF_CHECKPOINTS array for array (capacities "
+          f"{caps}), and after a resume from event "
+          f"{cps[mid].event_index}; wall {secs:.3f} s, K2 launches "
+          f"{n['frontier_closure']}")
+    return out
+
+
+def _one_shot(model, ops, dev, **kw):
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.parallel import encode as enc
+    from jepsen_tpu_torch.parallel import sparse
+    return sparse.check_encoded(enc.encode(model, History.wrap(ops)),
+                                device=dev, **kw)
+
+
+def phase_stream(dev) -> dict:
+    """Streaming sessions (`extend.HistorySession`) on the card, fed in
+    deltas of 50 op records: the 400-op unordered queue, checked after
+    every delta, and the corrupted 1000-op FIFO, checked after every
+    eighth delta and the last (a queue's packing grows with its
+    enqueues, so a delta settles no event and each check scans its
+    prefix again: the FIFO's checks are the phase's cost). Every check
+    up to the first invalid one equals the card's one-shot check of the
+    same prefix (STREAM_KEYS); every later one keeps that counterexample
+    (prefix closure: it is final). Mid-stream the queue's session is frozen to
+    .npz and thawed into a fresh session, whose check resumes from the
+    frozen event and launches nothing."""
+    import tempfile
+    from jepsen_tpu_torch import histories
+    from jepsen_tpu_torch.models import FIFOQueue, UnorderedQueue
+    from jepsen_tpu_torch.parallel import engine, extend
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    out = {}
+    uq = [dict(o) for o in histories.rand_queue_history(
+        CP_OPS, n_processes=8, crash_p=0.005, seed=1)]
+    fifo = [dict(o) for o in histories.corrupt_history(
+        histories.rand_fifo_history(1000, n_processes=8, crash_p=0.005,
+                                    seed=1), seed=0)]
+    for name, model, ops in (("uqueue-400", UnorderedQueue(), uq),
+                             ("fifo-1000 corrupted", FIFOQueue(), fifo)):
+        s = extend.HistorySession(model, device=dev, key=name)
+        n_deltas = -(-len(ops) // STREAM_DELTA)
+        checked = [d for d in range(n_deltas)
+                   if name == "uqueue-400" or d % 8 == 7
+                   or d == n_deltas - 1]
+        t_session = t_one = 0.0
+        first_invalid = None
+        sk.reset_launches()
+        for d in range(n_deltas):
+            s.extend(ops[d * STREAM_DELTA:(d + 1) * STREAM_DELTA])
+            if d not in checked:
+                continue
+            t0 = time.perf_counter()
+            r = s.check()
+            torch.cuda.synchronize()
+            t_session += time.perf_counter() - t0
+            if first_invalid is not None:
+                _require({k: r.get(k) for k in STREAM_KEYS}
+                         == first_invalid[1],
+                         f"{name}: delta {d}: the counterexample did not "
+                         f"stay final: {r}")
+                continue
+            t0 = time.perf_counter()
+            one = _one_shot(model, ops[:(d + 1) * STREAM_DELTA], dev)
+            torch.cuda.synchronize()
+            t_one += time.perf_counter() - t0
+            _require({k: r.get(k) for k in STREAM_KEYS}
+                     == {k: one.get(k) for k in STREAM_KEYS},
+                     f"{name}: delta {d}: the session differs from the "
+                     f"one-shot check: {r} {one}")
+            if r["valid?"] is False:
+                first_invalid = (d, {k: r.get(k) for k in STREAM_KEYS})
+            if name == "uqueue-400" and d == n_deltas // 2:
+                with tempfile.TemporaryDirectory() as tmp:
+                    meta = s.freeze(f"{tmp}/{name}")
+                    cp = engine.FrontierCheckpoint.load(meta["checkpoint"])
+                thawed = extend.HistorySession(model, device=dev)
+                thawed.thaw(ops[:(d + 1) * STREAM_DELTA], cp)
+                n0 = dict(sk.launches)
+                rt = thawed.check()
+                _require(thawed.resume_event == meta["event_index"] > 0
+                         and sk.launches == n0
+                         and {k: rt.get(k) for k in STREAM_KEYS}
+                         == {k: r.get(k) for k in STREAM_KEYS},
+                         f"{name}: the thawed session rescanned or differs")
+                print(f"stream: {name}: frozen at delta {d} (event "
+                      f"{meta['event_index']}), thawed: resumes there, "
+                      f"no launch, == the session")
+        n = _sparse_counts_all()
+        final = s.finalize()
+        _require(final.get("valid?") is (name == "uqueue-400"),
+                 f"{name}: final verdict {final.get('valid?')}")
+        if name != "uqueue-400":
+            _require(first_invalid is not None
+                     and first_invalid[0] < n_deltas - 1
+                     and bool(final.get("final-paths")),
+                     f"{name}: no early counterexample: {first_invalid}")
+        out[name] = {"checks": len(checked), "session_s": t_session,
+                     "one_shot_s": t_one, "launches": n,
+                     "first_invalid_delta": first_invalid and
+                     first_invalid[0]}
+        print(f"stream: {name}: {n_deltas} deltas of {STREAM_DELTA} ops, "
+              f"{len(checked)} checks == the one-shot prefixes; session "
+              f"{t_session:.3f} s, one-shot {t_one:.3f} s; launches K2 "
+              f"{n['frontier_closure']} K4 {n['tiled_insert']}"
+              + (f"; invalid from delta {first_invalid[0]} on (event "
+                 f"{first_invalid[1]['fail-event']})" if first_invalid
+                 else ""))
+    return out
+
+
+def phase_stream_batch(dev) -> dict:
+    """The 28 sparse-batch keys (sparse-batch-28) as streaming sessions
+    fed in four deltas through `extend.advance_sessions` on the card:
+    batched K2 and batched K4 from each key's resumed carry, their
+    launches counted; after the last delta every key equal to a solo
+    session's `check()` fed the same deltas (STREAM_KEYS: the batched
+    sessions checked each delta, so a key may keep a larger capacity),
+    and its verdict and failing op to the reference's batch
+    (REF_SPARSE_BATCH)."""
+    from jepsen_tpu_torch.models import UnorderedQueue
+    from jepsen_tpu_torch.parallel import extend
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    hs = [[dict(o) for o in h] for h in _sparse_batch_keys()]
+    model = UnorderedQueue()
+    batched = [extend.HistorySession(model, capacity=512, device=dev,
+                                     key=k) for k in range(len(hs))]
+    solo = [extend.HistorySession(model, capacity=512, device=dev)
+            for _ in hs]
+    walls = []
+    sk.reset_launches()
+    with _Tiers() as tiers:
+        for d in range(STREAM_BATCH_DELTAS):
+            for s, so, o in zip(batched, solo, hs):
+                lo = len(o) * d // STREAM_BATCH_DELTAS
+                hi = len(o) * (d + 1) // STREAM_BATCH_DELTAS
+                s.extend(o[lo:hi])
+                so.extend(o[lo:hi])
+            t0 = time.perf_counter()
+            rs = extend.advance_sessions(batched)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    n = _sparse_counts_all()
+    _require(n["frontier_closure_batch"] > 0 and n["tiled_insert_batch"] > 0,
+             f"stream batch: batched K2 and K4 must both run: {n}")
+    t0 = time.perf_counter()
+    ones = [s.check() for s in solo]
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    for k, (r, o) in enumerate(zip(rs, ones)):
+        _require({f: r.get(f) for f in STREAM_KEYS}
+                 == {f: o.get(f) for f in STREAM_KEYS},
+                 f"stream batch: key {k} differs from its solo check: "
+                 f"{r} {o}")
+    ref = REF_SPARSE_BATCH["uqueue-24+4"]
+    _require([k for k, r in enumerate(rs) if r["valid?"] is False]
+             == sorted(ref["invalid"])
+             and all({"fail-event": rs[k]["fail-event"], "op": rs[k]["op"]}
+                     == v for k, v in ref["invalid"].items()),
+             "stream batch: verdicts differ from REF_SPARSE_BATCH")
+    legs = [t for t in tiers.seen]
+    print(f"stream batch: {len(hs)} keys in {STREAM_BATCH_DELTAS} deltas "
+          f"through advance_sessions: walls {[round(w, 3) for w in walls]}"
+          f" s; == each key's solo check ({solo_s:.3f} s) and "
+          f"REF_SPARSE_BATCH's verdicts; batched legs {len(legs)}, "
+          f"launches batched K2 {n['frontier_closure_batch']} batched K4 "
+          f"{n['tiled_insert_batch']}, solo fallbacks K2 "
+          f"{n['frontier_closure']} K4 {n['tiled_insert']}")
+    for t in legs:
+        print(f"stream batch: leg {t}")
+    return {"walls": walls, "solo_s": solo_s, "launches": n,
+            "legs": len(legs)}
+
+
+def _encode_walls(model, hs) -> dict:
+    """The keys' encode on one thread, and on a pool of eight (the
+    pipeline's decision against a thread pool)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from jepsen_tpu_torch.parallel import encode as enc
+    out = {"one_thread_s": [], "eight_threads_s": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for h in hs:
+            enc.finish_encode(enc.prepare_encode(model, h))
+        out["one_thread_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda h: enc.finish_encode(
+                enc.prepare_encode(model, h)), hs))
+        out["eight_threads_s"].append(time.perf_counter() - t0)
+    return out
+
+
+def phase_pipeline(dev) -> dict:
+    """The pipelined batch executor on the card: multikey-84+8 through
+    `engine.check_batch(pipeline=True)` with a fresh encode cache, key
+    for key REF_BATCH's, K1's persistent batched scan issued a chunk at a
+    time; a second call hits the cache for every key with no encode.
+    multikey-84 through the pipeline (no cache) and serially, three warm
+    walls each, and the pipeline's encode / issue / device split; the 84
+    keys' encode on one thread and on eight."""
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    from jepsen_tpu_torch.parallel import engine, pipeline
+    multikey, extra = _batch_keys()
+    model = CASRegister()
+    out = {}
+    cache = pipeline.EncodeCache()
+    for run in ("cold", "cached"):
+        stats = {}
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        rs = engine.check_batch(model, multikey + extra, device=dev,
+                                pipeline=True, cache=cache,
+                                pipeline_stats=stats)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _require(_batch_digest(rs) == REF_BATCH["multikey-84+8"],
+                 f"pipeline {run}: results differ from the reference's")
+        _require(ck.batch_launches > 0 and ck.launches == 0,
+                 f"pipeline {run}: K1 launches {ck.batch_launches} batched, "
+                 f"{ck.launches} single")
+        if run == "cached":
+            _require(stats["cache"]["hits"] == len(rs)
+                     and stats["cache"]["encodes"] == 0,
+                     f"pipeline: the second call re-encoded: "
+                     f"{stats['cache']}")
+        out[run] = {"wall_s": secs, "stats": stats,
+                    "launches": ck.batch_launches}
+        print(f"pipeline: multikey-84+8 {run}: == REF_BATCH, wall "
+              f"{secs:.3f} s, batched scan launches {ck.batch_launches}; "
+              f"stats {json.dumps(stats)}")
+    walls = {"pipeline": [], "serial": []}
+    for _ in range(4):
+        for arm in ("pipeline", "serial"):
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kw = ({"pipeline": True, "cache": False, "pipeline_stats": stats}
+                  if arm == "pipeline" else {"pipeline": False})
+            engine.check_batch(model, multikey, device=dev, **kw)
+            torch.cuda.synchronize()
+            walls[arm].append(time.perf_counter() - t0)
+            if arm == "pipeline":
+                split = stats
+    out["multikey-84"] = {"cold_s": {a: w[0] for a, w in walls.items()},
+                          "warm_s": {a: w[1:] for a, w in walls.items()},
+                          "split": split}
+    print(f"pipeline: multikey-84 warm walls (s) pipeline "
+          f"{walls['pipeline'][1:]}, serial {walls['serial'][1:]}; the "
+          f"last pipeline run's split {json.dumps(split)}")
+    enc_walls = _encode_walls(model, multikey)
+    out["encode"] = enc_walls
+    print(f"pipeline: the 84 keys' encode, one thread "
+          f"{enc_walls['one_thread_s']} s, eight threads "
+          f"{enc_walls['eight_threads_s']} s")
+    return out
+
+
 def _phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3338,6 +3785,13 @@ def main() -> int:
                       stats["kept"], stats["launches"])
     del stats["kept"]
     _phase("race and host checkers", phase_race, dev)
+    t_new = time.perf_counter()
+    _phase("resumable", phase_resumable, dev, slaunches["results"])
+    _phase("stream", phase_stream, dev)
+    _phase("stream batch", phase_stream_batch, dev)
+    _phase("pipeline", phase_pipeline, dev)
+    print(f"the four resumable/streaming/pipeline phases: "
+          f"{time.perf_counter() - t_new:.1f} s")
     # K2's stats instantiation, single and batched: timed on inputs kept
     # from the stats main path, with the launches of that path
     for t in st_timed:

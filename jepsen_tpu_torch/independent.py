@@ -22,10 +22,11 @@ with the reference's structured "device-fallback" / "resilience" record
 of class "not-encodable"; any other device error surfaces to the
 caller, as the port's single-history checker does.
 
-Not ported: the generator half (tuple_gen, sequential_generator,
-ConcurrentGenerator), the circuit breaker and supervisor, per-key result
-persistence to a store, and the pipelined, stealing and re-sharding
-executors.
+With `pipeline=True` (or JEPSEN_TPU_TORCH_PIPELINE=1) that batch runs
+through the pipelined executor (`parallel.pipeline`). Not ported: the
+generator half (tuple_gen, sequential_generator, ConcurrentGenerator),
+the circuit breaker and supervisor, per-key result persistence to a
+store, and the stealing and re-sharding executors.
 """
 
 from __future__ import annotations
@@ -137,11 +138,16 @@ class IndependentChecker(Checker):
     """Lifts a checker over per-key subhistories: valid iff valid for
     all keys (independent.clj:263-314). With the port's device
     `Linearizable` the keys are checked as one batch on its device;
-    `batch_device=False` checks them one by one."""
+    `batch_device=False` checks them one by one. `pipeline` (None: the
+    JEPSEN_TPU_TORCH_PIPELINE flag) runs that batch through the
+    pipelined executor (`engine.check_batch(pipeline=...)`): the same
+    results, the encode overlapping the card's scan."""
 
-    def __init__(self, checker: Checker, batch_device: bool = True):
+    def __init__(self, checker: Checker, batch_device: bool = True,
+                 pipeline=None):
         self.checker = checker
         self.batch_device = batch_device
+        self.pipeline = pipeline
 
     def check(self, test, history, opts=None):
         opts = opts or {}
@@ -206,6 +212,7 @@ class IndependentChecker(Checker):
         try:
             rs = engine.check_batch(model, [subs[k] for k in ks],
                                     device=c.device,
+                                    pipeline=self.pipeline,
                                     config_pack=c.config_pack,
                                     search_stats=c.search_stats)
         except EncodeError as err:
@@ -224,5 +231,6 @@ class IndependentChecker(Checker):
                 "no-redispatch": False}
 
 
-def checker(c: Checker, batch_device: bool = True) -> IndependentChecker:
-    return IndependentChecker(c, batch_device)
+def checker(c: Checker, batch_device: bool = True,
+            pipeline=None) -> IndependentChecker:
+    return IndependentChecker(c, batch_device, pipeline)

@@ -401,12 +401,16 @@ class PendingBitdenseBatch:
     result carries its stats block, with the reference's pad extras
     ("pad-waste", "pad-events", "pad-slots")."""
 
-    def __init__(self, encs, device, search_stats: bool = False):
+    def __init__(self, encs, device, search_stats: bool = False,
+                 min_states: int = 0, min_slots: int = 5,
+                 min_returns: int = 0):
         self.encs = encs
         self.device = device
         self.search_stats = search_stats
         # C >= 5: at least one full 32-mask word
-        xs, state0, self.S, self.C, self.R = pad_batch(encs, min_slots=5)
+        xs, state0, self.S, self.C, self.R = pad_batch(
+            encs, min_slots=max(5, min_slots), min_states=min_states,
+            min_returns=min_returns)
         self._scan = _BatchScan(encs, xs, state0, self.S, self.C, self.R,
                                 device, stats=search_stats).run()
         self._results = None
@@ -441,14 +445,21 @@ class PendingBitdenseBatch:
         return out
 
 
-def dispatch_batch_bitdense(encs, device=None,
-                            search_stats=None) -> PendingBitdenseBatch:
+def dispatch_batch_bitdense(encs, device=None, search_stats=None,
+                            min_states: int = 0, min_slots: int = 5,
+                            min_returns: int = 0) -> PendingBitdenseBatch:
     """Pad and issue a batched per-key check without reading its
     results: `finalize()` on the returned PendingBitdenseBatch reads
     them. `device` None means the card (RuntimeError without one);
-    `search_stats` None reads JEPSEN_TPU_TORCH_SEARCH_STATS."""
+    `search_stats` None reads JEPSEN_TPU_TORCH_SEARCH_STATS.
+    `min_states`, `min_slots` and `min_returns` floor the padded S, C
+    and R: the pipelined executor pads each chunk of a bucket to the
+    whole bucket's dims, so that a chunk's results (its stats' pad
+    extras too) are the whole bucket's."""
     return PendingBitdenseBatch(encs, resolve_device(device),
-                                st._resolve_search_stats(search_stats))
+                                st._resolve_search_stats(search_stats),
+                                min_states=min_states, min_slots=min_slots,
+                                min_returns=min_returns)
 
 
 def check_batch_bitdense(encs, device=None, search_stats=None) -> list:

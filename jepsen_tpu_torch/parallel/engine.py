@@ -26,8 +26,15 @@ each bucket whose padded dims fit the dense engine in one batched scan
 batch with per-key capacity retry (`sparse.check_batch_sparse`, whose
 closure is K2 or K4 batched over keys) and, past its ceiling, the
 single-key escalation (`_escalate_overflow`). Results keep the input
-order. The sharded escalation rung, the pipelined and work-stealing
-executors are not ported yet: the latter two raise NotImplementedError.
+order. `check_batch(pipeline=True)` overlaps the encode with the card's
+scan (`parallel.pipeline`). The sharded escalation rung and the
+work-stealing executor are not ported yet: `steal` raises
+NotImplementedError.
+
+`check_encoded_resumable` is the sparse engine's check in chunks of
+events with a `FrontierCheckpoint` after each, which resumes it — and
+the streaming sessions of `parallel.extend` — in this process or
+another (the checkpoint's .npz is the reference's format).
 
 `search_stats` (None: the JEPSEN_TPU_TORCH_SEARCH_STATS flag, off by
 default) gives every result the reference's "stats" block
@@ -37,10 +44,14 @@ each key of a batch its own. With it off a result has no "stats" key.
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
 import time as _time
 from typing import Optional
+
+import numpy as np
+import torch
 
 from jepsen_tpu_torch import models as model_ns
 from jepsen_tpu_torch.checker import wgl
@@ -55,7 +66,8 @@ _log = logging.getLogger(__name__)
 
 def analysis(model, history, device=None, capacity: int = 1024,
              max_capacity: int = 1 << 20, dedupe=None,
-             config_pack=None, search_stats=None, cancel=None) -> dict:
+             config_pack=None, search_stats=None, cancel=None,
+             encode_cache=None) -> dict:
     """knossos-style (model, history) -> result on the device engine.
 
     `device` None means the card and raises RuntimeError when there is
@@ -67,11 +79,19 @@ def analysis(model, history, device=None, capacity: int = 1024,
     `is_set()`, such as a threading.Event; polled once an event) stops
     the check early with {"valid?": "unknown", "error": "cancelled"},
     as the host checkers' `cancel` does: the competition race's device
-    arm stops so when another arm has decided."""
+    arm stops so when another arm has decided. `encode_cache` (a
+    `pipeline.EncodeCache`, or True for the process's) keeps the encode
+    for the next analysis of the same history; None or False: none."""
     dev = bitdense.resolve_device(device)
     h = history if isinstance(history, History) else History.wrap(history)
     try:
-        e = enc_mod.encode(model, h)
+        if encode_cache is not None and encode_cache is not False:
+            from jepsen_tpu_torch.parallel import pipeline
+            e = pipeline.encode_cached(
+                model, h,
+                cache=None if encode_cache is True else encode_cache)
+        else:
+            e = enc_mod.encode(model, h)
     except EncodeError as err:
         _log.warning(
             "history not device-checkable (%s) — using the host WGL "
@@ -316,6 +336,286 @@ def _prefix_calls(cs, fail_idx):
     return _window_calls(cs, -1, fail_idx, frozenset())
 
 
+# ------------------------------------------------ checkpoints and resume
+
+class FrontierCheckpoint:
+    """A resumable snapshot of the sparse engine's search: the frontier
+    and the scan's carry after `event_index` return events, so that a
+    long check that is stopped (a crash, a pre-emption) loses at most
+    the chunk of events it was in, and a streaming session resumes a
+    longer history from its settled prefix.
+
+    The rows are the canonical (st int32, ml uint32, mh uint32) triple
+    whatever row layout the scan ran (`carry` packs them for a packed
+    scan, `sparse.carry_fields_np` unpacks them back), so a checkpoint
+    resumes a packed search unpacked and the other way round. Saved as
+    .npz in the reference's format (`jepsen_tpu.parallel.engine.
+    FrontierCheckpoint`), so that either package resumes a checkpoint
+    the other wrote: arrays st, ml, mh, live, meta (int64: event_index,
+    capacity, ok, fail_r, maxf, steps_n, stepped; a v1 file's six load
+    with stepped 0), step_name and history_digest. The digest (of the
+    encoded event tables) guards against resuming another history."""
+
+    def __init__(self, event_index: int, capacity: int, step_name: str,
+                 history_digest: str, st, ml, mh, live, ok, fail_r,
+                 maxf, steps_n, stepped: int = 0):
+        self.event_index = int(event_index)
+        self.capacity = int(capacity)
+        self.step_name = step_name
+        self.history_digest = history_digest
+        self.st = np.asarray(st)
+        self.ml = np.asarray(ml)
+        self.mh = np.asarray(mh)
+        self.live = np.asarray(live)
+        self.ok = bool(ok)
+        self.fail_r = int(fail_r)
+        self.maxf = int(maxf)
+        self.steps_n = int(steps_n)
+        self.stepped = int(stepped)
+
+    @classmethod
+    def fresh(cls, e: EncodedHistory, capacity: int,
+              digest: Optional[str] = None) -> "FrontierCheckpoint":
+        """The checkpoint at event 0: one live configuration, the initial
+        model state with nothing linearized, at capacity max(64,
+        capacity)."""
+        N = max(64, capacity)
+        cp = cls(0, N, e.step_name,
+                 digest if digest is not None else history_digest(e),
+                 np.zeros(N, np.int32), np.zeros(N, np.uint32),
+                 np.zeros(N, np.uint32), np.arange(N) < 1,
+                 True, -1, 1, 0)
+        cp.st[0] = e.state0
+        return cp
+
+    @classmethod
+    def from_carry(cls, fields, capacity: int, step_name: str,
+                   digest: str) -> "FrontierCheckpoint":
+        """The checkpoint of a scan's carry as `carry_np` reads it: (st,
+        ml, mh, live, ok, fail_r, event_index, maxf, steps_n, stepped)."""
+        st_, ml, mh, live, ok, fail_r, r_idx, maxf, steps_n, stepped = \
+            fields
+        return cls(r_idx, capacity, step_name, digest, st_, ml, mh, live,
+                   ok, fail_r, maxf, steps_n, stepped)
+
+    def carry(self, device, pack=(), C: int = 0) -> tuple:
+        """The scan carry on `device` that resumes from this checkpoint:
+        the rows in the (pack, C) layout as int32 lanes (packed here,
+        from the canonical triple), then live, ok, fail_r, the event
+        index, maxf, steps_n and stepped (int64 scalars)."""
+        dev = torch.device(device)
+        rows = sparse._rows_from_canonical(pack, C, self.st, self.ml,
+                                           self.mh, dev)
+        scalars = tuple(torch.tensor(v, dtype=torch.int64, device=dev)
+                        for v in (self.fail_r, self.event_index,
+                                  self.maxf, self.steps_n, self.stepped))
+        return rows + (torch.from_numpy(np.asarray(self.live, bool)
+                                        .copy()).to(dev),
+                       torch.tensor(self.ok, device=dev)) + scalars
+
+    def grown(self, new_capacity: int) -> "FrontierCheckpoint":
+        """The same frontier in a larger capacity (an overflow's
+        doubling across a resume)."""
+        pad = new_capacity - self.capacity
+        if pad < 0:
+            raise ValueError(f"cannot shrink a checkpoint from capacity "
+                             f"{self.capacity} to {new_capacity}")
+        return FrontierCheckpoint(
+            self.event_index, new_capacity, self.step_name,
+            self.history_digest,
+            np.concatenate([self.st, np.zeros(pad, np.int32)]),
+            np.concatenate([self.ml, np.zeros(pad, np.uint32)]),
+            np.concatenate([self.mh, np.zeros(pad, np.uint32)]),
+            np.concatenate([self.live, np.zeros(pad, bool)]),
+            self.ok, self.fail_r, self.maxf, self.steps_n, self.stepped)
+
+    def save(self, path: str) -> str:
+        """Write the checkpoint to `path` (".npz" appended when it has
+        another suffix) and return the path written."""
+        if not path.endswith(".npz"):
+            path = path + ".npz"
+        np.savez_compressed(
+            path, st=self.st, ml=self.ml, mh=self.mh, live=self.live,
+            meta=np.array([self.event_index, self.capacity,
+                           int(self.ok), self.fail_r, self.maxf,
+                           self.steps_n, self.stepped], np.int64),
+            step_name=np.array(self.step_name),
+            history_digest=np.array(self.history_digest))
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "FrontierCheckpoint":
+        if not path.endswith(".npz"):
+            path = path + ".npz"
+        with np.load(path, allow_pickle=False) as z:
+            meta = z["meta"].tolist()
+            # a v1 checkpoint has no configs-stepped counter: 6 scalars
+            ev, cap, ok, fail_r, maxf, steps_n = meta[:6]
+            stepped = meta[6] if len(meta) > 6 else 0
+            return cls(ev, cap, str(z["step_name"]),
+                       str(z["history_digest"]), z["st"], z["ml"],
+                       z["mh"], z["live"], bool(ok), fail_r, maxf,
+                       steps_n, stepped)
+
+
+carry_fields_np = sparse.carry_fields_np
+
+
+def history_digest(e: EncodedHistory) -> str:
+    """The identity of an encoded history that a checkpoint carries: a
+    digest of its event tables' bytes and its initial state, equal to
+    the reference's for the same encoding."""
+    h = hashlib.sha256()
+    for a in (e.slot_f, e.slot_a0, e.slot_a1, e.slot_wild, e.slot_occ,
+              e.ev_slot):
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(str(e.state0).encode())
+    return h.hexdigest()[:16]
+
+
+class FrontierOverflowError(RuntimeError):
+    """The frontier outgrew max_capacity; carries the last checkpoint, for
+    the "unknown" result the one-shot check gives."""
+
+    def __init__(self, checkpoint):
+        super().__init__(f"frontier overflow at capacity "
+                         f"{checkpoint.capacity}")
+        self.checkpoint = checkpoint
+
+
+def advance_checkpoint(e: EncodedHistory, cp, target: int, *, dedupe: str,
+                       probe_limit: int, device, max_capacity: int,
+                       pack=(), xs=None, smem_budget=None, stats_acc=None):
+    """Advance `cp` over return events [cp.event_index, target) of `e`: a
+    sparse scan from its carry, run again from `cp` at twice the
+    capacity while it overflows. -> (cp2, closure): the route that ran
+    last (None when nothing ran). Past `max_capacity` raises
+    FrontierOverflowError; a device fault raises with `.checkpoint`, the
+    checkpoint in hand. `stats_acc` gets the stats of the scan that
+    succeeded. The step of `check_encoded_resumable` and of the
+    streaming sessions (`parallel.extend`)."""
+    C = e.slot_f.shape[1]
+    ss = stats_acc is not None
+    closure = None
+    while cp.event_index < target and cp.ok:
+        lo = cp.event_index
+        try:
+            if xs is None:
+                xs = sparse._xs(e, device)
+            sc = sparse._Scan(e, cp.capacity, dedupe, probe_limit, device,
+                              smem_budget, xs, pack, stats=ss,
+                              carry=cp.carry(device, pack, C))
+            closure = sc.closure
+            fields, overflow = sc.run_range(lo, target).carry_np()
+            ys = (st.trajectories_np(sc.traj[lo:target],
+                                     sc.phist[lo:target]) if ss else None)
+        except Exception as err:
+            # the recovery point of a device fault
+            err.checkpoint = cp
+            raise
+        if overflow:
+            if cp.capacity * 2 > max_capacity:
+                raise FrontierOverflowError(cp)
+            cp = cp.grown(cp.capacity * 2)
+            if ss:
+                stats_acc.escalations += 1
+            continue
+        if ss:
+            # a scan that overflowed and ran again counts once
+            stats_acc.add_chunk(ys, cp.capacity)
+        cp = FrontierCheckpoint.from_carry(fields, cp.capacity, e.step_name,
+                                           cp.history_digest)
+    return cp, closure
+
+
+def check_encoded_resumable(e: EncodedHistory, capacity: int = 1024,
+                            max_capacity: int = 1 << 20,
+                            checkpoint_every: int = 256,
+                            checkpoint_cb=None,
+                            resume: Optional[FrontierCheckpoint] = None,
+                            device=None, dedupe: Optional[str] = None,
+                            probe_limit: int = 0,
+                            search_stats: Optional[bool] = None,
+                            config_pack: Optional[bool] = None,
+                            smem_budget=None) -> dict:
+    """`sparse.check_encoded` in chunks of `checkpoint_every` return
+    events, with the reference's result schema: after each chunk the
+    carry is read back as a `FrontierCheckpoint` and handed to
+    `checkpoint_cb` (for example `cp.save(path)`); `resume` continues
+    from one. A chunk that overflows runs again from the checkpoint
+    before it at twice the capacity; past `max_capacity` the verdict is
+    "unknown" with that checkpoint under "checkpoint". `search_stats`
+    counts the successful chunks only. A checkpoint of another history
+    (its digest) or another model raises ValueError.
+
+    A device fault is not retried and not resumed on the host: the
+    error raised inside a chunk gets `.checkpoint`, the checkpoint
+    before the chunk, and surfaces to the caller, who may resume from
+    it. `dedupe`, `probe_limit`, `config_pack`, `smem_budget` and
+    `device` are `sparse.check_encoded`'s."""
+    if e.n_returns == 0:
+        return {"valid?": True, "max-frontier": 0, "capacity": 0}
+    if checkpoint_every < 1:
+        raise ValueError(f"checkpoint_every={checkpoint_every} must be "
+                         f">= 1")
+    dev = bitdense.resolve_device(device)
+    dedupe = sparse._resolve_dedupe(dedupe)
+    probe_limit = sparse._resolve_probe_limit(probe_limit)
+    ss = st._resolve_search_stats(search_stats)
+    pack_req = sparse._resolve_config_pack(config_pack)
+    C = e.slot_f.shape[1]
+    pack = sparse.pack_spec_for(e) if pack_req else ()
+    digest = history_digest(e)
+    if resume is not None:
+        if resume.history_digest != digest:
+            raise ValueError(
+                f"checkpoint is for a different history "
+                f"(digest {resume.history_digest} != {digest})")
+        if resume.step_name != e.step_name:
+            raise ValueError("checkpoint is for a different model")
+        cp = resume
+    else:
+        cp = FrontierCheckpoint.fresh(e, capacity, digest)
+    xs = sparse._xs(e, dev)
+    R = e.n_returns
+    acc = st.SearchStats(dedupe) if ss else None
+    closure = None
+    while cp.event_index < R and cp.ok:
+        try:
+            cp, ran = advance_checkpoint(
+                e, cp, min(R, cp.event_index + checkpoint_every),
+                dedupe=dedupe, probe_limit=probe_limit, device=dev,
+                max_capacity=max_capacity, pack=pack, xs=xs,
+                smem_budget=smem_budget, stats_acc=acc)
+        except FrontierOverflowError as err:
+            top = err.checkpoint
+            return {"valid?": "unknown", "error": str(err),
+                    "capacity": top.capacity,
+                    "closure": sparse.route_tag(top.capacity, C, dedupe,
+                                                dev, smem_budget, pack),
+                    "checkpoint": top}
+        closure = ran or closure
+        if checkpoint_cb is not None:
+            checkpoint_cb(cp)
+    out = {"valid?": cp.ok and bool(cp.live.any()),
+           "max-frontier": cp.maxf,
+           "capacity": cp.capacity,
+           "dedupe": dedupe,
+           "configs-stepped": cp.stepped,
+           # approximate when the capacity grew mid-search: earlier
+           # chunks' iterations ran at smaller capacities
+           "explored": cp.steps_n * cp.capacity * C}
+    out["closure"] = (sparse._closure_tag(closure, dev) if closure
+                      else sparse.route_tag(cp.capacity, C, dedupe, dev,
+                                            smem_budget, pack))
+    if acc is not None:
+        out["stats"] = st._finish_search_stats(acc)
+    sparse._tag_config_pack(out, pack, pack_req, C)
+    if not out["valid?"]:
+        out.update(enc_mod.fail_op_fields(e, cp.fail_r))
+    return out
+
+
 # ----------------------------------------------------- batched (per-key)
 
 def encode_batch(model, histories, pad_slots: Optional[int] = None,
@@ -355,6 +655,20 @@ def _resolve_bucket(bucket: Optional[str]) -> str:
     return bucket
 
 
+def _resolve_pipeline(pipeline: Optional[bool]) -> bool:
+    """Whether the batch runs through the pipelined executor: an explicit
+    argument wins, else JEPSEN_TPU_TORCH_PIPELINE, a strict tri-state:
+    unset (or empty) is off, "1" on, "0" off, anything else raises
+    ValueError."""
+    if pipeline is not None:
+        return bool(pipeline)
+    raw = os.environ.get("JEPSEN_TPU_TORCH_PIPELINE", "").strip()
+    if raw in ("", "0", "1"):
+        return raw == "1"
+    raise ValueError(f"JEPSEN_TPU_TORCH_PIPELINE={raw!r}: must be '1' "
+                     f"(on) or '0' (off); unset it for the default (off)")
+
+
 def bucket_key(n_slots: int, bucket: str) -> int:
     """The bucket a key with `n_slots` open-call slots lands in: "exact"
     one bucket per slot count (floored at the dense engine's C = 5),
@@ -384,25 +698,45 @@ def check_batch(model, histories, capacity: int = 512,
     `search_stats` gives each key's result its own "stats" block, with
     the batch's pad extras.
 
+    `pipeline` (None: the JEPSEN_TPU_TORCH_PIPELINE flag, strict "0"/
+    "1", unset off) runs the batch through the pipelined executor
+    (`pipeline.check_batch_pipelined`): the encode of one chunk of keys
+    overlaps the card's scan of the last, through the encode cache
+    (`cache`: an EncodeCache, None the process's, False none), and
+    `pipeline_stats`, a dict, gets its per-bucket encode / issue /
+    device split. The results are the same either way. Without the
+    pipeline, `cache` (other than False) or `pipeline_stats` raises
+    ValueError, as the reference's serial path does.
+
     The reference takes a `mesh` for the batch's key axis and for the
     sharded escalation rung; the port's batch runs on one device, and
     its escalation stops at the single-key rung (ROADMAP Queue 1 item
-    9b). The pipelined executor (`pipeline`, `cache`, `pipeline_stats`)
-    and the work-stealing one (`steal`) are not ported: asking for them
-    raises NotImplementedError."""
+    9b). The work-stealing executor (`steal`) is not ported: asking for
+    it raises NotImplementedError."""
     bucket = _resolve_bucket(bucket)   # fail fast: before the encode
     dedupe = sparse._resolve_dedupe(dedupe)   # likewise
     config_pack = sparse._resolve_config_pack(config_pack)   # likewise
     search_stats = st._resolve_search_stats(search_stats)    # likewise
-    if pipeline or (cache is not None and cache is not False) \
-            or pipeline_stats is not None:
-        raise NotImplementedError(
-            "check_batch: the pipelined executor (pipeline, cache, "
-            "pipeline_stats) is not ported yet (ROADMAP Queue 1 item 8)")
     if steal:
         raise NotImplementedError(
             "check_batch: work stealing (steal) is not ported yet "
             "(ROADMAP Queue 1 item 9b)")
+    if _resolve_pipeline(pipeline):
+        from jepsen_tpu_torch.parallel import pipeline as pipe_mod
+        return pipe_mod.check_batch_pipelined(
+            model, histories, capacity=capacity,
+            max_capacity=max_capacity, bucket=bucket, cache=cache,
+            stats=pipeline_stats, dedupe=dedupe,
+            search_stats=search_stats, config_pack=config_pack,
+            device=device)
+    if (cache is not None and cache is not False) \
+            or pipeline_stats is not None:
+        # the serial path reads no cache and fills no stats: the caller
+        # wanted the pipelined executor, and must say so
+        raise ValueError(
+            "check_batch: cache/pipeline_stats are pipelined-executor "
+            "arguments — pass pipeline=True (or set "
+            "JEPSEN_TPU_TORCH_PIPELINE=1) to use them")
     pre = [enc_mod.encode(model, h) for h in histories]
     return check_batch_encoded(model, pre, capacity=capacity,
                                max_capacity=max_capacity, device=device,

@@ -1,0 +1,500 @@
+"""Pipelined multi-key checking: the host's encode of the next chunk of
+keys overlaps the device's scan of the last one.
+
+A port of `jepsen_tpu.parallel.pipeline`. The serial `check_batch`
+encodes every key before its first launch, so the card waits through
+the whole encode (on the dense batch the encode is most of the wall).
+Here:
+
+  1. **Bucket first.** Stage 1 of the encode (`encode.prepare_encode`:
+     the calls packed and their slots assigned) runs for every key; its
+     slot and state counts are what the serial path buckets on, so the
+     buckets (`engine.bucket_key`) are the serial path's.
+  2. **Stream the buckets, a bounded number of chunks in flight.** A
+     dense bucket is cut into near-equal chunks; a chunk's stage-2
+     encode (`encode.finish_encode`) runs, then the chunk is padded to
+     the whole bucket's (S, C, R) and issued
+     (`bitdense.dispatch_batch_bitdense`: K1's persistent batched scan,
+     which returns before the card has run it), so the next chunk
+     encodes while the card scans this one. At most `depth` chunks are
+     in flight; the oldest is read (`finalize()`) first. A sparse
+     bucket runs whole through `engine._check_batch_sparse`, whose
+     capacity retry reads the device as it goes.
+  3. **Encode cache.** Encodings are kept in a content-keyed LRU
+     (`EncodeCache`), so that checking a stored history again, or a
+     checker's second pass, pays no encode. The key is a digest of
+     (model, op stream): a history mutated in place gets a new key.
+     `store_dir` keeps the entries on disk (pickle: load only a
+     directory this package wrote).
+
+Results equal the serial `check_batch`'s, key for key and in order.
+
+Decision: no host thread pool. The encode is Python under the GIL,
+and the overlap that matters is the host's encode against the card's
+scan, which the asynchronous launch gives on one thread; the smoke
+(`chip_smoke.py`, phase "pipeline") times the 84 keys' encode on one
+thread and on eight. Not ported: the supervisor's degradation of a
+failed chunk to the host (a device fault raises), the obs spans,
+gauges and decision ledger (ROADMAP item 10), the mesh and the
+work-stealing executor (`mesh`, `steal`, `reshard`, `steal_stats`
+raise NotImplementedError: item 9b), and the JEPSEN_TPU_ENCODE_CACHE
+size flag (`EncodeCache(max_entries=...)` sizes a cache, 0 turns it
+off).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import os
+import pickle
+import threading
+from collections import OrderedDict, deque
+from dataclasses import dataclass
+from time import perf_counter
+from typing import Optional
+
+import torch
+
+from jepsen_tpu_torch import models as model_ns
+from jepsen_tpu_torch.parallel import bitdense, engine
+from jepsen_tpu_torch.parallel import encode as enc_mod
+from jepsen_tpu_torch.parallel import search_stats as st
+from jepsen_tpu_torch.parallel import sparse
+from jepsen_tpu_torch.parallel.encode import EncodedHistory
+
+_log = logging.getLogger(__name__)
+
+DEFAULT_CACHE_ENTRIES = 256
+DEFAULT_CACHE_BYTES = 512 << 20   # the entries' array bytes in memory
+DEFAULT_CHUNK_KEYS = 32
+
+
+# ------------------------------------------------------------ cache key
+
+def encode_cache_key(model, history, pad_slots: Optional[int] = None) -> str:
+    """The encode cache's key: a digest of (model, op stream,
+    pad_slots) — the model's class and repr, and every op's (process,
+    type, f, value) in order (invocations pair with completions by
+    position, so the order is content). A history mutated in place gets
+    a new key, so a stale hit cannot happen. Op values must have a
+    content repr (numbers, strings, lists, tuples, sets, maps), as the
+    encoder's intern table already needs."""
+    h = hashlib.sha256()
+    h.update(repr((type(model).__module__, type(model).__qualname__,
+                   model, pad_slots)).encode())
+    for o in history:
+        h.update(repr((o.get("process"), o.get("type"), o.get("f"),
+                       o.get("value"))).encode())
+    return h.hexdigest()[:32]
+
+
+# ---------------------------------------------------------- EncodeCache
+
+_PERSIST_FIELDS = ("slot_f", "slot_a0", "slot_a1", "slot_wild",
+                   "slot_occ", "ev_slot", "ret_call", "state0",
+                   "step_name", "n_calls", "n_slots", "calls", "intern",
+                   "state_lo", "n_states", "model_pruned")
+_PERSIST_VERSION = 2
+
+
+class EncodeCache:
+    """A digest-keyed LRU of EncodedHistory, optionally kept on disk.
+
+    Thread-safe. `max_entries` bounds the entries in memory (0 turns the
+    cache off) and `max_bytes` their summed array bytes; whichever
+    passes its bound first evicts the oldest entry (the newest always
+    stays). With `store_dir`, entries are also written there as pickle
+    files and read back by a later process; the directory grows until
+    its owner prunes it. An entry's prepared spec (history-dependent
+    closures of the set and queue models) is not pickled: a load
+    rebuilds it from the model and the stored calls, which is faithful
+    only where the stored calls are the ones `prepare` saw — so an
+    entry whose model-specific prune dropped calls after `prepare`
+    (`EncodedHistory.model_pruned`) stays in memory only, and a load
+    whose rebuilt spec disagrees with the stored state0 or state count
+    is a miss."""
+
+    def __init__(self, max_entries: int = DEFAULT_CACHE_ENTRIES,
+                 store_dir: Optional[str] = None,
+                 max_bytes: int = DEFAULT_CACHE_BYTES):
+        if max_entries < 0:
+            raise ValueError(f"max_entries={max_entries} must be >= 0")
+        self.max_entries = int(max_entries)
+        self.max_bytes = int(max_bytes)
+        self.store_dir = store_dir
+        if store_dir is not None:
+            os.makedirs(store_dir, exist_ok=True)
+        self._lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()
+        self._bytes = 0
+        self.hits = 0
+        self.disk_hits = 0
+        self.misses = 0
+        self.encodes = 0
+
+    def counters(self) -> dict:
+        with self._lock:
+            return {"hits": self.hits, "disk_hits": self.disk_hits,
+                    "misses": self.misses, "encodes": self.encodes,
+                    "entries": len(self._entries), "bytes": self._bytes}
+
+    def note_encode(self):
+        """An encode was paid (the miss path)."""
+        with self._lock:
+            self.encodes += 1
+
+    def get(self, key: str, model=None) -> Optional[EncodedHistory]:
+        if self.max_entries == 0:
+            with self._lock:
+                self.misses += 1
+            return None
+        with self._lock:
+            e = self._entries.get(key)
+            if e is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return e
+        e = self._load(key, model)
+        if e is not None:
+            with self._lock:
+                self.disk_hits += 1
+            self.put(key, e, persist=False)
+            return e
+        with self._lock:
+            self.misses += 1
+        return None
+
+    @staticmethod
+    def _entry_bytes(e: EncodedHistory) -> int:
+        return sum(getattr(e, f).nbytes for f in
+                   ("slot_f", "slot_a0", "slot_a1", "slot_wild",
+                    "slot_occ", "ev_slot", "ret_call"))
+
+    def put(self, key: str, e: EncodedHistory, persist: bool = True):
+        if self.max_entries == 0:
+            return
+        nb = self._entry_bytes(e)
+        with self._lock:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= self._entry_bytes(old)
+            self._entries[key] = e
+            self._bytes += nb
+            while len(self._entries) > 1 and (
+                    len(self._entries) > self.max_entries
+                    or self._bytes > self.max_bytes):
+                _, ev = self._entries.popitem(last=False)
+                self._bytes -= self._entry_bytes(ev)
+        if persist and self.store_dir is not None:
+            self._save(key, e)
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.store_dir, f"enc_{key}.pkl")
+
+    def _save(self, key: str, e: EncodedHistory):
+        if e.model_pruned and e.spec is not None \
+                and getattr(e.spec, "prepare", None) is not None:
+            return    # a reload could not rebuild this entry's spec
+        payload = {"version": _PERSIST_VERSION,
+                   "fields": {f: getattr(e, f) for f in _PERSIST_FIELDS}}
+        path = self._path(key)
+        tmp = path + ".tmp"
+        try:
+            with open(tmp, "wb") as f:
+                pickle.dump(payload, f)
+            os.replace(tmp, path)
+        except Exception as err:  # noqa: BLE001 - the disk copy is an
+            # optimisation; a value that does not pickle must not fail
+            # the check, but it must not pass silently either
+            _log.warning("encode cache: could not persist entry %s (%r); "
+                         "the in-memory cache has it", key, err)
+
+    def _load(self, key: str, model) -> Optional[EncodedHistory]:
+        if self.store_dir is None:
+            return None
+        path = self._path(key)
+        if not os.path.exists(path):
+            return None
+        try:
+            with open(path, "rb") as f:
+                payload = pickle.load(f)
+            if payload.get("version") != _PERSIST_VERSION:
+                return None
+            e = EncodedHistory(spec=None, **payload["fields"])
+        except Exception as err:  # noqa: BLE001 - a corrupt entry is a
+            # miss, said out loud
+            _log.warning("encode cache: unreadable entry %s (%r); a miss",
+                         key, err)
+            return None
+        if model is not None:
+            # rebuild the prepared spec from the model and the stored
+            # calls; a spec that disagrees with the entry is a miss
+            try:
+                spec = model_ns.pack_spec(model, e.intern)
+                if spec is not None and spec.prepare is not None:
+                    spec.prepare(e.calls, e.intern)
+                if spec is not None:
+                    n = (spec.n_states(e.intern) if spec.n_states
+                         else len(e.intern) + 1)
+                    if spec.state0 != e.state0 or n != e.n_states:
+                        return None
+                e.spec = spec
+            except Exception:  # noqa: BLE001 - the entry is not this
+                # model's: a miss
+                return None
+        return e
+
+
+_default_cache = None
+_default_cache_lock = threading.Lock()
+
+
+def default_cache() -> EncodeCache:
+    """The process's encode cache, for callers that pass none."""
+    global _default_cache
+    if _default_cache is None:
+        with _default_cache_lock:
+            if _default_cache is None:
+                _default_cache = EncodeCache()
+    return _default_cache
+
+
+def encode_cached(model, history, cache: Optional[EncodeCache] = None,
+                  pad_slots: Optional[int] = None) -> EncodedHistory:
+    """`encode` through the cache (None: the process's), for a single
+    key: `engine.analysis(encode_cache=...)`."""
+    if cache is None:
+        cache = default_cache()
+    if cache.max_entries == 0:
+        # a cache that is off costs nothing: no digest, no lock
+        return enc_mod.encode(model, history, pad_slots=pad_slots)
+    key = encode_cache_key(model, history, pad_slots)
+    e = cache.get(key, model)
+    if e is None:
+        e = enc_mod.encode(model, history, pad_slots=pad_slots)
+        cache.note_encode()
+        cache.put(key, e)
+    return e
+
+
+# ------------------------------------------------------- the two stages
+
+@dataclass
+class _KeyInfo:
+    """A key after stage 1: a cache hit (enc) or a prepared encode
+    (prep) waiting for its fill."""
+
+    ckey: Optional[str]
+    enc: Optional[EncodedHistory]
+    prep: object
+    secs: float
+
+    @property
+    def n_slots(self) -> int:
+        return (self.enc or self.prep).n_slots
+
+    @property
+    def n_states(self) -> int:
+        return (self.enc or self.prep).n_states
+
+    @property
+    def n_returns(self) -> int:
+        return (self.enc or self.prep).n_returns
+
+
+def _lookup_or_prepare(model, h, cache: Optional[EncodeCache]) -> _KeyInfo:
+    t0 = perf_counter()
+    e = prep = ckey = None
+    if cache is not None:
+        ckey = encode_cache_key(model, h)
+        e = cache.get(ckey, model)
+    if e is None:
+        prep = enc_mod.prepare_encode(model, h)
+    return _KeyInfo(ckey, e, prep, perf_counter() - t0)
+
+
+def _fill(info: _KeyInfo, cache: Optional[EncodeCache]) -> EncodedHistory:
+    """The key's encode: its cache hit, or stage 2 of its prepared one
+    (then kept in the cache)."""
+    if info.enc is None:
+        t0 = perf_counter()
+        info.enc = enc_mod.finish_encode(info.prep)
+        info.prep = None
+        info.secs += perf_counter() - t0
+        if cache is not None:
+            cache.note_encode()
+            cache.put(info.ckey, info.enc)
+    return info.enc
+
+
+def _chunks(idxs: list, chunk_keys: int) -> list:
+    """A bucket cut into near-equal chunks of at most ~chunk_keys keys
+    (84 keys at 32 give three of 28, not 32, 32 and 20)."""
+    n = len(idxs)
+    k = max(1, -(-n // max(1, chunk_keys)))
+    base, rem = divmod(n, k)
+    out = []
+    pos = 0
+    for j in range(k):
+        size = base + (1 if j < rem else 0)
+        out.append(idxs[pos:pos + size])
+        pos += size
+    return out
+
+
+# ------------------------------------------------------------ executor
+
+def check_batch_pipelined(model, histories, capacity: int = 512,
+                          max_capacity: int = 1 << 18, mesh=None,
+                          bucket: Optional[str] = None, cache=None,
+                          chunk_keys: int = DEFAULT_CHUNK_KEYS,
+                          depth: int = 2, stats: Optional[dict] = None,
+                          dedupe: Optional[str] = None,
+                          search_stats: Optional[bool] = None,
+                          config_pack: Optional[bool] = None,
+                          steal: Optional[bool] = None,
+                          reshard: Optional[bool] = None,
+                          steal_stats: Optional[dict] = None,
+                          device=None) -> list:
+    """`engine.check_batch` with the encode and the device's scan
+    overlapped (the module's docstring): the same arguments and the same
+    results, and
+
+    cache       the EncodeCache to read and fill (None: the process's;
+                False: none for this call)
+    chunk_keys  the keys of a dense chunk, about
+    depth       the chunks in flight before the oldest is read (>= 1)
+    stats       a dict to fill: "n_keys", "bucket", "dedupe",
+                "prepare_secs" (stage 1 of every key), "e2e_secs", a
+                "buckets" list — each bucket's "tier", "engine"
+                ("bitdense" or "sparse"), "keys", "chunks",
+                "encode_secs" (its keys' two stages), "issue_secs" (pad,
+                copy to the device and issue), "device_wait_secs" (the
+                host waiting in `finalize()`), "device_secs" (the card's
+                time from each chunk's first launch to its last, by CUDA
+                events; None off the card) or, sparse, "search_secs" —
+                and the cache's counters of this call under "cache"
+
+    `mesh`, `steal`, `reshard` and `steal_stats` belong to the mesh and
+    work-stealing executors, not ported yet (ROADMAP Queue 1 item 9b):
+    they raise NotImplementedError. `device` None means the card
+    (RuntimeError without one)."""
+    if mesh is not None or steal or reshard or steal_stats is not None:
+        raise NotImplementedError(
+            "check_batch_pipelined: mesh, steal, reshard and steal_stats "
+            "are not ported yet (ROADMAP Queue 1 item 9b)")
+    if depth < 1:
+        raise ValueError(f"depth={depth} must be >= 1")
+    bucket = engine._resolve_bucket(bucket)
+    dedupe = sparse._resolve_dedupe(dedupe)
+    search_stats = st._resolve_search_stats(search_stats)
+    config_pack = sparse._resolve_config_pack(config_pack)
+    if stats is None:
+        stats = {}
+    K = len(histories)
+    stats.update({"n_keys": K, "bucket": bucket, "dedupe": dedupe,
+                  "buckets": []})
+    if K == 0:
+        return []
+    dev = bitdense.resolve_device(device)
+    if cache is None:
+        cache = default_cache()
+    elif cache is False:
+        cache = None
+    if cache is not None and cache.max_entries == 0:
+        cache = None      # off: not even the digest
+    c0 = cache.counters() if cache is not None else None
+    out = _stream(model, histories, capacity, max_capacity, bucket, cache,
+                  chunk_keys, depth, stats, dedupe, search_stats,
+                  config_pack, dev)
+    if c0 is not None:
+        c1 = cache.counters()
+        stats["cache"] = {k: c1[k] - c0[k] for k in
+                          ("hits", "disk_hits", "misses", "encodes")}
+        stats["cache"]["entries"] = c1["entries"]
+    return out
+
+
+def _stream(model, histories, capacity, max_capacity, bucket, cache,
+            chunk_keys, depth, stats, dedupe, search_stats, config_pack,
+            dev) -> list:
+    """The executor's body (`check_batch_pipelined`)."""
+    K = len(histories)
+    timed = dev.type == "cuda"
+    t_wall = perf_counter()
+    out: list = [None] * K
+    infos = [_lookup_or_prepare(model, h, cache) for h in histories]
+    stats["prepare_secs"] = round(perf_counter() - t_wall, 6)
+    buckets: dict = {}
+    for i, info in enumerate(infos):
+        buckets.setdefault(engine.bucket_key(info.n_slots, bucket),
+                           []).append(i)
+    pending: deque = deque()
+    bstats: list = []
+
+    def drain_one():
+        chunk, pb, bstat, ev0, ev1 = pending.popleft()
+        t0 = perf_counter()
+        rs = pb.finalize()
+        bstat["device_wait_secs"] += perf_counter() - t0
+        if timed:
+            bstat["device_secs"] += ev0.elapsed_time(ev1) / 1e3
+        for i, r in zip(chunk, rs):
+            out[i] = r
+
+    for tier in sorted(buckets):
+        idxs = buckets[tier]
+        S_max = max(infos[i].n_states for i in idxs)
+        C_max = max(infos[i].n_slots for i in idxs)
+        R_max = max(infos[i].n_returns for i in idxs)
+        bstat = {"tier": tier, "keys": len(idxs), "chunks": 0}
+        bstats.append(bstat)
+        if bitdense.fits_bitdense(S_max, C_max):
+            bstat.update(engine="bitdense", issue_secs=0.0,
+                         device_wait_secs=0.0,
+                         device_secs=0.0 if timed else None)
+            for chunk in _chunks(idxs, chunk_keys):
+                sub = [_fill(infos[i], cache) for i in chunk]
+                t0 = perf_counter()
+                ev0 = ev1 = None
+                if timed:
+                    ev0 = torch.cuda.Event(enable_timing=True)
+                    ev1 = torch.cuda.Event(enable_timing=True)
+                    ev0.record()
+                # every chunk padded to the bucket's (S, C, R): its
+                # results are the whole bucket's
+                pb = bitdense.dispatch_batch_bitdense(
+                    sub, device=dev, search_stats=search_stats,
+                    min_states=S_max, min_slots=max(5, C_max),
+                    min_returns=R_max)
+                if timed:
+                    ev1.record()
+                bstat["issue_secs"] += perf_counter() - t0
+                bstat["chunks"] += 1
+                pending.append((chunk, pb, bstat, ev0, ev1))
+                while len(pending) >= depth:
+                    drain_one()
+        else:
+            # the capacity retry reads the device as it goes: the
+            # bucket runs whole, while earlier chunks are still in flight
+            bstat.update(engine="sparse", chunks=1)
+            sub = [_fill(infos[i], cache) for i in idxs]
+            t0 = perf_counter()
+            rs = engine._check_batch_sparse(
+                sub, capacity, max_capacity, dedupe=dedupe, device=dev,
+                config_pack=config_pack, search_stats=search_stats)
+            bstat["search_secs"] = round(perf_counter() - t0, 6)
+            for i, r in zip(idxs, rs):
+                out[i] = r
+    while pending:
+        drain_one()
+    for bstat in bstats:
+        bstat["encode_secs"] = round(sum(
+            infos[i].secs for i in buckets[bstat["tier"]]), 6)
+        for k in ("issue_secs", "device_wait_secs", "device_secs"):
+            if bstat.get(k) is not None:
+                bstat[k] = round(bstat[k], 6)
+    stats["buckets"] = bstats
+    stats["e2e_secs"] = round(perf_counter() - t_wall, 6)
+    return out

@@ -14,10 +14,11 @@ closure would have done (`swork`) and the histogram of the visited-set
 probes' final offsets. With it off nothing changes and the result has no
 "stats" key.
 
-The reference also fans a block into its obs registry, Perfetto counter
-tracks and the run directory's record; those sinks wait for the port's
-tracer (ROADMAP item 10), and the resumable sessions' `splice` for its
-checkpoints (item 8).
+The resumable check and the streaming sessions feed an accumulator
+chunk by chunk; a session splices each check's leg into its lifetime
+stats (`SearchStats.splice`). The reference also fans a block into its
+obs registry, Perfetto counter tracks and the run directory's record;
+those sinks wait for the port's tracer (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -122,6 +123,25 @@ class SearchStats:
         self.capacity = 0
         self.escalations = 0
         self.truncated = False
+
+    def splice(self, resume_ev: int, leg: "SearchStats") -> None:
+        """Replace events [resume_ev, ...) with a re-scanned leg's: a
+        streaming session's delta re-opens the tail at its stable
+        boundary and scans again from `resume_ev`, so the stale tail's
+        rows give way to the leg's instead of being appended to. Events
+        below `resume_ev` are the same under extension (the settled
+        rows), so the spliced lifetime stats are a one-shot check's of
+        the current prefix."""
+        for attr in ("width", "peak", "iters", "stepped", "swork",
+                     "phist"):
+            rows = getattr(self, attr)
+            del rows[resume_ev:]
+            keep = SEARCH_STATS_MAX_EVENTS - len(rows)
+            rows.extend(getattr(leg, attr)[:max(0, keep)])
+        if leg.truncated or len(self.width) >= SEARCH_STATS_MAX_EVENTS:
+            self.truncated = True
+        self.capacity = max(self.capacity, leg.capacity)
+        self.escalations += leg.escalations
 
     def add_chunk(self, ys, N: int) -> None:
         """One chunk's stats dict (np arrays, [R] / [R, B])."""

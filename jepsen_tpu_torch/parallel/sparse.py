@@ -398,6 +398,68 @@ def pack_lanes(pack, C: int) -> int:
     return 1 if pack[0] + C <= 32 else 2
 
 
+def pack_rows_np(pack, C: int, st, ml, mh):
+    """Canonical (state int32, mask_lo uint32, mask_hi uint32) numpy rows
+    -> the packed word's uint32 lanes of the (pack, C) layout: one lane
+    when state_bits + C fits 32 bits, else two. A checkpoint keeps the
+    canonical triple whatever layout ran; a scan packs it when it
+    starts from it."""
+    s_bits, s_lo = pack
+    word = ((np.asarray(st).astype(np.int64) - s_lo)
+            .astype(np.uint64) & np.uint64((1 << s_bits) - 1))
+    mask = (np.asarray(ml).astype(np.uint64)
+            | (np.asarray(mh).astype(np.uint64) << np.uint64(32)))
+    word = word | (mask << np.uint64(s_bits))
+    lo = (word & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    if s_bits + C <= 32:
+        return (lo,)
+    return lo, (word >> np.uint64(32)).astype(np.uint32)
+
+
+def unpack_rows_np(pack, C: int, rows):
+    """`pack_rows_np`'s inverse: uint32 lanes -> the canonical (state
+    int32, mask_lo uint32, mask_hi uint32) numpy rows."""
+    s_bits, s_lo = pack
+    lo = np.asarray(rows[0]).astype(np.uint64)
+    word = lo if len(rows) == 1 else \
+        lo | (np.asarray(rows[1]).astype(np.uint64) << np.uint64(32))
+    st = (word & np.uint64((1 << s_bits) - 1)).astype(np.int64) + s_lo
+    mask = (word >> np.uint64(s_bits)) \
+        & np.uint64((1 << C) - 1 if C < 64 else 0xFFFFFFFFFFFFFFFF)
+    ml = (mask & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    mh = (mask >> np.uint64(32)).astype(np.uint32)
+    return st.astype(np.int32), ml, mh
+
+
+def _rows_from_canonical(pack, C: int, st, ml, mh, device):
+    """Canonical numpy rows ([..., N]) -> the layout's int32 lanes on
+    `device` (the masks' uint32 as int32 bit patterns)."""
+    if pack:
+        lanes = pack_rows_np(pack, C, st, ml, mh)
+    else:
+        lanes = (np.asarray(st, np.int32), np.asarray(ml, np.uint32),
+                 np.asarray(mh, np.uint32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
+                                  .copy()).to(device) for a in lanes)
+
+
+def carry_fields_np(carry, pack=(), C: int = 0):
+    """A scan's carry — its row lanes (int32 tensors or arrays of the
+    (pack, C) layout), then any further fields — with the lanes turned
+    into the canonical numpy (st int32, ml uint32, mh uint32): the
+    inverse of the packing a scan does when it starts from a
+    checkpoint (`_rows_from_canonical`). The further fields pass
+    through as they are."""
+    L = pack_lanes(pack, C)
+    lanes = [np.array(r.cpu().numpy() if torch.is_tensor(r) else r)
+             .view(np.uint32) for r in carry[:L]]
+    if pack:
+        rows = unpack_rows_np(pack, C, lanes)
+    else:
+        rows = (lanes[0].view(np.int32), lanes[1], lanes[2])
+    return tuple(rows) + tuple(carry[L:])
+
+
 def _tag_config_pack(out: dict, pack, requested: bool, C: int) -> dict:
     """The result's "config-pack", only when packing was asked for:
     "packed:{state_bits + C}b/{lanes}-lane", or "unpacked" when the
@@ -762,13 +824,21 @@ def _sort_extra(d):
 class _Scan:
     """One history's scan at frontier capacity N on one device. The
     carry — rows, live, ok, fail_r, max-frontier, iterations,
-    configs-stepped and the overflow flag — stays on the device. With
-    `stats` each event writes its stats row into `traj` [R, 5] and
-    `phist` [R, 7] (`search_stats.new_trajectories`), on the device."""
+    configs-stepped and the overflow flag — stays on the device; the
+    event index `r_idx` (the real events scanned so far) on the host.
+    With `stats` each event writes its stats row into `traj` [R, 5] and
+    `phist` [R, 7] (`search_stats.new_trajectories`), on the device.
+
+    `carry` (`engine.FrontierCheckpoint.carry`'s tensors: the row lanes
+    of this scan's layout, live, ok, fail_r, the event index, maxf,
+    steps_n, stepped) starts the scan from it instead of the initial
+    carry: the resumable check and the streaming sessions scan a chunk
+    [lo, hi) of events from a checkpoint (`run_range`), and `carry_np`
+    reads the carry back as a checkpoint's canonical arrays."""
 
     def __init__(self, e: EncodedHistory, N: int, dedupe: str,
                  probe_limit: int, device, smem_budget=None, xs=None,
-                 pack=(), stats: bool = False, cancel=None):
+                 pack=(), stats: bool = False, cancel=None, carry=None):
         C = e.slot_f.shape[1]
         self.e, self.N, self.C = e, N, C
         self.cancel = cancel
@@ -783,15 +853,26 @@ class _Scan:
         # the fused closure on a card is the one route that never needs
         # a value on the host during the scan
         self.synced = self.closure != "fused" or device.type != "cuda"
-        z = torch.zeros((), dtype=_I64, device=device)
-        self.rows = self.rep.initial_at0(e.state0, N)
-        self.live = torch.arange(N, device=device) < 1
-        self.ok = torch.ones((), dtype=torch.bool, device=device)
         self.overflow = torch.zeros((), dtype=torch.bool, device=device)
-        self.fail_r = z - 1
-        self.maxf = z + 1
-        self.steps_n = z
-        self.stepped = z
+        if carry is None:
+            z = torch.zeros((), dtype=_I64, device=device)
+            self.rows = self.rep.initial_at0(e.state0, N)
+            self.live = torch.arange(N, device=device) < 1
+            self.ok = torch.ones((), dtype=torch.bool, device=device)
+            self.fail_r = z - 1
+            self.maxf = z + 1
+            self.steps_n = z
+            self.stepped = z
+            self.r_idx = 0
+        else:
+            L = self.rep.lanes
+            if len(carry) != L + 7 or carry[L].shape != (N,):
+                raise ValueError(f"not a carry of {L}-lane rows at "
+                                 f"capacity {N}")
+            self.rows = tuple(carry[:L])
+            (self.live, self.ok, self.fail_r, r_idx, self.maxf,
+             self.steps_n, self.stepped) = carry[L:]
+            self.r_idx = int(r_idx)
         self.stats = stats
         if stats:
             self.traj, self.phist = st.new_trajectories(e.n_returns, device)
@@ -823,24 +904,37 @@ class _Scan:
                 res[2] if self.stats else None)
 
     def run(self, n_events: int):
-        """Scan return events 0..n_events-1. The fused closure never
-        makes the host wait; the others read `ok` anyway, and stop the
-        scan once it is False (nothing changes after that)."""
+        """Scan return events 0..n_events-1 (`run_range(0, n_events)`)."""
+        return self.run_range(0, n_events)
+
+    def run_range(self, lo: int, hi: int):
+        """Scan the event rows [lo, hi) of the tables from the carry. A
+        pad row (ev_slot < 0) leaves the carry as it is, the event index
+        too; every other row advances the index, whether or not it
+        runs, and a failure records the index of its event. The fused
+        closure never makes the host wait; the others read `ok` anyway,
+        and stop the scan once it is False (nothing changes after that
+        but the index)."""
         ev_slot = self.e.ev_slot
-        for r in range(n_events):
+        for r in range(lo, hi):
+            s = int(ev_slot[r])
+            if s < 0:
+                continue
             poll_cancel(self.cancel)
             if self.synced and not bool(self.ok):
+                self.r_idx += int((ev_slot[r:hi] >= 0).sum())
                 break
             run = self.ok
             rows2, live2, ovf, iters, d, extra = self._closure(r, run)
             # a settled event's probe flag must not trigger escalation
             ovf = run & ovf
-            bits = self.rep.event_bits(int(ev_slot[r]))
+            bits = self.rep.event_bits(s)
             live3 = live2 & self.rep.has_event_bit(rows2, bits)
             rows3 = self.rep.clear_event_bit(rows2, bits, live3)
             failed_here = run & ~live3.any()
-            self.fail_r = torch.where(failed_here & (self.fail_r < 0), r,
-                                      self.fail_r)
+            self.fail_r = torch.where(failed_here & (self.fail_r < 0),
+                                      self.r_idx, self.fail_r)
+            self.r_idx += 1
             self.ok = torch.where(run, ~failed_here & ~ovf, self.ok)
             self.rows = _rows_where(run, rows3, self.rows)
             self.live = torch.where(run, live3, self.live)
@@ -869,6 +963,19 @@ class _Scan:
         return (bool(vals[0]), vals[1], bool(vals[2]), vals[3], vals[4],
                 vals[5])
 
+    def carry_np(self):
+        """-> ((st, ml, mh, live, ok, fail_r, r_idx, maxf, steps_n,
+        stepped), overflow): the carry as a checkpoint's canonical
+        numpy arrays and Python values (`engine.FrontierCheckpoint`'s
+        fields), and whether the scan overflowed."""
+        st_, ml, mh = carry_fields_np(self.rows, self.rep.pack, self.C)
+        ok, fail_r, maxf, steps_n, stepped, ovf = torch.stack([
+            self.ok.to(_I64), self.fail_r.to(_I64), self.maxf.to(_I64),
+            self.steps_n.to(_I64), self.stepped.to(_I64),
+            self.overflow.to(_I64)]).tolist()
+        return ((st_, ml, mh, self.live.cpu().numpy().copy(), bool(ok),
+                 fail_r, self.r_idx, maxf, steps_n, stepped), bool(ovf))
+
 
 def _pack_kw(rep) -> dict:
     """K2's layout argument: none for the triple (the wrappers' default),
@@ -883,6 +990,15 @@ def _closure_tag(closure: str, device) -> str:
     kind = "cuda" if device.type == "cuda" and closure != "sort" \
         else "torch"
     return kind + "-tiled" if closure == "tiled" else kind
+
+
+def route_tag(N: int, C: int, dedupe: str, device, smem_budget=None,
+              pack=()) -> str:
+    """The "closure" a scan at capacity N and slot width C would report
+    (`_route`, then `_closure_tag`): what a resumed check that scans no
+    event says."""
+    return _closure_tag(_route(N, C, dedupe, device, smem_budget,
+                               pack_lanes(pack, C)), device)
 
 
 def check_encoded(e: EncodedHistory, capacity: int = 1024,
@@ -959,7 +1075,8 @@ class _BatchScan:
     step family, as the reference's batch does (`pre[0].step_name`).
 
     Per event row a key runs when it has not failed or overflowed and
-    the event is real (ev_slot >= 0); its closure is the route's —
+    the event is real (ev_slot >= 0, else the key's carry stays as it
+    is, its event index too); its closure is the route's —
     batched K2 ("fused": one launch for every key), the tiled closure
     around batched K4 ("tiled": one launch a closure iteration for
     every key) or the sort closure — then the filter and carry of
@@ -967,11 +1084,16 @@ class _BatchScan:
     nothing from the device until the end; the others read a flag a
     closure iteration, and skip a row no key runs. With `stats` each
     row writes every key's stats into `traj` [K, R, 5] and `phist`
-    [K, R, 7], on the device."""
+    [K, R, 7], on the device.
+
+    `carry` (K keys' carries stacked, as `_Scan`'s: lanes and live
+    [K, N], the rest [K]) starts each key from its own: the streaming
+    sessions' batched leg, whose keys' chunks of different real lengths
+    share the padded rows; `carry_np` reads the carries back."""
 
     def __init__(self, encs, xs: dict, state0, N: int, dedupe: str,
                  probe_limit: int, device, smem_budget=None, pack=(),
-                 stats: bool = False):
+                 stats: bool = False, carry=None):
         K, R, C = xs["slot_f"].shape
         self.K, self.R, self.N, self.C = K, R, N, C
         self.T = _next_pow2(2 * N)
@@ -992,16 +1114,32 @@ class _BatchScan:
         self.real = ev >= 0
         # the returning slot's bit, as int32 bit patterns of each lane
         self.bits = self.rep.event_bits_t(ev.clamp(min=0))
-        z = torch.zeros(K, dtype=_I64, device=device)
-        self.rows = self.rep.zeros((K, N))
-        s0 = torch.from_numpy(np.asarray(state0, np.int32)).to(device)
-        self.rows[0][:, 0] = self.rep.field(s0)
-        self.live = (torch.arange(N, device=device) < 1).expand(K, N)
-        self.ok = torch.ones(K, dtype=torch.bool, device=device)
         self.overflow = torch.zeros(K, dtype=torch.bool, device=device)
-        self.fail_r = z - 1
-        self.maxf = z + 1
-        self.stepped = z
+        if carry is None:
+            z = torch.zeros(K, dtype=_I64, device=device)
+            self.rows = self.rep.zeros((K, N))
+            s0 = torch.from_numpy(np.asarray(state0, np.int32)).to(device)
+            self.rows[0][:, 0] = self.rep.field(s0)
+            self.live = (torch.arange(N, device=device) < 1).expand(K, N)
+            self.ok = torch.ones(K, dtype=torch.bool, device=device)
+            self.fail_r = z - 1
+            self.maxf = z + 1
+            self.steps_n = z
+            self.stepped = z
+            r_idx0 = z
+        else:
+            L = self.rep.lanes
+            if len(carry) != L + 7 or carry[L].shape != (K, N):
+                raise ValueError(f"not a carry of {K} keys' {L}-lane rows "
+                                 f"at capacity {N}")
+            self.rows = tuple(carry[:L])
+            (self.live, self.ok, self.fail_r, r_idx0, self.maxf,
+             self.steps_n, self.stepped) = carry[L:]
+        # the event index of each key's event at each row (pad rows do
+        # not advance it), and each key's index after the last row
+        n_real = torch.cumsum(self.real.to(_I64), 0)
+        self.ridx = r_idx0 + n_real - self.real.to(_I64)          # [R, K]
+        self.r_idx = r_idx0 + n_real[-1] if R else r_idx0
         self.stats = stats
         if stats:
             self.traj, self.phist = st.new_trajectories(R, device, (K,))
@@ -1045,14 +1183,15 @@ class _BatchScan:
             live3 = live2 & _has_bits(rows2, bits)
             rows3 = _clear_bits(rows2, bits, live3)
             failed_here = run & ~live3.any(1)
-            self.fail_r = torch.where(failed_here & (self.fail_r < 0), r,
-                                      self.fail_r)
+            self.fail_r = torch.where(failed_here & (self.fail_r < 0),
+                                      self.ridx[r], self.fail_r)
             self.ok = torch.where(run, ~failed_here & ~ovf, self.ok)
             go = run[:, None]
             self.rows = _rows_where(go, rows3, self.rows)
             self.live = torch.where(go, live3, self.live)
             self.maxf = torch.maximum(
                 self.maxf, torch.where(run, live2.sum(1), 0))
+            self.steps_n = self.steps_n + torch.where(run, iters, 0)
             self.stepped = self.stepped + torch.where(run, d, 0)
             self.overflow = self.overflow | ovf
             if self.stats:
@@ -1072,6 +1211,21 @@ class _BatchScan:
                             self.stepped]).tolist()
         return ([bool(v) for v in vals[0]], vals[1],
                 [bool(v) for v in vals[2]], vals[3], vals[4])
+
+    def carry_np(self):
+        """-> (carries, overflow): each key's carry as `_Scan.carry_np`
+        gives it (the canonical rows at this batch's C), and whether it
+        overflowed; one read of the device."""
+        st_, ml, mh = carry_fields_np(self.rows, self.rep.pack, self.C)
+        live = self.live.cpu().numpy()
+        vals = torch.stack([
+            self.ok.to(_I64), self.fail_r, self.r_idx, self.maxf,
+            self.steps_n, self.stepped, self.overflow.to(_I64)]).tolist()
+        carries = [(st_[k].copy(), ml[k].copy(), mh[k].copy(),
+                    live[k].copy(), bool(vals[0][k]), vals[1][k],
+                    vals[2][k], vals[3][k], vals[4][k], vals[5][k])
+                   for k in range(self.K)]
+        return carries, [bool(v) for v in vals[6]]
 
 
 def _bit_lane(s, base: int):

@@ -31,6 +31,7 @@ from jepsen_tpu_torch.parallel import bitdense as bd
 from jepsen_tpu_torch.parallel import closure_kernels as ck
 from jepsen_tpu_torch.parallel import encode as enc
 from jepsen_tpu_torch.parallel import engine
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 CPU = "cpu"
 
@@ -362,8 +363,19 @@ def test_bucket_past_the_dense_engine_raises():
                                      ({"pipeline_stats": {}}, "item 8"),
                                      ({"steal": True}, "item 9b")])
 def test_unported_executors_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        engine.check_batch(models.CASRegister(), [], device=CPU, **kw)
+    """Work stealing (ROADMAP item 9b) raises NotImplementedError. The
+    pipelined executor (item 8) is ported: pipeline=True runs (an empty
+    batch gives []), and its cache or pipeline_stats without it raise
+    ValueError, as the reference's serial path does."""
+    if item == "item 9b":
+        with pytest.raises(NotImplementedError, match=item):
+            engine.check_batch(models.CASRegister(), [], device=CPU, **kw)
+    elif kw.get("pipeline"):
+        assert engine.check_batch(models.CASRegister(), [], device=CPU,
+                                  **kw) == []
+    else:
+        with pytest.raises(ValueError, match="pipelined-executor"):
+            engine.check_batch(models.CASRegister(), [], device=CPU, **kw)
 
 
 def test_batch_needs_a_device_or_an_explicit_cpu(monkeypatch):

@@ -29,6 +29,7 @@ from jepsen_tpu_torch.parallel import bitdense as bd
 from jepsen_tpu_torch.parallel import closure_kernels as ck
 from jepsen_tpu_torch.parallel import encode as enc
 from jepsen_tpu_torch.parallel import engine
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 I32 = torch.int32
 

@@ -24,6 +24,7 @@ from jepsen_tpu.parallel import engine as ref_engine
 from jepsen_tpu_torch.parallel import bitdense as bd
 from jepsen_tpu_torch.parallel import encode as enc
 from jepsen_tpu_torch.parallel import engine
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 GOLDEN = pathlib.Path(__file__).parent / "data" / "golden"
 

@@ -15,6 +15,7 @@ import torch
 
 from jepsen_tpu.parallel import pallas_kernels as pk
 from jepsen_tpu_torch.parallel import closure_kernels as ck
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 FULL = np.uint32(0xFFFFFFFF)
 

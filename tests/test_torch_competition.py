@@ -37,6 +37,7 @@ from jepsen_tpu_torch.checker.linearizable import Linearizable
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.models import Model, inconsistent
 from jepsen_tpu_torch.parallel import engine
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 GOLDEN = pathlib.Path(__file__).parent / "data" / "golden"
 MANIFEST = [e for e in json.loads((GOLDEN / "manifest.json").read_text())

@@ -31,6 +31,7 @@ from jepsen_tpu.parallel import encode as ref_enc
 from jepsen_tpu.parallel import engine as ref_engine
 from jepsen_tpu_torch.parallel import sparse
 from test_torch_sparse import CASES, _mutex_history, _to_port
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 KEYS = ("valid?", "fail-event", "op", "max-frontier", "capacity",
         "configs-stepped", "explored", "dedupe", "config-pack")

@@ -34,6 +34,7 @@ import torch.distributed as dist
 from jepsen_tpu_torch import models
 from jepsen_tpu_torch.parallel import encode as enc
 from jepsen_tpu_torch.parallel import engine, meshplan, sharded, sparse
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 GROUP_TIMEOUT_S = 240
 RANKS = (1, 2, 4)

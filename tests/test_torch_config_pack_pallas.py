@@ -22,6 +22,7 @@ from jepsen_tpu.parallel import sparse_kernels as ref_sk
 from jepsen_tpu_torch.parallel import sparse
 from jepsen_tpu_torch.parallel import sparse_kernels as sk
 from test_torch_config_pack import _encoded
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

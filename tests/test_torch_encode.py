@@ -19,6 +19,7 @@ from jepsen_tpu.parallel import encode as ref_enc
 from jepsen_tpu_torch import histories, models
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.parallel import encode as enc
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 GOLDEN = pathlib.Path(__file__).parent / "data" / "golden"
 MANIFEST = json.loads((GOLDEN / "manifest.json").read_text())

@@ -2,8 +2,8 @@
 chip_smoke.py, kernel_ab.py, the parity cases chip_smoke.py loads
 (tests/torch_parity_cases.py) nor the card tests the card runs without
 JAX (tests/test_torch_config_pack_kernels.py,
-tests/test_torch_sparse_batch_cuda.py), imports JAX or anything of the
-JAX package (jepsen_tpu).
+tests/test_torch_sparse_batch_cuda.py, tests/test_torch_stream_cuda.py),
+imports JAX or anything of the JAX package (jepsen_tpu).
 Checked twice: by importing everything in a fresh interpreter and
 reading sys.modules, and by scanning the sources' import statements."""
 
@@ -21,7 +21,8 @@ SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
     ROOT / "tests" / "torch_parity_cases.py",
     ROOT / "tests" / "test_torch_config_pack_kernels.py",
-    ROOT / "tests" / "test_torch_sparse_batch_cuda.py"]
+    ROOT / "tests" / "test_torch_sparse_batch_cuda.py",
+    ROOT / "tests" / "test_torch_stream_cuda.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -36,6 +37,7 @@ import kernel_ab
 sys.path.insert(0, "tests")
 import test_torch_config_pack_kernels  # its cases are built, nothing runs
 import test_torch_sparse_batch_cuda
+import test_torch_stream_cuda
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.")
@@ -45,6 +47,8 @@ print("SPARSE", sorted(n for n in names if "sparse" in n))
 print("SHARDED", sorted(n for n in names if n.endswith(("sharded", "meshplan"))))
 print("BATCH", sorted(n for n in names if n.endswith(("independent", "encode",
                                                       "closure_kernels"))))
+print("STREAM", sorted(n for n in names if n.endswith(("extend",
+                                                       "pipeline"))))
 print("BAD", bad)
 """
 
@@ -61,7 +65,10 @@ def test_port_and_smoke_import_without_jax():
                           env=env)
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
-    assert int(lines["MODULES"]) >= 19, proc.stdout
+    assert int(lines["MODULES"]) >= 29, proc.stdout
+    assert lines["STREAM"] == str(["jepsen_tpu_torch.parallel.extend",
+                                   "jepsen_tpu_torch.parallel.pipeline"]), \
+        proc.stdout
     assert lines["SPARSE"] == str(["jepsen_tpu_torch.parallel.sparse",
                                    "jepsen_tpu_torch.parallel."
                                    "sparse_kernels"]), proc.stdout

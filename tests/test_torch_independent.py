@@ -22,6 +22,7 @@ from jepsen_tpu_torch.checker.linearizable import linearizable
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.parallel import closure_kernels as ck
 from jepsen_tpu_torch.parallel import engine
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

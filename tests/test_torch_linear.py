@@ -27,6 +27,7 @@ from jepsen_tpu_torch.checker import linear, linear_packed
 from jepsen_tpu_torch.checker.linearizable import Linearizable
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.parallel.encode import EncodeError
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 GOLDEN = pathlib.Path(__file__).parent / "data" / "golden"
 MANIFEST = json.loads((GOLDEN / "manifest.json").read_text())

@@ -26,6 +26,7 @@ from jepsen_tpu_torch import histories, models
 from jepsen_tpu_torch.checker import core
 from jepsen_tpu_torch.checker.linearizable import Linearizable
 from jepsen_tpu_torch.history import History
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 GOLDEN = pathlib.Path(__file__).parent / "data" / "golden"
 MANIFEST = json.loads((GOLDEN / "manifest.json").read_text())

@@ -19,6 +19,7 @@ from jepsen_tpu_torch import histories, models
 from jepsen_tpu_torch import independent
 from jepsen_tpu_torch.checker.linearizable import Linearizable
 from jepsen_tpu_torch.parallel import encode, engine, search_stats, sparse
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

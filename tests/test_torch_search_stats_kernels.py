@@ -24,6 +24,7 @@ from jepsen_tpu_torch.parallel import search_stats as st
 from jepsen_tpu_torch.parallel import sparse
 from jepsen_tpu_torch.parallel import sparse_kernels as sk
 from test_torch_config_pack import _encoded
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 CUDA = torch.cuda.is_available()
 

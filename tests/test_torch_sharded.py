@@ -38,6 +38,7 @@ from jepsen_tpu_torch import histories, models
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.parallel import encode as enc
 from jepsen_tpu_torch.parallel import meshplan, sharded
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 KEYS = ("valid?", "op", "fail-event", "max-frontier", "capacity", "devices",
         "configs-stepped")

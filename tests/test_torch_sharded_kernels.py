@@ -28,6 +28,7 @@ from jepsen_tpu.parallel import sharded as ref_sharded
 from jepsen_tpu.parallel import sparse_kernels as ref_sk
 from jepsen_tpu_torch.parallel import meshplan, sharded, sparse
 from jepsen_tpu_torch.parallel import sparse_kernels as sk
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -24,6 +24,7 @@ from jepsen_tpu.parallel import engine as ref_engine
 from jepsen_tpu_torch.parallel import encode as enc
 from jepsen_tpu_torch.parallel import sparse
 from jepsen_tpu_torch.parallel import sparse_kernels as sk
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 KEYS = ("valid?", "fail-event", "op", "max-frontier", "capacity",
         "configs-stepped", "explored", "dedupe")

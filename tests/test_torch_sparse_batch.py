@@ -29,6 +29,7 @@ from jepsen_tpu_torch.checker.linearizable import linearizable
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.parallel import encode as enc
 from jepsen_tpu_torch.parallel import engine, sparse
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 CPU = "cpu"
 

@@ -32,6 +32,7 @@ from jepsen_tpu_torch.parallel import engine, sparse
 from jepsen_tpu_torch.parallel import sparse_kernels as sk
 
 import torch_parity_cases as cases
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 CPU = "cpu"
 

@@ -25,6 +25,7 @@ from jepsen_tpu.parallel import sparse_kernels as ref_sk
 from jepsen_tpu_torch.parallel import sparse
 from jepsen_tpu_torch.parallel import sparse_kernels as sk
 from test_torch_sparse import CASES, _to_port
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -33,6 +34,22 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_persistent_compilation_cache():
+    """The reference's interpret-mode Pallas calls compile here without
+    JAX's persistent compilation cache: the suite's workers share one
+    cache directory, and a worker died inside its read. JAX decides once
+    a process whether it uses the cache, so its decision is reset both
+    ways; the old setting comes back after this file."""
+    from jax.experimental.compilation_cache import compilation_cache as cc
+    old = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    cc.reset_cache()
+    yield
+    jax.config.update("jax_enable_compilation_cache", old)
+    cc.reset_cache()
 
 
 # one small history per step family: the engine tests' cases (the

@@ -13,6 +13,7 @@ import torch
 
 from jepsen_tpu.parallel.steps import STEPS as REF_STEPS
 from jepsen_tpu_torch.parallel.steps import STEPS
+from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 I32_EDGES = [-(1 << 31), -(1 << 30) - 7, -5, (1 << 30) + 3, (1 << 31) - 1]
 
