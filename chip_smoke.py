@@ -112,8 +112,8 @@ down both of its engines:
        two golden queue histories through `check_encoded_sharded`, each
        equal field for field to the reference's results recorded on the
        CPU at one device (below);
-     * main path, full width: the bench's sharded shape at half its
-       depth, `adversarial_register_history(5000, 12)` through
+     * main path, full width: the bench's sharded shape at a quarter of
+       its depth, `adversarial_register_history(2500, 12)` through
        `sharded.analysis` at capacity 2^17 (K3's table in device
        memory, its insert a cooperative grid), once, and the
        impossible-read twin of `adversarial_register_history(2500, 12)`
@@ -194,7 +194,8 @@ down both of its engines:
        one-shot check of its prefix, the FIFO's early counterexample
        final, and a freeze/thaw mid-stream that resumes without a
        launch;
-     * "stream batch": the 28 sparse-batch keys in four deltas through
+     * "stream batch": 14 sparse-batch keys (12 and the twins of keys 0
+       and 6) in four deltas through
        `extend.advance_sessions` (batched K2 and K4 from each key's
        carry, launches printed), each key equal to a solo session's
        check and to REF_SPARSE_BATCH's verdicts;
@@ -204,6 +205,28 @@ down both of its engines:
        encode; the 84 keys' pipelined and serial walls with the
        encode / issue / device split, and their encode on one thread
        and on eight.
+ 10. "serve", the streaming checker service (`jepsen_tpu_torch.serve`)
+     over the sessions of item 9, no kernel of its own:
+     * the entry point, `python -m jepsen_tpu_torch.serve --model
+       cas-register --wal-dir D --host 127.0.0.1 --ingress-port 0`, as a
+       child process with two tenants: multikey-84+8 without its two
+       1000-op keys (90 keys, half to each tenant) POSTed to
+       /v1/deltas in four deltas a key with bearer tokens, the child
+       SIGKILLed after every key's second delta and restarted on the
+       same WAL (the restart replays it); a re-sent delta 2 answers
+       duplicate, an unauthenticated POST 401, then deltas 3-4 and
+       POST /v1/finalize for each key, and {"op": "stop"} on stdin ends
+       the child with exit 0. Each key's verdict and failing op equal
+       REF_BATCH's, and its contract fields the card's one-shot
+       `sparse.check_encoded` (run in a thread here while the child
+       works);
+     * in process, `CheckerService(UnorderedQueue(), capacity=512)`
+       through `run_stdio`: 14 keys of sparse-batch-28 in four deltas a
+       key, every key evicted to the checkpoint store and thawed
+       between deltas 2 and 3; each key equal to REF_SPARSE_BATCH's
+       verdict and failing op and to a solo session fed the same
+       deltas; the worker's batched and single K2 and K4 launches,
+       zeroed just before and read just after.
   Launch counts are zeroed just before each main-path check and read just
   after; each check must have launched the kernel of its route.
 
@@ -1767,10 +1790,12 @@ REF_SHARDED = {
         "fail-event": 2, "max-frontier": 5, "capacity": 1024, "devices": 1,
         "configs-stepped": 10},
 }
-# the bench's sharded shape (bench.py:617-694) at half its depth: the
-# full width (12 crashed writes, K3's grid) over 5,000 ops; the 10k-op
-# check took up to 245 s of a smoke that passed 1,000 s on a slow host
-FULL_OPS = 5000
+# the bench's sharded shape (bench.py:617-694) at a quarter of its depth:
+# the full width (12 crashed writes, K3's grid) over 2,500 ops, as its
+# twin; the 10k-op check took up to 245 s of a smoke that passed 1,000 s
+# on a slow host, and the 5,000-op one 92.1 s of an 854.5 s smoke once
+# the service phase came (about 1,270 s at the hosts' 1.49x spread)
+FULL_OPS = 2500
 FULL_CAPACITY = 1 << 17
 # the impossible-read twin's depth: the full width at a quarter of the
 # bench's ops (a 10k-op twin took up to ~190 s of the smoke on a slow host)
@@ -3248,6 +3273,8 @@ CP_OPS, CP_CAPACITY, CP_EVERY = 400, 64, 32
 RESUME_EVERY = 256         # the 1000-op FIFO's checkpoint interval
 STREAM_DELTA = 50          # ops a delta
 STREAM_BATCH_DELTAS = 4
+STREAM_QUEUE_KEYS = 12          # the streaming phases' keys: the first of
+STREAM_QUEUE_TWINS = (0, 6)     # sparse-batch-28, and these keys' twins
 
 
 def _cp_digest(cp) -> str:
@@ -3490,9 +3517,22 @@ def phase_stream(dev) -> dict:
     return out
 
 
+def _stream_batch_keys() -> tuple:
+    """(histories, their REF_SPARSE_BATCH indices): the first
+    STREAM_QUEUE_KEYS keys of sparse-batch-28 and the corrupted twins of
+    STREAM_QUEUE_TWINS — the streaming phases' cut of the 28 (the 28 took
+    45.4 s of the stream batch phase, whose smoke passed 850 s)."""
+    qs = _sparse_batch_keys()
+    index = list(range(STREAM_QUEUE_KEYS)) \
+        + [SPARSE_BATCH_KEYS + SPARSE_TWINS.index(k)
+           for k in STREAM_QUEUE_TWINS]
+    return [[dict(o) for o in qs[j]] for j in index], index
+
+
 def phase_stream_batch(dev) -> dict:
-    """The 28 sparse-batch keys (sparse-batch-28) as streaming sessions
-    fed in four deltas through `extend.advance_sessions` on the card:
+    """14 sparse-batch keys (`_stream_batch_keys`: 12 keys and two
+    corrupted twins) as streaming sessions fed in four deltas through
+    `extend.advance_sessions` on the card:
     batched K2 and batched K4 from each key's resumed carry, their
     launches counted; after the last delta every key equal to a solo
     session's `check()` fed the same deltas (STREAM_KEYS: the batched
@@ -3502,7 +3542,7 @@ def phase_stream_batch(dev) -> dict:
     from jepsen_tpu_torch.models import UnorderedQueue
     from jepsen_tpu_torch.parallel import extend
     from jepsen_tpu_torch.parallel import sparse_kernels as sk
-    hs = [[dict(o) for o in h] for h in _sparse_batch_keys()]
+    hs, ref_index = _stream_batch_keys()
     model = UnorderedQueue()
     batched = [extend.HistorySession(model, capacity=512, device=dev,
                                      key=k) for k in range(len(hs))]
@@ -3533,11 +3573,11 @@ def phase_stream_batch(dev) -> dict:
                  == {f: o.get(f) for f in STREAM_KEYS},
                  f"stream batch: key {k} differs from its solo check: "
                  f"{r} {o}")
-    ref = REF_SPARSE_BATCH["uqueue-24+4"]
-    _require([k for k, r in enumerate(rs) if r["valid?"] is False]
-             == sorted(ref["invalid"])
-             and all({"fail-event": rs[k]["fail-event"], "op": rs[k]["op"]}
-                     == v for k, v in ref["invalid"].items()),
+    ref = REF_SPARSE_BATCH["uqueue-24+4"]["invalid"]
+    _require([ref_index[k] for k, r in enumerate(rs) if r["valid?"] is False]
+             == [j for j in ref_index if j in ref]
+             and all({"fail-event": r["fail-event"], "op": r["op"]}
+                     == ref[j] for r, j in zip(rs, ref_index) if j in ref),
              "stream batch: verdicts differ from REF_SPARSE_BATCH")
     legs = [t for t in tiers.seen]
     print(f"stream batch: {len(hs)} keys in {STREAM_BATCH_DELTAS} deltas "
@@ -3637,6 +3677,367 @@ def phase_pipeline(dev) -> dict:
           f"{enc_walls['one_thread_s']} s, eight threads "
           f"{enc_walls['eight_threads_s']} s")
     return out
+
+
+# ------------------------------------------------- the streaming service
+
+SERVE_TENANTS = {"tok-a": "smoke-a", "tok-b": "smoke-b"}
+SERVE_DELTAS = 4
+SERVE_EVICT_SECS = 0.5
+SERVE_CMD = [sys.executable, "-m", "jepsen_tpu_torch.serve"]
+# the capacity the register keys' frontiers (~12,000-13,250
+# configurations) settle at on the sparse engine: the one-shot checks
+# start there, sparing the ladder (the contract fields do not depend on
+# the capacity; a key that needs more still climbs)
+SERVE_ONE_SHOT_CAPACITY = 16384
+
+
+def _serve_child(wal: str) -> tuple:
+    """`python -m jepsen_tpu_torch.serve` on `wal`, its HTTP ingress on
+    an OS-assigned port, two tenants -> (process, port, stderr lines).
+    The port comes from the stderr line `delta ingress: http://HOST:PORT`
+    (the regex takes the digits after the host's colon, since the line
+    goes on after the port)."""
+    import os
+    import queue
+    import re
+    import threading
+    spec = ",".join(f"{name}:token={tok}"
+                    for tok, name in SERVE_TENANTS.items())
+    proc = subprocess.Popen(
+        SERVE_CMD + ["--model", "cas-register", "--wal-dir", wal, "--host",
+                     "127.0.0.1", "--ingress-port", "0"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
+        env=dict(os.environ, JEPSEN_TPU_TORCH_TENANTS=spec))
+    ports: queue.Queue = queue.Queue()
+    err: list = []
+
+    def pump():
+        for line in proc.stderr:
+            err.append(line)
+            m = re.search(r"http://[^:]+:(\d+)", line)
+            if m:
+                ports.put(int(m.group(1)))
+        ports.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        port = ports.get(timeout=600)
+    except queue.Empty:
+        port = None
+    if port is None:
+        proc.kill()
+        proc.wait()
+        _require(False, f"serve: the child printed no ingress port: "
+                        f"{''.join(err)[-4000:]}")
+    return proc, port, err
+
+
+def _serve_http(port: int, path: str, body=None, token=None):
+    """One request to the child's ingress -> (status, body text)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else body.encode(),
+        headers={"Authorization": f"Bearer {token}"} if token else {})
+    try:
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode()
+
+
+def _serve_post_lines(port: int, by_token: dict) -> list:
+    """POST /v1/deltas, one streamed-JSONL body per tenant token ->
+    every answer line, in order."""
+    out = []
+    for token, lines in by_token.items():
+        code, text = _serve_http(
+            port, "/v1/deltas",
+            "".join(json.dumps(line) + "\n" for line in lines), token)
+        _require(code == 200, f"serve: POST /v1/deltas answered {code}: "
+                              f"{text[:2000]}")
+        out += [json.loads(ln) for ln in text.splitlines()]
+    return out
+
+
+def _serve_register(dev) -> dict:
+    """The entry point as a child process: multikey-84+8 without its two
+    1000-op keys (90 keys, 240 op records each, half to each tenant) in
+    four deltas a key over HTTP, the child SIGKILLed after every key's
+    second delta and restarted on the same WAL; a duplicate, a 401, the
+    last two deltas, POST /v1/finalize for every key, and stop on stdin.
+    Each key's verdict and failing op equal REF_BATCH's, and every
+    contract field the card's one-shot `sparse.check_encoded`'s. The
+    one-shot checks run in a thread of this process while the child
+    works: both are host-bound, and the card is idle most of the time."""
+    import signal
+    import tempfile
+    import threading
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.parallel import encode as enc
+    from jepsen_tpu_torch.parallel import sparse
+    multikey, extra = _batch_keys()
+    hs = [[dict(o) for o in h] for h in multikey + extra[2:]]
+    ref_index = list(range(BATCH_KEYS)) \
+        + list(range(BATCH_KEYS + 2, BATCH_KEYS + 8))
+    keys = [f"reg-{i}" for i in range(len(hs))]
+    tokens = list(SERVE_TENANTS)
+    token_of = {k: tokens[i % 2] for i, k in enumerate(keys)}
+
+    def delta(i: int, d: int) -> dict:
+        h = hs[i]
+        lo = len(h) * d // SERVE_DELTAS
+        hi = len(h) * (d + 1) // SERVE_DELTAS
+        return {"key": keys[i], "ops": h[lo:hi], "seq": d + 1,
+                "timeout": 600}
+
+    def by_token(make) -> dict:
+        out = {t: [] for t in tokens}
+        for i, k in enumerate(keys):
+            out[token_of[k]] += make(i)
+        return out
+
+    split = {"admission_s": 0.0}
+    model = CASRegister()
+    ones: list = []
+
+    def one_shots():
+        t0 = time.perf_counter()
+        for h in hs:
+            ones.append(sparse.check_encoded(
+                enc.encode(model, History.wrap(h)),
+                capacity=SERVE_ONE_SHOT_CAPACITY, device=dev))
+        torch.cuda.synchronize()
+        split["one_shot_s"] = time.perf_counter() - t0
+
+    checker = threading.Thread(target=one_shots, daemon=True)
+    checker.start()
+    children = []
+    with tempfile.TemporaryDirectory() as tmp:
+        wal = f"{tmp}/wal"
+        try:
+            t0 = time.perf_counter()
+            proc, port, _ = _serve_child(wal)
+            children.append(proc)
+            split["first_start_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            acks = _serve_post_lines(port, by_token(
+                lambda i: [delta(i, 0), delta(i, 1)]))
+            split["admission_s"] += time.perf_counter() - t0
+            _require(len(acks) == 2 * len(keys)
+                     and all(a.get("accepted") for a in acks),
+                     f"serve: deltas 1-2 not all accepted: "
+                     f"{[a for a in acks if not a.get('accepted')][:3]}")
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+            t0 = time.perf_counter()
+            proc, port, _ = _serve_child(wal)
+            children.append(proc)
+            split["restart_s"] = time.perf_counter() - t0
+            replayed = _serve_post_lines(port, by_token(
+                lambda i: [{"op": "result", "key": keys[i],
+                            "timeout": 600}]))
+            split["replay_s"] = time.perf_counter() - t0
+            _require(all(r.get("seq") == 2 and "valid?" in r
+                         for r in replayed),
+                     f"serve: the restart did not replay two deltas a "
+                     f"key: {replayed[:3]}")
+            dup = _serve_post_lines(port, {token_of[keys[3]]:
+                                           [delta(3, 1)]})
+            _require(dup == [{"duplicate": True, "seq": 2,
+                              "key": keys[3]}],
+                     f"serve: a re-sent delta 2 answered {dup}")
+            code, text = _serve_http(port, "/v1/deltas",
+                                     json.dumps(delta(5, 2)) + "\n")
+            _require(code == 401 and "unauthorized" in text,
+                     f"serve: an unauthenticated POST answered {code} "
+                     f"{text}")
+            t0 = time.perf_counter()
+            acks = _serve_post_lines(port, by_token(
+                lambda i: [delta(i, 2), delta(i, 3)]))
+            split["admission_s"] += time.perf_counter() - t0
+            _require(len(acks) == 2 * len(keys)
+                     and all(a.get("accepted") for a in acks),
+                     "serve: deltas 3-4 not all accepted")
+            t0 = time.perf_counter()
+            finals = []
+            for k in keys:
+                code, text = _serve_http(
+                    port, "/v1/finalize",
+                    json.dumps({"key": k, "timeout": 600}), token_of[k])
+                _require(code == 200, f"serve: finalize {k}: {code}")
+                finals.append(json.loads(text))
+            split["worker_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out, _ = proc.communicate('{"op": "stop"}\n', timeout=600)
+            split["stop_s"] = time.perf_counter() - t0
+            _require(proc.returncode == 0
+                     and out.splitlines()[-1:] == ['{"stopped": true}'],
+                     f"serve: stop ended the child with "
+                     f"{proc.returncode}: {out[-2000:]}")
+        finally:
+            for p in children:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    t0 = time.perf_counter()
+    checker.join()
+    split["one_shot_wait_s"] = time.perf_counter() - t0
+    _require(len(ones) == len(hs), "serve: the one-shot checks failed")
+    ref = REF_BATCH["multikey-84+8"]["invalid"]
+    for i, (r, one) in enumerate(zip(finals, ones)):
+        j = ref_index[i]
+        want = ({"valid?": False, **ref[j]} if j in ref
+                else {"valid?": True})
+        _require(r.get("seq") == SERVE_DELTAS
+                 and {f: r.get(f) for f in want} == want,
+                 f"serve: {keys[i]} differs from REF_BATCH[{j}]: {r}")
+        _require({f: r.get(f) for f in STREAM_KEYS}
+                 == json.loads(json.dumps({f: one.get(f)
+                                           for f in STREAM_KEYS})),
+                 f"serve: {keys[i]} differs from the one-shot check: "
+                 f"{r} {one}")
+    n_invalid = sum(1 for r in finals if r["valid?"] is False)
+    print(f"serve: the entry point, {len(keys)} register keys of two "
+          f"tenants in {SERVE_DELTAS} deltas over HTTP, SIGKILLed and "
+          f"restarted after delta 2: == REF_BATCH's verdicts and failing "
+          f"ops ({n_invalid} invalid) and the one-shot checks' "
+          f"{STREAM_KEYS}; duplicate, 401 and stop answered; split (s) "
+          f"{json.dumps(split)}")
+    return split
+
+
+def _serve_queue(dev) -> dict:
+    """The service in process on the card through `run_stdio`: the first
+    12 keys of sparse-batch-28 and the corrupted twins of keys 0 and 6
+    in four deltas a key, every key evicted to the checkpoint store and
+    thawed between deltas 2 and 3, then finalized. Each key equal to
+    REF_SPARSE_BATCH's verdict and failing op and to a solo session fed
+    the same deltas; the batched and single K2 and K4 launches of the
+    service's worker, counted from just before the first line to just
+    after the stop."""
+    import io
+    import tempfile
+    from jepsen_tpu_torch.models import UnorderedQueue
+    from jepsen_tpu_torch.parallel import extend
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    from jepsen_tpu_torch.serve import CheckerService
+    from jepsen_tpu_torch.serve.stdio import run_stdio
+    hs, ref_index = _stream_batch_keys()
+    keys = [f"q-{j}" for j in ref_index]
+
+    def delta(i: int, d: int) -> list:
+        h = hs[i]
+        return h[len(h) * d // SERVE_DELTAS:
+                 len(h) * (d + 1) // SERVE_DELTAS]
+
+    split = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        svc = CheckerService(UnorderedQueue(), wal_dir=f"{tmp}/wal",
+                             capacity=512, evict_idle_secs=SERVE_EVICT_SECS,
+                             device=dev)
+        evicted = {}
+
+        def lines():
+            t0 = time.perf_counter()
+            for d in (0, 1):
+                for i, k in enumerate(keys):
+                    yield json.dumps({"key": k, "ops": delta(i, d),
+                                      "seq": d + 1})
+            yield json.dumps({"op": "drain", "timeout": 900})
+            split["deltas_1_2_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            while svc.stats()["keys_live"] and \
+                    time.perf_counter() - t0 < 120:
+                time.sleep(0.05)
+            evicted.update((k, row["state"]) for k, row in
+                           svc.status()["keys"].items())
+            split["evict_wait_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for d in (2, 3):
+                for i, k in enumerate(keys):
+                    yield json.dumps({"key": k, "ops": delta(i, d),
+                                      "seq": d + 1})
+            for k in keys:
+                yield json.dumps({"op": "finalize", "key": k,
+                                  "timeout": 900})
+            split["deltas_3_4_s"] = time.perf_counter() - t0
+            yield json.dumps({"op": "stop"})
+
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        rc = run_stdio(svc, lines(), out)
+        torch.cuda.synchronize()
+        split["service_s"] = time.perf_counter() - t0
+        n = _sparse_counts_all()
+    answers = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    _require(rc == 0 and answers[-1] == {"stopped": True},
+             f"serve queue: run_stdio {rc}, {answers[-1:]}")
+    _require(set(evicted.values()) == {"evicted"},
+             f"serve queue: not every key was evicted: {evicted}")
+    acks = [a for a in answers if "accepted" in a]
+    _require(len(acks) == SERVE_DELTAS * len(keys)
+             and all(a["accepted"] for a in acks),
+             "serve queue: not every delta was accepted")
+    finals = answers[-1 - len(keys):-1]
+    _require([r.get("key") for r in finals] == keys
+             and all(r.get("seq") == SERVE_DELTAS for r in finals),
+             f"serve queue: finalize answers {finals[:2]}")
+    _require(n["frontier_closure_batch"] > 0
+             and n["tiled_insert_batch"] + n["tiled_insert"] > 0,
+             f"serve queue: the worker must launch batched K2 and K4: {n}")
+    t0 = time.perf_counter()
+    solo = [extend.HistorySession(UnorderedQueue(), capacity=512,
+                                  device=dev) for _ in keys]
+    for d in range(SERVE_DELTAS):
+        for i, s in enumerate(solo):
+            s.extend(delta(i, d))
+    ones = [s.check() for s in solo]
+    torch.cuda.synchronize()
+    split["solo_s"] = time.perf_counter() - t0
+    ref = REF_SPARSE_BATCH["uqueue-24+4"]["invalid"]
+    for i, (r, o) in enumerate(zip(finals, ones)):
+        j = ref_index[i]
+        want = ({"valid?": False, **ref[j]} if j in ref
+                else {"valid?": True})
+        _require({f: r.get(f) for f in want} == want,
+                 f"serve queue: {keys[i]} differs from "
+                 f"REF_SPARSE_BATCH[{j}]: {r}")
+        _require({f: r.get(f) for f in STREAM_KEYS}
+                 == json.loads(json.dumps({f: o.get(f)
+                                           for f in STREAM_KEYS})),
+                 f"serve queue: {keys[i]} differs from its solo session: "
+                 f"{r} {o}")
+    print(f"serve: in process, {len(keys)} unordered-queue keys in "
+          f"{SERVE_DELTAS} deltas through run_stdio, every key evicted and "
+          f"thawed after delta 2: == REF_SPARSE_BATCH's verdicts and "
+          f"failing ops and solo sessions; launches batched K2 "
+          f"{n['frontier_closure_batch']} batched K4 "
+          f"{n['tiled_insert_batch']}, single K2 {n['frontier_closure']} "
+          f"K4 {n['tiled_insert']}; split (s) {json.dumps(split)}")
+    return {"split": split, "launches": n}
+
+
+def phase_serve(dev) -> dict:
+    """The streaming checker service (`jepsen_tpu_torch.serve`) on the
+    card: the entry point as a child process over HTTP with a kill and
+    a WAL replay (cas-register), then the service in process over stdio
+    with eviction and thaw (unordered queue)."""
+    t0 = time.perf_counter()
+    reg = _serve_register(dev)
+    queue = _serve_queue(dev)
+    print(f"serve: the phase {time.perf_counter() - t0:.1f} s; admission "
+          f"{reg['admission_s']:.3f} s, the restart's replay "
+          f"{reg['replay_s']:.3f} s, the worker (finalize) "
+          f"{reg['worker_s']:.3f} s; the queue keys' service "
+          f"{queue['split']['service_s']:.3f} s")
+    return {"register": reg, "queue": queue}
 
 
 def _phase(name: str, fn, *args):
@@ -3792,6 +4193,7 @@ def main() -> int:
     _phase("pipeline", phase_pipeline, dev)
     print(f"the four resumable/streaming/pipeline phases: "
           f"{time.perf_counter() - t_new:.1f} s")
+    _phase("serve", phase_serve, dev)
     # K2's stats instantiation, single and batched: timed on inputs kept
     # from the stats main path, with the launches of that path
     for t in st_timed:

@@ -1,10 +1,11 @@
-"""Minimal EDN reader.
+"""Minimal EDN reader and writer.
 
 Reads the reference's on-disk `history.edn` (one op map per line,
 written by `util/pwrite-history!`, reference
-jepsen/src/jepsen/store.clj:351-362). The reader half of
-`jepsen_tpu.edn`, copied so that the port imports nothing of the JAX
-package.
+jepsen/src/jepsen/store.clj:351-362), and writes EDN the way
+`jepsen_tpu.edn.dumps` does, byte for byte (the service's WAL stores
+keys and ops in it). A copy of `jepsen_tpu.edn`, so that the port
+imports nothing of the JAX package.
 
 Mapping to Python:
     nil            -> None
@@ -310,3 +311,55 @@ def iter_forms(s: str) -> Iterator[Any]:
     r = _Reader(s)
     while not r.eof():
         yield r.read()
+
+
+def dumps(x: Any) -> str:
+    buf = io.StringIO()
+    _write(x, buf)
+    return buf.getvalue()
+
+
+def _write(x: Any, w: io.StringIO):
+    if x is None:
+        w.write("nil")
+    elif x is True:
+        w.write("true")
+    elif x is False:
+        w.write("false")
+    elif isinstance(x, Keyword):
+        w.write(":" + x.name)
+    elif isinstance(x, Symbol):
+        w.write(x.name)
+    elif isinstance(x, str):
+        w.write('"')
+        w.write(
+            x.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+        )
+        w.write('"')
+    elif isinstance(x, (int, float)):
+        w.write(repr(x))
+    elif isinstance(x, Tagged):
+        w.write(f"#{x.tag} ")
+        _write(x.value, w)
+    elif isinstance(x, dict):
+        w.write("{")
+        first = True
+        for k, v in x.items():
+            if not first:
+                w.write(", ")
+            first = False
+            _write(k, w)
+            w.write(" ")
+            _write(v, w)
+        w.write("}")
+    elif isinstance(x, (frozenset, set)):
+        w.write("#{")
+        w.write(" ".join(dumps(e) for e in x))
+        w.write("}")
+    elif isinstance(x, (list, tuple)):
+        w.write("[")
+        w.write(" ".join(dumps(e) for e in x))
+        w.write("]")
+    else:
+        # fall back to string representation
+        _write(str(x), w)

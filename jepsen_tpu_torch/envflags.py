@@ -1,0 +1,94 @@
+"""Validated accessors for the port's ``JEPSEN_TPU_TORCH_*`` flags.
+
+A trimmed copy of `jepsen_tpu.envflags`: the accessors the service
+reads its flags with. A malformed value fails loudly at the read site,
+naming the flag, instead of silently reverting a default. Names must
+carry the ``JEPSEN_TPU_TORCH_`` prefix, so the port's flags stay apart
+from the reference's ``JEPSEN_TPU_*`` ones.
+
+The flags the port read before this module existed (dedupe, probe
+limit, bucket, config pack, search stats, pipeline) keep their own
+readers.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Optional
+
+PREFIX = "JEPSEN_TPU_TORCH_"
+
+
+class EnvFlagError(ValueError):
+    """A JEPSEN_TPU_TORCH_* variable is set to a value outside its
+    contract."""
+
+
+def env_raw(name: str, default: Optional[str] = None) -> Optional[str]:
+    """The raw string value of a prefixed flag (no validation beyond
+    the namespace check). Prefer the typed accessors below."""
+    if not name.startswith(PREFIX):
+        raise EnvFlagError(
+            f"{name!r} is not a {PREFIX}* flag: the accessor only serves "
+            f"the jepsen_tpu_torch namespace")
+    return os.environ.get(name, default)
+
+
+def env_int(name: str, default: Optional[int] = None,
+            min_value: Optional[int] = None,
+            what: str = "value") -> Optional[int]:
+    """An integer flag. Unset -> ``default``; a non-integer value or
+    one below ``min_value`` raises :class:`EnvFlagError`."""
+    raw = env_raw(name)
+    if raw is None:
+        return default
+    try:
+        v = int(raw)
+    except ValueError:
+        raise EnvFlagError(
+            f"{name}={raw!r}: must be an integer {what}; unset the "
+            f"variable to get the default")
+    if min_value is not None and v < min_value:
+        raise EnvFlagError(
+            f"{name}={raw!r}: {what} must be >= {min_value}")
+    return v
+
+
+def env_float(name: str, default: Optional[float] = None,
+              min_value: Optional[float] = None,
+              what: str = "value") -> Optional[float]:
+    """A float flag (seconds-style knobs). Unset -> ``default``; a
+    non-numeric, non-finite, or below-``min_value`` value raises
+    :class:`EnvFlagError`."""
+    raw = env_raw(name)
+    if raw is None:
+        return default
+    try:
+        v = float(raw)
+    except ValueError:
+        raise EnvFlagError(
+            f"{name}={raw!r}: must be a number {what}; unset the "
+            f"variable to get the default")
+    if not math.isfinite(v):
+        raise EnvFlagError(f"{name}={raw!r}: {what} must be finite")
+    if min_value is not None and v < min_value:
+        raise EnvFlagError(
+            f"{name}={raw!r}: {what} must be >= {min_value}")
+    return v
+
+
+def env_path(name: str, what: str = "path") -> Optional[str]:
+    """A tri-state destination flag: unset or ``"0"`` -> None (feature
+    off), ``"1"`` -> ``""`` (on, the caller picks the destination),
+    anything else -> that path. Whitespace-only values raise."""
+    raw = env_raw(name)
+    if raw is None or raw == "0":
+        return None
+    if raw == "1":
+        return ""
+    if not raw.strip():
+        raise EnvFlagError(
+            f"{name}={raw!r}: must be '0' (off), '1' (on, default "
+            f"destination), or a {what}")
+    return raw

@@ -23,9 +23,10 @@ This module provides:
     input to linearizability checking,
   * `Intern` — the value <-> int table the encoder packs values with.
 
-A trimmed copy of `jepsen_tpu.history`: what the port's checker uses.
-The writers, the query helpers and the columnar and npz codecs are left
-out.
+A trimmed copy of `jepsen_tpu.history`: what the port's checker uses,
+and `op_to_edn_str`, the one-op writer the service's WAL stores ops
+with. The history writers, the query helpers and the columnar and npz
+codecs are left out.
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ from typing import Any, Iterable
 
 from jepsen_tpu_torch import edn
 from jepsen_tpu_torch.edn import Keyword
+
+TYPES = ("invoke", "ok", "fail", "info")
+
+NEMESIS = "nemesis"  # the nemesis pseudo-process
 
 
 class Op(dict):
@@ -104,6 +109,23 @@ def _from_edn(x: Any) -> Any:
 
 def op_from_edn(form: dict) -> Op:
     return Op(_from_edn(form))
+
+
+def op_to_edn_str(o: Op) -> str:
+    """Render an op as the reference's EDN map (keyword keys; keyword-ish
+    string values for :type/:f/:process where the reference uses keywords)."""
+    parts = []
+    for k, v in o.items():
+        parts.append(":" + str(k))
+        if k in ("type", "f") and isinstance(v, str):
+            parts.append(":" + v)
+        elif k == "process" and v == NEMESIS:
+            parts.append(":nemesis")
+        else:
+            parts.append(edn.dumps(v))
+    return "{" + ", ".join(
+        f"{parts[i]} {parts[i+1]}" for i in range(0, len(parts), 2)
+    ) + "}"
 
 
 class History(list):

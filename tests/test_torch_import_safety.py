@@ -2,7 +2,8 @@
 chip_smoke.py, kernel_ab.py, the parity cases chip_smoke.py loads
 (tests/torch_parity_cases.py) nor the card tests the card runs without
 JAX (tests/test_torch_config_pack_kernels.py,
-tests/test_torch_sparse_batch_cuda.py, tests/test_torch_stream_cuda.py),
+tests/test_torch_sparse_batch_cuda.py, tests/test_torch_stream_cuda.py,
+tests/test_torch_serve_cuda.py),
 imports JAX or anything of the JAX package (jepsen_tpu).
 Checked twice: by importing everything in a fresh interpreter and
 reading sys.modules, and by scanning the sources' import statements."""
@@ -22,7 +23,8 @@ SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "tests" / "torch_parity_cases.py",
     ROOT / "tests" / "test_torch_config_pack_kernels.py",
     ROOT / "tests" / "test_torch_sparse_batch_cuda.py",
-    ROOT / "tests" / "test_torch_stream_cuda.py"]
+    ROOT / "tests" / "test_torch_stream_cuda.py",
+    ROOT / "tests" / "test_torch_serve_cuda.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -38,6 +40,7 @@ sys.path.insert(0, "tests")
 import test_torch_config_pack_kernels  # its cases are built, nothing runs
 import test_torch_sparse_batch_cuda
 import test_torch_stream_cuda
+import test_torch_serve_cuda
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.")
@@ -49,6 +52,8 @@ print("BATCH", sorted(n for n in names if n.endswith(("independent", "encode",
                                                       "closure_kernels"))))
 print("STREAM", sorted(n for n in names if n.endswith(("extend",
                                                        "pipeline"))))
+print("SERVE", sorted(n for n in names if ".serve" in n
+                      or n.endswith("envflags")))
 print("BAD", bad)
 """
 
@@ -69,6 +74,11 @@ def test_port_and_smoke_import_without_jax():
     assert lines["STREAM"] == str(["jepsen_tpu_torch.parallel.extend",
                                    "jepsen_tpu_torch.parallel.pipeline"]), \
         proc.stdout
+    assert lines["SERVE"] == str(sorted(
+        ["jepsen_tpu_torch.envflags", "jepsen_tpu_torch.serve"]
+        + [f"jepsen_tpu_torch.serve.{m}" for m in (
+            "__main__", "ingress", "service", "stdio", "tenancy",
+            "wal")])), proc.stdout
     assert lines["SPARSE"] == str(["jepsen_tpu_torch.parallel.sparse",
                                    "jepsen_tpu_torch.parallel."
                                    "sparse_kernels"]), proc.stdout
