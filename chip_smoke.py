@@ -209,8 +209,8 @@ down both of its engines:
      over the sessions of item 9, no kernel of its own:
      * the entry point, `python -m jepsen_tpu_torch.serve --model
        cas-register --wal-dir D --host 127.0.0.1 --ingress-port 0`, as a
-       child process with two tenants: multikey-84+8 without its two
-       1000-op keys (90 keys, half to each tenant) POSTed to
+       child process with two tenants: keys 0-38 of multikey-84 and the
+       six corrupted keys (45 keys, half to each tenant) POSTed to
        /v1/deltas in four deltas a key with bearer tokens, the child
        SIGKILLed after every key's second delta and restarted on the
        same WAL (the restart replays it); a re-sent delta 2 answers
@@ -227,6 +227,34 @@ down both of its engines:
        verdict and failing op and to a solo session fed the same
        deltas; the worker's batched and single K2 and K4 launches,
        zeroed just before and read just after.
+ 11. "fleet", the serve fleet (`serve.ring`, `serve.fleet`, the ops
+     endpoint `obs.httpd`) over the service of item 10, no kernel of its
+     own:
+     * two replicas of the entry point as child processes with
+       `--ops-port 0 --ingress-port 0`, A with
+       JEPSEN_TPU_TORCH_SERVE_REPL=sync and `--repl-dir` B's WAL's repl/
+       mirror: 18 register keys (multikey-84's keys 42, 45, ..., 75 and
+       the six corrupted keys) routed by `HashRing(["A", "B"])` in four
+       deltas; after delta 2 A is SIGKILLed and its WAL dir deleted, and
+       `FleetSupervisor` over both ops endpoints (the real HTTP fetch,
+       interval 0.2 s, threshold 2) declares A dead and re-homes its keys
+       onto B from the mirror through B's POST /adopt, within a bounded
+       wait; A's re-sent delta 2 answers duplicate on B, deltas 3-4 go to
+       the supervisor's owner and every key is finalized: each equal to
+       REF_BATCH's verdict and failing op. Prints the seconds from the
+       kill to "dead", the rehome's, adoption to the last verdict, the
+       keys moved and the bytes in B's mirror;
+     * `serve.ring.Router` in process over two
+       `CheckerService(UnorderedQueue(), capacity=512)` on the card, six
+       keys of `_stream_batch_keys()` in four deltas: after delta 2 one
+       replica is closed and `Router.rehome`d, and a joining replica,
+       its worker started only once their delta 3 is queued, takes two
+       keys at capacity 16,384 through `Router.migrate_key`, so they
+       resume in one batched leg on K4's route; each key equal to
+       REF_SPARSE_BATCH's verdict and failing op and to a solo session
+       fed the same deltas; K2 and K4 (single and batched) launched,
+       zeroed just before and read just after, and batched K4 in the
+       joining replica's first batch.
   Launch counts are zeroed just before each main-path check and read just
   after; each check must have launched the kernel of its route.
 
@@ -3685,6 +3713,9 @@ SERVE_TENANTS = {"tok-a": "smoke-a", "tok-b": "smoke-b"}
 SERVE_DELTAS = 4
 SERVE_EVICT_SECS = 0.5
 SERVE_CMD = [sys.executable, "-m", "jepsen_tpu_torch.serve"]
+# the register keys of the serve phase: multikey-84's keys 0-38 and the six
+# corrupted keys (cut from 90 keys to make room for the fleet phase)
+SERVE_VALID_KEYS = 39
 # the capacity the register keys' frontiers (~12,000-13,250
 # configurations) settle at on the sparse engine: the one-shot checks
 # start there, sparing the ladder (the contract fields do not depend on
@@ -3692,46 +3723,70 @@ SERVE_CMD = [sys.executable, "-m", "jepsen_tpu_torch.serve"]
 SERVE_ONE_SHOT_CAPACITY = 16384
 
 
-def _serve_child(wal: str) -> tuple:
-    """`python -m jepsen_tpu_torch.serve` on `wal`, its HTTP ingress on
-    an OS-assigned port, two tenants -> (process, port, stderr lines).
-    The port comes from the stderr line `delta ingress: http://HOST:PORT`
-    (the regex takes the digits after the host's colon, since the line
-    goes on after the port)."""
+def _serve_start(wal: str, args=(), env=None) -> tuple:
+    """Start `python -m jepsen_tpu_torch.serve --model cas-register` on
+    `wal` with its HTTP ingress on an OS-assigned port, plus `args`, in
+    the environment `env` adds -> (process, the ports read so far, a
+    queue of ("ingress" | "ops", port) as the stderr lines give them,
+    stderr lines): `_serve_ports` waits for them. Each port comes from a
+    stderr line `delta ingress: http://HOST:PORT` or `ops endpoint:
+    http://HOST:PORT` (the regex takes the digits after the host's
+    colon, since the line goes on after the port)."""
     import os
     import queue
     import re
     import threading
-    spec = ",".join(f"{name}:token={tok}"
-                    for tok, name in SERVE_TENANTS.items())
     proc = subprocess.Popen(
         SERVE_CMD + ["--model", "cas-register", "--wal-dir", wal, "--host",
-                     "127.0.0.1", "--ingress-port", "0"],
+                     "127.0.0.1", "--ingress-port", "0", *args],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
-        env=dict(os.environ, JEPSEN_TPU_TORCH_TENANTS=spec))
+        env=dict(os.environ, **(env or {})))
     ports: queue.Queue = queue.Queue()
     err: list = []
 
     def pump():
         for line in proc.stderr:
             err.append(line)
-            m = re.search(r"http://[^:]+:(\d+)", line)
+            m = re.search(r"^(delta ingress|ops endpoint): "
+                          r"http://[^:]+:(\d+)", line)
             if m:
-                ports.put(int(m.group(1)))
+                ports.put(("ops" if m.group(1) == "ops endpoint"
+                           else "ingress", int(m.group(2))))
         ports.put(None)
 
     threading.Thread(target=pump, daemon=True).start()
-    try:
-        port = ports.get(timeout=600)
-    except queue.Empty:
-        port = None
-    if port is None:
-        proc.kill()
-        proc.wait()
-        _require(False, f"serve: the child printed no ingress port: "
-                        f"{''.join(err)[-4000:]}")
-    return proc, port, err
+    return proc, {}, ports, err
+
+
+def _serve_ports(child: tuple, names=("ingress",)) -> dict:
+    """Wait for the started child's `names` ports -> {"ingress": port,
+    "ops": port} (the ones asked for); a child that prints none fails
+    the phase."""
+    import queue
+    proc, got, ports, err = child
+    while not all(n in got for n in names):
+        try:
+            item = ports.get(timeout=600)
+        except queue.Empty:
+            item = None
+        if item is None:
+            proc.kill()
+            proc.wait()
+            _require(False, f"serve: the child printed no "
+                            f"{'/'.join(names)} port: "
+                            f"{''.join(err)[-4000:]}")
+        got[item[0]] = item[1]
+    return got
+
+
+def _serve_child(wal: str) -> tuple:
+    """The serve phase's child on `wal` with two tenants -> (process,
+    ingress port)."""
+    spec = ",".join(f"{name}:token={tok}"
+                    for tok, name in SERVE_TENANTS.items())
+    child = _serve_start(wal, env={"JEPSEN_TPU_TORCH_TENANTS": spec})
+    return child[0], _serve_ports(child)["ingress"]
 
 
 def _serve_http(port: int, path: str, body=None, token=None):
@@ -3764,9 +3819,9 @@ def _serve_post_lines(port: int, by_token: dict) -> list:
 
 
 def _serve_register(dev) -> dict:
-    """The entry point as a child process: multikey-84+8 without its two
-    1000-op keys (90 keys, 240 op records each, half to each tenant) in
-    four deltas a key over HTTP, the child SIGKILLed after every key's
+    """The entry point as a child process: keys 0-38 of multikey-84 and
+    the six corrupted keys of multikey-84+8 (45 keys, 240 op records each,
+    half to each tenant) in four deltas a key over HTTP, the child SIGKILLed after every key's
     second delta and restarted on the same WAL; a duplicate, a 401, the
     last two deltas, POST /v1/finalize for every key, and stop on stdin.
     Each key's verdict and failing op equal REF_BATCH's, and every
@@ -3781,8 +3836,9 @@ def _serve_register(dev) -> dict:
     from jepsen_tpu_torch.parallel import encode as enc
     from jepsen_tpu_torch.parallel import sparse
     multikey, extra = _batch_keys()
-    hs = [[dict(o) for o in h] for h in multikey + extra[2:]]
-    ref_index = list(range(BATCH_KEYS)) \
+    hs = [[dict(o) for o in h]
+          for h in multikey[:SERVE_VALID_KEYS] + extra[2:]]
+    ref_index = list(range(SERVE_VALID_KEYS)) \
         + list(range(BATCH_KEYS + 2, BATCH_KEYS + 8))
     keys = [f"reg-{i}" for i in range(len(hs))]
     tokens = list(SERVE_TENANTS)
@@ -3821,7 +3877,7 @@ def _serve_register(dev) -> dict:
         wal = f"{tmp}/wal"
         try:
             t0 = time.perf_counter()
-            proc, port, _ = _serve_child(wal)
+            proc, port = _serve_child(wal)
             children.append(proc)
             split["first_start_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -3835,7 +3891,7 @@ def _serve_register(dev) -> dict:
             proc.send_signal(signal.SIGKILL)
             proc.wait()
             t0 = time.perf_counter()
-            proc, port, _ = _serve_child(wal)
+            proc, port = _serve_child(wal)
             children.append(proc)
             split["restart_s"] = time.perf_counter() - t0
             replayed = _serve_post_lines(port, by_token(
@@ -4040,6 +4096,324 @@ def phase_serve(dev) -> dict:
     return {"register": reg, "queue": queue}
 
 
+# ------------------------------------------------------------ the fleet
+
+# multikey-84's keys the serve phase no longer uses (42, 45, ..., 75) and
+# the six corrupted keys of multikey-84+8
+FLEET_VALID_KEYS = tuple(range(42, 76, 3))
+FLEET_INTERVAL = 0.2       # the supervisor's heartbeat seconds
+FLEET_THRESHOLD = 2        # consecutive misses before "dead"
+FLEET_WAIT_SECS = 300      # the bound on the supervisor's detect + rehome
+# the in-process half's keys: their positions in _stream_batch_keys() (keys
+# 0, 4, 7 and 11 of sparse-batch-28, the corrupted twins of keys 0 and 6)
+FLEET_QUEUE_KEYS = (0, 4, 7, 11, 12, 13)
+# the keys migrated to the joining replica: both climb to capacity 16,384
+# (K4's route) within deltas 1-2 and stay there through delta 3, so their
+# delta 3 groups into one batched leg of K4 there
+FLEET_MIGRATED = (4, 11)
+
+
+def _fleet_processes(dev) -> dict:
+    """Two replicas of the entry point on the card, A sync-shipping its WAL
+    segments to B's repl/ mirror: 18 register keys routed by
+    `HashRing(["A", "B"])` in four deltas; after delta 2, A is SIGKILLed
+    and its WAL dir deleted; `FleetSupervisor` over both ops endpoints
+    (the real HTTP fetch) declares A dead and re-homes its keys onto B
+    from the mirror through B's `POST /adopt`. A's delta 2 re-sent to B
+    answers duplicate; deltas 3-4 go to the supervisor's owner and each
+    key is finalized there. Each key's verdict and failing op equal
+    REF_BATCH's."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from jepsen_tpu_torch.serve.fleet import FleetSupervisor, HttpReplica
+    from jepsen_tpu_torch.serve.ring import REPL_SUBDIR, HashRing
+    multikey, extra = _batch_keys()
+    hs = [[dict(o) for o in h]
+          for h in [multikey[k] for k in FLEET_VALID_KEYS] + extra[2:]]
+    ref_index = list(FLEET_VALID_KEYS) \
+        + list(range(BATCH_KEYS + 2, BATCH_KEYS + 8))
+    keys = [f"fleet-{j}" for j in ref_index]
+    owner = HashRing(["A", "B"]).owner
+    owned = {n: [i for i, k in enumerate(keys) if owner(k) == n]
+             for n in ("A", "B")}
+    _require(all(owned.values()), f"fleet: a replica owns no key: {owned}")
+
+    def delta(i: int, d: int, **kw) -> dict:
+        h = hs[i]
+        return {"key": keys[i], "seq": d + 1, "timeout": 600,
+                "ops": h[len(h) * d // SERVE_DELTAS:
+                         len(h) * (d + 1) // SERVE_DELTAS], **kw}
+
+    split = {}
+    children = []
+    sup = None
+    with tempfile.TemporaryDirectory() as tmp:
+        wals = {n: f"{tmp}/{n}/wal" for n in ("A", "B")}
+        mirror = os.path.join(wals["B"], REPL_SUBDIR)
+        try:
+            t0 = time.perf_counter()
+            started = {
+                "B": _serve_start(wals["B"], ["--ops-port", "0"]),
+                "A": _serve_start(wals["A"], ["--ops-port", "0",
+                                              "--repl-dir", mirror],
+                                  env={"JEPSEN_TPU_TORCH_SERVE_REPL":
+                                       "sync"})}
+            children += [c[0] for c in started.values()]
+            ports = {n: _serve_ports(c, ("ingress", "ops"))
+                     for n, c in started.items()}
+            split["start_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for n, idx in owned.items():
+                acks = _serve_post_lines(ports[n]["ingress"], {None: [
+                    delta(i, d) for i in idx for d in (0, 1)]})
+                _require(len(acks) == 2 * len(idx)
+                         and all(a.get("accepted") and "replicated" not in a
+                                 for a in acks),
+                         f"fleet: {n}'s deltas 1-2 not all accepted with "
+                         f"their sync promise met: {acks[:3]}")
+            split["admission_s"] = time.perf_counter() - t0
+            proc_a = started["A"][0]
+            proc_a.send_signal(signal.SIGKILL)
+            proc_a.wait()
+            t_kill = time.perf_counter()
+            shutil.rmtree(wals["A"])
+            addr = {n: f"127.0.0.1:{p['ops']}" for n, p in ports.items()}
+            sup = FleetSupervisor(addr, wals,
+                                  services={"B": HttpReplica(addr["B"])},
+                                  interval=FLEET_INTERVAL,
+                                  threshold=FLEET_THRESHOLD).start()
+            t_dead = None
+            while True:
+                st = sup.status()["replicas"]["A"]
+                if st["dead"] and t_dead is None:
+                    t_dead = time.perf_counter()
+                if st["rehomed"]:
+                    break
+                _require(time.perf_counter() - t_kill < FLEET_WAIT_SECS,
+                         f"fleet: A not dead and rehomed "
+                         f"{FLEET_WAIT_SECS} s after the kill: "
+                         f"{sup.status()}")
+                time.sleep(0.02)
+            t_rehomed = time.perf_counter()
+            split["kill_to_dead_s"] = t_dead - t_kill
+            split["rehome_s"] = t_rehomed - t_dead
+            pins = sup.status()["pins"]
+            _require(pins == {keys[i]: "B" for i in owned["A"]},
+                     f"fleet: the supervisor's pins {pins} are not A's "
+                     f"keys on B")
+            dup = _serve_post_lines(ports["B"]["ingress"], {None: [
+                delta(i, 1) for i in owned["A"]]})
+            _require(dup == [{"duplicate": True, "seq": 2, "key": keys[i]}
+                             for i in owned["A"]],
+                     f"fleet: A's re-sent delta 2 answered {dup[:3]}")
+            t0 = time.perf_counter()
+            routes = {k: sup.owner(k) for k in keys}
+            _require(set(routes.values()) == {"B"},
+                     f"fleet: the supervisor routes {routes}")
+            acks = _serve_post_lines(ports["B"]["ingress"], {None: [
+                delta(i, d) for i in range(len(keys)) for d in (2, 3)]})
+            _require(len(acks) == 2 * len(keys)
+                     and all(a.get("accepted") for a in acks),
+                     f"fleet: deltas 3-4 not all accepted: {acks[:3]}")
+            finals = dict(enumerate(_serve_post_lines(
+                ports["B"]["ingress"], {None: [
+                    {"op": "finalize", "key": k, "timeout": 600}
+                    for k in keys]})))
+            split["adoption_to_last_verdict_s"] = \
+                time.perf_counter() - t_rehomed
+            split["deltas_3_4_finalize_s"] = time.perf_counter() - t0
+            split["keys_moved"] = len(pins)
+            split["mirror_bytes"] = sum(
+                os.path.getsize(os.path.join(mirror, f))
+                for f in os.listdir(mirror))
+            sup.stop()
+            sup = None
+            proc_b = started["B"][0]
+            out, _ = proc_b.communicate('{"op": "stop"}\n', timeout=600)
+            _require(proc_b.returncode == 0
+                     and out.splitlines()[-1:] == ['{"stopped": true}'],
+                     f"fleet: stop ended B with {proc_b.returncode}")
+        finally:
+            if sup is not None:
+                sup.stop()
+            for p in children:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    ref = REF_BATCH["multikey-84+8"]["invalid"]
+    for i, r in finals.items():
+        j = ref_index[i]
+        want = ({"valid?": False, **ref[j]} if j in ref
+                else {"valid?": True})
+        _require(r.get("seq") == SERVE_DELTAS
+                 and {f: r.get(f) for f in want} == want,
+                 f"fleet: {keys[i]} differs from REF_BATCH[{j}]: {r}")
+    n_invalid = sum(1 for r in finals.values() if r["valid?"] is False)
+    print(f"fleet: two replicas of the entry point, {len(keys)} register "
+          f"keys in {SERVE_DELTAS} deltas, A ({len(owned['A'])} keys) "
+          f"SIGKILLed after delta 2 with its WAL dir deleted, re-homed by "
+          f"the supervisor over HTTP from B's sync mirror: == REF_BATCH's "
+          f"verdicts and failing ops ({n_invalid} invalid), A's delta 2 "
+          f"answered duplicate on B; split (s) {json.dumps(split)}")
+    return split
+
+
+def _fleet_router(dev) -> dict:
+    """`serve.ring.Router` in process over two `CheckerService(
+    UnorderedQueue(), capacity=512)` on the card, six queue keys of
+    `_stream_batch_keys()` in four deltas: after delta 2 the owner of the
+    first key is closed without drain and `Router.rehome`d; a third replica
+    joins with its worker stopped and takes the FLEET_MIGRATED keys through
+    `Router.migrate_key`, their delta 3 is queued there, and its worker
+    then starts on both at once: the adopted keys resume from their frozen
+    frontiers at capacity 16,384, in one batched leg of K4. Each key
+    equals REF_SPARSE_BATCH's verdict and failing op and a solo session
+    fed the same deltas; the K2 and K4 launches (single and batched),
+    counted from just before the first delta to just after the last
+    finalize, each at least once, and batched K4 in the joining replica's
+    first batch."""
+    import tempfile
+    from jepsen_tpu_torch.models import UnorderedQueue
+    from jepsen_tpu_torch.parallel import extend
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    from jepsen_tpu_torch.serve import CheckerService
+    from jepsen_tpu_torch.serve.ring import Router
+    hs, index = _stream_batch_keys()
+    hs = [hs[p] for p in FLEET_QUEUE_KEYS]
+    ref_index = [index[p] for p in FLEET_QUEUE_KEYS]
+    keys = [f"q-{j}" for j in ref_index]
+    migrated = {f"q-{index[p]}" for p in FLEET_MIGRATED}
+
+    def delta(i: int, d: int) -> list:
+        h = hs[i]
+        return h[len(h) * d // SERVE_DELTAS:
+                 len(h) * (d + 1) // SERVE_DELTAS]
+
+    def replica(wal, start_worker=True):
+        return CheckerService(UnorderedQueue(), wal_dir=wal, capacity=512,
+                              device=dev, start_worker=start_worker)
+
+    def send(d: int, which) -> None:
+        for i, k in enumerate(keys):
+            if k in which:
+                _require(router.submit(k, delta(i, d), seq=d + 1,
+                                       timeout=900).get("accepted"),
+                         f"fleet router: {k} delta {d + 1}")
+
+    def wait(which) -> None:
+        for k in which:
+            _require("valid?" in router.result(k, timeout=900),
+                     f"fleet router: {k} gave no verdict")
+
+    split = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {n: f"{tmp}/{n}" for n in ("A", "B")}
+        router = Router({n: replica(d) for n, d in dirs.items()}, dirs)
+        try:
+            torch.cuda.synchronize()
+            sk.reset_launches()
+            t0 = time.perf_counter()
+            for d in (0, 1):
+                send(d, keys)
+            wait(keys)
+            split["deltas_1_2_s"] = time.perf_counter() - t0
+            dead = router.owner(keys[0])
+            router.services[dead].close(drain=False)
+            t0 = time.perf_counter()
+            plan = router.rehome(dead)
+            wait(keys)
+            split["rehome_s"] = time.perf_counter() - t0
+            moved = [k for k in keys if k in migrated]
+            stay = [k for k in keys if k not in migrated]
+            dirs["C"] = f"{tmp}/C"
+            router.services["C"] = replica(dirs["C"], start_worker=False)
+            router.wal_dirs["C"] = dirs["C"]
+            t0 = time.perf_counter()
+            for k in moved:
+                mig = router.migrate_key(k, "C")
+                _require(mig["to"] == "C" and mig["checkpoint"],
+                         f"fleet router: migrate_key {mig}")
+            split["migrate_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            send(2, keys)
+            wait(stay)
+            torch.cuda.synchronize()
+            n4 = sk.launches["tiled_insert_batch"]
+            router.services["C"].start_worker()
+            wait(moved)
+            torch.cuda.synchronize()
+            c_k4 = sk.launches["tiled_insert_batch"] - n4
+            send(3, keys)
+            finals = [router.finalize(k, timeout=900) for k in keys]
+            torch.cuda.synchronize()
+            split["deltas_3_4_finalize_s"] = time.perf_counter() - t0
+            n = _sparse_counts_all()
+        finally:
+            for svc in router.services.values():
+                svc.close()
+    _require(all(n[f] > 0 for f in ("frontier_closure",
+                                    "frontier_closure_batch",
+                                    "tiled_insert", "tiled_insert_batch")),
+             f"fleet router: the replicas must launch K2 and K4, single "
+             f"and batched: {n}")
+    _require(c_k4 > 0, f"fleet router: the migrated keys' delta 3 on the "
+             f"joining replica launched no batched K4 ({c_k4})")
+    t0 = time.perf_counter()
+    solo = [extend.HistorySession(UnorderedQueue(), capacity=512,
+                                  device=dev) for _ in keys]
+    for d in range(SERVE_DELTAS):
+        for i, s_ in enumerate(solo):
+            s_.extend(delta(i, d))
+    ones = [s_.check() for s_ in solo]
+    torch.cuda.synchronize()
+    split["solo_s"] = time.perf_counter() - t0
+    ref = REF_SPARSE_BATCH["uqueue-24+4"]["invalid"]
+    for i, (r, o) in enumerate(zip(finals, ones)):
+        j = ref_index[i]
+        want = ({"valid?": False, **ref[j]} if j in ref
+                else {"valid?": True})
+        _require(r.get("seq") == SERVE_DELTAS
+                 and {f: r.get(f) for f in want} == want,
+                 f"fleet router: {keys[i]} differs from "
+                 f"REF_SPARSE_BATCH[{j}]: {r}")
+        _require({f: r.get(f) for f in STREAM_KEYS}
+                 == json.loads(json.dumps({f: o.get(f)
+                                           for f in STREAM_KEYS})),
+                 f"fleet router: {keys[i]} differs from its solo session: "
+                 f"{r} {o}")
+    print(f"fleet: Router in process, {len(keys)} unordered-queue keys in "
+          f"{SERVE_DELTAS} deltas, {dead} closed after delta 2 and its "
+          f"{sum(len(v) for v in plan.values())} keys re-homed, {moved} "
+          f"migrated to a joining replica: == REF_SPARSE_BATCH's verdicts "
+          f"and failing ops and solo sessions; launches batched K2 "
+          f"{n['frontier_closure_batch']} batched K4 "
+          f"{n['tiled_insert_batch']} ({c_k4} in the joining replica's "
+          f"first batch), single K2 {n['frontier_closure']} "
+          f"K4 {n['tiled_insert']}; split (s) {json.dumps(split)}")
+    return {"split": split, "launches": n, "joining_batched_k4": c_k4}
+
+
+def phase_fleet(dev) -> dict:
+    """The serve fleet on the card: two replicas of the entry point with a
+    kill, a lost disk and the supervisor's rehome over HTTP (registers),
+    then the ring's Router in process with a crash rehome and a graceful
+    migration (unordered queue)."""
+    t0 = time.perf_counter()
+    procs = _fleet_processes(dev)
+    router = _fleet_router(dev)
+    print(f"fleet: the phase {time.perf_counter() - t0:.1f} s; kill to "
+          f"dead {procs['kill_to_dead_s']:.3f} s, the rehome "
+          f"{procs['rehome_s']:.3f} s, adoption to the last verdict "
+          f"{procs['adoption_to_last_verdict_s']:.3f} s, keys moved "
+          f"{procs['keys_moved']}, B's mirror {procs['mirror_bytes']} "
+          f"bytes; the Router's keys "
+          f"{router['split']['deltas_3_4_finalize_s']:.3f} s after the "
+          f"rehome")
+    return {"processes": procs, "router": router}
+
+
 def _phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4194,6 +4568,7 @@ def main() -> int:
     print(f"the four resumable/streaming/pipeline phases: "
           f"{time.perf_counter() - t_new:.1f} s")
     _phase("serve", phase_serve, dev)
+    _phase("fleet", phase_fleet, dev)
     # K2's stats instantiation, single and batched: timed on inputs kept
     # from the stats main path, with the launches of that path
     for t in st_timed:

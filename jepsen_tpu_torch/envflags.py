@@ -6,16 +6,17 @@ naming the flag, instead of silently reverting a default. Names must
 carry the ``JEPSEN_TPU_TORCH_`` prefix, so the port's flags stay apart
 from the reference's ``JEPSEN_TPU_*`` ones.
 
-The flags the port read before this module existed (dedupe, probe
-limit, bucket, config pack, search stats, pipeline) keep their own
-readers.
+The serve layer's flags (its queue bounds, WAL, tenants, ingress and
+ops ports, WAL replication) go through these accessors. The flags the
+port read before this module existed (dedupe, probe limit, bucket,
+config pack, search stats, pipeline) keep their own readers.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 PREFIX = "JEPSEN_TPU_TORCH_"
 
@@ -33,6 +34,22 @@ def env_raw(name: str, default: Optional[str] = None) -> Optional[str]:
             f"{name!r} is not a {PREFIX}* flag: the accessor only serves "
             f"the jepsen_tpu_torch namespace")
     return os.environ.get(name, default)
+
+
+def env_choice(name: str, choices: Sequence[str],
+               default: Optional[str] = None,
+               what: str = "value") -> Optional[str]:
+    """A flag restricted to an explicit set of strings. Unset ->
+    ``default``; anything outside ``choices`` raises
+    :class:`EnvFlagError` naming ``what``."""
+    raw = env_raw(name)
+    if raw is None:
+        return default
+    if raw in choices:
+        return raw
+    raise EnvFlagError(
+        f"{name}={raw!r}: unknown {what} (expected one of "
+        f"{tuple(choices)})")
 
 
 def env_int(name: str, default: Optional[int] = None,

@@ -1,0 +1,156 @@
+"""A circuit breaker over one health signal: the fleet supervisor's
+per-replica liveness state machine.
+
+A trimmed copy of `jepsen_tpu.resilience.breaker.CircuitBreaker`:
+
+    closed     calls flow; consecutive failures are counted
+    open       after `threshold` consecutive failures: refused until
+               an exponential backoff (base doubling per re-open,
+               deterministic jitter, capped) elapses
+    half-open  one caller per window runs the recovery ``probe``; a
+               healthy answer closes the breaker, anything else
+               re-opens it with a doubled backoff
+
+The jitter is seeded from the crc32 of the breaker's name, so under
+the same clock a breaker's ``open_until`` sequence equals the
+reference's. State changes set the ``resilience.breaker.<name>.state``
+gauge (0 closed / 1 half-open / 2 open) and count
+``resilience.breaker.opens``.
+
+Left out: the default probe (the reference's subprocess device probe;
+here ``probe``, ``threshold`` and ``backoff_base`` are required), the
+``JEPSEN_TPU_BREAKER_*`` flags, the injectable jitter source,
+flight-recorder dumps, and the module-level registry and trip set — a
+fleet breaker watching a peer replica never touches this process's own
+health.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+import zlib
+from typing import Callable, Tuple
+
+from jepsen_tpu_torch import obs
+
+CLOSED, HALF_OPEN, OPEN = "closed", "half-open", "open"
+_STATE_GAUGE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
+BACKOFF_CAP_SECS = 60.0
+JITTER_FRAC = 0.1
+
+
+class CircuitBreaker:
+    """One health signal's breaker. Thread-safe; all timing through
+    the injected clock, so the open/half-open/close lifecycle is
+    testable without sleeping."""
+
+    def __init__(self, backend: str, *, probe: Callable[[], bool],
+                 threshold: int, backoff_base: float,
+                 clock: Callable[[], float] = time.monotonic):
+        self.backend = backend
+        self.threshold = threshold
+        self.backoff_base = backoff_base
+        self.clock = clock
+        self.probe = probe
+        # seeded per name (crc32: str hashing is randomized per process),
+        # so a reproduced run reproduces its backoff schedule
+        self.rng = random.Random(
+            zlib.crc32(("jepsen-breaker:" + backend).encode()))
+        self._lock = threading.Lock()
+        self._state = CLOSED
+        self._failures = 0
+        self._opens = 0
+        self._open_until = 0.0
+        self._last_reason = ""
+        self._gauge()
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"backend": self.backend, "state": self._state,
+                    "failures": self._failures, "opens": self._opens,
+                    "open_until": self._open_until,
+                    "reason": self._last_reason}
+
+    def _gauge(self):
+        obs.gauge(f"resilience.breaker.{self.backend}.state").set(
+            _STATE_GAUGE[self._state])
+
+    def _backoff(self) -> float:
+        """Exponential in the re-open count, jittered, capped."""
+        base = self.backoff_base * (2 ** max(0, self._opens - 1))
+        jitter = 1.0 + JITTER_FRAC * self.rng.random()
+        return min(base * jitter, BACKOFF_CAP_SECS)
+
+    def _open_locked(self):
+        self._state = OPEN
+        self._opens += 1
+        self._open_until = self.clock() + self._backoff()
+        obs.counter("resilience.breaker.opens").inc()
+        self._gauge()
+
+    def record_failure(self, reason: str = ""):
+        with self._lock:
+            self._failures += 1
+            self._last_reason = reason
+            if self._state == HALF_OPEN \
+                    or (self._state != OPEN
+                        and self._failures >= self.threshold):
+                # the threshold is reached, or the probed call itself
+                # failed during half-open: (re-)open now
+                self._open_locked()
+            else:
+                self._gauge()
+
+    def record_success(self):
+        with self._lock:
+            self._failures = 0
+            self._opens = 0   # the incident is over: the next one starts
+            self._state = CLOSED   # at the base backoff
+            self._last_reason = ""
+            self._gauge()
+
+    def allow(self) -> Tuple[bool, str]:
+        """Whether a call may proceed now. Closed: yes. Open: no until
+        the backoff elapses; then ONE caller runs the probe (half-open):
+        healthy closes the breaker and admits the call, anything else
+        re-opens it with a doubled backoff."""
+        with self._lock:
+            if self._state == CLOSED:
+                return True, ""
+            if self._state == HALF_OPEN:
+                return False, (
+                    f"circuit breaker half-open for backend "
+                    f"{self.backend!r}: recovery probe in flight")
+            if self.clock() < self._open_until:
+                return False, (
+                    f"circuit breaker open for backend "
+                    f"{self.backend!r} (last failure: "
+                    f"{self._last_reason or '?'}; retry in "
+                    f"{max(0.0, self._open_until - self.clock()):.1f}s)")
+            self._state = HALF_OPEN
+            self._gauge()
+            probe = self.probe
+        try:
+            healthy = bool(probe())
+        except Exception:  # noqa: BLE001 — a crashed probe is not health
+            healthy = False
+        with self._lock:
+            if healthy:
+                self._state = CLOSED
+                self._failures = 0
+                self._opens = 0
+                self._gauge()
+            else:
+                self._open_locked()
+        if healthy:
+            return True, ""
+        return False, (f"circuit breaker re-opened for backend "
+                       f"{self.backend!r}: recovery probe unhealthy")

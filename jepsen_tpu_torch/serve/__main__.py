@@ -1,15 +1,22 @@
 """``python -m jepsen_tpu_torch.serve``: the streaming checker service
 on the card — the port's counterpart of the reference's ``jepsen serve
 --checker`` (jepsen_tpu/cli.py:332-430), trimmed to its model, WAL,
-dedupe, host and ingress-port options.
+dedupe, host, replication, ops-port and ingress-port options.
 
 Reads JSONL delta requests on stdin and answers on stdout
 (``serve.stdio``); with ``--ingress-port`` (or
 ``JEPSEN_TPU_TORCH_INGRESS_PORT``) it also serves the HTTP ingress
-and prints ``delta ingress: http://HOST:PORT`` on stderr (port 0: an
-OS-assigned one). ``{"op": "stop"}`` on stdin drains and exits 0.
-Without a CUDA device it exits non-zero with the RuntimeError's text:
-there is no CPU run from here.
+and prints ``delta ingress: http://HOST:PORT`` on stderr, and with
+``--ops-port`` (or ``JEPSEN_TPU_TORCH_OPS_PORT``) the ops endpoint
+(``/metrics``, ``/healthz``, ``/status``, ``POST /adopt``) and prints
+``ops endpoint: http://HOST:PORT`` (port 0: an OS-assigned one).
+``--repl-dir PATH`` with ``JEPSEN_TPU_TORCH_SERVE_REPL=sync|async``
+ships every key's WAL segments to PATH (a successor's ``repl/``
+mirror); a mode without ``--repl-dir``, ``--repl-dir`` with the mode
+off, or ``--repl-dir`` without a WAL are usage errors (exit 2).
+``{"op": "stop"}`` on stdin drains and exits 0. Without a CUDA device
+it exits non-zero with the RuntimeError's text: there is no CPU run
+from here.
 """
 
 from __future__ import annotations
@@ -46,6 +53,16 @@ def parser() -> argparse.ArgumentParser:
                         "JEPSEN_TPU_TORCH_DEDUPE, else hash)")
     p.add_argument("--host", default="0.0.0.0",
                    help="the ingress's bind address")
+    p.add_argument("--repl-dir", default=None,
+                   help="ship every key's WAL segments to this "
+                        "directory (the successor replica's repl/ "
+                        "mirror); the mode comes from "
+                        "JEPSEN_TPU_TORCH_SERVE_REPL (sync|async)")
+    p.add_argument("--ops-port", type=int, default=None,
+                   help="serve the ops endpoint (GET /metrics, /healthz, "
+                        "/status; POST /adopt) on this port (0 = "
+                        "OS-assigned; default: JEPSEN_TPU_TORCH_OPS_PORT, "
+                        "unset = off)")
     p.add_argument("--ingress-port", type=int, default=None,
                    help="accept streamed-JSONL delta requests over "
                         "HTTP on this port (POST /v1/deltas, GET "
@@ -57,24 +74,64 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
+def _repl_usage(args, wal_dir, mode: str):
+    """The reference's three usage errors of --repl-dir and the
+    replication mode, or None."""
+    if mode != "off" and not args.repl_dir:
+        return (f"JEPSEN_TPU_TORCH_SERVE_REPL={mode!r} but no --repl-dir "
+                f"names the successor's mirror — add --repl-dir PATH or "
+                f"unset the flag")
+    if args.repl_dir and mode == "off":
+        return ("--repl-dir given but JEPSEN_TPU_TORCH_SERVE_REPL is "
+                "off/unset — set the mode (async|sync) or drop the flag")
+    if args.repl_dir and not wal_dir:
+        return ("--repl-dir needs a WAL-backed service (--wal-dir / "
+                "JEPSEN_TPU_TORCH_SERVE_WAL)")
+    return None
+
+
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     from jepsen_tpu_torch import models as model_ns
     from jepsen_tpu_torch.envflags import EnvFlagError
+    from jepsen_tpu_torch.obs import httpd as ops_httpd
+    from jepsen_tpu_torch.parallel import bitdense
     from jepsen_tpu_torch.serve import CheckerService, default_wal_dir
+    from jepsen_tpu_torch.serve import fleet
     from jepsen_tpu_torch.serve import ingress as ingress_mod
     from jepsen_tpu_torch.serve.stdio import run_stdio
+    from jepsen_tpu_torch.serve.wal import DeltaWAL
     model = getattr(model_ns, SERVE_MODELS[args.model])()
     try:
+        wal_dir = args.wal_dir or default_wal_dir()
+        mode = fleet.resolve_repl_mode()
+        usage = _repl_usage(args, wal_dir, mode)
+        if usage is not None:
+            print(f"jepsen_tpu_torch.serve: {usage}", file=sys.stderr)
+            return 2
         iport = ingress_mod.resolve_ingress_port(args.ingress_port)
-        svc = CheckerService(model,
-                             wal_dir=args.wal_dir or default_wal_dir(),
-                             dedupe=args.dedupe)
+        oport = ops_httpd.resolve_ops_port(args.ops_port)
+        bitdense.resolve_device(None)   # the card, before any file
+        replicator = (fleet.SegmentReplicator(
+            DeltaWAL(wal_dir), fleet.constant_dst(args.repl_dir),
+            mode=mode) if args.repl_dir else None)
+        svc = CheckerService(model, wal_dir=wal_dir, dedupe=args.dedupe,
+                             replicator=replicator)
     except (RuntimeError, EnvFlagError) as err:
         print(f"jepsen_tpu_torch.serve: {err}", file=sys.stderr)
         return 1
-    ing = None
+    ing = ops = None
     try:
+        if oport is not None:
+            # POST /adopt is the fleet supervisor's live handoff: a
+            # WAL-backed service only (adopt_keys raises without one)
+            ops = ops_httpd.OpsServer(
+                oport, host=args.host, health_fn=svc.health,
+                status_fn=svc.status,
+                adopt_fn=svc.adopt_keys if wal_dir else None).start()
+            print(f"ops endpoint: http://{args.host}:{ops.port} "
+                  f"(/metrics /healthz /status, POST /adopt)",
+                  file=sys.stderr, flush=True)
         if iport is not None:
             ing = ingress_mod.start_ingress(svc, iport, host=args.host)
             print(f"delta ingress: http://{args.host}:{ing.port} "
@@ -84,6 +141,8 @@ def main(argv=None) -> int:
     finally:
         if ing is not None:
             ing.close()
+        if ops is not None:
+            ops.close()
         svc.close(drain=False)
 
 

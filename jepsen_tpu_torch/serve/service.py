@@ -38,13 +38,20 @@ of the same prefix.
   admitting; the worker drains tenants by deficit round-robin so device
   time follows weights, not arrival order.
 
-Left out of the port: the reference's obs spans, counters, gauges and
+* **WAL segment replication** (``replicator=``, a
+  ``serve.fleet.SegmentReplicator``; mode ``JEPSEN_TPU_TORCH_SERVE_REPL``).
+  After a key's WAL fsync and before the ack, the replicator ships the
+  key's segments to its successor's mirror; a ``sync`` ship that did not
+  land makes the ack (and a ``wait=True`` answer) carry
+  ``"replicated": False``. ``close`` drains it.
+
+Left out of the port: the reference's serve spans, counters, gauges and
 histograms, slow-delta records and delta ids, flight dumps, the SLO
 tracker and decision ledger (so acks carry no ``delta_id``, WAL records
 no ``"id"``, and ``status()`` no ``slow_deltas``: the reference's
-unarmed behaviour); the compiled-program manifests; WAL segment
-replication (``replicator=`` raises); and ``health()``'s breaker check
-(the port has no breaker registry).
+unarmed behaviour); the compiled-program manifests; and ``health()``'s
+breaker check (the port has no breaker registry: its only breakers are
+the fleet supervisor's, one per peer replica).
 
 Threading: producers call ``submit``/``result`` from any thread; one
 worker thread owns every session and the device (the kernels launch
@@ -216,10 +223,6 @@ class CheckerService:
                  tenants=None, drr_quantum: Optional[int] = None,
                  replicator=None, recover: bool = True,
                  start_worker: bool = True, clock=time.monotonic):
-        if replicator is not None:
-            raise NotImplementedError(
-                "replicator=: WAL segment replication (the reference's "
-                "serve.fleet) is not ported to jepsen_tpu_torch")
         self.model = model
         self.capacity = capacity
         self.max_capacity = max_capacity
@@ -250,6 +253,23 @@ class CheckerService:
                     tenants.pending_bound(name, budget))
         self._clock = clock
         self._wal = DeltaWAL(wal_dir) if wal_dir else None
+        # WAL segment replication: a configured mode with no target to
+        # ship to protects nothing — refuse it at construction
+        from jepsen_tpu_torch.serve.fleet import resolve_repl_mode
+        mode = resolve_repl_mode()
+        if replicator is not None and getattr(replicator, "mode",
+                                              None) == "off":
+            replicator = None
+        if mode != "off" and replicator is None:
+            raise ValueError(
+                f"JEPSEN_TPU_TORCH_SERVE_REPL={mode!r} but no replication "
+                f"target is wired — pass replicator= (a serve.fleet."
+                f"SegmentReplicator) or `python -m jepsen_tpu_torch.serve "
+                f"--repl-dir PATH`, or unset the flag")
+        if replicator is not None and self._wal is None:
+            raise ValueError("WAL segment replication needs a "
+                             "WAL-backed service (wal_dir)")
+        self._repl = replicator
         self._cps = (CheckpointStore(wal_dir + "/checkpoints")
                      if wal_dir else None)
         self._keys: Dict = {}
@@ -554,6 +574,8 @@ class CheckerService:
         if shed is not None:
             return shed
         durable = self._wal is not None
+        durable_replica = None   # False: a sync ship of this ack's
+        # bytes did not land (None: no replicator, or nothing appended)
         if self._wal is not None:
             # per-key seq-ordered handoff: seq N's bytes land before
             # N+1's, so a crash can truncate the WAL only at the tail,
@@ -620,18 +642,28 @@ class CheckerService:
                                 ks.fenced = fence2
                             self._cond.notify_all()
                         return self._fence_refusal(key, ks.fenced)
+                    if self._repl is not None:
+                        # ship the key's segments to its successor; sync
+                        # mode answers False when the copy did not land
+                        durable_replica = \
+                            self._repl.after_append(key) is not False
         if wait:
             rem = None if deadline is None else deadline - self._clock()
             r = self.result(key, min_seq=my_seq, timeout=rem,
                             tenant=tname)
             if not durable and self._wal is not None:
                 r["durable"] = False
+            if durable_replica is False:
+                r["replicated"] = False
             return r
         out = {"accepted": True, "seq": my_seq, "key": key}
         if ts is not None:
             out["tenant"] = tname
         if not durable and self._wal is not None:
             out["durable"] = False
+        if durable_replica is False:
+            # the sync promise not met this ack: primary-durable only
+            out["replicated"] = False
         return out
 
     def _own_key_locked(self, key, tenant: Optional[str],
@@ -743,6 +775,10 @@ class CheckerService:
             self._cond.notify_all()
         if self._worker is not None:
             self._worker.join(timeout=30)
+        if self._repl is not None:
+            # flush the async queue before the WAL goes away: a graceful
+            # shutdown leaves the successor's mirror current
+            self._repl.close(drain=drain)
         if self._wal is not None:
             self._wal.close()
 

@@ -31,9 +31,9 @@ is a no-op, never a double-apply.
 
 Segmentation exists for two consumers (neither changes replay
 semantics): per-tenant WAL-bytes quotas meter ``size_bytes`` (the sum
-over segments), and replica handoff (the reference's
-``serve.ring.transfer_key``; not ported yet) ships a key as a list of
-sealed files instead of one unbounded one. ``rotate`` seals the active
+over segments), and replica handoff (``serve.ring.transfer_key``, and the
+replication of ``serve.fleet.SegmentReplicator``) ships a key as a list
+of sealed files instead of one unbounded one. ``rotate`` seals the active
 segment; ``JEPSEN_TPU_TORCH_SERVE_WAL_SEGMENT_BYTES`` (0 = off, the
 default) rotates automatically past a size. Each segment repeats the
 header so a transferred file set is self-describing.

@@ -3,7 +3,7 @@ chip_smoke.py, kernel_ab.py, the parity cases chip_smoke.py loads
 (tests/torch_parity_cases.py) nor the card tests the card runs without
 JAX (tests/test_torch_config_pack_kernels.py,
 tests/test_torch_sparse_batch_cuda.py, tests/test_torch_stream_cuda.py,
-tests/test_torch_serve_cuda.py),
+tests/test_torch_serve_cuda.py, tests/test_torch_fleet_cuda.py),
 imports JAX or anything of the JAX package (jepsen_tpu).
 Checked twice: by importing everything in a fresh interpreter and
 reading sys.modules, and by scanning the sources' import statements."""
@@ -24,7 +24,8 @@ SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "tests" / "test_torch_config_pack_kernels.py",
     ROOT / "tests" / "test_torch_sparse_batch_cuda.py",
     ROOT / "tests" / "test_torch_stream_cuda.py",
-    ROOT / "tests" / "test_torch_serve_cuda.py"]
+    ROOT / "tests" / "test_torch_serve_cuda.py",
+    ROOT / "tests" / "test_torch_fleet_cuda.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -41,6 +42,7 @@ import test_torch_config_pack_kernels  # its cases are built, nothing runs
 import test_torch_sparse_batch_cuda
 import test_torch_stream_cuda
 import test_torch_serve_cuda
+import test_torch_fleet_cuda
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.")
@@ -54,6 +56,7 @@ print("STREAM", sorted(n for n in names if n.endswith(("extend",
                                                        "pipeline"))))
 print("SERVE", sorted(n for n in names if ".serve" in n
                       or n.endswith("envflags")))
+print("OPS", sorted(n for n in names if ".obs" in n or ".resilience" in n))
 print("BAD", bad)
 """
 
@@ -70,15 +73,19 @@ def test_port_and_smoke_import_without_jax():
                           env=env)
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
-    assert int(lines["MODULES"]) >= 29, proc.stdout
+    assert int(lines["MODULES"]) >= 36, proc.stdout
     assert lines["STREAM"] == str(["jepsen_tpu_torch.parallel.extend",
                                    "jepsen_tpu_torch.parallel.pipeline"]), \
         proc.stdout
     assert lines["SERVE"] == str(sorted(
         ["jepsen_tpu_torch.envflags", "jepsen_tpu_torch.serve"]
         + [f"jepsen_tpu_torch.serve.{m}" for m in (
-            "__main__", "ingress", "service", "stdio", "tenancy",
-            "wal")])), proc.stdout
+            "__main__", "fleet", "ingress", "ring", "service", "stdio",
+            "tenancy", "wal")])), proc.stdout
+    assert lines["OPS"] == str(sorted(
+        [f"jepsen_tpu_torch.{m}" for m in (
+            "obs", "obs.httpd", "obs.metrics", "resilience",
+            "resilience.breaker")])), proc.stdout
     assert lines["SPARSE"] == str(["jepsen_tpu_torch.parallel.sparse",
                                    "jepsen_tpu_torch.parallel."
                                    "sparse_kernels"]), proc.stdout

@@ -18,7 +18,9 @@ hammer, finalize under DRR, recovery re-homing ownership; adopt_keys
 with fences, steal_key and freeze_key; status and health; the device
 fault decision (a scan error gives each key of its batch the loud
 unknown: with a WAL the next delta gives the one-shot verdict, without
-one the key is poisoned); replicator= and the card-less service."""
+one the key is poisoned); the card-less service. ``replicator=`` (WAL
+segment replication) is held to the reference in
+tests/test_torch_fleet.py."""
 
 import json
 import os
@@ -809,12 +811,6 @@ def test_device_error_gives_the_batch_the_loud_unknown(tmp_path,
         assert port[2]["keys"]['"k1"']["state"] == "poisoned"
         assert all("new key" in r["error"] for r in port[3:5])
         assert port[5] == {"ok": False, "total": 2, "poisoned": 2}
-
-
-def test_replicator_is_not_ported():
-    with pytest.raises(NotImplementedError, match="replicator"):
-        CheckerService(models.CASRegister(), device="cpu",
-                       replicator=object())
 
 
 def test_service_on_no_card_raises(monkeypatch):
