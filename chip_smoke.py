@@ -255,6 +255,30 @@ down both of its engines:
        fed the same deltas; K2 and K4 (single and batched) launched,
        zeroed just before and read just after, and batched K4 in the
        joining replica's first batch.
+ 12. the mesh paths at one NCCL rank (`meshplan.local_mesh()`: NCCL
+     cannot put two ranks on one card), over K1, K2, K3 and K4, no
+     kernel of their own; every reference value from
+     tests/torch_record_sharded_refs.py:
+     * "sharded resumable": `check_encoded_sharded_resumable` of the
+       full-width pair's encoded valid history (not encoded again), a
+       checkpoint every 256 events, each equal to the reference's
+       (REF_SHARDED_RESUMABLE), the result equal to the pair's one-shot
+       check of this run, and a resume from the middle checkpoint via
+       .npz to the same result; K3's grid launched;
+     * "sharded stats": `check_encoded_sharded(search_stats=True)` of
+       `adversarial_register_history(600, 12)`: the block equal to the
+       reference's (REF_SHARDED_STATS) but for the probe histogram, all
+       zeros where K3 ran (the reference's fused kernel's);
+     * "elastic": `check_encoded_sharded_elastic` of the 400-op queue
+       from capacity 64: one rung, then the table doubles; the verdict
+       fields and "reshard" equal REF_ELASTIC;
+     * "mesh batch": `check_batch(mesh=)` of multikey-84 (batched K1) and
+       of the 28 sparse keys (batched K2 and K4), equal to REF_BATCH and
+       REF_SPARSE_BATCH;
+     * "steal": `check_batch(steal=True, mesh=)` of
+       `elastic.forced_skew_histories()` equal to the static batch of the
+       same keys and to REF_STEAL, the scheduler's accounting too; both
+       walls printed.
   Launch counts are zeroed just before each main-path check and read just
   after; each check must have launched the kernel of its route.
 
@@ -268,6 +292,7 @@ printed. Without a CUDA device it exits with code 1 before doing anything.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -1970,7 +1995,9 @@ def phase_sharded_full(dev, mesh) -> dict:
           f"s, K3 launches {sk.launches['hash_insert']}")
     out["recorded"] = rec.kept
     out["valid"] = r
-    dense = bitdense.check_encoded_bitdense(enc.encode(model, h), device=dev)
+    # kept for the resumable phase, which checks the same history
+    out["enc"] = enc.encode(model, h)
+    dense = bitdense.check_encoded_bitdense(out["enc"], device=dev)
     keys = ("valid?", "op", "fail-event")
     _require(r["closure"] == "cuda" and r["valid?"] is True,
              f"full width: {r}")
@@ -4414,6 +4441,279 @@ def phase_fleet(dev) -> dict:
     return {"processes": procs, "router": router}
 
 
+# ------------------------------------------------- the mesh paths
+
+# The reference's results on a one-device CPU mesh, recorded by
+# tests/torch_record_sharded_refs.py (one section each).
+# resumable: check_encoded_sharded_resumable of the full-width pair's
+# valid history (capacity FULL_CAPACITY, dedupe "hash", a checkpoint every
+# MESH_RESUME_EVERY events): the result and every checkpoint's row
+REF_SHARDED_RESUMABLE = {
+    "result": {"valid?": True, "op": None, "fail-event": None,
+               "max-frontier": 57344, "capacity": 131072, "devices": 1,
+               "configs-stepped": 142667777},
+    "checkpoints": [
+        [256, 131072, True, -1, 57344, 0, 14675969, "83ab8cb96e7f4cda"],
+        [512, 131072, True, -1, 57344, 0, 29356033, "8e32943378e3e8b7"],
+        [768, 131072, True, -1, 57344, 0, 44036097, "8cad094c392fde95"],
+        [1024, 131072, True, -1, 57344, 0, 58716161, "83ab8cb96e7f4cda"],
+        [1280, 131072, True, -1, 57344, 0, 73396225, "83ab8cb96e7f4cda"],
+        [1536, 131072, True, -1, 57344, 0, 88076289, "83ab8cb96e7f4cda"],
+        [1792, 131072, True, -1, 57344, 0, 102756353, "8cad094c392fde95"],
+        [2048, 131072, True, -1, 57344, 0, 117436417, "7827e454e3cf612a"],
+        [2304, 131072, True, -1, 57344, 0, 132116481, "7827e454e3cf612a"],
+        [2488, 131072, True, -1, 57344, 0, 142667777, "8cad094c392fde95"]]}
+MESH_RESUME_EVERY = 256
+# stats: check_encoded_sharded(search_stats=True) of
+# adversarial_register_history(600, 12) from capacity 8,192: the result,
+# and the digest of the block but for the probe histogram's fields
+# (_stats_block_digest) with some of its fields to read
+REF_SHARDED_STATS = {
+    "result": {"valid?": True, "op": None, "fail-event": None,
+               "max-frontier": 57344, "capacity": 131072, "devices": 1,
+               "configs-stepped": 33714177},
+    "digest": "ca10dd77d5f23c73", "events": 588, "frontier-peak": 57344,
+    "capacity-tier": 4}
+MESH_STATS_OPS, MESH_STATS_CAPACITY = 600, 8192
+# elastic: check_encoded_sharded_elastic of the 400-op unordered queue of
+# REF_CHECKPOINTS from capacity 64, a checkpoint every 32 events
+REF_ELASTIC = {
+    "result": {"valid?": True, "op": None, "fail-event": None,
+               "max-frontier": 256, "capacity": 256, "devices": 1,
+               "configs-stepped": 25467},
+    "reshard": {"start-devices": 1, "events": []}}
+# steal: check_batch(steal=True) of elastic.forced_skew_histories() (8
+# heavy, 40 light keys) at capacity SKEW_CAPACITY, max 2^16, dedupe
+# "hash": the digest of every key's STEAL_PIN fields (_steal_digest) and
+# the scheduler's accounting
+REF_STEAL = {
+    "digest": "98e8182b374cd274",
+    "buckets": [{"tier": 8, "engine": "sparse", "keys": 48, "rounds": 48,
+                 "steals": 0, "observed_keys": 48,
+                 "per_device_cost": [35299.0], "per_device_busy": [1.0],
+                 "busy_frac": 1.0, "per_device_load_factor_peak": [None],
+                 "load_factor_spread": None, "cohort_pred": [478.614]}]}
+MESH_KEYS = ("valid?", "op", "fail-event", "max-frontier", "capacity",
+             "devices", "configs-stepped")
+# the stats block's fields the probe histogram makes: zeros where K3 ran
+PHIST_FIELDS = ("probe-hist", "probes")
+
+
+def _stats_block_digest(block: dict) -> str:
+    """The digest of a sharded stats block without the probe histogram's
+    fields, as tests/torch_record_sharded_refs.py computes it."""
+    import hashlib
+    rest = {k: v for k, v in block.items() if k not in PHIST_FIELDS}
+    return hashlib.sha256(json.dumps(rest, sort_keys=True).encode()) \
+        .hexdigest()[:16]
+
+
+def _steal_digest(rs: list) -> str:
+    import hashlib
+    from jepsen_tpu_torch.parallel import elastic
+    pins = [{k: r.get(k) for k in elastic.STEAL_PIN} for r in rs]
+    return hashlib.sha256(json.dumps(pins, sort_keys=True, default=repr)
+                          .encode()).hexdigest()[:16]
+
+
+def _pin_mesh(r: dict) -> dict:
+    return {k: r.get(k) for k in MESH_KEYS}
+
+
+def phase_sharded_resumable(dev, mesh, full) -> dict:
+    """The resumable sharded arm at full width, on the pair's encoded valid
+    history: a checkpoint every MESH_RESUME_EVERY events, each equal to
+    the reference's (REF_SHARDED_RESUMABLE), the result equal to the
+    pair's one-shot check of this run; then a resume from the middle
+    checkpoint, saved to .npz and loaded, to the same result. K3's grid
+    runs."""
+    import tempfile
+    from jepsen_tpu_torch.parallel import engine, sharded
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    e, one = full["enc"], full["valid"]
+    kw = {"capacity": FULL_CAPACITY, "max_capacity": 1 << 20,
+          "checkpoint_every": MESH_RESUME_EVERY, "dedupe": "hash"}
+    cps = []
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    r = sharded.check_encoded_sharded_resumable(e, mesh,
+                                                checkpoint_cb=cps.append,
+                                                **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grid = sk.hash_insert_launches["device"]
+    keys = ("valid?", "max-frontier", "capacity", "configs-stepped")
+    print(f"mesh: sharded resumable adv-{FULL_OPS}-k12: "
+          f"{ {k: r.get(k) for k in keys} }, {len(cps)} checkpoints, wall "
+          f"{wall:.3f} s (one-shot {full['wall']:.3f} s), K3 launches "
+          f"{sk.launches['hash_insert']} (grid {grid})")
+    _require({k: r.get(k) for k in keys} == {k: one.get(k) for k in keys},
+             f"resumable {r} != the one-shot {one}")
+    _require(r["closure"] == "cuda" and grid > 0,
+             f"resumable: closure {r['closure']}, K3 grid launches {grid}")
+    rows = [_cp_row(c) for c in cps]
+    _require(rows == REF_SHARDED_RESUMABLE["checkpoints"],
+             f"resumable checkpoints != the reference's: {rows}")
+    _require(_pin_mesh(r) == REF_SHARDED_RESUMABLE["result"],
+             f"resumable {r} != the reference's")
+    mid = cps[len(cps) // 2]
+    with tempfile.TemporaryDirectory() as d:
+        path = mid.save(os.path.join(d, "mid"))
+        cp = engine.FrontierCheckpoint.load(path)
+    t0 = time.perf_counter()
+    r2 = sharded.check_encoded_sharded_resumable(e, mesh, resume=cp, **kw)
+    torch.cuda.synchronize()
+    resumed = time.perf_counter() - t0
+    print(f"mesh: sharded resumable: resumed from event {cp.event_index} "
+          f"(.npz) in {resumed:.3f} s: "
+          f"{ {k: r2.get(k) for k in keys} }")
+    _require({k: r2.get(k) for k in keys} == {k: r.get(k) for k in keys},
+             f"resume from the middle checkpoint: {r2} != {r}")
+    return {"wall": wall, "resumed": resumed, "grid": grid,
+            "launches": sk.launches["hash_insert"]}
+
+
+def phase_sharded_stats(dev, mesh) -> dict:
+    """check_encoded_sharded(search_stats=True) of a smaller history of
+    the pair's shape: the block equals the reference's
+    (REF_SHARDED_STATS) but for the probe histogram, which is all zeros
+    where K3 ran ("closure": "cuda"), as the reference's fused kernel
+    gives it."""
+    from jepsen_tpu_torch import histories, models
+    from jepsen_tpu_torch.parallel import encode as enc
+    from jepsen_tpu_torch.parallel import sharded
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    e = enc.encode(models.CASRegister(None),
+                   histories.adversarial_register_history(
+                       n_ops=MESH_STATS_OPS, k_crashed=12))
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    r = sharded.check_encoded_sharded(e, mesh, capacity=MESH_STATS_CAPACITY,
+                                      max_capacity=1 << 20, dedupe="hash",
+                                      search_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    block = r["stats"]
+    print(f"mesh: sharded stats adv-{MESH_STATS_OPS}-k12: "
+          f"{_pin_mesh(r)}, events {block['events']}, frontier-peak "
+          f"{block['frontier-peak']}, capacity-tier {block['capacity-tier']}"
+          f", probes {block['probes']}, wall {wall:.3f} s, K3 launches "
+          f"{sk.launches['hash_insert']}")
+    _require(_pin_mesh(r) == REF_SHARDED_STATS["result"],
+             f"sharded stats: {r} != the reference's")
+    _require(_stats_block_digest(block) == REF_SHARDED_STATS["digest"]
+             and all(block[k] == REF_SHARDED_STATS[k] for k in (
+                 "events", "frontier-peak", "capacity-tier")),
+             "sharded stats: the block differs from the reference's")
+    _require(r["closure"] == "cuda" and block["probes"] == 0
+             and set(block["probe-hist"].values()) == {0},
+             f"sharded stats: K3's histogram must be zeros: {block}")
+    return {"wall": wall, "launches": sk.launches["hash_insert"]}
+
+
+def phase_elastic(dev, mesh) -> dict:
+    """check_encoded_sharded_elastic of the 400-op queue at one rank: one
+    rung, then the table doubles; the verdict fields and the "reshard"
+    block equal the reference's (REF_ELASTIC)."""
+    from jepsen_tpu_torch import histories, models
+    from jepsen_tpu_torch.parallel import encode as enc
+    from jepsen_tpu_torch.parallel import sharded
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    e = enc.encode(models.UnorderedQueue(), histories.rand_queue_history(
+        CP_OPS, n_processes=8, crash_p=0.005, seed=1))
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    r = sharded.check_encoded_sharded_elastic(e, mesh, capacity=CP_CAPACITY,
+                                              checkpoint_every=CP_EVERY,
+                                              dedupe="hash")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"mesh: elastic uqueue-{CP_OPS}: {_pin_mesh(r)}, reshard "
+          f"{r['reshard']}, wall {wall:.3f} s, K3 launches "
+          f"{sk.launches['hash_insert']}")
+    _require({"result": _pin_mesh(r), "reshard": r["reshard"]}
+             == REF_ELASTIC, f"elastic: {r} != the reference's")
+    _require(r["closure"] == "cuda" and sk.launches["hash_insert"] > 0,
+             f"elastic: {r['closure']}")
+    return {"wall": wall, "launches": sk.launches["hash_insert"]}
+
+
+def phase_mesh_batch(dev, mesh) -> dict:
+    """check_batch(mesh=local_mesh()) on the 84 keys and on the 28-key
+    sparse batch: every key equals REF_BATCH / REF_SPARSE_BATCH, through
+    batched K1, batched K2 and batched K4 (each count zeroed just before
+    the run and read just after)."""
+    from jepsen_tpu_torch.models import CASRegister, UnorderedQueue
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    from jepsen_tpu_torch.parallel import engine
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    out = {}
+    for name, model, hs, ref, digest in (
+            ("multikey-84", CASRegister(), _batch_keys()[0],
+             REF_BATCH["multikey-84"], _batch_digest),
+            ("uqueue-24+4", UnorderedQueue(), _sparse_batch_keys(),
+             REF_SPARSE_BATCH["uqueue-24+4"], _sparse_batch_digest)):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        rs = engine.check_batch(model, hs, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {"K1_batch": ck.batch_launches,
+             "K2_batch": sk.launches["frontier_closure_batch"],
+             "K4_batch": sk.launches["tiled_insert_batch"]}
+        print(f"mesh: batch {name} at one rank: {len(rs)} keys, wall "
+              f"{wall:.3f} s, launches {n}")
+        _require(digest(rs) == ref, f"mesh batch {name} != the reference's")
+        out[name] = {"wall": wall, **n}
+    _require(out["multikey-84"]["K1_batch"] > 0, "mesh batch: no batched K1")
+    _require(out["uqueue-24+4"]["K2_batch"] > 0
+             and out["uqueue-24+4"]["K4_batch"] > 0,
+             "mesh batch: batched K2 and K4 must both run")
+    return out
+
+
+def phase_steal(dev, mesh) -> dict:
+    """check_batch(steal=True, mesh=local_mesh()) on the forced-skew keys:
+    every key equals the static check_batch of the same keys and the
+    reference's (REF_STEAL's digest), and the scheduler's accounting the
+    reference's at one device. Both walls print: a finding, not a
+    claim."""
+    from jepsen_tpu_torch.parallel import elastic, engine
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    model, hs = elastic.forced_skew_histories()
+    kw = {"capacity": elastic.SKEW_CAPACITY, "max_capacity": 1 << 16,
+          "dedupe": "hash", "mesh": mesh}
+    walls = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    static = engine.check_batch(model, hs, **kw)
+    torch.cuda.synchronize()
+    walls["static"] = time.perf_counter() - t0
+    st = {}
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    rs = engine.check_batch(model, hs, steal=True, steal_stats=st, **kw)
+    torch.cuda.synchronize()
+    walls["steal"] = time.perf_counter() - t0
+    n = {"K2_batch": sk.launches["frontier_closure_batch"],
+         "K4_batch": sk.launches["tiled_insert_batch"]}
+    print(f"mesh: steal forced-skew 8+40 at one rank: walls (s) static "
+          f"{walls['static']:.3f}, steal {walls['steal']:.3f}; scheduler "
+          f"{st['buckets']}; launches {n}")
+    _require(_steal_digest(rs) == _steal_digest(static) == REF_STEAL["digest"],
+             "steal: results differ from the static batch's or the "
+             "reference's")
+    keys = REF_STEAL["buckets"][0].keys()
+    _require([{k: b.get(k) for k in keys} for b in st["buckets"]]
+             == REF_STEAL["buckets"], f"steal: scheduler {st['buckets']}")
+    return {"walls": walls, **n}
+
+
 def _phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4569,6 +4869,16 @@ def main() -> int:
           f"{time.perf_counter() - t_new:.1f} s")
     _phase("serve", phase_serve, dev)
     _phase("fleet", phase_fleet, dev)
+    # the mesh paths at one NCCL rank (the card's mesh), each count zeroed
+    # just before its run and read just after
+    t_mesh = time.perf_counter()
+    _phase("sharded resumable", phase_sharded_resumable, dev, mesh, full)
+    del full["enc"]
+    _phase("sharded stats", phase_sharded_stats, dev, mesh)
+    _phase("elastic", phase_elastic, dev, mesh)
+    _phase("mesh batch", phase_mesh_batch, dev, mesh)
+    _phase("steal", phase_steal, dev, mesh)
+    print(f"the five mesh phases: {time.perf_counter() - t_mesh:.1f} s")
     # K2's stats instantiation, single and batched: timed on inputs kept
     # from the stats main path, with the launches of that path
     for t in st_timed:

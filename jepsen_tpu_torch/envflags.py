@@ -7,7 +7,9 @@ carry the ``JEPSEN_TPU_TORCH_`` prefix, so the port's flags stay apart
 from the reference's ``JEPSEN_TPU_*`` ones.
 
 The serve layer's flags (its queue bounds, WAL, tenants, ingress and
-ops ports, WAL replication) go through these accessors. The flags the
+ops ports, WAL replication) and the mesh executors' (STEAL, STEAL_ROUND,
+RESHARD, and DIST with its three companions) go through these
+accessors. The flags the
 port read before this module existed (dedupe, probe limit, bucket,
 config pack, search stats, pipeline) keep their own readers.
 """
@@ -19,6 +21,16 @@ import os
 from typing import Optional, Sequence
 
 PREFIX = "JEPSEN_TPU_TORCH_"
+
+# The mesh executors' flags, each read strictly where it is used:
+# STEAL and RESHARD (`env_bool`, engine._resolve_steal/_resolve_reshard),
+# STEAL_ROUND (`env_int` >= 1, elastic._resolve_round_keys), DIST
+# (`env_bool`) and its three required companions DIST_COORD (host:port),
+# DIST_NPROC (>= 1) and DIST_PROC (in [0, NPROC)), meshplan.
+# distributed_init.
+MESH_FLAGS = tuple(PREFIX + n for n in (
+    "STEAL", "STEAL_ROUND", "RESHARD", "DIST", "DIST_COORD", "DIST_NPROC",
+    "DIST_PROC"))
 
 
 class EnvFlagError(ValueError):
@@ -34,6 +46,22 @@ def env_raw(name: str, default: Optional[str] = None) -> Optional[str]:
             f"{name!r} is not a {PREFIX}* flag: the accessor only serves "
             f"the jepsen_tpu_torch namespace")
     return os.environ.get(name, default)
+
+
+def env_bool(name: str, default: Optional[bool] = None) -> Optional[bool]:
+    """A strict tri-state boolean flag: unset -> ``default``, ``"1"`` ->
+    True, ``"0"`` -> False; any other value raises
+    :class:`EnvFlagError` instead of silently counting as off."""
+    raw = env_raw(name)
+    if raw is None:
+        return default
+    if raw == "1":
+        return True
+    if raw == "0":
+        return False
+    raise EnvFlagError(
+        f"{name}={raw!r}: must be '1' (on) or '0' (off); unset the "
+        f"variable to get the default")
 
 
 def env_choice(name: str, choices: Sequence[str],

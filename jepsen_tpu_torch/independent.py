@@ -23,10 +23,14 @@ of class "not-encodable"; any other device error surfaces to the
 caller, as the port's single-history checker does.
 
 With `pipeline=True` (or JEPSEN_TPU_TORCH_PIPELINE=1) that batch runs
-through the pipelined executor (`parallel.pipeline`). Not ported: the
-generator half (tuple_gen, sequential_generator, ConcurrentGenerator),
-the circuit breaker and supervisor, per-key result persistence to a
-store, and the stealing and re-sharding executors.
+through the pipelined executor (`parallel.pipeline`). A
+`torch.distributed` DeviceMesh under the test map's "mesh" shards the
+batch's key axis over its ranks (every rank runs the checker on the
+same history) and gives an overflowing key the sharded escalation
+rung; `steal` and `reshard` (None: their flags) pass through to
+`engine.check_batch`. Not ported: the generator half (tuple_gen,
+sequential_generator, ConcurrentGenerator), the circuit breaker and
+supervisor, and per-key result persistence to a store.
 """
 
 from __future__ import annotations
@@ -144,10 +148,12 @@ class IndependentChecker(Checker):
     results, the encode overlapping the card's scan."""
 
     def __init__(self, checker: Checker, batch_device: bool = True,
-                 pipeline=None):
+                 pipeline=None, steal=None, reshard=None):
         self.checker = checker
         self.batch_device = batch_device
         self.pipeline = pipeline
+        self.steal = steal
+        self.reshard = reshard
 
     def check(self, test, history, opts=None):
         opts = opts or {}
@@ -209,12 +215,16 @@ class IndependentChecker(Checker):
         if not packable:
             return None, None
         ks = list(subs)
+        # a mesh on the test map shards the key axis over its ranks
+        mesh = (test or {}).get("mesh")
         try:
             rs = engine.check_batch(model, [subs[k] for k in ks],
-                                    device=c.device,
+                                    device=None if mesh is not None
+                                    else c.device,
                                     pipeline=self.pipeline,
                                     config_pack=c.config_pack,
-                                    search_stats=c.search_stats)
+                                    search_stats=c.search_stats, mesh=mesh,
+                                    steal=self.steal, reshard=self.reshard)
         except EncodeError as err:
             # not device-encodable (a set past its lane budget, a crash
             # pile-up past 64 slots): the host path is right, but slower
@@ -231,6 +241,7 @@ class IndependentChecker(Checker):
                 "no-redispatch": False}
 
 
-def checker(c: Checker, batch_device: bool = True,
-            pipeline=None) -> IndependentChecker:
-    return IndependentChecker(c, batch_device, pipeline)
+def checker(c: Checker, batch_device: bool = True, pipeline=None,
+            steal=None, reshard=None) -> IndependentChecker:
+    return IndependentChecker(c, batch_device, pipeline, steal=steal,
+                              reshard=reshard)

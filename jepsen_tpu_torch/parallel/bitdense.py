@@ -48,7 +48,7 @@ import torch
 from jepsen_tpu_torch.parallel import closure_kernels as ck
 from jepsen_tpu_torch.parallel import search_stats as st
 from jepsen_tpu_torch.parallel.encode import (
-    EncodedHistory, fail_op_fields, pad_batch,
+    EncodedHistory, fail_op_fields, pad_batch, place_batch,
 )
 from jepsen_tpu_torch.parallel.steps import STEPS
 
@@ -347,11 +347,11 @@ class _BatchScan:
     failure keeps its carry."""
 
     def __init__(self, encs, xs: dict, state0, S: int, C: int, R: int,
-                 device, stats: bool = False):
+                 device, stats: bool = False, state_lo=None):
         e0 = encs[0]
         self.step = STEPS[e0.step_name]
         self.K, self.S, self.C, self.R = len(encs), S, C, R
-        self.lo = e0.state_lo
+        self.lo = e0.state_lo if state_lo is None else state_lo
         self.device = device
         # event-major [R, K, C], so that one row's selects are contiguous
         self.xs = {k: torch.from_numpy(np.ascontiguousarray(
@@ -396,28 +396,50 @@ class PendingBitdenseBatch:
     the whole scan (on a card the host runs ahead of the device);
     `finalize()` makes the one device read and builds the per-key
     results. A trimmed port of the reference's class: no supervisor, no
-    decision ledger, no mesh, and no closure fallback — a launch the
+    decision ledger, and no closure fallback — a launch the
     card refuses raises to the caller. With `search_stats` each key's
     result carries its stats block, with the reference's pad extras
     ("pad-waste", "pad-events", "pad-slots")."""
 
     def __init__(self, encs, device, search_stats: bool = False,
                  min_states: int = 0, min_slots: int = 5,
-                 min_returns: int = 0):
+                 min_returns: int = 0, mesh=None, ranks=None):
         self.encs = encs
         self.device = device
         self.search_stats = search_stats
-        # C >= 5: at least one full 32-mask word
+        # C >= 5: at least one full 32-mask word. The dims are the whole
+        # batch's; with a mesh this rank pads and scans its keys only
         xs, state0, self.S, self.C, self.R = pad_batch(
             encs, min_slots=max(5, min_slots), min_states=min_states,
-            min_returns=min_returns)
-        self._scan = _BatchScan(encs, xs, state0, self.S, self.C, self.R,
-                                device, stats=search_stats).run()
+            min_returns=min_returns, mesh=mesh, ranks=ranks)
+        self.plan = None
+        self.mine = list(range(len(encs)))
+        if mesh is not None:
+            from jepsen_tpu_torch.parallel.meshplan import MeshPlan
+            self.plan = MeshPlan.flat(mesh)
+            self.mine = place_batch(len(encs), mesh, ranks)
+        self._scan = None
+        if self.mine:
+            # the whole batch's state offset: a block's first key may
+            # have another
+            self._scan = _BatchScan([encs[j] for j in self.mine], xs,
+                                    state0, self.S, self.C, self.R, device,
+                                    stats=search_stats,
+                                    state_lo=encs[0].state_lo).run()
         self._results = None
 
     def finalize(self) -> list:
+        """The per-key results, in the batch's order; with a mesh an
+        all-gather of every rank's keys (every rank calls it)."""
         if self._results is not None:
             return self._results
+        out = self._finalize_mine() if self.mine else []
+        if self.plan is not None:
+            out = self.plan.gather_keys(len(self.encs), self.mine, out)
+        self._results = out
+        return out
+
+    def _finalize_mine(self) -> list:
         sc = self._scan
         valid = sc.ok & (sc.B != 0).flatten(1).any(1)
         # the one device read of the whole batch
@@ -425,7 +447,7 @@ class PendingBitdenseBatch:
         closure = "cuda" if self.device.type == "cuda" else "torch"
         ys = _ys(sc.traj) if self.search_stats else None
         out = []
-        for k, e in enumerate(self.encs):
+        for k, e in enumerate([self.encs[j] for j in self.mine]):
             r = {"valid?": bool(valid_l[k]), "engine": "bitdense",
                  "dedupe": "dense", "closure": closure}
             if ys is not None:
@@ -441,13 +463,13 @@ class PendingBitdenseBatch:
             if not r["valid?"]:
                 r.update(fail_op_fields(e, int(fail_l[k])))
             out.append(r)
-        self._results = out
         return out
 
 
 def dispatch_batch_bitdense(encs, device=None, search_stats=None,
                             min_states: int = 0, min_slots: int = 5,
-                            min_returns: int = 0) -> PendingBitdenseBatch:
+                            min_returns: int = 0, mesh=None,
+                            ranks=None) -> PendingBitdenseBatch:
     """Pad and issue a batched per-key check without reading its
     results: `finalize()` on the returned PendingBitdenseBatch reads
     them. `device` None means the card (RuntimeError without one);
@@ -455,14 +477,23 @@ def dispatch_batch_bitdense(encs, device=None, search_stats=None,
     `min_states`, `min_slots` and `min_returns` floor the padded S, C
     and R: the pipelined executor pads each chunk of a bucket to the
     whole bucket's dims, so that a chunk's results (its stats' pad
-    extras too) are the whole bucket's."""
+    extras too) are the whole bucket's. `mesh` (a DeviceMesh) shards the
+    keys over its ranks (`encode.place_batch`; `ranks`, one mesh index
+    per key, places them instead), each rank scanning its keys on its
+    own device padded to the whole batch's dims, and `finalize()`
+    all-gathers the results: every rank of the mesh calls both."""
+    if mesh is not None:
+        from jepsen_tpu_torch.parallel.meshplan import MeshPlan
+        device = MeshPlan.flat(mesh).device
     return PendingBitdenseBatch(encs, resolve_device(device),
                                 st._resolve_search_stats(search_stats),
                                 min_states=min_states, min_slots=min_slots,
-                                min_returns=min_returns)
+                                min_returns=min_returns, mesh=mesh,
+                                ranks=ranks)
 
 
-def check_batch_bitdense(encs, device=None, search_stats=None) -> list:
+def check_batch_bitdense(encs, device=None, search_stats=None,
+                         mesh=None) -> list:
     """Batched per-key check, the result schema of the reference's
     batch: per key {"valid?", "engine": "bitdense", "dedupe": "dense",
     "closure"} plus the failing op's fields when the key is invalid
@@ -473,4 +504,5 @@ def check_batch_bitdense(encs, device=None, search_stats=None) -> list:
     if not encs:
         return []
     return dispatch_batch_bitdense(encs, device=device,
-                                   search_stats=search_stats).finalize()
+                                   search_stats=search_stats,
+                                   mesh=mesh).finalize()

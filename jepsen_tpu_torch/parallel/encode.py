@@ -284,18 +284,32 @@ def encode(model, history, pad_slots: Optional[int] = None,
                          pad_slots)
 
 
+def place_batch(K: int, mesh, ranks=None) -> list:
+    """This rank's keys of a K-key batch sharded over `mesh` (a
+    DeviceMesh): the reference places the key axis on the mesh's
+    devices; here every rank is a process and takes a contiguous block
+    of ceil(K / ranks) keys, a ragged K leaving the last ranks shorter
+    blocks. `ranks`, one mesh index per key, places each key instead."""
+    from jepsen_tpu_torch.parallel.meshplan import MeshPlan
+    return MeshPlan.flat(mesh).keys_of(K, ranks)
+
+
 def pad_batch(encs: list, min_slots: int = 1, min_states: int = 0,
-              min_returns: int = 0):
+              min_returns: int = 0, mesh=None, ranks=None):
     """Pad per-key encoded histories to one (K, R, C) batch: the
     reference's `pad_batch` without the mesh placement. `min_slots`,
     `min_states` and `min_returns` floor C, S and R (the dense batch
     passes min_slots=5: one full 32-mask word). Pad slots are empty (f,
     a0, a1 = -1, unoccupied, not wild) and pad events return on slot -1.
     Returns (xs, state0, S, C, R): xs maps each table name to a numpy
-    array ([K, R, C], `ev_slot` [K, R]), state0 is int32 [K]."""
+    array ([K, R, C], `ev_slot` [K, R]), state0 is int32 [K]. With
+    `mesh` the dims are the whole batch's and the arrays those of this
+    rank's keys only (`place_batch(len(encs), mesh, ranks)`)."""
     S = max(min_states, max(e.n_states for e in encs))
     C = max(min_slots, max(e.slot_f.shape[1] for e in encs))
     R = max(min_returns, max(e.n_returns for e in encs))
+    if mesh is not None:
+        encs = [encs[j] for j in place_batch(len(encs), mesh, ranks)]
     K = len(encs)
 
     def pad(attr, fill, dtype):

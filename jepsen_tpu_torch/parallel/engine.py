@@ -27,9 +27,14 @@ batch with per-key capacity retry (`sparse.check_batch_sparse`, whose
 closure is K2 or K4 batched over keys) and, past its ceiling, the
 single-key escalation (`_escalate_overflow`). Results keep the input
 order. `check_batch(pipeline=True)` overlaps the encode with the card's
-scan (`parallel.pipeline`). The sharded escalation rung and the
-work-stealing executor are not ported yet: `steal` raises
-NotImplementedError.
+scan (`parallel.pipeline`), `check_batch(steal=True)` runs the buckets
+in rounds under the work-stealing scheduler (`parallel.elastic`), and
+`check_batch(mesh=...)` shards the key axis over the ranks of a
+`torch.distributed` DeviceMesh: every rank scans its block of each
+bucket, padded to the whole bucket's dims, the results are all-gathered
+into input order, and a key past the batch's ceiling escalates on every
+rank together — the single-key rung, then the frontier-sharded engine
+over the mesh (`parallel.sharded`).
 
 `check_encoded_resumable` is the sparse engine's check in chunks of
 events with a `FrontierCheckpoint` after each, which resumes it — and
@@ -53,6 +58,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from jepsen_tpu_torch import envflags
 from jepsen_tpu_torch import models as model_ns
 from jepsen_tpu_torch.checker import wgl
 from jepsen_tpu_torch.history import Call, History
@@ -473,6 +479,16 @@ def history_digest(e: EncodedHistory) -> str:
     return h.hexdigest()[:16]
 
 
+def check_resume(e: EncodedHistory, resume, digest: str) -> None:
+    """Raise ValueError unless checkpoint `resume` is of `e` (its digest)
+    and of its model."""
+    if resume.history_digest != digest:
+        raise ValueError(f"checkpoint is for a different history (digest "
+                         f"{resume.history_digest} != {digest})")
+    if resume.step_name != e.step_name:
+        raise ValueError("checkpoint is for a different model")
+
+
 class FrontierOverflowError(RuntimeError):
     """The frontier outgrew max_capacity; carries the last checkpoint, for
     the "unknown" result the one-shot check gives."""
@@ -567,12 +583,7 @@ def check_encoded_resumable(e: EncodedHistory, capacity: int = 1024,
     pack = sparse.pack_spec_for(e) if pack_req else ()
     digest = history_digest(e)
     if resume is not None:
-        if resume.history_digest != digest:
-            raise ValueError(
-                f"checkpoint is for a different history "
-                f"(digest {resume.history_digest} != {digest})")
-        if resume.step_name != e.step_name:
-            raise ValueError("checkpoint is for a different model")
+        check_resume(e, resume, digest)
         cp = resume
     else:
         cp = FrontierCheckpoint.fresh(e, capacity, digest)
@@ -655,6 +666,25 @@ def _resolve_bucket(bucket: Optional[str]) -> str:
     return bucket
 
 
+def _resolve_steal(steal: Optional[bool]) -> bool:
+    """Whether the batch runs under the work-stealing scheduler
+    (`parallel.elastic`): an explicit argument wins, else the strict
+    JEPSEN_TPU_TORCH_STEAL flag ("1" on, "0" or unset off)."""
+    if steal is None:
+        steal = envflags.env_bool("JEPSEN_TPU_TORCH_STEAL", default=False)
+    return bool(steal)
+
+
+def _resolve_reshard(reshard: Optional[bool]) -> bool:
+    """Whether the sharded engine answers an overflow by recruiting
+    ranks (`sharded.check_encoded_sharded_elastic`): an explicit argument
+    wins, else the strict JEPSEN_TPU_TORCH_RESHARD flag."""
+    if reshard is None:
+        reshard = envflags.env_bool("JEPSEN_TPU_TORCH_RESHARD",
+                                    default=False)
+    return bool(reshard)
+
+
 def _resolve_pipeline(pipeline: Optional[bool]) -> bool:
     """Whether the batch runs through the pipelined executor: an explicit
     argument wins, else JEPSEN_TPU_TORCH_PIPELINE, a strict tri-state:
@@ -686,7 +716,9 @@ def check_batch(model, histories, capacity: int = 512,
                 pipeline_stats: Optional[dict] = None,
                 steal: Optional[bool] = None,
                 config_pack: Optional[bool] = None,
-                search_stats: Optional[bool] = None) -> list:
+                search_stats: Optional[bool] = None, mesh=None,
+                reshard: Optional[bool] = None,
+                steal_stats: Optional[dict] = None) -> list:
     """Check many per-key histories, one batched device scan per
     slot-window bucket (`check_batch_encoded`), results in input order.
     `device` None means the card (RuntimeError without one); the tests
@@ -708,26 +740,31 @@ def check_batch(model, histories, capacity: int = 512,
     pipeline, `cache` (other than False) or `pipeline_stats` raises
     ValueError, as the reference's serial path does.
 
-    The reference takes a `mesh` for the batch's key axis and for the
-    sharded escalation rung; the port's batch runs on one device, and
-    its escalation stops at the single-key rung (ROADMAP Queue 1 item
-    9b). The work-stealing executor (`steal`) is not ported: asking for
-    it raises NotImplementedError."""
+    `mesh`, a `torch.distributed` DeviceMesh, shards the key axis over
+    its ranks (every rank of it calls check_batch with the same
+    arguments and gets the same results; `device` is then the mesh's)
+    and gives a key past the batch's ceiling the sharded escalation
+    rung over it (`_escalate_overflow`). `steal` (None: the strict
+    JEPSEN_TPU_TORCH_STEAL flag) runs each bucket in rounds under the
+    work-stealing scheduler (`elastic.check_batch_stealing`), whose
+    accounting `steal_stats`, a dict, receives; without stealing
+    `steal_stats` raises ValueError. `reshard` (None:
+    JEPSEN_TPU_TORCH_RESHARD) makes the sharded rung recruit ranks
+    before it grows its tables. The results are the same every way."""
     bucket = _resolve_bucket(bucket)   # fail fast: before the encode
     dedupe = sparse._resolve_dedupe(dedupe)   # likewise
     config_pack = sparse._resolve_config_pack(config_pack)   # likewise
     search_stats = st._resolve_search_stats(search_stats)    # likewise
-    if steal:
-        raise NotImplementedError(
-            "check_batch: work stealing (steal) is not ported yet "
-            "(ROADMAP Queue 1 item 9b)")
+    _check_mesh(mesh)
+    run_steal = _resolve_steal(steal)
     if _resolve_pipeline(pipeline):
         from jepsen_tpu_torch.parallel import pipeline as pipe_mod
         return pipe_mod.check_batch_pipelined(
             model, histories, capacity=capacity,
-            max_capacity=max_capacity, bucket=bucket, cache=cache,
-            stats=pipeline_stats, dedupe=dedupe,
+            max_capacity=max_capacity, mesh=mesh, bucket=bucket,
+            cache=cache, stats=pipeline_stats, dedupe=dedupe,
             search_stats=search_stats, config_pack=config_pack,
+            steal=run_steal, reshard=reshard, steal_stats=steal_stats,
             device=device)
     if (cache is not None and cache is not False) \
             or pipeline_stats is not None:
@@ -737,12 +774,44 @@ def check_batch(model, histories, capacity: int = 512,
             "check_batch: cache/pipeline_stats are pipelined-executor "
             "arguments — pass pipeline=True (or set "
             "JEPSEN_TPU_TORCH_PIPELINE=1) to use them")
+    if steal_stats is not None and not run_steal:
+        # the static path runs no scheduler and would leave the dict
+        # empty while the caller believes stealing was measured
+        raise ValueError(
+            "check_batch: steal_stats is an elastic-executor argument — "
+            "pass steal=True (or set JEPSEN_TPU_TORCH_STEAL=1) to use it")
     pre = [enc_mod.encode(model, h) for h in histories]
+    if run_steal:
+        from jepsen_tpu_torch.parallel import elastic
+        return elastic.check_batch_stealing(
+            model, pre, capacity=capacity, max_capacity=max_capacity,
+            mesh=mesh, bucket=bucket, dedupe=dedupe,
+            search_stats=search_stats, config_pack=config_pack,
+            reshard=reshard, stats=steal_stats, device=device)
     return check_batch_encoded(model, pre, capacity=capacity,
                                max_capacity=max_capacity, device=device,
                                bucket=bucket, dedupe=dedupe,
                                config_pack=config_pack,
-                               search_stats=search_stats)
+                               search_stats=search_stats, mesh=mesh,
+                               reshard=reshard)
+
+
+def _check_mesh(mesh) -> None:
+    """A mesh is a torch.distributed DeviceMesh (or None)."""
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh: a torch.distributed DeviceMesh, not "
+                            f"{type(mesh).__name__}")
+
+
+def batch_device(device, mesh):
+    """The device a batch runs on: the mesh's when there is one (this
+    rank's card, or the CPU), else `device` (None: the card)."""
+    if mesh is None:
+        return bitdense.resolve_device(device)
+    from jepsen_tpu_torch.parallel.meshplan import MeshPlan
+    return MeshPlan.flat(mesh).device
 
 
 def check_batch_encoded(model, pre, capacity: int = 512,
@@ -750,19 +819,23 @@ def check_batch_encoded(model, pre, capacity: int = 512,
                         bucket: Optional[str] = None,
                         dedupe: Optional[str] = None,
                         config_pack: Optional[bool] = None,
-                        search_stats: Optional[bool] = None) -> list:
+                        search_stats: Optional[bool] = None, mesh=None,
+                        reshard: Optional[bool] = None) -> list:
     """check_batch on already-encoded keys: bucket them by slot window
     (`bucket_key`), check each bucket whose padded dims fit the dense
     engine (`bitdense.fits_bitdense(S_max, C_max)`) in one batched dense
     scan and every other bucket in the sparse batch
-    (`_check_batch_sparse`), and return the results in `pre`'s order."""
+    (`_check_batch_sparse`), and return the results in `pre`'s order.
+    With `mesh` each bucket's keys are sharded over its ranks, as
+    `check_batch`'s docstring says."""
     bucket = _resolve_bucket(bucket)
     dedupe = sparse._resolve_dedupe(dedupe)
     config_pack = sparse._resolve_config_pack(config_pack)
     search_stats = st._resolve_search_stats(search_stats)
+    _check_mesh(mesh)
     if not pre:
         return []
-    dev = bitdense.resolve_device(device)
+    dev = batch_device(device, mesh)
     out: list = [None] * len(pre)
     buckets: dict = {}
     for i, e in enumerate(pre):
@@ -774,12 +847,14 @@ def check_batch_encoded(model, pre, capacity: int = 512,
         C_max = max(e.n_slots for e in sub)
         if bitdense.fits_bitdense(S_max, C_max):
             rs = bitdense.check_batch_bitdense(sub, device=dev,
-                                               search_stats=search_stats)
+                                               search_stats=search_stats,
+                                               mesh=mesh)
         else:
             rs = _check_batch_sparse(sub, capacity, max_capacity,
                                      dedupe=dedupe, device=dev,
                                      config_pack=config_pack,
-                                     search_stats=search_stats)
+                                     search_stats=search_stats, mesh=mesh,
+                                     reshard=reshard)
         for i, r in zip(idxs, rs):
             out[i] = r
     return out
@@ -789,13 +864,18 @@ def _check_batch_sparse(pre, capacity: int, max_capacity: int,
                         dedupe: Optional[str] = None, device=None,
                         smem_budget=None,
                         config_pack: Optional[bool] = None,
-                        search_stats: Optional[bool] = None) -> list:
+                        search_stats: Optional[bool] = None, mesh=None,
+                        reshard: Optional[bool] = None, pad=None,
+                        pack=None, ranks=None) -> list:
     """The sparse batch with per-key capacity retry
     (`sparse.check_batch_sparse`), its keys past `max_capacity` escalated
     one by one (`_escalate_overflow`), the packing and stats requests
     with them. `smem_budget` is the test seam of the closure's route, in
-    the batch and in the escalation."""
-    dev = bitdense.resolve_device(device)
+    the batch and in the escalation. With `mesh` the keys are sharded
+    over its ranks and the escalation runs on every rank together, with
+    the sharded rung over the mesh; `pad`, `pack` and `ranks` are
+    `sparse.check_batch_sparse`'s (the stealing rounds')."""
+    dev = batch_device(device, mesh)
     dedupe = sparse._resolve_dedupe(dedupe)
     config_pack = sparse._resolve_config_pack(config_pack)
     search_stats = st._resolve_search_stats(search_stats)
@@ -804,30 +884,41 @@ def _check_batch_sparse(pre, capacity: int, max_capacity: int,
         return _escalate_overflow(e, batch_cap, device=dev, dedupe=dedupe,
                                   smem_budget=smem_budget,
                                   config_pack=config_pack,
-                                  search_stats=search_stats)
+                                  search_stats=search_stats, mesh=mesh,
+                                  reshard=reshard)
 
     return sparse.check_batch_sparse(pre, capacity, max_capacity,
                                      dedupe=dedupe, device=dev,
                                      smem_budget=smem_budget,
                                      escalate=escalate,
                                      config_pack=config_pack,
-                                     search_stats=search_stats)
+                                     search_stats=search_stats, mesh=mesh,
+                                     pad=pad, pack=pack, ranks=ranks)
 
 
 def _escalate_overflow(e: EncodedHistory, batch_cap: int, device=None,
                        dedupe: str = "hash", smem_budget=None,
                        config_pack: bool = False,
-                       search_stats: bool = False) -> dict:
+                       search_stats: bool = False, mesh=None,
+                       reshard: Optional[bool] = None) -> dict:
     """A key too wide for the batch escalates instead of dying as
-    "unknown": the single-key sparse engine on the batch's own device,
-    from 2x the batch's ceiling up to 4x it (at most 2^21), as the
-    reference's first rung (engine.py `_escalate_overflow_impl`), with
-    the batch's packing and stats requests (the key's own `pack_spec_for`
-    decides its layout; its stats block is the single rung's). A key it
-    decides is tagged "escalated": "single"; one it does not keeps
-    the single rung's "unknown" result with the reference's error. The
-    reference's second rung, the frontier-sharded engine over the
-    caller's mesh, waits for ROADMAP Queue 1 item 9b."""
+    "unknown" (the reference's `_escalate_overflow_impl`). First rung:
+    the single-key sparse engine on the batch's own device, from 2x the
+    batch's ceiling up to 4x it (at most 2^21), with the batch's packing
+    and stats requests (the key's own `pack_spec_for` decides its
+    layout). Second rung, with a `mesh` whose ceiling min(batch_cap * 4
+    * ranks, 2^24) passes the single rung's: the frontier-sharded engine
+    over the mesh from min(batch_cap * 8, that ceiling), with `reshard`
+    (its elastic ladder). A decided key is tagged "escalated": "single"
+    or "sharded"; one neither decides keeps the last rung's "unknown"
+    result with the reference's error. With a mesh every rank escalates
+    the same key at once (the sharded rung is a collective), each
+    running the single rung on its own device.
+
+    A sharded rung that raises leaves the key "unknown" with
+    "escalation-error", a warning and the `engine.escalation_errors`
+    counter, as the reference's does: no other engine gives the key a
+    verdict."""
     ceil_single = min(batch_cap * 4, 1 << 21)
     r = sparse.check_encoded(e, capacity=min(batch_cap * 2, ceil_single),
                              max_capacity=ceil_single, device=device,
@@ -837,6 +928,29 @@ def _escalate_overflow(e: EncodedHistory, batch_cap: int, device=None,
     if r["valid?"] != "unknown":
         r["escalated"] = "single"
         return r
+    n_dev = 0 if mesh is None else mesh.size()
+    if mesh is not None and min(batch_cap * 4 * n_dev, 1 << 24) \
+            > ceil_single:
+        ceil_sharded = min(batch_cap * 4 * n_dev, 1 << 24)
+        try:
+            from jepsen_tpu_torch.parallel import sharded
+            rs = sharded.check_encoded_sharded(
+                e, mesh, capacity=min(batch_cap * 8, ceil_sharded),
+                max_capacity=ceil_sharded, dedupe=dedupe,
+                search_stats=search_stats, config_pack=config_pack,
+                reshard=reshard)
+            if rs["valid?"] != "unknown":
+                rs["escalated"] = "sharded"
+                return rs
+            r = rs
+        except Exception as err:  # noqa: BLE001 — the reference's rule
+            from jepsen_tpu_torch.obs import metrics as obs_metrics
+            obs_metrics.counter("engine.escalation_errors").inc()
+            _log.warning("sharded escalation tier crashed (%r) — key left "
+                         "unknown; this may hide a sharded-engine "
+                         "regression", err)
+            r = dict(r)
+            r["escalation-error"] = repr(err)
     r["error"] = (f"frontier overflow: batch capacity {batch_cap}, "
                   f"escalation tiers exhausted ({r.get('error')})")
     return r

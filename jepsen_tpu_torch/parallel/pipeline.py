@@ -33,13 +33,17 @@ Decision: no host thread pool. The encode is Python under the GIL,
 and the overlap that matters is the host's encode against the card's
 scan, which the asynchronous launch gives on one thread; the smoke
 (`chip_smoke.py`, phase "pipeline") times the 84 keys' encode on one
-thread and on eight. Not ported: the supervisor's degradation of a
-failed chunk to the host (a device fault raises), the obs spans,
-gauges and decision ledger (ROADMAP item 10), the mesh and the
-work-stealing executor (`mesh`, `steal`, `reshard`, `steal_stats`
-raise NotImplementedError: item 9b), and the JEPSEN_TPU_ENCODE_CACHE
-size flag (`EncodeCache(max_entries=...)` sizes a cache, 0 turns it
-off).
+thread and on eight. With `mesh` (a DeviceMesh) every chunk's keys are
+sharded over its ranks (`bitdense.dispatch_batch_bitdense(mesh=)`),
+dense chunks aligned to the rank count as the reference's are, and
+every rank of the mesh calls the executor; with `steal` a dense
+bucket's chunks are the rounds of a `elastic.KeyScheduler` that
+observes each drained chunk, and a sparse bucket runs through
+`elastic.check_batch_stealing`. Not ported: the supervisor's
+degradation of a failed chunk to the host (a device fault raises), the
+obs spans, gauges and decision ledger (ROADMAP item 10), and the
+JEPSEN_TPU_ENCODE_CACHE size flag (`EncodeCache(max_entries=...)`
+sizes a cache, 0 turns it off).
 """
 
 from __future__ import annotations
@@ -328,10 +332,23 @@ def _fill(info: _KeyInfo, cache: Optional[EncodeCache]) -> EncodedHistory:
     return info.enc
 
 
-def _chunks(idxs: list, chunk_keys: int) -> list:
+def _chunks(idxs: list, chunk_keys: int, align: int = 1) -> list:
     """A bucket cut into near-equal chunks of at most ~chunk_keys keys
-    (84 keys at 32 give three of 28, not 32, 32 and 20)."""
+    (84 keys at 32 give three of 28, not 32, 32 and 20). With a mesh
+    (`align` its ranks) every chunk but the last remainder is a multiple
+    of `align`, as the reference's are, so that every rank gets its
+    share of each."""
     n = len(idxs)
+    if align > 1:
+        ck = max(align, (max(1, chunk_keys) // align) * align)
+        out = [idxs[p:p + ck] for p in range(0, n - n % ck, ck)]
+        rem = idxs[n - n % ck:]
+        r_aligned = len(rem) - len(rem) % align
+        if r_aligned:
+            out.append(rem[:r_aligned])
+        if len(rem) % align:
+            out.append(rem[r_aligned:])
+        return out
     k = max(1, -(-n // max(1, chunk_keys)))
     base, rem = divmod(n, k)
     out = []
@@ -341,6 +358,21 @@ def _chunks(idxs: list, chunk_keys: int) -> list:
         out.append(idxs[pos:pos + size])
         pos += size
     return out
+
+
+def _bucket_chunks(idxs: list, chunk_keys: int, align: int, sched):
+    """(chunk, placement) pairs of a dense bucket: its aligned chunks
+    (placement None), or, with a scheduler, its rounds — drawn lazily,
+    so that a round reflects every rebalance since the last."""
+    if sched is None:
+        for chunk in _chunks(idxs, chunk_keys, align):
+            yield chunk, None
+        return
+    while True:
+        placement = sched.next_round()
+        if placement is None:
+            return
+        yield [i for i, _d in placement], placement
 
 
 # ------------------------------------------------------------ executor
@@ -376,14 +408,25 @@ def check_batch_pipelined(model, histories, capacity: int = 512,
                 events; None off the card) or, sparse, "search_secs" —
                 and the cache's counters of this call under "cache"
 
-    `mesh`, `steal`, `reshard` and `steal_stats` belong to the mesh and
-    work-stealing executors, not ported yet (ROADMAP Queue 1 item 9b):
-    they raise NotImplementedError. `device` None means the card
-    (RuntimeError without one)."""
-    if mesh is not None or steal or reshard or steal_stats is not None:
-        raise NotImplementedError(
-            "check_batch_pipelined: mesh, steal, reshard and steal_stats "
-            "are not ported yet (ROADMAP Queue 1 item 9b)")
+    mesh        a torch.distributed DeviceMesh: the keys are sharded
+                over its ranks, each of which calls the executor with
+                the same arguments (`device` is then the mesh's)
+    steal       the work-stealing scheduler (None: the strict
+                JEPSEN_TPU_TORCH_STEAL flag): a dense bucket's chunks
+                are its rounds, a sparse bucket runs through
+                `elastic.check_batch_stealing`
+    reshard     the sharded escalation rung recruits ranks first (None:
+                JEPSEN_TPU_TORCH_RESHARD)
+    steal_stats a dict for the schedulers' accounting ({"buckets":
+                [...]}); without stealing it raises ValueError
+
+    `device` None means the card (RuntimeError without one)."""
+    engine._check_mesh(mesh)
+    steal = engine._resolve_steal(steal)
+    if steal_stats is not None and not steal:
+        raise ValueError(
+            "check_batch: steal_stats is an elastic-executor argument — "
+            "pass steal=True (or set JEPSEN_TPU_TORCH_STEAL=1) to use it")
     if depth < 1:
         raise ValueError(f"depth={depth} must be >= 1")
     bucket = engine._resolve_bucket(bucket)
@@ -397,7 +440,7 @@ def check_batch_pipelined(model, histories, capacity: int = 512,
                   "buckets": []})
     if K == 0:
         return []
-    dev = bitdense.resolve_device(device)
+    dev = engine.batch_device(device, mesh)
     if cache is None:
         cache = default_cache()
     elif cache is False:
@@ -407,7 +450,7 @@ def check_batch_pipelined(model, histories, capacity: int = 512,
     c0 = cache.counters() if cache is not None else None
     out = _stream(model, histories, capacity, max_capacity, bucket, cache,
                   chunk_keys, depth, stats, dedupe, search_stats,
-                  config_pack, dev)
+                  config_pack, dev, mesh, steal, reshard, steal_stats)
     if c0 is not None:
         c1 = cache.counters()
         stats["cache"] = {k: c1[k] - c0[k] for k in
@@ -418,8 +461,12 @@ def check_batch_pipelined(model, histories, capacity: int = 512,
 
 def _stream(model, histories, capacity, max_capacity, bucket, cache,
             chunk_keys, depth, stats, dedupe, search_stats, config_pack,
-            dev) -> list:
+            dev, mesh=None, steal: bool = False, reshard=None,
+            steal_stats: Optional[dict] = None) -> list:
     """The executor's body (`check_batch_pipelined`)."""
+    from jepsen_tpu_torch.parallel import elastic
+    align = 1 if mesh is None else mesh.size()
+    scheds: list = []    # (bstat, KeyScheduler) of the stealing buckets
     K = len(histories)
     timed = dev.type == "cuda"
     t_wall = perf_counter()
@@ -434,7 +481,7 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
     bstats: list = []
 
     def drain_one():
-        chunk, pb, bstat, ev0, ev1 = pending.popleft()
+        chunk, pb, bstat, ev0, ev1, sched, placement = pending.popleft()
         t0 = perf_counter()
         rs = pb.finalize()
         bstat["device_wait_secs"] += perf_counter() - t0
@@ -442,6 +489,15 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
             bstat["device_secs"] += ev0.elapsed_time(ev1) / 1e3
         for i, r in zip(chunk, rs):
             out[i] = r
+        if sched is not None:
+            # the stealer's observation point: the drained chunk's costs
+            # rebalance what is still queued (chunks in flight keep
+            # their placement)
+            sched.observe(
+                {i: elastic.key_cost(r, capacity) for i, r in zip(chunk, rs)},
+                placement,
+                lf={i: (r.get("stats") or {}).get("load-factor-peak")
+                    for i, r in zip(chunk, rs)})
 
     for tier in sorted(buckets):
         idxs = buckets[tier]
@@ -454,7 +510,15 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
             bstat.update(engine="bitdense", issue_secs=0.0,
                          device_wait_secs=0.0,
                          device_secs=0.0 if timed else None)
-            for chunk in _chunks(idxs, chunk_keys):
+            sched = None
+            if steal:
+                sched = elastic.KeyScheduler(
+                    idxs, n_dev=align,
+                    round_keys=max(1, max(1, chunk_keys) // align))
+                bstat["steal"] = True
+                scheds.append((bstat, sched))
+            for chunk, placement in _bucket_chunks(idxs, chunk_keys, align,
+                                                   sched):
                 sub = [_fill(infos[i], cache) for i in chunk]
                 t0 = perf_counter()
                 ev0 = ev1 = None
@@ -467,12 +531,15 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
                 pb = bitdense.dispatch_batch_bitdense(
                     sub, device=dev, search_stats=search_stats,
                     min_states=S_max, min_slots=max(5, C_max),
-                    min_returns=R_max)
+                    min_returns=R_max, mesh=mesh,
+                    ranks=(None if placement is None
+                           else [d for _i, d in placement]))
                 if timed:
                     ev1.record()
                 bstat["issue_secs"] += perf_counter() - t0
                 bstat["chunks"] += 1
-                pending.append((chunk, pb, bstat, ev0, ev1))
+                pending.append((chunk, pb, bstat, ev0, ev1, sched,
+                                placement))
                 while len(pending) >= depth:
                     drain_one()
         else:
@@ -481,14 +548,36 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
             bstat.update(engine="sparse", chunks=1)
             sub = [_fill(infos[i], cache) for i in idxs]
             t0 = perf_counter()
-            rs = engine._check_batch_sparse(
-                sub, capacity, max_capacity, dedupe=dedupe, device=dev,
-                config_pack=config_pack, search_stats=search_stats)
+            if steal:
+                # the stealer's rounds own the sparse bucket's ladder
+                bstat["steal"] = True
+                est: dict = {}
+                rs = elastic.check_batch_stealing(
+                    model, sub, capacity=capacity,
+                    max_capacity=max_capacity, mesh=mesh, bucket=bucket,
+                    dedupe=dedupe, search_stats=search_stats,
+                    config_pack=config_pack, reshard=reshard, stats=est,
+                    device=dev)
+                bstat["chunks"] = sum(b.get("rounds", 0)
+                                      for b in est["buckets"])
+                if steal_stats is not None:
+                    steal_stats.setdefault("buckets", []).extend(
+                        est["buckets"])
+            else:
+                rs = engine._check_batch_sparse(
+                    sub, capacity, max_capacity, dedupe=dedupe, device=dev,
+                    config_pack=config_pack, search_stats=search_stats,
+                    mesh=mesh, reshard=reshard)
             bstat["search_secs"] = round(perf_counter() - t0, 6)
             for i, r in zip(idxs, rs):
                 out[i] = r
     while pending:
         drain_one()
+    if steal_stats is not None:
+        for bstat, sched in scheds:
+            steal_stats.setdefault("buckets", []).append(
+                {"tier": bstat["tier"], "engine": "bitdense",
+                 "keys": bstat["keys"], **sched.stats()})
     for bstat in bstats:
         bstat["encode_secs"] = round(sum(
             infos[i].secs for i in buckets[bstat["tier"]]), 6)

@@ -42,7 +42,7 @@ from jepsen_tpu_torch.parallel import search_stats as st
 from jepsen_tpu_torch.parallel import sparse_kernels as sk
 from jepsen_tpu_torch.parallel.bitdense import poll_cancel, resolve_device
 from jepsen_tpu_torch.parallel.encode import (
-    EncodedHistory, fail_op_fields, pad_batch,
+    EncodedHistory, fail_op_fields, pad_batch, place_batch,
 )
 from jepsen_tpu_torch.parallel.steps import STEPS
 
@@ -1241,7 +1241,8 @@ def check_batch_sparse(encs, capacity: int = 512,
                        max_capacity: int = 1 << 18, dedupe=None,
                        device=None, smem_budget=None, *, escalate,
                        probe_limit: int = 0, config_pack=None,
-                       search_stats=None) -> list:
+                       search_stats=None, mesh=None, pad=None, pack=None,
+                       ranks=None) -> list:
     """The reference's sparse per-key batch with per-key capacity retry
     (`jepsen_tpu.parallel.engine._check_batch_sparse`): every key runs
     in one batched scan (`_BatchScan`) at N = max(64, capacity); a key
@@ -1260,14 +1261,30 @@ def check_batch_sparse(encs, capacity: int = 512,
     lanes follow its own C, and the tag names the batch's C.
     `search_stats` (None: the flag) gives each key decided here the
     stats block of its tier ("capacity-tier" the tiers climbed) with the
-    reference's pad extras against the tier's padded R and C."""
+    reference's pad extras against the tier's padded R and C.
+
+    `mesh` (a DeviceMesh) shards every tier's pending keys over its ranks
+    (`encode.place_batch`, `ranks` placing the first tier's instead):
+    each rank scans its keys, padded to the dims of every pending key,
+    and the results are all-gathered, so every rank knows the next
+    tier's keys and escalates the same keys, in input order, together.
+    Every rank of the mesh calls it. `pad` (C, R) fixes every tier's
+    padded dims and `pack` the layout (the stealing executor's rounds
+    pad to their bucket's)."""
     dev = resolve_device(device)
     dedupe = _resolve_dedupe(dedupe)
     probe_limit = _resolve_probe_limit(probe_limit)
     pack_req = _resolve_config_pack(config_pack)
     ss = st._resolve_search_stats(search_stats)
     C = max(e.slot_f.shape[1] for e in encs) if encs else 0
-    pack = pack_spec_for(list(encs), C) if pack_req and encs else ()
+    if pad is not None:
+        C = pad[0]
+    if pack is None:
+        pack = pack_spec_for(list(encs), C) if pack_req and encs else ()
+    plan = None
+    if mesh is not None:
+        from jepsen_tpu_torch.parallel.meshplan import MeshPlan
+        plan = MeshPlan.flat(mesh)
     out: list = [None] * len(encs)
     pending = list(range(len(encs)))
     N = max(64, capacity)
@@ -1275,37 +1292,52 @@ def check_batch_sparse(encs, capacity: int = 512,
     while pending:
         encs_t = [encs[i] for i in pending]
         # C is the widest pending key's, with no floor (the dense
-        # batch's is 5)
-        xs, state0, _, C_pad, R_pad = pad_batch(encs_t)
-        sc = _BatchScan(encs_t, xs, state0, N, dedupe, probe_limit, dev,
-                        smem_budget, pack, stats=ss).run()
-        valid, fail_r, overflow, maxf, stepped = sc.result()
-        tag = _closure_tag(sc.closure, dev)
-        ys = st.trajectories_np(sc.traj, sc.phist) if ss else None
+        # batch's is 5); with a mesh, of every rank's pending keys
+        at = ranks if n_tier == 0 else None
+        xs, state0, _, C_pad, R_pad = pad_batch(
+            encs_t, min_slots=pad[0] if pad else 1,
+            min_returns=pad[1] if pad else 0, mesh=mesh, ranks=at)
+        mine = list(range(len(pending)))
+        if mesh is not None:
+            mine = place_batch(len(pending), mesh, at)
+        got = []
+        if mine:
+            sub = [encs_t[j] for j in mine]
+            sc = _BatchScan(sub, xs, state0, N, dedupe, probe_limit, dev,
+                            smem_budget, pack, stats=ss).run()
+            valid, fail_r, overflow, maxf, stepped = sc.result()
+            tag = _closure_tag(sc.closure, dev)
+            ys = st.trajectories_np(sc.traj, sc.phist) if ss else None
+            for j, e in enumerate(sub):
+                if overflow[j]:
+                    got.append(None)
+                    continue
+                r = {"valid?": valid[j], "max-frontier": maxf[j],
+                     "capacity": N, "dedupe": dedupe,
+                     "configs-stepped": stepped[j], "closure": tag}
+                _tag_config_pack(r, pack, pack_req, C)
+                if ys is not None:
+                    acc = st.SearchStats(dedupe)
+                    acc.escalations = n_tier
+                    acc.add_chunk({k: v[j] for k, v in ys.items()}, N)
+                    waste = 1.0 - ((e.n_returns * e.slot_f.shape[1])
+                                   / max(1, R_pad * C_pad))
+                    r["stats"] = st._finish_search_stats(
+                        acc, extra={"pad-waste": round(waste, 6),
+                                    "pad-events": int(R_pad - e.n_returns),
+                                    "pad-slots": int(C_pad
+                                                     - e.slot_f.shape[1])})
+                if not valid[j]:
+                    r.update(fail_op_fields(e, fail_r[j]))
+                got.append(r)
+        if plan is not None:
+            got = plan.gather_keys(len(pending), mine, got)
         retry = []
-        for j, i in enumerate(pending):
-            if overflow[j]:
+        for i, r in zip(pending, got):
+            if r is None:
                 retry.append(i)
-                continue
-            r = {"valid?": valid[j], "max-frontier": maxf[j],
-                 "capacity": N, "dedupe": dedupe,
-                 "configs-stepped": stepped[j], "closure": tag}
-            _tag_config_pack(r, pack, pack_req, C)
-            if ys is not None:
-                e = encs[i]
-                acc = st.SearchStats(dedupe)
-                acc.escalations = n_tier
-                acc.add_chunk({k: v[j] for k, v in ys.items()}, N)
-                waste = 1.0 - ((e.n_returns * e.slot_f.shape[1])
-                               / max(1, R_pad * C_pad))
-                r["stats"] = st._finish_search_stats(
-                    acc, extra={"pad-waste": round(waste, 6),
-                                "pad-events": int(R_pad - e.n_returns),
-                                "pad-slots": int(C_pad
-                                                 - e.slot_f.shape[1])})
-            if not valid[j]:
-                r.update(fail_op_fields(encs[i], fail_r[j]))
-            out[i] = r
+            else:
+                out[i] = r
         if not retry:
             break
         if N * 2 > max_capacity:

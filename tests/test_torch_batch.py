@@ -363,13 +363,20 @@ def test_bucket_past_the_dense_engine_raises():
                                      ({"pipeline_stats": {}}, "item 8"),
                                      ({"steal": True}, "item 9b")])
 def test_unported_executors_raise(kw, item):
-    """Work stealing (ROADMAP item 9b) raises NotImplementedError. The
-    pipelined executor (item 8) is ported: pipeline=True runs (an empty
-    batch gives []), and its cache or pipeline_stats without it raise
-    ValueError, as the reference's serial path does."""
+    """Every executor is ported now. Work stealing (item 9b) runs and
+    gives the reference's results on the same keys. The pipelined
+    executor (item 8): pipeline=True runs (an empty batch gives []), and
+    its cache or pipeline_stats without it raise ValueError, as the
+    reference's serial path does."""
     if item == "item 9b":
-        with pytest.raises(NotImplementedError, match=item):
-            engine.check_batch(models.CASRegister(), [], device=CPU, **kw)
+        hs = _bench_keys(6, 24, n_processes=3)
+        want = ref_engine.check_batch(ref_models.CASRegister(), hs, **kw)
+        got = engine.check_batch(models.CASRegister(),
+                                 [_port_history(h) for h in hs],
+                                 device=CPU, **kw)
+        assert _strip(got) == _strip(want)
+        assert engine.check_batch(models.CASRegister(), [], device=CPU,
+                                  **kw) == []
     elif kw.get("pipeline"):
         assert engine.check_batch(models.CASRegister(), [], device=CPU,
                                   **kw) == []

@@ -3,7 +3,8 @@ chip_smoke.py, kernel_ab.py, the parity cases chip_smoke.py loads
 (tests/torch_parity_cases.py) nor the card tests the card runs without
 JAX (tests/test_torch_config_pack_kernels.py,
 tests/test_torch_sparse_batch_cuda.py, tests/test_torch_stream_cuda.py,
-tests/test_torch_serve_cuda.py, tests/test_torch_fleet_cuda.py),
+tests/test_torch_serve_cuda.py, tests/test_torch_fleet_cuda.py,
+tests/test_torch_mesh_cuda.py),
 imports JAX or anything of the JAX package (jepsen_tpu).
 Checked twice: by importing everything in a fresh interpreter and
 reading sys.modules, and by scanning the sources' import statements."""
@@ -25,7 +26,8 @@ SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "tests" / "test_torch_sparse_batch_cuda.py",
     ROOT / "tests" / "test_torch_stream_cuda.py",
     ROOT / "tests" / "test_torch_serve_cuda.py",
-    ROOT / "tests" / "test_torch_fleet_cuda.py"]
+    ROOT / "tests" / "test_torch_fleet_cuda.py",
+    ROOT / "tests" / "test_torch_mesh_cuda.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -43,13 +45,15 @@ import test_torch_sparse_batch_cuda
 import test_torch_stream_cuda
 import test_torch_serve_cuda
 import test_torch_fleet_cuda
+import test_torch_mesh_cuda
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.")
              or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
 print("MODULES", len(names))
 print("SPARSE", sorted(n for n in names if "sparse" in n))
-print("SHARDED", sorted(n for n in names if n.endswith(("sharded", "meshplan"))))
+print("SHARDED", sorted(n for n in names if n.endswith(("sharded", "meshplan",
+                                                        "elastic"))))
 print("BATCH", sorted(n for n in names if n.endswith(("independent", "encode",
                                                       "closure_kernels"))))
 print("STREAM", sorted(n for n in names if n.endswith(("extend",
@@ -89,7 +93,8 @@ def test_port_and_smoke_import_without_jax():
     assert lines["SPARSE"] == str(["jepsen_tpu_torch.parallel.sparse",
                                    "jepsen_tpu_torch.parallel."
                                    "sparse_kernels"]), proc.stdout
-    assert lines["SHARDED"] == str(["jepsen_tpu_torch.parallel.meshplan",
+    assert lines["SHARDED"] == str(["jepsen_tpu_torch.parallel.elastic",
+                                    "jepsen_tpu_torch.parallel.meshplan",
                                     "jepsen_tpu_torch.parallel.sharded"]), \
         proc.stdout
     assert lines["BATCH"] == str(["jepsen_tpu_torch.independent",

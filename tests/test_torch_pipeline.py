@@ -233,9 +233,38 @@ def test_analysis_encode_cache():
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"steal": True},
                                 {"reshard": True}, {"steal_stats": {}}])
 def test_mesh_and_stealing_arguments_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        pipeline.check_batch_pipelined(models.CASRegister(), [], device=CPU,
-                                       **kw)
+    """The mesh and work-stealing arguments are ported: `steal`,
+    `reshard` and `steal_stats` (with stealing) run and give the
+    reference's pipelined results on the same keys — a dense and a
+    sparse bucket — and the scheduler's accounting; a `mesh` that is not
+    a torch.distributed DeviceMesh raises TypeError (the mesh runs are
+    tests/test_torch_mesh_batch.py's)."""
+    if "mesh" in kw:
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            pipeline.check_batch_pipelined(models.CASRegister(), [],
+                                           device=CPU, **kw)
+        return
+    stats = "steal_stats" in kw
+    for family in (_registers, _queues):
+        name, hs = family()
+        if stats:
+            kw = {"steal": True, "steal_stats": {}}
+        ref_kw = {k: ({} if k == "steal_stats" else v)
+                  for k, v in kw.items()}
+        want = ref_pipeline.check_batch_pipelined(
+            getattr(ref_models, name)(), hs, cache=False, dedupe="hash",
+            **ref_kw)
+        got = pipeline.check_batch_pipelined(
+            getattr(models, name)(), _port(hs), cache=False, device=CPU,
+            dedupe="hash", **kw)
+        assert _strip(got) == _strip(want)
+        if stats:
+            keys = ("tier", "engine", "keys", "rounds", "steals",
+                    "per_device_cost", "cohort_pred")
+            assert [{k: b.get(k) for k in keys}
+                    for b in kw["steal_stats"]["buckets"]] == \
+                [{k: b.get(k) for k in keys}
+                 for b in ref_kw["steal_stats"]["buckets"]]
 
 
 def test_serial_path_refuses_pipeline_arguments():

@@ -15,7 +15,8 @@ and it must equal the reference's in `valid?`, `op`, `fail-event`,
 The cases are those of the reference's tests/test_sharded.py: the 60-op
 register differential with a corrupted twin, the 4-op counterexample,
 the wide-frontier capacity growth, sort against hash and route against
-gather; and `analysis` of an invalid history.
+gather; and `analysis` of an invalid history. The group of four also
+builds a 2x2 mesh: its topology decision and one check on it.
 
 The ranks import nothing of JAX: this module imports the reference only
 inside the functions that run it.
@@ -34,6 +35,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import torch_gloo
 from jepsen_tpu_torch import histories, models
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.parallel import encode as enc
@@ -169,6 +171,32 @@ def _ref_case(D: int, cid: str) -> dict:
         ref_enc.encode(ref_models.CASRegister(), h), mesh, **kw)
 
 
+def _two_d(mesh2, payloads) -> dict:
+    """What a 2x2 mesh gives: the topology decision under each exchange,
+    and the routed check of diff-77-clean on it."""
+    route = meshplan.MeshPlan.from_mesh(mesh2)
+    gather = meshplan.MeshPlan.from_mesh(mesh2, exchange="gather")
+    return {"route": (route.hierarchical, route.n_slice, route.n_chip),
+            "gather": (gather.hierarchical, gather.n_slice, gather.n_chip),
+            "check": _port_case(mesh2, "diff-77-clean",
+                                payloads["diff-77-clean"])}
+
+
+def _ref_two_d() -> dict:
+    import jax
+    from jax.sharding import Mesh
+    from jepsen_tpu import histories as ref_histories
+    from jepsen_tpu import models as ref_models
+    from jepsen_tpu.history import History as RefHistory
+    from jepsen_tpu.parallel import encode as ref_enc
+    from jepsen_tpu.parallel import sharded as ref_sharded
+    spec, _, kw = CASES["diff-77-clean"]
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("slice", "chip"))
+    h = _history(ref_histories, RefHistory, spec)
+    return ref_sharded.check_encoded_sharded(
+        ref_enc.encode(ref_models.CASRegister(), h), mesh, **kw)
+
+
 # ------------------------------------------------------------ the ranks
 
 def _rank_main(rank: int, D: int, store: str, payloads: dict, out) -> None:
@@ -180,6 +208,9 @@ def _rank_main(rank: int, D: int, store: str, payloads: dict, out) -> None:
                                 rank=rank, world_size=D)
         mesh = init_device_mesh("cpu", (D,), mesh_dim_names=("frontier",))
         res = {cid: _port_case(mesh, cid, p) for cid, p in payloads.items()}
+        if D == 4:
+            res["2d"] = _two_d(init_device_mesh(
+                "cpu", (2, 2), mesh_dim_names=("slice", "chip")), payloads)
         dist.destroy_process_group()
         out.put((rank, res, None))
     except BaseException:
@@ -226,19 +257,23 @@ def _results(D: int):
     this process and the reference at every D meanwhile, then collects
     the groups."""
     if not _RESULTS:
-        payloads = _payloads()
-        groups = {d: _Group(d, payloads) for d in RANKS if d > 1}
-        mesh = meshplan.local_mesh("cpu")
-        ranks = {1: [{cid: _port_case(mesh, cid, p)
-                      for cid, p in payloads.items()}]}
-        # the reference compiles one program per mesh size: in threads
-        with ThreadPoolExecutor(len(RANKS)) as pool:
-            ref = dict(zip(RANKS, pool.map(
-                lambda d: {cid: _ref_case(d, cid) for cid in CASES},
-                RANKS)))
-        ranks.update((d, g.results()) for d, g in groups.items())
-        _RESULTS.update((d, (ranks[d], ref[d])) for d in RANKS)
+        _RESULTS.update(torch_gloo.shared("sharded", _compute))
     return _RESULTS[D]
+
+
+def _compute() -> dict:
+    payloads = _payloads()
+    groups = {d: _Group(d, payloads) for d in RANKS if d > 1}
+    mesh = meshplan.local_mesh("cpu")
+    ranks = {1: [{cid: _port_case(mesh, cid, p)
+                  for cid, p in payloads.items()}]}
+    # the reference compiles one program per mesh size: in threads
+    with ThreadPoolExecutor(len(RANKS)) as pool:
+        ref = dict(zip(RANKS, pool.map(
+            lambda d: {cid: _ref_case(d, cid) for cid in CASES}, RANKS)))
+    ref[4]["2d"] = _ref_two_d()
+    ranks.update((d, g.results()) for d, g in groups.items())
+    return {d: (ranks[d], ref[d]) for d in RANKS}
 
 
 def _pin(r: dict) -> dict:
@@ -291,11 +326,29 @@ def test_route_and_gather_agree(D):
 
 
 def test_unported_options_raise():
+    """The options an earlier slice refused now run, and agree with the
+    reference: search_stats gives the sharded block, reshard on one rank
+    keeps the plain ladder (the reference delegates only past one
+    device), packed rows name their layout; an unknown exchange still
+    raises."""
+    import jax
+    from jax.sharding import Mesh
+    from jepsen_tpu import models as ref_models
+    from jepsen_tpu.history import History as RefHistory
+    from jepsen_tpu.parallel import encode as ref_enc
+    from jepsen_tpu.parallel import sharded as ref_sharded
     mesh = meshplan.local_mesh("cpu")
     e = enc.encoded_from_arrays(*_payloads()["counterexample-4op"])
-    for kw in ({"reshard": True}, {"search_stats": True}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            sharded.check_encoded_sharded(e, mesh, **kw)
+    ref_e = ref_enc.encode(ref_models.CASRegister(),
+                           _history(None, RefHistory, ("cex",)))
+    ref_mesh = Mesh(np.array(jax.devices()[:1]), ("frontier",))
+    for kw in ({"reshard": True, "dedupe": "hash"},
+               {"search_stats": True, "dedupe": "hash"}):
+        got = sharded.check_encoded_sharded(e, mesh, **kw)
+        want = ref_sharded.check_encoded_sharded(ref_e, ref_mesh, **kw)
+        assert _pin(got) == _pin(want)
+        assert got.get("stats") == want.get("stats")
+        assert "reshard" not in got
     # packed rows are ported: the check runs and names its layout
     r = sharded.check_encoded_sharded(e, mesh, config_pack=True)
     assert r["config-pack"].startswith("packed:")
@@ -304,9 +357,22 @@ def test_unported_options_raise():
 
 
 def test_two_dimensional_mesh_raises():
+    """A 2-D mesh no longer raises: with both dims > 1 the routed
+    exchange makes it hierarchical (2x2) and the gather exchange flattens
+    it (the reference's topology decision), and the check on it equals
+    the reference's on its 2x2 mesh; a mesh that is not a DeviceMesh
+    raises TypeError."""
+    ranks, ref = _results(4)
+    got = ranks[0]["2d"]
+    assert all(r["2d"] == got for r in ranks[1:])
+    assert got["route"] == (True, 2, 2)
+    assert got["gather"] == (False, 1, 4)
+    assert _pin(got["check"]) == _pin(ref["2d"])
+    assert got["check"]["mesh"] == ref["2d"]["mesh"]
+
     class Mesh2D:
         ndim = 2
-    with pytest.raises(NotImplementedError, match="hierarchical exchange"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         meshplan.MeshPlan.from_mesh(Mesh2D())
 
 
