@@ -279,6 +279,33 @@ down both of its engines:
        `elastic.forced_skew_histories()` equal to the static batch of the
        same keys and to REF_STEAL, the scheduler's accounting too; both
        walls printed.
+ 13. "elle": the transactional cycle checkers with their SCC closure on
+     the card (`elle.device_sccs` -> `elle.scc_labels`: R := A | I
+     squared ceil(log2 n) times by `torch.mm` on bf16 operands with an
+     fp32 product, a plain product and no kernel of the kernels line):
+     * `device_sccs` on seeded random graphs (tests/torch_elle_cases.py)
+       at n = 1,024, 4,096 and 16,384 (about 2n edges and one planted
+       SCC), each equal to the port's `tarjan_sccs` in the device route's
+       order (components by smallest node, members sorted);
+     * the closure timed with CUDA events at n = 1,024, 4,096, 10,000
+       and 16,384, beside its bound (2 n^3 steps at the bf16 peak) and
+       its peak device memory;
+     * `workloads.cycle.AppendChecker` (elle's defaults, and 10 keys of
+       1-4 mops) and `WrChecker` (linearizable-keys, wfr-keys) with the
+       realtime graph on simulated histories of 10,000 committed
+       transactions by 10 processes, each valid and an invalid twin with
+       a lost update, an aborted read, an intermediate read, a non-prefix
+       read (list-append) and a bounded stale read: each result's
+       valid?, anomaly types and the sha256 of its anomalies' canonical
+       JSON equal to the reference's (REF_ELLE, from
+       tests/torch_record_elle_refs.py), each check down the device
+       route once; the seconds of each, split into history-to-graph,
+       the closure and the cycle search;
+ 14. "probe": `probe.probe_json(timeout=60, retries=1)` healthy on the
+     cuda platform with the card's device count, the circuit breaker's
+     default probe True, and a `probe.ProbeWatch` of interval 1 s ok
+     after its first tick with its gauges at 1 and about 0 (stopped
+     before a second child starts).
   Launch counts are zeroed just before each main-path check and read just
   after; each check must have launched the kernel of its route.
 
@@ -4714,6 +4741,212 @@ def phase_steal(dev, mesh) -> dict:
     return {"walls": walls, **n}
 
 
+# elle: the SCC closure of the transactional cycle checkers on the card
+# (jepsen_tpu_torch/elle/__init__.py: scc_labels; the reference's
+# device_sccs, jepsen_tpu/elle/__init__.py:146-209) — a plain bf16
+# product outside any Pallas kernel, so torch.mm (cuBLAS), not a kernel of
+# the kernels line
+ELLE_GRAPHS = ((1024, 700), (4096, 2000), (16384, 3000))  # (n, planted SCC)
+ELLE_TIMED = (1024, 4096, 10000, 16384)
+ELLE_REPS = 3
+# H100 SXM dense bf16 tensor-core rate (NVIDIA's data sheet, 700 W)
+BF16_FLOPS_PER_S = 989e12
+# the reference's results on the smoke's histories
+# (tests/torch_record_elle_refs.py, JAX on the CPU)
+REF_ELLE = {
+    "append-defaults": {
+        "valid?": True,
+        "anomaly-types": [],
+        "anomalies": "44136fa355b3678a1146ad16f7e8649e"
+                     "94fb4fc21fe77e8310c060f61caaff8a"},
+    "append-defaults twin": {
+        "valid?": False,
+        "anomaly-types": ["G-single", "G1a", "G1b",
+                          "G2", "incompatible-order"],
+        "anomalies": "31cb13119081ff2941c10b871d3242b8"
+                     "0d28d59806500abab0af59422efb7e23"},
+    "append-k10-m4": {
+        "valid?": True,
+        "anomaly-types": [],
+        "anomalies": "44136fa355b3678a1146ad16f7e8649e"
+                     "94fb4fc21fe77e8310c060f61caaff8a"},
+    "append-k10-m4 twin": {
+        "valid?": False,
+        "anomaly-types": ["G-single", "G1a", "G1b",
+                          "G2", "incompatible-order"],
+        "anomalies": "accd3967b7e9a0e306a6354435e18075"
+                     "6efddc5a32adcaa860cf3018069f74a5"},
+    "wr-defaults": {
+        "valid?": True,
+        "anomaly-types": [],
+        "anomalies": "44136fa355b3678a1146ad16f7e8649e"
+                     "94fb4fc21fe77e8310c060f61caaff8a"},
+    "wr-defaults twin": {
+        "valid?": False,
+        "anomaly-types": ["G-single", "G1a", "G1b", "G2"],
+        "anomalies": "00683622ddf5027eccdfa35b064b9257"
+                     "5bc2e847f9ca4c7f37a65d2e3ab4ab79"},
+}
+
+
+def _elle_cases():
+    """tests/torch_elle_cases.py, the simulated histories and random
+    graphs the CPU and cuda-marked tests use too, loaded by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_elle_cases", ROOT / "tests" / "torch_elle_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _ElleSplit:
+    """Times a check's parts while it runs: ``elle.sccs`` (the device
+    closure, its host index build and its label read-back) and
+    ``elle.cycle_anomalies`` around it (the rest of which is the cycle
+    search); the rest of the check is history-to-graph."""
+
+    def __init__(self, elle):
+        self.elle = elle
+        self.secs = {"sccs": 0.0, "anomalies": 0.0}
+
+    def _timed(self, key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.secs[key] += time.perf_counter() - t0
+        return run
+
+    def __enter__(self):
+        self.saved = (self.elle.sccs, self.elle.cycle_anomalies)
+        self.elle.sccs = self._timed("sccs", self.saved[0])
+        self.elle.cycle_anomalies = self._timed("anomalies", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.elle.sccs, self.elle.cycle_anomalies = self.saved
+
+
+def phase_elle(dev) -> dict:
+    """elle on the card at full width: device_sccs on seeded random graphs
+    held to the port's Tarjan in the device route's order; the closure
+    timed at four sizes beside its bound; and the list-append and
+    rw-register checkers on the 10,000-transaction histories, each valid
+    and its invalid twin, held to the reference's recorded results, each
+    going down the device route once."""
+    from jepsen_tpu_torch import elle
+    from jepsen_tpu_torch.workloads import cycle
+    ec = _elle_cases()
+    for n, planted in ELLE_GRAPHS:
+        g = ec.random_graph(n, SEED + n, planted=planted)
+        elle.launches["closure"] = 0
+        t0 = time.perf_counter()
+        got = elle.device_sccs(g, dev)
+        secs = time.perf_counter() - t0
+        _require(elle.launches["closure"] == 1,
+                 f"elle n={n}: the device route did not run")
+        want = ec.reference_order(elle.tarjan_sccs(g))
+        _require(got == want, f"elle n={n}: the card's SCCs differ from "
+                              f"Tarjan's in the device route's order")
+        print(f"elle: random graph n={n} edges="
+              f"{sum(len(b) for b in g.out.values())} sccs={len(got)} "
+              f"largest={max(map(len, got))}: equal to Tarjan's, "
+              f"{secs:.3f} s")
+    timed = []
+    for n in ELLE_TIMED:
+        _ids, src, dst = elle.edge_index(
+            ec.random_graph(n, SEED + 7 * n, planted=n // 4))
+        src, dst = (torch.tensor(x, dtype=torch.int64, device=dev)
+                    for x in (src, dst))
+        elle.scc_labels(src, dst, n, dev)       # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = []
+        for _ in range(ELLE_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            elle.scc_labels(src, dst, n, dev)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        steps = elle.closure_steps(n)
+        flops_ms = 2.0 * n ** 3 * steps / BF16_FLOPS_PER_S * 1e3
+        bytes_ms = (16 * src.numel() + 8 * n) / HBM_BYTES_PER_S * 1e3
+        timed.append({
+            "n": n, "steps": steps, "ms": sorted(ms)[len(ms) // 2],
+            "bound_ms": max(flops_ms, bytes_ms),
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "peak_bytes": torch.cuda.max_memory_allocated() - base})
+    print(f"elle closure (median of {ELLE_REPS}, CUDA events): "
+          f"{json.dumps(timed)}")
+    split = {}
+    for name, (kind, _t, _s, opts, _f) in ec.SMOKE_HISTORIES.items():
+        make = cycle.AppendChecker if kind == "append" else cycle.WrChecker
+        for twin in (False, True):
+            key = f"{name}{' twin' if twin else ''}"
+            h = ec.smoke_history(name, twin)
+            elle.launches["closure"] = 0
+            with _ElleSplit(elle) as sp:
+                t0 = time.perf_counter()
+                r = make(opts, device=dev).check({}, h)
+                total = time.perf_counter() - t0
+            _require(elle.launches["closure"] == 1,
+                     f"elle {key}: the device route did not run")
+            got = ec.result_digest(r)
+            _require(got == REF_ELLE[key],
+                     f"elle {key}: {got} != the reference's "
+                     f"{REF_ELLE[key]}")
+            split[key] = {
+                "total": round(total, 4),
+                "graph": round(total - sp.secs["anomalies"], 4),
+                "closure": round(sp.secs["sccs"], 4),
+                "cycle_search": round(sp.secs["anomalies"]
+                                      - sp.secs["sccs"], 4),
+                "anomaly-types": r["anomaly-types"]}
+    print(f"elle split (s): {json.dumps(split)}")
+    return {"timed": timed, "split": split}
+
+
+def phase_probe(dev) -> dict:
+    """The device probe on the card: probe_json healthy on cuda with the
+    card's device count, the breaker's default probe True, and a
+    ProbeWatch of interval 1 s ok after its first tick with its gauges
+    at 1 and about 0."""
+    from jepsen_tpu_torch import obs, probe
+    from jepsen_tpu_torch.resilience import breaker
+    doc = probe.probe_json(timeout=60, retries=1, out=sys.stdout)
+    _require(doc["verdict"] == "healthy" and doc["exit"] == 0
+             and doc["platforms"] == ["cuda"]
+             and doc["n_devices"] == torch.cuda.device_count(),
+             f"probe: {doc}")
+    t0 = time.perf_counter()
+    healthy = breaker.CircuitBreaker("chip-smoke").probe()
+    t_breaker = time.perf_counter() - t0
+    _require(healthy is True, "probe: the breaker's default probe failed")
+    w = probe.ProbeWatch(1.0, timeout=60).start()
+    t0 = time.perf_counter()
+    while w.ticks == 0 and time.perf_counter() - t0 < 90:
+        time.sleep(0.02)
+    # stop inside the watch's 1 s wait, before a second probe child starts
+    w.stop()
+    st = w.status()
+    gauges = (obs.gauge("probe.chip_healthy").value,
+              obs.gauge("probe.last_ok_age_secs").value)
+    _require(not w._thread.is_alive(), "probe: the watch did not stop")
+    _require(st["ok"] and st["verdict"] == "healthy" and st["ticks"] == 1,
+             f"probe: watch {st}")
+    _require(gauges[0] == 1 and gauges[1] < 1.0, f"probe: gauges {gauges}")
+    print(f"probe: json {doc['elapsed_secs']} s, breaker probe "
+          f"{t_breaker:.3f} s, watch first tick "
+          f"{time.perf_counter() - t0:.3f} s, status {json.dumps(st)}, "
+          f"gauges {gauges}")
+    return {"doc": doc, "watch": st}
+
+
 def _phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4879,6 +5112,8 @@ def main() -> int:
     _phase("mesh batch", phase_mesh_batch, dev, mesh)
     _phase("steal", phase_steal, dev, mesh)
     print(f"the five mesh phases: {time.perf_counter() - t_mesh:.1f} s")
+    _phase("elle", phase_elle, dev)
+    _phase("probe", phase_probe, dev)
     # K2's stats instantiation, single and batched: timed on inputs kept
     # from the stats main path, with the launches of that path
     for t in st_timed:

@@ -9,7 +9,7 @@ any invalid makes the composition invalid; any unknown (absent invalid)
 makes it unknown.
 
 A port of the part of `jepsen_tpu.checker.core` the linearizability
-checker needs. `Compose` runs its checkers one after another, where the
+and cycle checkers need. `Compose` runs its checkers one after another, where the
 reference runs them in a thread pool: the results are the same, and the
 port's device checks do not contend for the card.
 """
@@ -45,6 +45,26 @@ class Checker:
 
     def check(self, test, history, opts: Optional[dict] = None) -> Dict[str, Any]:
         raise NotImplementedError
+
+    # name used by compose results and stores
+    @property
+    def checker_name(self) -> str:
+        return type(self).__name__.lower()
+
+
+class FnChecker(Checker):
+    """A checker from a plain ``fn(test, history, opts)``."""
+
+    def __init__(self, fn, name="fn"):
+        self._fn = fn
+        self._name = name
+
+    def check(self, test, history, opts=None):
+        return self._fn(test, history, opts or {})
+
+    @property
+    def checker_name(self):
+        return self._name
 
 
 def check_safe(checker: Checker, test, history, opts=None) -> Dict[str, Any]:

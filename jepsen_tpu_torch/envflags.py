@@ -7,9 +7,10 @@ carry the ``JEPSEN_TPU_TORCH_`` prefix, so the port's flags stay apart
 from the reference's ``JEPSEN_TPU_*`` ones.
 
 The serve layer's flags (its queue bounds, WAL, tenants, ingress and
-ops ports, WAL replication) and the mesh executors' (STEAL, STEAL_ROUND,
-RESHARD, and DIST with its three companions) go through these
-accessors. The flags the
+ops ports, WAL replication), the mesh executors' (STEAL, STEAL_ROUND,
+RESHARD, and DIST with its three companions) and the device-health
+ones (PROBE_INTERVAL, BREAKER_THRESHOLD, BREAKER_BACKOFF) go through
+these accessors. The flags the
 port read before this module existed (dedupe, probe limit, bucket,
 config pack, search stats, pipeline) keep their own readers.
 """
@@ -31,6 +32,13 @@ PREFIX = "JEPSEN_TPU_TORCH_"
 MESH_FLAGS = tuple(PREFIX + n for n in (
     "STEAL", "STEAL_ROUND", "RESHARD", "DIST", "DIST_COORD", "DIST_NPROC",
     "DIST_PROC"))
+
+# The device-health flags: PROBE_INTERVAL (`env_float` seconds >= 0,
+# 0/unset = no watch; probe.start_watch_from_env), BREAKER_THRESHOLD
+# (`env_int` >= 1, default 3) and BREAKER_BACKOFF (`env_float` seconds
+# >= 0, default 1.0), the breaker's defaults (resilience.breaker).
+HEALTH_FLAGS = tuple(PREFIX + n for n in (
+    "PROBE_INTERVAL", "BREAKER_THRESHOLD", "BREAKER_BACKOFF"))
 
 
 class EnvFlagError(ValueError):

@@ -17,12 +17,16 @@ reference's. State changes set the ``resilience.breaker.<name>.state``
 gauge (0 closed / 1 half-open / 2 open) and count
 ``resilience.breaker.opens``.
 
-Left out: the default probe (the reference's subprocess device probe;
-here ``probe``, ``threshold`` and ``backoff_base`` are required), the
-``JEPSEN_TPU_BREAKER_*`` flags, the injectable jitter source,
-flight-recorder dumps, and the module-level registry and trip set — a
-fleet breaker watching a peer replica never touches this process's own
-health.
+Defaults as the reference's: the recovery probe is the port's
+subprocess device probe (``probe.probe_json``: the card, healthy or
+not, in a child that takes any hang), ``threshold`` and
+``backoff_base`` come from ``JEPSEN_TPU_TORCH_BREAKER_THRESHOLD`` (3)
+and ``JEPSEN_TPU_TORCH_BREAKER_BACKOFF`` (1.0 s). The fleet passes all
+three.
+
+Left out: the injectable jitter source, flight-recorder dumps, and the
+module-level registry and trip set — a fleet breaker watching a peer
+replica never touches this process's own health.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ import random
 import threading
 import time
 import zlib
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
+from jepsen_tpu_torch import envflags
 from jepsen_tpu_torch import obs
 
 CLOSED, HALF_OPEN, OPEN = "closed", "half-open", "open"
@@ -40,6 +45,28 @@ _STATE_GAUGE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
 BACKOFF_CAP_SECS = 60.0
 JITTER_FRAC = 0.1
+PROBE_TIMEOUT_SECS = 30.0
+
+
+def _default_probe() -> bool:
+    """The half-open recovery check: the same subprocess contract as
+    ``python -m jepsen_tpu_torch.probe`` (probe_json), so external
+    automation and the breaker read one health surface."""
+    from jepsen_tpu_torch import probe
+    r = probe.probe_json(timeout=PROBE_TIMEOUT_SECS, retries=1)
+    return r["verdict"] == "healthy"
+
+
+def _resolve_threshold() -> int:
+    return envflags.env_int("JEPSEN_TPU_TORCH_BREAKER_THRESHOLD",
+                            default=3, min_value=1,
+                            what="breaker threshold")
+
+
+def _resolve_backoff() -> float:
+    return envflags.env_float("JEPSEN_TPU_TORCH_BREAKER_BACKOFF",
+                              default=1.0, min_value=0.0,
+                              what="breaker backoff")
 
 
 class CircuitBreaker:
@@ -47,14 +74,18 @@ class CircuitBreaker:
     the injected clock, so the open/half-open/close lifecycle is
     testable without sleeping."""
 
-    def __init__(self, backend: str, *, probe: Callable[[], bool],
-                 threshold: int, backoff_base: float,
+    def __init__(self, backend: str, *,
+                 probe: Optional[Callable[[], bool]] = None,
+                 threshold: Optional[int] = None,
+                 backoff_base: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic):
         self.backend = backend
-        self.threshold = threshold
-        self.backoff_base = backoff_base
+        self.threshold = (threshold if threshold is not None
+                          else _resolve_threshold())
+        self.backoff_base = (backoff_base if backoff_base is not None
+                             else _resolve_backoff())
         self.clock = clock
-        self.probe = probe
+        self.probe = probe if probe is not None else _default_probe
         # seeded per name (crc32: str hashing is randomized per process),
         # so a reproduced run reproduces its backoff schedule
         self.rng = random.Random(

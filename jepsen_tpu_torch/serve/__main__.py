@@ -14,9 +14,13 @@ and prints ``delta ingress: http://HOST:PORT`` on stderr, and with
 ships every key's WAL segments to PATH (a successor's ``repl/``
 mirror); a mode without ``--repl-dir``, ``--repl-dir`` with the mode
 off, or ``--repl-dir`` without a WAL are usage errors (exit 2).
+``JEPSEN_TPU_TORCH_PROBE_INTERVAL`` (seconds) arms the device-health
+watch (``probe.ProbeWatch``) on the service's device: ``/healthz`` then
+carries its status as ``checks["probe"]`` and ANDs it into ``ok``, as
+the reference CLI does (jepsen_tpu/cli.py:387-399).
 ``{"op": "stop"}`` on stdin drains and exits 0. Without a CUDA device
-it exits non-zero with the RuntimeError's text: there is no CPU run
-from here.
+it exits non-zero with the RuntimeError's text unless ``--device cpu``
+asks for the plain run on the CPU.
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--dedupe", default=None, choices=("sort", "hash"),
                    help="frontier dedupe strategy (default: "
                         "JEPSEN_TPU_TORCH_DEDUPE, else hash)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the checks run (default: cuda, the card; "
+                        "cpu: the plain PyTorch path)")
     p.add_argument("--host", default="0.0.0.0",
                    help="the ingress's bind address")
     p.add_argument("--repl-dir", default=None,
@@ -93,6 +100,7 @@ def _repl_usage(args, wal_dir, mode: str):
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     from jepsen_tpu_torch import models as model_ns
+    from jepsen_tpu_torch import probe as probe_mod
     from jepsen_tpu_torch.envflags import EnvFlagError
     from jepsen_tpu_torch.obs import httpd as ops_httpd
     from jepsen_tpu_torch.parallel import bitdense
@@ -111,22 +119,32 @@ def main(argv=None) -> int:
             return 2
         iport = ingress_mod.resolve_ingress_port(args.ingress_port)
         oport = ops_httpd.resolve_ops_port(args.ops_port)
-        bitdense.resolve_device(None)   # the card, before any file
+        dev = bitdense.resolve_device(args.device)  # before any file
         replicator = (fleet.SegmentReplicator(
             DeltaWAL(wal_dir), fleet.constant_dst(args.repl_dir),
             mode=mode) if args.repl_dir else None)
         svc = CheckerService(model, wal_dir=wal_dir, dedupe=args.dedupe,
-                             replicator=replicator)
+                             device=dev, replicator=replicator)
     except (RuntimeError, EnvFlagError) as err:
         print(f"jepsen_tpu_torch.serve: {err}", file=sys.stderr)
         return 1
-    ing = ops = None
+    ing = ops = watch = None
     try:
+        watch = probe_mod.start_watch_from_env(device=dev.type)
+
+        def health():
+            doc = svc.health()
+            if watch is not None:
+                p = watch.status()
+                doc["checks"]["probe"] = p
+                doc["ok"] = doc["ok"] and p["ok"]
+            return doc
+
         if oport is not None:
             # POST /adopt is the fleet supervisor's live handoff: a
             # WAL-backed service only (adopt_keys raises without one)
             ops = ops_httpd.OpsServer(
-                oport, host=args.host, health_fn=svc.health,
+                oport, host=args.host, health_fn=health,
                 status_fn=svc.status,
                 adopt_fn=svc.adopt_keys if wal_dir else None).start()
             print(f"ops endpoint: http://{args.host}:{ops.port} "
@@ -138,7 +156,12 @@ def main(argv=None) -> int:
                   f"(POST /v1/deltas — streamed JSONL)", file=sys.stderr,
                   flush=True)
         return run_stdio(svc)
+    except EnvFlagError as err:
+        print(f"jepsen_tpu_torch.serve: {err}", file=sys.stderr)
+        return 1
     finally:
+        if watch is not None:
+            watch.stop()
         if ing is not None:
             ing.close()
         if ops is not None:

@@ -49,8 +49,12 @@ Left out of the port: the reference's serve spans, counters, gauges and
 histograms, slow-delta records and delta ids, flight dumps, the SLO
 tracker and decision ledger (so acks carry no ``delta_id``, WAL records
 no ``"id"``, and ``status()`` no ``slow_deltas``: the reference's
-unarmed behaviour); the compiled-program manifests; and ``health()``'s
-breaker check (the port has no breaker registry: its only breakers are
+unarmed behaviour); the compiled-program manifests (the port compiles
+no programs at run time: its kernels are built once per source hash and
+loaded through ctypes, and a service on the card builds and loads them
+all when it starts, so its first delta pays no nvcc and no load — the
+counterpart of the reference's ``_prewarm_programs``); and
+``health()``'s breaker check (the port has no breaker registry: its only breakers are
 the fleet supervisor's, one per peer replica).
 
 Threading: producers call ``submit``/``result`` from any thread; one
@@ -278,11 +282,22 @@ class CheckerService:
         self._inflight = 0
         self._stop = False
         self.max_pending_seen = 0   # high-water mark, for bound tests
+        if self.device.type == "cuda":
+            self._prewarm_kernels()
         if recover and self._wal is not None:
             self._recover()
         self._worker = None
         if start_worker:
             self.start_worker()
+
+    @staticmethod
+    def _prewarm_kernels() -> None:
+        """Build every kernel library not yet built (one nvcc each, all
+        started together) and load each, before the first delta."""
+        from jepsen_tpu_torch import kernels
+        kernels.build_all()
+        for name in kernels.SOURCES:
+            kernels.load(name)
 
     def start_worker(self) -> None:
         """Spawn the worker thread (the constructor's default).

@@ -1,10 +1,11 @@
 """The port stands alone: no module of jepsen_tpu_torch, and neither
 chip_smoke.py, kernel_ab.py, the parity cases chip_smoke.py loads
-(tests/torch_parity_cases.py) nor the card tests the card runs without
-JAX (tests/test_torch_config_pack_kernels.py,
+and elle cases (tests/torch_parity_cases.py, tests/torch_elle_cases.py)
+nor the card tests the card runs without JAX
+(tests/test_torch_config_pack_kernels.py,
 tests/test_torch_sparse_batch_cuda.py, tests/test_torch_stream_cuda.py,
 tests/test_torch_serve_cuda.py, tests/test_torch_fleet_cuda.py,
-tests/test_torch_mesh_cuda.py),
+tests/test_torch_mesh_cuda.py, tests/test_torch_elle_cuda.py),
 imports JAX or anything of the JAX package (jepsen_tpu).
 Checked twice: by importing everything in a fresh interpreter and
 reading sys.modules, and by scanning the sources' import statements."""
@@ -22,12 +23,14 @@ PKG = ROOT / "jepsen_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_ab.py",
     ROOT / "tests" / "torch_parity_cases.py",
+    ROOT / "tests" / "torch_elle_cases.py",
     ROOT / "tests" / "test_torch_config_pack_kernels.py",
     ROOT / "tests" / "test_torch_sparse_batch_cuda.py",
     ROOT / "tests" / "test_torch_stream_cuda.py",
     ROOT / "tests" / "test_torch_serve_cuda.py",
     ROOT / "tests" / "test_torch_fleet_cuda.py",
-    ROOT / "tests" / "test_torch_mesh_cuda.py"]
+    ROOT / "tests" / "test_torch_mesh_cuda.py",
+    ROOT / "tests" / "test_torch_elle_cuda.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -46,6 +49,8 @@ import test_torch_stream_cuda
 import test_torch_serve_cuda
 import test_torch_fleet_cuda
 import test_torch_mesh_cuda
+import torch_elle_cases
+import test_torch_elle_cuda
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.")
@@ -61,6 +66,8 @@ print("STREAM", sorted(n for n in names if n.endswith(("extend",
 print("SERVE", sorted(n for n in names if ".serve" in n
                       or n.endswith("envflags")))
 print("OPS", sorted(n for n in names if ".obs" in n or ".resilience" in n))
+print("ELLE", sorted(n for n in names if ".elle" in n
+                     or ".workloads" in n or n.endswith(("probe", ".core"))))
 print("BAD", bad)
 """
 
@@ -101,7 +108,28 @@ def test_port_and_smoke_import_without_jax():
                                   "jepsen_tpu_torch.parallel.closure_kernels",
                                   "jepsen_tpu_torch.parallel.encode"]), \
         proc.stdout
+    assert lines["ELLE"] == str(sorted(
+        [f"jepsen_tpu_torch.{m}" for m in (
+            "checker.core", "elle", "elle.list_append", "elle.rw_register",
+            "elle.txn", "probe", "workloads", "workloads.cycle")])), \
+        proc.stdout
     assert lines["BAD"] == "[]", proc.stdout
+
+
+def test_probe_parent_imports_no_torch():
+    """The probe's parent never initialises CUDA: importing it (and the
+    watch's gauges) pulls in no torch."""
+    code = ("import sys\n"
+            "from jepsen_tpu_torch import probe\n"
+            "probe.ProbeWatch._gauges()\n"
+            "print(sorted(m for m in sys.modules if m == 'torch'"
+            " or m.startswith('torch.')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", SOURCES,

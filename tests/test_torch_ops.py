@@ -113,8 +113,11 @@ def test_breaker_lifecycle_equals_reference(name, threshold, base):
 
 
 def test_breaker_needs_a_probe():
-    with pytest.raises(TypeError):
-        CircuitBreaker("fleet:x", threshold=3, backoff_base=1.0)
+    """A breaker always has a recovery probe: given none it takes the
+    reference's default, the subprocess device probe."""
+    from jepsen_tpu_torch.resilience import breaker
+    br = CircuitBreaker("fleet:x", threshold=3, backoff_base=1.0)
+    assert br.probe is breaker._default_probe
 
 
 # --------------------------------------------- registry and Prometheus
