@@ -306,6 +306,34 @@ down both of its engines:
      default probe True, and a `probe.ProbeWatch` of interval 1 s ok
      after its first tick with its gauges at 1 and about 0 (stopped
      before a second child starts).
+ 15. "telemetry": the telemetry core over the card's paths — a dense
+     single check (K1), pipelined batches of three sparse queue keys of
+     the sparse batch's layout (batched K2, and batched K4 at the 4,096
+     tier) and of register keys (batched K1), through
+     `engine.check_batch(pipeline=True)`, and a one-rank sharded check
+     (K3's grid: `adversarial_register_history(40, 12)` at capacity
+     2^17):
+     * tracing off against JEPSEN_TPU_TORCH_TRACE on at the main path's
+       sizes (the 10k-op adversarial history, the queue keys with
+       multikey-84), warm: the results equal field for field; the
+       Chrome trace holds the reference's span tree (engine.encode and
+       bitdense.check; pipeline.run over its prepare, encode, dispatch,
+       finalize and sparse spans, engine.sparse_batch under
+       pipeline.sparse; sharded.search over sharded.tier) and a
+       `bucket-{tier}` device track a dense bucket;
+     * smaller inputs (a 300-op dense check, eight register keys, the
+       same sharded check) off, then all three traced inside one
+       `torch.profiler` capture (JEPSEN_TPU_TORCH_PROFILE on; the checks'
+       own capture sites join it): the results equal the untraced ones,
+       and every port kernel of the capture (K1, batched K1, K2, K4, K3)
+       is tied by its correlation id to the `bitdense single …`,
+       `bitdense K…`, `sparse K…` or `sharded N…` annotation around its
+       launch, K1 and K2 one kernel a launch;
+     * each run launches its path's kernels (counts zeroed just before);
+     * prints each warm wall off and traced, the profiled inputs' off
+       and in-capture walls, the capture's own cost, the span count, the
+       trace's bytes, and the disabled span's CPU cost a call on the
+       card's host.
   Launch counts are zeroed just before each main-path check and read just
   after; each check must have launched the kernel of its route.
 
@@ -4947,6 +4975,252 @@ def phase_probe(dev) -> dict:
     return {"doc": doc, "watch": st}
 
 
+# ------------------------------------------------------------ telemetry
+
+# the profiled inputs: a capture's processing and write at exit grow
+# with the events it holds (25.3 s for ~965,000: a 300-op dense check, the
+# pipelined pair and a 120-op sharded check, ~150 torch ops a K3 launch),
+# so one capture holds three small checks, the sharded one at the grid's
+# capacity from its start; tracing alone runs at the main path's sizes
+TEL_DENSE_OPS = 300
+TEL_SPARSE_KEYS = (12, 20, 24)   # capacities 512, 4,096, 1,024 (K2, K4)
+TEL_DENSE_KEYS = 8
+TEL_SHARDED_OPS, TEL_SHARDED_CAPACITY = 40, 1 << 17
+
+
+def _tel_launches() -> dict:
+    """Launch counts of the port's kernels by the label the telemetry
+    phase checks them under."""
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    return {"K1": ck.launches, "K1 batched": ck.batch_launches,
+            "K2": sk.launches["frontier_closure"]
+            + sk.launches["frontier_closure_batch"],
+            "K3": sk.launches["hash_insert"],
+            "K4": sk.launches["tiled_insert"]
+            + sk.launches["tiled_insert_batch"]}
+
+
+def _tel_zero() -> None:
+    from jepsen_tpu_torch.parallel import closure_kernels as ck
+    from jepsen_tpu_torch.parallel import sparse_kernels as sk
+    ck.reset_launches()
+    sk.reset_launches()
+
+
+def _tel_timed(fn):
+    """fn() -> (result, wall s), the card drained on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def _tel_tree(tr) -> set:
+    by_id = {s.sid: s for s in tr.spans()}
+    return {(s.name, by_id[s.parent].name if s.parent in by_id else None)
+            for s in tr.spans()}
+
+
+def phase_telemetry(dev, mesh) -> dict:
+    """The telemetry core on the card (the module's docstring, item 15)."""
+    import shutil
+    import tempfile
+    from jepsen_tpu_torch import histories, models, obs
+    from jepsen_tpu_torch.obs import capture
+    from jepsen_tpu_torch.parallel import encode as enc
+    from jepsen_tpu_torch.parallel import engine, sharded
+    for flag in ("JEPSEN_TPU_TORCH_TRACE", "JEPSEN_TPU_TORCH_PROFILE"):
+        os.environ.pop(flag, None)
+    obs.reset()
+    reg, uq = models.CASRegister(), models.UnorderedQueue()
+    h_main = histories.adversarial_register_history(n_ops=10000,
+                                                    k_crashed=12)
+    h_small = histories.adversarial_register_history(n_ops=TEL_DENSE_OPS,
+                                                     k_crashed=12)
+    queues = _sparse_batch_keys()
+    q_keys = [queues[k] for k in TEL_SPARSE_KEYS]
+    multikey = _batch_keys()[0]
+    e_sh = enc.encode(reg, histories.adversarial_register_history(
+        n_ops=TEL_SHARDED_OPS, k_crashed=12))
+
+    def pipelined(r_keys):
+        return [engine.check_batch(uq, q_keys, device=dev, pipeline=True,
+                                   cache=False),
+                engine.check_batch(reg, r_keys, device=dev, pipeline=True,
+                                   cache=False)]
+
+    def shard():
+        return sharded.check_encoded_sharded(
+            e_sh, mesh, capacity=TEL_SHARDED_CAPACITY, dedupe="hash")
+
+    # name: (the check at the main path's size, the profiled one, the
+    # span tree's (name, parent) pairs, {kernel: its annotation's prefix})
+    paths = {
+        "dense": (lambda: engine.analysis(reg, h_main, device=dev),
+                  lambda: engine.analysis(reg, h_small, device=dev),
+                  {("engine.encode", None), ("bitdense.check", None)},
+                  {"K1": "bitdense single S"}),
+        "pipeline": (lambda: pipelined(multikey),
+                     lambda: pipelined(multikey[:TEL_DENSE_KEYS]), {
+            ("pipeline.run", None), ("pipeline.prepare", "pipeline.run"),
+            ("pipeline.encode", "pipeline.run"),
+            ("pipeline.sparse", "pipeline.run"),
+            ("engine.sparse_batch", "pipeline.sparse"),
+            ("pipeline.dispatch", "pipeline.run"),
+            ("pipeline.finalize", "pipeline.run"),
+            ("bitdense.pad_place", "pipeline.dispatch"),
+            ("bitdense.finalize", "pipeline.finalize"),
+            ("device.search", None)},
+            {"K1 batched": "bitdense K", "K2": "sparse K",
+             "K4": "sparse K"}),
+        # the sharded check at its main path's size takes ~20 s a run
+        "sharded": (shard, shard, {("sharded.search", None),
+                                   ("sharded.tier", "sharded.search")},
+                    {"K3": "sharded N"}),
+    }
+
+    def launched(what: str, want) -> dict:
+        n = _tel_launches()
+        for k in want:
+            _require(n[k] > 0, f"telemetry {what}: {k} never launched ({n})")
+        return n
+
+    out, main_off = {}, {}
+    tmp = tempfile.mkdtemp(prefix="jt-telemetry-")
+    try:
+        # tracing off against on, at the main path's sizes (warm: the
+        # main path ran these checks before)
+        for name, (main, _small, tree, want_k) in paths.items():
+            walls, results = {}, {}
+            for mode in ("off", "traced"):
+                tr = obs.configure(True) if mode == "traced" else None
+                _tel_zero()
+                try:
+                    results[mode], walls[mode] = _tel_timed(main)
+                finally:
+                    obs.reset()
+                launched(f"{name} {mode}", want_k)
+            _require(results["traced"] == results["off"],
+                     f"telemetry {name}: tracing changed a result")
+            got = _tel_tree(tr)
+            _require(tree <= got, f"telemetry {name}: span tree lacks "
+                                  f"{sorted(tree - got)}")
+            path = os.path.join(tmp, f"{name}.trace.json")
+            obs.write_chrome_trace(path, tr)
+            events = json.load(open(path))
+            tracks = sorted(e["args"]["name"] for e in events
+                            if e["ph"] == "M" and e["name"] == "thread_name"
+                            and e["pid"] == 2)
+            if name == "pipeline":
+                _require(tracks and all(t.startswith("bucket-")
+                                        for t in tracks),
+                         f"telemetry: device tracks {tracks}")
+            main_off[name] = results["off"]
+            out[name] = {"walls": walls, "spans": len(tr.spans()),
+                         "trace_bytes": os.path.getsize(path),
+                         "tracks": tracks}
+            print(f"telemetry: {name}: warm walls (s) off "
+                  f"{walls['off']:.4f}, traced {walls['traced']:.4f}; "
+                  f"{len(tr.spans())} spans, trace "
+                  f"{os.path.getsize(path)} bytes, device tracks {tracks}")
+        # the profiled inputs off (warm, and the results to hold), then all
+        # three traced inside one capture: the checks' own sites
+        # (engine.check_batch, pipeline.run) join it
+        want_off = {}
+        for name, (main, small, _tree, _k) in paths.items():
+            if small is main:       # its off run above
+                want_off[name] = main_off[name]
+                out[name]["small_off"] = out[name]["walls"]["off"]
+            else:
+                want_off[name], out[name]["small_off"] = _tel_timed(small)
+        prof = os.path.join(tmp, "capture")
+        os.environ["JEPSEN_TPU_TORCH_PROFILE"] = prof
+        obs.configure(True)
+        _tel_zero()
+        got, in_cap = {}, {}
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with obs.maybe_torch_profile():
+                for name, (_main, small, _tree, _k) in paths.items():
+                    got[name], in_cap[name] = _tel_timed(small)
+            cap_wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("JEPSEN_TPU_TORCH_PROFILE", None)
+            obs.reset()
+        want_k = {k: v for _m, _s, _t, ks in paths.values()
+                  for k, v in ks.items()}
+        launches = launched("profiled", want_k)
+        for name in paths:
+            _require(got[name] == want_off[name],
+                     f"telemetry {name}: the profiler changed a result")
+            out[name]["profiled"] = in_cap[name]
+        t0 = time.perf_counter()
+        docs = capture.load_captures(prof)
+        _require(len(docs) == 1, f"telemetry: {len(docs)} captures, not 1")
+        cap_bytes = sum(os.path.getsize(os.path.join(prof, f))
+                        for f in os.listdir(prof))
+        n_events = len(docs[0]["traceEvents"])
+        recs = capture.kernel_annotations(docs[0])
+        by_k: dict = {}
+        for rec in recs:
+            k = rec["kernel"]
+            if k == "K1" and (rec["annotation"] or "").startswith(
+                    "bitdense K"):
+                k = "K1 batched"
+            by_k.setdefault(k, []).append(rec)
+        for k, prefix in want_k.items():
+            got_k = by_k.get(k, [])
+            bad = [r for r in got_k if r["annotation"] is None
+                   or not r["annotation"].startswith(prefix)]
+            _require(got_k and not bad,
+                     f"telemetry: {len(bad)} of {len(got_k)} {k} kernels "
+                     f"not under '{prefix}…': {bad[:3]}")
+            # K1 and K2 are one kernel a launch; K3 and K4 a prep, a
+            # compact and the insert
+            _require(len(got_k) == launches[k] if k in ("K1", "K1 batched",
+                                                       "K2")
+                     else len(got_k) >= launches[k],
+                     f"telemetry: {len(got_k)} {k} kernels in the capture "
+                     f"for {launches[k]} launches")
+        _require(set(by_k) <= set(want_k),
+                 f"telemetry: unexpected kernels {sorted(by_k)}")
+        t_read = time.perf_counter() - t0
+        corr = {k: len(v) for k, v in by_k.items()}
+        notes = sorted({r["annotation"] for r in recs})
+        out["capture"] = {"wall": cap_wall, "kernels": corr,
+                          "launches": launches, "bytes": cap_bytes,
+                          "events": n_events, "read_s": t_read}
+        for name in paths:
+            print(f"telemetry: {name}: profiled input warm walls (s) off "
+                  f"{out[name]['small_off']:.4f}, traced+profiled "
+                  f"{in_cap[name]:.4f}")
+        print(f"telemetry: the one capture: {cap_wall:.4f} s, the checks "
+              f"{sum(in_cap.values()):.4f} s of it, the capture's start, "
+              f"processing and write {cap_wall - sum(in_cap.values()):.4f}"
+              f" s; {n_events} events, {cap_bytes} bytes, read and "
+              f"matched in {t_read:.2f} s; capture kernels by annotation "
+              f"{corr} (launches {launches}) under {notes[:8]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.environ.pop("JEPSEN_TPU_TORCH_PROFILE", None)
+        obs.reset()
+    # the disabled span's CPU cost a call, on this host
+    n = 200_000
+    c0 = time.process_time()
+    for _ in range(n):
+        with obs.span("hot"):
+            pass
+    per_call = (time.process_time() - c0) / n
+    _require(per_call < 2e-6, f"telemetry: disabled span {per_call} s")
+    out["disabled_span_s"] = per_call
+    print(f"telemetry: the disabled span: {per_call * 1e9:.1f} ns of CPU "
+          f"a call (singleton {obs.span('a') is obs.span('b')})")
+    return out
+
+
 def _phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5114,6 +5388,7 @@ def main() -> int:
     print(f"the five mesh phases: {time.perf_counter() - t_mesh:.1f} s")
     _phase("elle", phase_elle, dev)
     _phase("probe", phase_probe, dev)
+    _phase("telemetry", phase_telemetry, dev, mesh)
     # K2's stats instantiation, single and batched: timed on inputs kept
     # from the stats main path, with the launches of that path
     for t in st_timed:

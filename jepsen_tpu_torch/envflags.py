@@ -9,8 +9,9 @@ from the reference's ``JEPSEN_TPU_*`` ones.
 The serve layer's flags (its queue bounds, WAL, tenants, ingress and
 ops ports, WAL replication), the mesh executors' (STEAL, STEAL_ROUND,
 RESHARD, and DIST with its three companions) and the device-health
-ones (PROBE_INTERVAL, BREAKER_THRESHOLD, BREAKER_BACKOFF) go through
-these accessors. The flags the
+ones (PROBE_INTERVAL, BREAKER_THRESHOLD, BREAKER_BACKOFF) and the
+telemetry ones (TRACE, PROFILE, FLIGHT_RECORDER) go through these
+accessors. The flags the
 port read before this module existed (dedupe, probe limit, bucket,
 config pack, search stats, pipeline) keep their own readers.
 """
@@ -39,6 +40,14 @@ MESH_FLAGS = tuple(PREFIX + n for n in (
 # >= 0, default 1.0), the breaker's defaults (resilience.breaker).
 HEALTH_FLAGS = tuple(PREFIX + n for n in (
     "PROBE_INTERVAL", "BREAKER_THRESHOLD", "BREAKER_BACKOFF"))
+
+# The telemetry flags (obs.tracer): TRACE (`env_path`: unset/0 off, 1
+# on, <path> on and the Chrome trace written there at export), PROFILE
+# (`env_path`: the torch.profiler capture directory, 1 =
+# store/torch_profile) and FLIGHT_RECORDER (`env_int` >= 0: 1 = a ring
+# of the last 256 closed spans, N >= 2 that many).
+TELEMETRY_FLAGS = tuple(PREFIX + n for n in (
+    "TRACE", "PROFILE", "FLIGHT_RECORDER"))
 
 
 class EnvFlagError(ValueError):

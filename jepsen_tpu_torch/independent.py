@@ -31,11 +31,19 @@ rung; `steal` and `reshard` (None: their flags) pass through to
 `engine.check_batch`. Not ported: the generator half (tuple_gen,
 sequential_generator, ConcurrentGenerator), the circuit breaker and
 supervisor, and per-key result persistence to a store.
+
+Telemetry, the reference's: the `independent.keys` counter, the
+`independent.check` span with an `independent.device_batch` span around
+the batch or an `independent.key` span a key on the per-key path, and
+the `independent.device_fallbacks` counter with its class-labeled twin
+(`independent.device_fallbacks.not-encodable`).
 """
 
 from __future__ import annotations
 
 import logging
+
+from jepsen_tpu_torch import obs
 
 from jepsen_tpu_torch.checker.core import Checker, check_safe, merge_valid
 from jepsen_tpu_torch.history import History, Op
@@ -162,16 +170,21 @@ class IndependentChecker(Checker):
         if not any(isinstance(o.get("value"), KV) for o in history):
             history = kv_history(history)
         subs = split_history(history)
-        results, fallback = self._batched_device_results(test, subs)
-        if results is None:
-            results = {
-                k: check_safe(self.checker, test, subs[k],
-                              {**opts,
-                               "subdirectory":
-                                   list(opts.get("subdirectory", []))
-                                   + [DIR, k],
-                               "history-key": k})
-                for k in subs}
+        ks = list(subs)
+        obs.counter("independent.keys").inc(len(ks))
+        with obs.span("independent.check", keys=len(ks)):
+            results, fallback = self._batched_device_results(test, subs)
+            if results is None:
+                results = {}
+                for k in ks:
+                    with obs.span("independent.key", key=str(k)):
+                        results[k] = check_safe(
+                            self.checker, test, subs[k],
+                            {**opts,
+                             "subdirectory":
+                                 list(opts.get("subdirectory", []))
+                                 + [DIR, k],
+                             "history-key": k})
         # only proven-invalid keys; "unknown" is not a failure
         # (independent.clj:305-311)
         failures = [k for k, r in results.items() if r.get("valid?") is False]
@@ -218,13 +231,13 @@ class IndependentChecker(Checker):
         # a mesh on the test map shards the key axis over its ranks
         mesh = (test or {}).get("mesh")
         try:
-            rs = engine.check_batch(model, [subs[k] for k in ks],
-                                    device=None if mesh is not None
-                                    else c.device,
-                                    pipeline=self.pipeline,
-                                    config_pack=c.config_pack,
-                                    search_stats=c.search_stats, mesh=mesh,
-                                    steal=self.steal, reshard=self.reshard)
+            with obs.span("independent.device_batch", keys=len(ks)):
+                rs = engine.check_batch(
+                    model, [subs[k] for k in ks],
+                    device=None if mesh is not None else c.device,
+                    pipeline=self.pipeline, config_pack=c.config_pack,
+                    search_stats=c.search_stats, mesh=mesh,
+                    steal=self.steal, reshard=self.reshard)
         except EncodeError as err:
             # not device-encodable (a set past its lane budget, a crash
             # pile-up past 64 slots): the host path is right, but slower
@@ -235,6 +248,8 @@ class IndependentChecker(Checker):
 
     @staticmethod
     def _fallback(cls: str, reason: str, backend: str) -> dict:
+        obs.counter("independent.device_fallbacks").inc()
+        obs.counter(f"independent.device_fallbacks.{cls}").inc()
         log.warning("device batch check skipped (%s) — using the per-key "
                     "checker", reason)
         return {"class": cls, "reason": reason, "backend": backend,

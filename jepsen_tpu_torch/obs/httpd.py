@@ -6,8 +6,9 @@ A trimmed copy of `jepsen_tpu.obs.httpd`, with the reference's JSON
 documents and status codes:
 
     GET  /metrics   Prometheus text (format 0.0.4) rendered live from
-                    the counter and gauge registry (a gauge's high-water
-                    mark as its ``_max`` twin)
+                    the registry (a gauge's high-water mark as its
+                    ``_max`` twin; a histogram as ``_bucket``, ``_sum``
+                    and ``_count``)
     GET  /healthz   the service's health document; 200 when ``ok``,
                     503 when degraded
     GET  /status    the per-key service table
@@ -21,7 +22,7 @@ fresh from the registry and the injected callbacks. ``fetch_replica``
 is the one read of a replica both an operator script and
 ``serve.fleet.FleetSupervisor`` use. Left out (items of a later
 slice): ``/trace``, ``/ledger``, ``/plan``, the refresh hook of
-computed gauges, histograms, and the ``jepsen status`` renderers.
+computed gauges, and the ``jepsen status`` renderers.
 
 Import-safe: no torch, no engine imports.
 """
@@ -84,38 +85,31 @@ def _esc_label(v: str) -> str:
             .replace("\n", r"\n"))
 
 
-def _split_labels(name: str):
-    """``base[k=v,...]`` -> (base, {k: v}); a plain name -> (name, {})
-    (the reference's labeled-name convention)."""
-    if not name.endswith("]"):
-        return name, {}
-    i = name.find("[")
-    if i < 0:
-        return name, {}
-    out = {}
-    for pair in name[i + 1:-1].split(","):
-        k, eq, v = pair.partition("=")
-        if eq:
-            out[k] = v
-    return name[:i], out
-
-
-def _label_str(labels: Dict[str, str]) -> str:
+def _label_str(labels: Dict[str, str], extra: str = "") -> str:
+    """A ``{k="v",...}`` block from a label dict (label names sanitized
+    like metric names, values escaped); ``extra`` appends a rendered
+    pair (a histogram's ``le``). Empty in, empty out."""
     pairs = [f'{prom_name(k)[len(PROM_PREFIX):]}="{_esc_label(v)}"'
              for k, v in sorted(labels.items())]
+    if extra:
+        pairs.append(extra)
     return "{" + ",".join(pairs) + "}" if pairs else ""
 
 
 def render_prometheus(snap: Optional[Dict[str, dict]] = None) -> str:
     """A registry snapshot (default: this process's) as Prometheus
     text: one ``# TYPE`` block per rendered name, its labeled series
-    (``base[k=v]``) contiguous under it, and a ``<name>_max`` gauge
-    block after it for the gauges' high-water marks."""
+    (``base[k=v]``, ``obs.labeled``) contiguous under it. Counters and
+    gauges render as they are, a gauge's high-water mark as a
+    ``<name>_max`` gauge twin; a histogram renders its cumulative
+    ``_bucket{le=...}`` series up to ``+Inf``, ``_sum`` and ``_count``
+    (the shape ``histogram_quantile()`` reads), and its streaming max
+    as a ``_max`` twin."""
     if snap is None:
         snap = _metrics.registry().snapshot()
     by_base: Dict[str, list] = {}
     for name in sorted(snap):
-        base, labels = _split_labels(name)
+        base, labels = _metrics.split_labels(name)
         by_base.setdefault(prom_name(base), []).append(
             (labels, snap[name]))
     lines = []
@@ -125,8 +119,21 @@ def render_prometheus(snap: Optional[Dict[str, dict]] = None) -> str:
         max_twins = []
         for labels, m in series:
             lab = _label_str(labels)
-            lines.append(f"{pn}{lab} {_fmt(m['value'])}")
-            if m["type"] == "gauge" and m.get("max") is not None:
+            if m["type"] in ("counter", "gauge"):
+                lines.append(f"{pn}{lab} {_fmt(m['value'])}")
+            else:
+                for le, cum in m.get("buckets") or ():
+                    le_pair = f'le="{_fmt(le)}"'
+                    lines.append(
+                        f"{pn}_bucket{_label_str(labels, le_pair)} "
+                        f"{cum}")
+                inf_pair = 'le="+Inf"'
+                lines.append(
+                    f"{pn}_bucket{_label_str(labels, inf_pair)} "
+                    f"{m['count']}")
+                lines.append(f"{pn}_sum{lab} {_fmt(m['total'])}")
+                lines.append(f"{pn}_count{lab} {m['count']}")
+            if m["type"] != "counter" and m.get("max") is not None:
                 max_twins.append(f"{pn}_max{lab} {_fmt(m['max'])}")
         if max_twins:
             lines.append(f"# TYPE {pn}_max gauge")

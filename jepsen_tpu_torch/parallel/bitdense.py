@@ -38,13 +38,23 @@ closes, filters on its own returning slot and tests for failure row
 after row. A key past its last event or its failure does not run: its
 carry is kept, so pad events change nothing. The single and the
 batched scans build their selects from the same `_compute_sel`.
+
+Telemetry, the reference's sites: the `bitdense.check` span around the
+single scan, with the `bitdense single S{S} C{C}` profiler annotation
+around its K1 launches; for a batch the `bitdense.dispatches` counter,
+the `bitdense.pad_place` and `bitdense.finalize` timers and the
+`bitdense K{K} S{S} C{C}` annotation around the persistent batched
+scan's launches. A stats block goes through the search-stats sinks.
 """
 
 from __future__ import annotations
 
+from time import perf_counter
+
 import numpy as np
 import torch
 
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.parallel import closure_kernels as ck
 from jepsen_tpu_torch.parallel import search_stats as st
 from jepsen_tpu_torch.parallel.encode import (
@@ -300,17 +310,21 @@ def check_encoded_bitdense(e: EncodedHistory, device=None,
     S = n_states(e)
     C = max(5, e.n_slots)  # at least one full word
     before = ck.launches
-    sc = _Scan(e, S, C, dev, stats=ss, cancel=cancel).run(e.n_returns)
-    valid = sc.ok & (sc.B != 0).any()
-    # the one device read of the whole check
-    valid_i, fail_r = torch.stack([valid.to(_I32), sc.fail_r]).tolist()
+    ts0 = perf_counter()
+    with obs.span("bitdense.check", S=S, C=C), \
+            obs.device_annotation(f"bitdense single S{S} C{C}"):
+        sc = _Scan(e, S, C, dev, stats=ss, cancel=cancel).run(e.n_returns)
+        valid = sc.ok & (sc.B != 0).any()
+        # the one device read of the whole check
+        valid_i, fail_r = torch.stack([valid.to(_I32), sc.fail_r]).tolist()
     out = {"valid?": bool(valid_i), "engine": "bitdense",
            "states": S, "slots": C,
            # the dense reachable-set tensor is a complete visited set
            "dedupe": "dense",
            "closure": "cuda" if ck.launches > before else "torch"}
     if ss:
-        out["stats"] = _stats_block_bitdense(_ys(sc.traj), S, C)
+        out["stats"] = st.finish_stats_block(
+            _stats_block_bitdense(_ys(sc.traj), S, C), ts0, perf_counter())
     if not out["valid?"]:
         out.update(fail_op_fields(e, int(fail_r)))
     return out
@@ -409,9 +423,12 @@ class PendingBitdenseBatch:
         self.search_stats = search_stats
         # C >= 5: at least one full 32-mask word. The dims are the whole
         # batch's; with a mesh this rank pads and scans its keys only
-        xs, state0, self.S, self.C, self.R = pad_batch(
-            encs, min_slots=max(5, min_slots), min_states=min_states,
-            min_returns=min_returns, mesh=mesh, ranks=ranks)
+        # one clock-read pair serves the recorded span and transfer_secs
+        with obs.timer("bitdense.pad_place", keys=len(encs)) as tm:
+            xs, state0, self.S, self.C, self.R = pad_batch(
+                encs, min_slots=max(5, min_slots), min_states=min_states,
+                min_returns=min_returns, mesh=mesh, ranks=ranks)
+        self.transfer_secs = tm.wall
         self.plan = None
         self.mine = list(range(len(encs)))
         if mesh is not None:
@@ -419,13 +436,16 @@ class PendingBitdenseBatch:
             self.plan = MeshPlan.flat(mesh)
             self.mine = place_batch(len(encs), mesh, ranks)
         self._scan = None
+        self._t_issue = perf_counter()
         if self.mine:
             # the whole batch's state offset: a block's first key may
             # have another
-            self._scan = _BatchScan([encs[j] for j in self.mine], xs,
-                                    state0, self.S, self.C, self.R, device,
-                                    stats=search_stats,
-                                    state_lo=encs[0].state_lo).run()
+            with obs.device_annotation(
+                    f"bitdense K{len(encs)} S{self.S} C{self.C}"):
+                self._scan = _BatchScan(
+                    [encs[j] for j in self.mine], xs, state0, self.S,
+                    self.C, self.R, device, stats=search_stats,
+                    state_lo=encs[0].state_lo).run()
         self._results = None
 
     def finalize(self) -> list:
@@ -433,17 +453,27 @@ class PendingBitdenseBatch:
         all-gather of every rank's keys (every rank calls it)."""
         if self._results is not None:
             return self._results
-        out = self._finalize_mine() if self.mine else []
+        with obs.timer("bitdense.finalize", keys=len(self.encs)):
+            read = self._read() if self.mine else None
+        t1 = perf_counter()
+        out = self._finalize_mine(*read) if self.mine else []
         if self.plan is not None:
             out = self.plan.gather_keys(len(self.encs), self.mine, out)
+        # every key's block through the sinks, on every rank of a mesh
+        for k, r in enumerate(out):
+            if r.get("stats") is not None:
+                st.finish_stats_block(r["stats"], self._t_issue, t1, key=k)
         self._results = out
         return out
 
-    def _finalize_mine(self) -> list:
+    def _read(self):
+        """The one device read of the whole batch: (valid, fail_r)."""
         sc = self._scan
         valid = sc.ok & (sc.B != 0).flatten(1).any(1)
-        # the one device read of the whole batch
-        valid_l, fail_l = torch.stack([valid.to(_I32), sc.fail_r]).tolist()
+        return tuple(torch.stack([valid.to(_I32), sc.fail_r]).tolist())
+
+    def _finalize_mine(self, valid_l, fail_l) -> list:
+        sc = self._scan
         closure = "cuda" if self.device.type == "cuda" else "torch"
         ys = _ys(sc.traj) if self.search_stats else None
         out = []
@@ -482,6 +512,7 @@ def dispatch_batch_bitdense(encs, device=None, search_stats=None,
     per key, places them instead), each rank scanning its keys on its
     own device padded to the whole batch's dims, and `finalize()`
     all-gathers the results: every rank of the mesh calls both."""
+    obs.counter("bitdense.dispatches").inc()
     if mesh is not None:
         from jepsen_tpu_torch.parallel.meshplan import MeshPlan
         device = MeshPlan.flat(mesh).device

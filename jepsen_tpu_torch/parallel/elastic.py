@@ -30,8 +30,13 @@ Left out of the port: the reference's `_degrade_round` (a dead round's
 keys go to the host WGL checker) and the supervised dispatch's retry —
 a device error in a round raises on its rank, as on every path of the
 port — and the planner hook (`planner.ewma_update` is inlined as
-`_ewma`; the strategy planner is a later item of the port), the
-decision ledger, spans and gauges.
+`_ewma`; the strategy planner is a later item of the port) and the
+decision ledger.
+
+Telemetry, the reference's sites: the `elastic.check_batch` span around
+the buckets and an `elastic.round` span around each round, the
+`elastic.ewma_cost[cohort=...]` labeled gauges, and `elastic.keys_stolen`
+as a counter and as counter-track samples.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from collections import deque
 from typing import Optional
 
 from jepsen_tpu_torch import envflags
-from jepsen_tpu_torch.obs import metrics as obs_metrics
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.parallel import bitdense, engine, sparse
 from jepsen_tpu_torch.parallel import search_stats as st
 
@@ -153,6 +158,10 @@ class KeyScheduler:
                 self.observed_keys += 1
                 coh = self.cohort.get(i, d)
                 self.pred[coh] = _ewma(self.pred[coh], c, self.ewma)
+                # the cost signal per cohort, on /metrics
+                obs.gauge(obs.labeled("elastic.ewma_cost",
+                                      cohort=str(coh))
+                          ).set(self.pred[coh])
             v = None if lf is None else lf.get(i)
             if v is not None:
                 cur = self.lf_peak[d]
@@ -190,7 +199,10 @@ class KeyScheduler:
         self.queues = new_queues
         if moved:
             self.steals += moved
-            obs_metrics.counter("elastic.keys_stolen").inc(moved)
+            obs.counter("elastic.keys_stolen").inc(moved)
+            # counter track (no-op with tracing off): the steal
+            # trajectory lines up with the elastic.round spans
+            obs.counter_sample("elastic.keys_stolen", self.steals)
 
     def stats(self) -> dict:
         """The scheduler's accounting: per-rank observed cost and busy
@@ -258,22 +270,26 @@ def check_batch_stealing(model, pre, capacity: int = 512,
     for i, e in enumerate(pre):
         buckets.setdefault(engine.bucket_key(e.n_slots, bucket),
                            []).append(i)
-    for tier in sorted(buckets):
-        idxs = buckets[tier]
-        sub = [pre[i] for i in idxs]
-        S_max = max(bitdense.n_states(e) for e in sub)
-        C_max = max(e.n_slots for e in sub)
-        is_dense = bitdense.fits_bitdense(S_max, C_max)
-        sched = KeyScheduler(idxs, n_dev, round_keys, steal=steal)
-        bstat = {"tier": tier, "keys": len(idxs),
-                 "engine": "bitdense" if is_dense else "sparse"}
-        stats["buckets"].append(bstat)
-        if is_dense:
-            _rounds_bitdense(pre, sched, out, mesh, dev, sub, ss, capacity)
-        else:
-            _rounds_sparse(pre, sched, out, mesh, dev, capacity,
-                           max_capacity, dedupe, ss, pack_req, reshard, sub)
-        bstat.update(sched.stats())
+    with obs.span("elastic.check_batch", keys=len(pre),
+                  devices=n_dev, steal=bool(steal)):
+        for tier in sorted(buckets):
+            idxs = buckets[tier]
+            sub = [pre[i] for i in idxs]
+            S_max = max(bitdense.n_states(e) for e in sub)
+            C_max = max(e.n_slots for e in sub)
+            is_dense = bitdense.fits_bitdense(S_max, C_max)
+            sched = KeyScheduler(idxs, n_dev, round_keys, steal=steal)
+            bstat = {"tier": tier, "keys": len(idxs),
+                     "engine": "bitdense" if is_dense else "sparse"}
+            stats["buckets"].append(bstat)
+            if is_dense:
+                _rounds_bitdense(pre, sched, out, mesh, dev, sub, ss,
+                                 capacity)
+            else:
+                _rounds_sparse(pre, sched, out, mesh, dev, capacity,
+                               max_capacity, dedupe, ss, pack_req,
+                               reshard, sub)
+            bstat.update(sched.stats())
     return out
 
 
@@ -302,10 +318,13 @@ def _rounds_bitdense(pre, sched: KeyScheduler, out, mesh, dev, sub,
         if placement is None:
             break
         rnd = [i for i, _d in placement]
-        rs = bitdense.dispatch_batch_bitdense(
-            [pre[i] for i in rnd], device=dev, search_stats=ss,
-            min_states=S_max, min_slots=max(5, C_max), min_returns=R_max,
-            mesh=mesh, ranks=[d for _i, d in placement]).finalize()
+        with obs.span("elastic.round", engine="bitdense",
+                      keys=len(rnd), round=sched.rounds):
+            rs = bitdense.dispatch_batch_bitdense(
+                [pre[i] for i in rnd], device=dev, search_stats=ss,
+                min_states=S_max, min_slots=max(5, C_max),
+                min_returns=R_max, mesh=mesh,
+                ranks=[d for _i, d in placement]).finalize()
         _observe(sched, placement, rnd, rs, out, capacity)
 
 
@@ -325,11 +344,14 @@ def _rounds_sparse(pre, sched: KeyScheduler, out, mesh, dev,
         if placement is None:
             break
         rnd = [i for i, _d in placement]
-        rs = engine._check_batch_sparse(
-            [pre[i] for i in rnd], capacity, max_capacity, dedupe=dedupe,
-            device=dev, config_pack=pack_req, search_stats=ss, mesh=mesh,
-            reshard=reshard, pad=(C_pad, R_pad), pack=pack,
-            ranks=[d for _i, d in placement])
+        with obs.span("elastic.round", engine="sparse",
+                      keys=len(rnd), round=sched.rounds):
+            rs = engine._check_batch_sparse(
+                [pre[i] for i in rnd], capacity, max_capacity,
+                dedupe=dedupe, device=dev, config_pack=pack_req,
+                search_stats=ss, mesh=mesh, reshard=reshard,
+                pad=(C_pad, R_pad), pack=pack,
+                ranks=[d for _i, d in placement])
         _observe(sched, placement, rnd, rs, out, capacity)
 
 

@@ -45,6 +45,15 @@ another (the checkpoint's .npz is the reference's format).
 default) gives every result the reference's "stats" block
 (`parallel.search_stats`): the dense engine's or the sparse engine's,
 each key of a batch its own. With it off a result has no "stats" key.
+
+Telemetry (`obs`), the reference's sites and names: the `engine.encode`
+span, `engine.check_batch` around a serial or stealing batch with
+`engine.encode_batch` inside it and the `torch.profiler` capture
+(`obs.maybe_torch_profile`, the reference's `maybe_jax_profile`)
+around both; the `engine.host_fallbacks`, `false_invalid`,
+`final_paths_missing`, `capacity_escalations` and `escalation_errors`
+counters. The sparse engine's `engine.search` span and its counters
+live in `parallel.sparse`.
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import envflags
+from jepsen_tpu_torch import envflags, obs
 from jepsen_tpu_torch import models as model_ns
 from jepsen_tpu_torch.checker import wgl
 from jepsen_tpu_torch.history import Call, History
@@ -91,14 +100,16 @@ def analysis(model, history, device=None, capacity: int = 1024,
     dev = bitdense.resolve_device(device)
     h = history if isinstance(history, History) else History.wrap(history)
     try:
-        if encode_cache is not None and encode_cache is not False:
-            from jepsen_tpu_torch.parallel import pipeline
-            e = pipeline.encode_cached(
-                model, h,
-                cache=None if encode_cache is True else encode_cache)
-        else:
-            e = enc_mod.encode(model, h)
+        with obs.span("engine.encode"):
+            if encode_cache is not None and encode_cache is not False:
+                from jepsen_tpu_torch.parallel import pipeline
+                e = pipeline.encode_cached(
+                    model, h,
+                    cache=None if encode_cache is True else encode_cache)
+            else:
+                e = enc_mod.encode(model, h)
     except EncodeError as err:
+        obs.counter("engine.host_fallbacks").inc()
         _log.warning(
             "history not device-checkable (%s) — using the host WGL "
             "engine; expect it to be orders of magnitude slower", err)
@@ -157,6 +168,8 @@ def _disagreement_recheck(model, e: EncodedHistory, note: str) -> dict:
             out["op"] = host["op"]
         return out
     if host.get("valid?") is True:
+        # counted, not just logged: the loudest device-engine signal
+        obs.counter("engine.false_invalid").inc()
         _log.error("device engine false-invalid: %s, and the bounded "
                    "full-host recheck says VALID — overriding the device "
                    "verdict (this may hide a device-engine bug; please "
@@ -216,6 +229,7 @@ def extract_final_paths(model, e: EncodedHistory, fail_r: int,
     spec = e.spec or model_ns.pack_spec(model, e.intern)
     if spec is None or spec.unpack_state is None:
         note = "model has no unpack_state; cannot seed a window re-search"
+        obs.counter("engine.final_paths_missing").inc()
         _log.warning("final-paths extraction returned nothing for an "
                      "invalid history: %s", note)
         return {"final-paths": [], "configs": [], "final-paths-note": note}
@@ -226,6 +240,7 @@ def extract_final_paths(model, e: EncodedHistory, fail_r: int,
         rows = _frontier_at(e, start_ev, device=device)
         if rows is None:
             note = "seed-frontier re-scan overflowed max capacity"
+            obs.counter("engine.final_paths_missing").inc()
             _log.warning("final-paths extraction returned nothing for an "
                          "invalid history: %s", note)
             return {"final-paths": [], "configs": [],
@@ -590,6 +605,7 @@ def check_encoded_resumable(e: EncodedHistory, capacity: int = 1024,
     xs = sparse._xs(e, dev)
     R = e.n_returns
     acc = st.SearchStats(dedupe) if ss else None
+    t0 = _time.perf_counter()
     closure = None
     while cp.event_index < R and cp.ok:
         try:
@@ -620,7 +636,8 @@ def check_encoded_resumable(e: EncodedHistory, capacity: int = 1024,
                       else sparse.route_tag(cp.capacity, C, dedupe, dev,
                                             smem_budget, pack))
     if acc is not None:
-        out["stats"] = st._finish_search_stats(acc)
+        out["stats"] = st.finish_stats_block(st.block_of(acc), t0,
+                                             _time.perf_counter())
     sparse._tag_config_pack(out, pack, pack_req, C)
     if not out["valid?"]:
         out.update(enc_mod.fail_op_fields(e, cp.fail_r))
@@ -780,20 +797,23 @@ def check_batch(model, histories, capacity: int = 512,
         raise ValueError(
             "check_batch: steal_stats is an elastic-executor argument — "
             "pass steal=True (or set JEPSEN_TPU_TORCH_STEAL=1) to use it")
-    pre = [enc_mod.encode(model, h) for h in histories]
-    if run_steal:
-        from jepsen_tpu_torch.parallel import elastic
-        return elastic.check_batch_stealing(
-            model, pre, capacity=capacity, max_capacity=max_capacity,
-            mesh=mesh, bucket=bucket, dedupe=dedupe,
-            search_stats=search_stats, config_pack=config_pack,
-            reshard=reshard, stats=steal_stats, device=device)
-    return check_batch_encoded(model, pre, capacity=capacity,
-                               max_capacity=max_capacity, device=device,
-                               bucket=bucket, dedupe=dedupe,
-                               config_pack=config_pack,
-                               search_stats=search_stats, mesh=mesh,
-                               reshard=reshard)
+    with obs.span("engine.check_batch", keys=len(histories),
+                  bucket=bucket), obs.maybe_torch_profile():
+        with obs.span("engine.encode_batch", keys=len(histories)):
+            pre = [enc_mod.encode(model, h) for h in histories]
+        if run_steal:
+            from jepsen_tpu_torch.parallel import elastic
+            return elastic.check_batch_stealing(
+                model, pre, capacity=capacity, max_capacity=max_capacity,
+                mesh=mesh, bucket=bucket, dedupe=dedupe,
+                search_stats=search_stats, config_pack=config_pack,
+                reshard=reshard, stats=steal_stats, device=device)
+        return check_batch_encoded(model, pre, capacity=capacity,
+                                   max_capacity=max_capacity,
+                                   device=device, bucket=bucket,
+                                   dedupe=dedupe, config_pack=config_pack,
+                                   search_stats=search_stats, mesh=mesh,
+                                   reshard=reshard)
 
 
 def _check_mesh(mesh) -> None:
@@ -919,6 +939,7 @@ def _escalate_overflow(e: EncodedHistory, batch_cap: int, device=None,
     "escalation-error", a warning and the `engine.escalation_errors`
     counter, as the reference's does: no other engine gives the key a
     verdict."""
+    obs.counter("engine.capacity_escalations").inc()
     ceil_single = min(batch_cap * 4, 1 << 21)
     r = sparse.check_encoded(e, capacity=min(batch_cap * 2, ceil_single),
                              max_capacity=ceil_single, device=device,
@@ -944,8 +965,7 @@ def _escalate_overflow(e: EncodedHistory, batch_cap: int, device=None,
                 return rs
             r = rs
         except Exception as err:  # noqa: BLE001 — the reference's rule
-            from jepsen_tpu_torch.obs import metrics as obs_metrics
-            obs_metrics.counter("engine.escalation_errors").inc()
+            obs.counter("engine.escalation_errors").inc()
             _log.warning("sharded escalation tier crashed (%r) — key left "
                          "unknown; this may hide a sharded-engine "
                          "regression", err)

@@ -25,8 +25,15 @@ sessions as one batched scan a leg (`sparse._BatchScan` from each key's
 own carry: batched K2, or the tiled closure around batched K4, past
 K2's gate).
 
-Not ported: the reference's obs spans and counters, decision ledger and
-strategy planner (ROADMAP item 10), and the degradation of a device
+Telemetry, the reference's sites: the `stream.encode`, `stream.check`,
+`stream.host_check` and `stream.batch_scan` spans; the `stream.*`
+counters (host-only keys, rescans, resumed events, thaw rescans,
+migrated and batched keys) and `engine.configs_stepped` and
+`capacity_escalations`; a check's stats leg goes to the registry and the
+counter tracks, its lifetime block to the run's search-stats record.
+
+Not ported: the reference's decision ledger and strategy planner, and
+the degradation of a device
 fault to a host resume: a fault surfaces to the caller, the error
 carrying `.checkpoint`, and the session keeps its checkpoint for the
 next check. A delta the encoder cannot take (EncodeError) moves the key
@@ -40,11 +47,13 @@ from __future__ import annotations
 
 import bisect
 import logging
+from time import perf_counter
 from typing import Optional
 
 import numpy as np
 import torch
 
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.checker import wgl
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.parallel import bitdense, engine, sparse
@@ -205,6 +214,7 @@ class HistorySession:
                            if self.search_stats else None)
         self._leg_acc = None
         self._leg_ev0 = 0
+        self._leg_t0 = 0.0
         self.device = bitdense.resolve_device(device)
         self.capacity = max(64, capacity)
         self.max_capacity = max_capacity
@@ -255,7 +265,10 @@ class HistorySession:
             return    # once unpackable, always checked on the host
         old_e = self.enc
         try:
-            self.enc = enc_mod.encode(self.model, History.wrap(self.ops))
+            with obs.span("stream.encode", key=self.key,
+                          ops=len(self.ops)):
+                self.enc = enc_mod.encode(self.model,
+                                          History.wrap(self.ops))
         except EncodeError as err:
             # as engine.analysis: not device-checkable goes to the host
             # WGL engine, and stays there (the window that overflowed
@@ -263,6 +276,7 @@ class HistorySession:
             self.host_only = str(err)
             self.enc = None
             self._cp = self._cp_stable = self._cp_tail = None
+            obs.counter("stream.host_only_keys").inc()
             return
         if self.enc.n_returns == 0:
             self._cp = self._cp_stable = self._cp_tail = None
@@ -282,9 +296,11 @@ class HistorySession:
                 # packing moved as a whole): scan from scratch
                 _log.info("key %r: delta unsettled every checkpoint; "
                           "rescanning from event 0", self.key)
+                obs.counter("stream.rescans").inc()
             self._cp = None
         else:
             self._cp = _restamp(best, self._digest)
+            obs.counter("stream.resumed_events").inc(best.event_index)
         self._cp_stable = self._cp_tail = None
 
     # -- checking
@@ -294,7 +310,8 @@ class HistorySession:
                                                self._digest)
 
     def _host_check(self) -> dict:
-        r = wgl.analysis(self.model, History.wrap(self.ops))
+        with obs.span("stream.host_check", key=self.key):
+            r = wgl.analysis(self.model, History.wrap(self.ops))
         r["fallback"] = self.host_only
         self._last_result = dict(r)
         self._dirty = False
@@ -336,22 +353,33 @@ class HistorySession:
         if self._leg_acc is None:
             self._leg_acc = st.SearchStats(self.dedupe)
             self._leg_ev0 = ev0
+            self._leg_t0 = perf_counter()
         return self._leg_acc
 
     def _finish(self, tcp, closure, resume_ev: int, pack=None,
                 pack_C: Optional[int] = None) -> dict:
         """What `check` and `advance_sessions` share once the tail leg's
         carry is in hand."""
+        resume_stepped = self._cp.stepped if self._cp is not None else 0
+        obs.counter("engine.configs_stepped").inc(
+            max(0, tcp.stepped - resume_stepped))
         self.capacity = max(self.capacity, tcp.capacity)
         self._cp = self._cp_stable or tcp
         r = self._result_from(tcp, closure, resume_ev, pack, pack_C)
         if self._stats_acc is not None and self._leg_acc is not None:
-            # the leg replaces the re-opened tail from its first event,
-            # so the lifetime stats are a one-shot check's of the prefix
+            # the registry and the counter tracks get this check's leg
+            # only (a stream republishing its lifetime totals every
+            # delta would inflate every counter); the result and the
+            # run's record carry the lifetime stats: the leg replaces
+            # the re-opened tail from its first event, so they are a
+            # one-shot check's of the prefix
+            leg_block = st.block_of(self._leg_acc, engine="stream")
+            st._publish_search_stats(leg_block)
+            st._emit_stats_tracks(leg_block, self._leg_t0, perf_counter())
             self._stats_acc.splice(self._leg_ev0, self._leg_acc)
-            block = st._finish_search_stats(self._stats_acc,
-                                            engine="stream")
+            block = st.block_of(self._stats_acc, engine="stream")
             block["resumed-from-event"] = resume_ev
+            st.record_stats_block(block, self.key)
             r["stats"] = block
             self._leg_acc = None
         self._last_result = dict(r)
@@ -375,11 +403,26 @@ class HistorySession:
         # slot window moves the packed bits; the checkpoints are canonical)
         pack = (sparse.pack_spec_for(e, e.slot_f.shape[1])
                 if self.config_pack else ())
-        return engine.advance_checkpoint(
-            e, cp, target, dedupe=self.dedupe, probe_limit=self.probe_limit,
-            device=self.device, max_capacity=self.max_capacity, pack=pack,
-            smem_budget=self.smem_budget,
-            stats_acc=self._leg_stats(cp.event_index))
+        top = cp
+        try:
+            top, closure = engine.advance_checkpoint(
+                e, cp, target, dedupe=self.dedupe,
+                probe_limit=self.probe_limit, device=self.device,
+                max_capacity=self.max_capacity, pack=pack,
+                smem_budget=self.smem_budget,
+                stats_acc=self._leg_stats(cp.event_index))
+            return top, closure
+        except Exception as err:
+            top = getattr(err, "checkpoint", top)
+            raise
+        finally:
+            # the reference counts the stream's capacity doublings (the
+            # resumable check's it does not): the checkpoint in hand,
+            # returned or raised with, says how many there were
+            n = (int(top.capacity).bit_length()
+                 - int(cp.capacity).bit_length())
+            if n:
+                obs.counter("engine.capacity_escalations").inc(n)
 
     def check(self) -> dict:
         """The current prefix's verdict, equal (verdict, op/fail-event,
@@ -406,20 +449,22 @@ class HistorySession:
         R = self.enc.n_returns
         stable = max(self._stable_ev, cp.event_index)
         closure = None
-        try:
-            if cp.ok and cp.event_index < stable:
-                cp, closure = self._advance(cp, stable)
-            self._cp_stable = cp
-            tcp = cp
-            if tcp.ok and tcp.event_index < R:
-                tcp, c2 = self._advance(tcp, R)
-                closure = c2 or closure
-            self._cp_tail = tcp
-        except FrontierOverflowError as err:
-            return self._overflow_result(err)
-        except Exception:
-            self._abandon()
-            raise
+        with obs.span("stream.check", key=self.key, returns=R,
+                      resume=resume_ev):
+            try:
+                if cp.ok and cp.event_index < stable:
+                    cp, closure = self._advance(cp, stable)
+                self._cp_stable = cp
+                tcp = cp
+                if tcp.ok and tcp.event_index < R:
+                    tcp, c2 = self._advance(tcp, R)
+                    closure = c2 or closure
+                self._cp_tail = tcp
+            except FrontierOverflowError as err:
+                return self._overflow_result(err)
+            except Exception:
+                self._abandon()
+                raise
         return self._finish(tcp, closure, resume_ev)
 
     def _abandon(self) -> None:
@@ -480,6 +525,7 @@ class HistorySession:
             self._cp = cp
             self.capacity = max(self.capacity, cp.capacity)
         else:
+            obs.counter("stream.thaw_rescans").inc()
             _log.warning(
                 "thawed checkpoint does not match the replayed history "
                 "(digest or model) — rescanning key %r from scratch",
@@ -488,7 +534,11 @@ class HistorySession:
     def migrate(self, device) -> None:
         """Move the session's search to `device`: its checkpoints are
         host arrays, so the next scan's carry lands there."""
-        self.device = bitdense.resolve_device(device)
+        device = bitdense.resolve_device(device)
+        if device == self.device:
+            return
+        self.device = device
+        obs.counter("stream.migrated_keys").inc()
 
 
 # ----------------------------------------------- cross-key batching
@@ -522,12 +572,16 @@ def _batch_leg(pairs, N: int, C_pad: int, dedupe: str, probe_limit: int,
     chunks = [_xs_slice(s.enc, s._scan_cp.event_index, t, R_pad, C_pad)
               for s, t in pairs]
     xs = {k: np.stack([c[k] for c in chunks]) for k in chunks[0]}
-    sc = sparse._BatchScan(
-        [s.enc for s, _ in pairs], xs, None, N, dedupe, probe_limit,
-        device, smem_budget, pack, stats=search_stats,
-        carry=_stack_carries([s._scan_cp for s, _ in pairs], device,
-                             pack, C_pad)).run()
-    carries, overflow = sc.carry_np()
+    # `events` is the leg's padded rows: the reference pads them up to
+    # its jit cache's event quantum, the port to the longest member
+    with obs.span("stream.batch_scan", keys=len(pairs), events=R_pad,
+                  capacity=N):
+        sc = sparse._BatchScan(
+            [s.enc for s, _ in pairs], xs, None, N, dedupe, probe_limit,
+            device, smem_budget, pack, stats=search_stats,
+            carry=_stack_carries([s._scan_cp for s, _ in pairs], device,
+                                 pack, C_pad)).run()
+        carries, overflow = sc.carry_np()
     ys = st.trajectories_np(sc.traj, sc.phist) if search_stats else None
     overflowed = []
     for k, (s, _t) in enumerate(pairs):
@@ -586,6 +640,7 @@ def advance_sessions(sessions, bucket: Optional[str] = None) -> list:
         # one layout for the whole group, before any leg
         pack = (sparse.pack_spec_for([m.enc for m in members], C_pad)
                 if config_pack else ())
+        obs.counter("stream.batched_keys").inc(len(members))
         live = list(members)
         resume = {id(s): s._scan_cp.event_index for s in live}
         closure = None

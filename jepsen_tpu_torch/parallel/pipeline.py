@@ -39,9 +39,24 @@ dense chunks aligned to the rank count as the reference's are, and
 every rank of the mesh calls the executor; with `steal` a dense
 bucket's chunks are the rounds of a `elastic.KeyScheduler` that
 observes each drained chunk, and a sparse bucket runs through
-`elastic.check_batch_stealing`. Not ported: the supervisor's
-degradation of a failed chunk to the host (a device fault raises), the
-obs spans, gauges and decision ledger (ROADMAP item 10), and the
+`elastic.check_batch_stealing`.
+
+Telemetry, the reference's: the `pipeline.run` root span with the
+`torch.profiler` capture (`obs.maybe_torch_profile`) around the whole
+run; a `pipeline.prepare` and a `pipeline.encode` timer a key, a
+`pipeline.dispatch` and a `pipeline.finalize` span a dense chunk and a
+`pipeline.sparse` span a sparse bucket, each a child of `pipeline.run`
+(the reference's pool threads take its context through `ctx_runner`;
+here they run on the submitting thread, outside every chunk's span); a
+`device.search` span a chunk on its bucket's `bucket-{tier}` device
+track, the chunk's issue-to-read window on the host's clock; the
+`pipeline.keys`, `pipeline.chunks` and `pipeline.cache.*` counters, the
+`pipeline.inflight` gauge with its counter-track samples, and the
+`pipeline.{encode,transfer,device_wait}_secs` histograms, one
+observation a bucket.
+
+Not ported: the supervisor's degradation of a failed chunk to the host
+(a device fault raises), the decision ledger, and the
 JEPSEN_TPU_ENCODE_CACHE size flag (`EncodeCache(max_entries=...)`
 sizes a cache, 0 turns it off).
 """
@@ -61,6 +76,7 @@ from typing import Optional
 import torch
 
 from jepsen_tpu_torch import models as model_ns
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.parallel import bitdense, engine
 from jepsen_tpu_torch.parallel import encode as enc_mod
 from jepsen_tpu_torch.parallel import search_stats as st
@@ -307,25 +323,30 @@ class _KeyInfo:
         return (self.enc or self.prep).n_returns
 
 
-def _lookup_or_prepare(model, h, cache: Optional[EncodeCache]) -> _KeyInfo:
-    t0 = perf_counter()
+def _lookup_or_prepare(model, h, cache: Optional[EncodeCache],
+                       key: Optional[int] = None) -> _KeyInfo:
+    # a timer, not a span: the recorded span is the key's prepare secs
     e = prep = ckey = None
-    if cache is not None:
-        ckey = encode_cache_key(model, h)
-        e = cache.get(ckey, model)
-    if e is None:
-        prep = enc_mod.prepare_encode(model, h)
-    return _KeyInfo(ckey, e, prep, perf_counter() - t0)
+    with obs.timer("pipeline.prepare", key=key) as sp:
+        if cache is not None:
+            ckey = encode_cache_key(model, h)
+            e = cache.get(ckey, model)
+        if e is not None:
+            sp.set(hit=True)
+        else:
+            prep = enc_mod.prepare_encode(model, h)
+    return _KeyInfo(ckey, e, prep, sp.wall)
 
 
-def _fill(info: _KeyInfo, cache: Optional[EncodeCache]) -> EncodedHistory:
+def _fill(info: _KeyInfo, cache: Optional[EncodeCache],
+          key: Optional[int] = None) -> EncodedHistory:
     """The key's encode: its cache hit, or stage 2 of its prepared one
     (then kept in the cache)."""
     if info.enc is None:
-        t0 = perf_counter()
-        info.enc = enc_mod.finish_encode(info.prep)
+        with obs.timer("pipeline.encode", key=key) as sp:
+            info.enc = enc_mod.finish_encode(info.prep)
         info.prep = None
-        info.secs += perf_counter() - t0
+        info.secs += sp.wall
         if cache is not None:
             cache.note_encode()
             cache.put(info.ckey, info.enc)
@@ -448,14 +469,22 @@ def check_batch_pipelined(model, histories, capacity: int = 512,
     if cache is not None and cache.max_entries == 0:
         cache = None      # off: not even the digest
     c0 = cache.counters() if cache is not None else None
-    out = _stream(model, histories, capacity, max_capacity, bucket, cache,
-                  chunk_keys, depth, stats, dedupe, search_stats,
-                  config_pack, dev, mesh, steal, reshard, steal_stats)
+    with obs.span("pipeline.run", keys=K, bucket=bucket, dedupe=dedupe), \
+            obs.maybe_torch_profile():
+        out = _stream(model, histories, capacity, max_capacity, bucket,
+                      cache, chunk_keys, depth, stats, dedupe,
+                      search_stats, config_pack, dev, mesh, steal,
+                      reshard, steal_stats)
     if c0 is not None:
         c1 = cache.counters()
         stats["cache"] = {k: c1[k] - c0[k] for k in
                           ("hits", "disk_hits", "misses", "encodes")}
         stats["cache"]["entries"] = c1["entries"]
+        # the same deltas feed the registry
+        reg = obs.registry()
+        for k in ("hits", "disk_hits", "misses", "encodes"):
+            if stats["cache"][k]:
+                reg.counter(f"pipeline.cache.{k}").inc(stats["cache"][k])
     return out
 
 
@@ -463,15 +492,27 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
             chunk_keys, depth, stats, dedupe, search_stats, config_pack,
             dev, mesh=None, steal: bool = False, reshard=None,
             steal_stats: Optional[dict] = None) -> list:
-    """The executor's body (`check_batch_pipelined`)."""
+    """The executor's body (`check_batch_pipelined`), under the
+    pipeline.run span."""
     from jepsen_tpu_torch.parallel import elastic
     align = 1 if mesh is None else mesh.size()
     scheds: list = []    # (bstat, KeyScheduler) of the stealing buckets
     K = len(histories)
+    reg = obs.registry()
+    reg.counter("pipeline.keys").inc(K)
+    inflight = reg.gauge("pipeline.inflight")
+
+    def _depth(n: int):
+        """The gauge and its counter-track sample from one level read
+        (the sample is a no-op with tracing off)."""
+        inflight.set(n)
+        obs.counter_sample("pipeline.inflight", n)
+
     timed = dev.type == "cuda"
     t_wall = perf_counter()
     out: list = [None] * K
-    infos = [_lookup_or_prepare(model, h, cache) for h in histories]
+    infos = [_lookup_or_prepare(model, h, cache, key=i)
+             for i, h in enumerate(histories)]
     stats["prepare_secs"] = round(perf_counter() - t_wall, 6)
     buckets: dict = {}
     for i, info in enumerate(infos):
@@ -479,12 +520,26 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
                            []).append(i)
     pending: deque = deque()
     bstats: list = []
+    transfer: dict = {}   # a bucket's pad-and-copy secs, for its histogram
 
     def drain_one():
-        chunk, pb, bstat, ev0, ev1, sched, placement = pending.popleft()
+        (chunk, pb, bstat, chunk_no, t_issue, ev0, ev1, sched,
+         placement) = pending.popleft()
         t0 = perf_counter()
-        rs = pb.finalize()
-        bstat["device_wait_secs"] += perf_counter() - t0
+        with obs.span("pipeline.finalize", tier=bstat["tier"],
+                      chunk=chunk_no, keys=len(chunk)):
+            rs = pb.finalize()
+        _depth(len(pending))
+        t_done = perf_counter()
+        bstat["device_wait_secs"] += t_done - t0
+        tr = obs.tracer()
+        if tr is not None:
+            # the chunk's in-flight window, issue to read, on its
+            # bucket's device track: host clock reads, no device sync
+            tr.add_span("device.search", t_issue, t_done,
+                        track=f"bucket-{bstat['tier']}", chunk=chunk_no,
+                        keys=len(chunk), engine=bstat["engine"])
+        transfer[bstat["tier"]] += pb.transfer_secs
         if timed:
             bstat["device_secs"] += ev0.elapsed_time(ev1) / 1e3
         for i, r in zip(chunk, rs):
@@ -506,6 +561,7 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
         R_max = max(infos[i].n_returns for i in idxs)
         bstat = {"tier": tier, "keys": len(idxs), "chunks": 0}
         bstats.append(bstat)
+        transfer[tier] = 0.0
         if bitdense.fits_bitdense(S_max, C_max):
             bstat.update(engine="bitdense", issue_secs=0.0,
                          device_wait_secs=0.0,
@@ -519,7 +575,9 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
                 scheds.append((bstat, sched))
             for chunk, placement in _bucket_chunks(idxs, chunk_keys, align,
                                                    sched):
-                sub = [_fill(infos[i], cache) for i in chunk]
+                # the encodes run outside the chunk's span: their
+                # parent is pipeline.run, as on the reference's pool
+                sub = [_fill(infos[i], cache, key=i) for i in chunk]
                 t0 = perf_counter()
                 ev0 = ev1 = None
                 if timed:
@@ -528,46 +586,59 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
                     ev0.record()
                 # every chunk padded to the bucket's (S, C, R): its
                 # results are the whole bucket's
-                pb = bitdense.dispatch_batch_bitdense(
-                    sub, device=dev, search_stats=search_stats,
-                    min_states=S_max, min_slots=max(5, C_max),
-                    min_returns=R_max, mesh=mesh,
-                    ranks=(None if placement is None
-                           else [d for _i, d in placement]))
+                with obs.span("pipeline.dispatch", tier=tier,
+                              chunk=bstat["chunks"], keys=len(chunk)):
+                    pb = bitdense.dispatch_batch_bitdense(
+                        sub, device=dev, search_stats=search_stats,
+                        min_states=S_max, min_slots=max(5, C_max),
+                        min_returns=R_max, mesh=mesh,
+                        ranks=(None if placement is None
+                               else [d for _i, d in placement]))
                 if timed:
                     ev1.record()
                 bstat["issue_secs"] += perf_counter() - t0
+                pending.append((chunk, pb, bstat, bstat["chunks"], t0,
+                                ev0, ev1, sched, placement))
                 bstat["chunks"] += 1
-                pending.append((chunk, pb, bstat, ev0, ev1, sched,
-                                placement))
+                reg.counter("pipeline.chunks").inc()
+                _depth(len(pending))
                 while len(pending) >= depth:
                     drain_one()
         else:
             # the capacity retry reads the device as it goes: the
             # bucket runs whole, while earlier chunks are still in flight
             bstat.update(engine="sparse", chunks=1)
-            sub = [_fill(infos[i], cache) for i in idxs]
+            if not steal:
+                reg.counter("pipeline.chunks").inc()
+            sub = [_fill(infos[i], cache, key=i) for i in idxs]
             t0 = perf_counter()
             if steal:
                 # the stealer's rounds own the sparse bucket's ladder
                 bstat["steal"] = True
                 est: dict = {}
-                rs = elastic.check_batch_stealing(
-                    model, sub, capacity=capacity,
-                    max_capacity=max_capacity, mesh=mesh, bucket=bucket,
-                    dedupe=dedupe, search_stats=search_stats,
-                    config_pack=config_pack, reshard=reshard, stats=est,
-                    device=dev)
+                with obs.span("pipeline.sparse", tier=tier,
+                              keys=len(idxs)):
+                    rs = elastic.check_batch_stealing(
+                        model, sub, capacity=capacity,
+                        max_capacity=max_capacity, mesh=mesh,
+                        bucket=bucket, dedupe=dedupe,
+                        search_stats=search_stats,
+                        config_pack=config_pack, reshard=reshard,
+                        stats=est, device=dev)
                 bstat["chunks"] = sum(b.get("rounds", 0)
                                       for b in est["buckets"])
+                reg.counter("pipeline.chunks").inc(max(1, bstat["chunks"]))
                 if steal_stats is not None:
                     steal_stats.setdefault("buckets", []).extend(
                         est["buckets"])
             else:
-                rs = engine._check_batch_sparse(
-                    sub, capacity, max_capacity, dedupe=dedupe, device=dev,
-                    config_pack=config_pack, search_stats=search_stats,
-                    mesh=mesh, reshard=reshard)
+                with obs.span("pipeline.sparse", tier=tier,
+                              keys=len(idxs)):
+                    rs = engine._check_batch_sparse(
+                        sub, capacity, max_capacity, dedupe=dedupe,
+                        device=dev, config_pack=config_pack,
+                        search_stats=search_stats, mesh=mesh,
+                        reshard=reshard)
             bstat["search_secs"] = round(perf_counter() - t0, 6)
             for i, r in zip(idxs, rs):
                 out[i] = r
@@ -584,6 +655,12 @@ def _stream(model, histories, capacity, max_capacity, bucket, cache,
         for k in ("issue_secs", "device_wait_secs", "device_secs"):
             if bstat.get(k) is not None:
                 bstat[k] = round(bstat[k], 6)
+        # the bucket's split into the registry's histograms
+        reg.histogram("pipeline.encode_secs").observe(bstat["encode_secs"])
+        reg.histogram("pipeline.transfer_secs").observe(
+            round(transfer[bstat["tier"]], 6))
+        reg.histogram("pipeline.device_wait_secs").observe(
+            bstat.get("device_wait_secs", 0.0))
     stats["buckets"] = bstats
     stats["e2e_secs"] = round(perf_counter() - t_wall, 6)
     return out

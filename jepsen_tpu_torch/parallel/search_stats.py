@@ -2,8 +2,9 @@
 
 A port of the search-stats vocabulary and accumulator of
 `jepsen_tpu.parallel.engine` (`_resolve_search_stats`,
-`PROBE_HIST_EDGES`, `_probe_hist`, `SearchStats`,
-`_finish_search_stats`), shared by the dense and the sparse engines.
+`PROBE_HIST_EDGES`, `_probe_hist`, `SearchStats`; the reference's
+`_finish_search_stats` is `block_of` and `finish_stats_block`), shared
+by the dense and the sparse engines.
 
 With `search_stats` on (the argument, else the flag
 JEPSEN_TPU_TORCH_SEARCH_STATS) a check's result gains a "stats" block
@@ -16,9 +17,12 @@ probes' final offsets. With it off nothing changes and the result has no
 
 The resumable check and the streaming sessions feed an accumulator
 chunk by chunk; a session splices each check's leg into its lifetime
-stats (`SearchStats.splice`). The reference also fans a block into its
-obs registry, Perfetto counter tracks and the run directory's record;
-those sinks wait for the port's tracer (ROADMAP item 10).
+stats (`SearchStats.splice`). Every engine's block — dense, sparse,
+sharded, resumable and stream — goes through the reference's sinks
+(`finish_stats_block`): the obs registry under ``engine.search.*``
+(`_publish_search_stats`), the Perfetto counter tracks when tracing is
+on (`_emit_stats_tracks`, at most STATS_TRACK_MAX_SAMPLES a search) and
+the run directory's search-stats record (`obs.record_search_stats`).
 """
 
 from __future__ import annotations
@@ -29,11 +33,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from jepsen_tpu_torch import obs
+
 # Probe-length histogram buckets (final linear-probe offset per attempted
 # insert): upper-exclusive split at these edges, plus an overflow bucket.
 PROBE_HIST_EDGES = (1, 2, 4, 8, 16, 32)
 PROBE_HIST_LABELS = ("0", "1", "2-3", "4-7", "8-15", "16-31", "32+")
 N_PROBE_BUCKETS = len(PROBE_HIST_LABELS)
+
+# metric-name-safe spellings of PROBE_HIST_LABELS (dots and dashes would
+# be mangled by Prometheus name sanitization)
+PROBE_METRIC_LABELS = ("0", "1", "le3", "le7", "le15", "le31", "over")
+
+# Counter-track samples a search emits at most (a stride over its events)
+STATS_TRACK_MAX_SAMPLES = 512
 
 # Per-key trajectories stop growing past this many events; the block then
 # says "truncated": True.
@@ -206,9 +219,89 @@ class SearchStats:
         return out
 
 
-def _finish_search_stats(acc: SearchStats, engine: str = "sparse",
-                         extra: Optional[dict] = None) -> dict:
-    """The block of `acc` with "engine" set (and `extra`'s fields)."""
+def _publish_search_stats(block: dict,
+                          prefix: str = "engine.search") -> None:
+    """Thread one search's stats block into the obs registry under
+    ``engine.search.*`` — the names /metrics serves as
+    ``jepsen_engine_search_*``."""
+    reg = obs.registry()
+    reg.counter(f"{prefix}.events").inc(block["events"])
+    reg.gauge(f"{prefix}.frontier_peak").set(block["frontier-peak"])
+    if block.get("peak-occupancy") is not None:
+        reg.gauge(f"{prefix}.peak_occupancy").set(
+            block["peak-occupancy"])
+    if block.get("delta-split-ratio") is not None:
+        reg.gauge(f"{prefix}.delta_split_ratio").set(
+            block["delta-split-ratio"])
+    if block.get("load-factor-peak") is not None:
+        reg.gauge(f"{prefix}.load_factor_peak").set(
+            block["load-factor-peak"])
+    if block.get("capacity-tier"):
+        reg.counter(f"{prefix}.escalations").inc(block["capacity-tier"])
+    if block.get("pad-waste") is not None:
+        reg.gauge(f"{prefix}.pad_waste").set(block["pad-waste"])
+    hist = block.get("probe-hist")
+    if hist:
+        for raw, lab in zip(PROBE_HIST_LABELS, PROBE_METRIC_LABELS):
+            if hist.get(raw):
+                reg.counter(f"{prefix}.probe_len.{lab}").inc(hist[raw])
+
+
+def _emit_stats_tracks(block: dict, t0: float, t1: float) -> None:
+    """The search's per-event trajectories as Perfetto counter tracks:
+    event index mapped linearly onto the search's wall window (the
+    device scan yields no per-event host timestamps — the x axis is
+    the event axis rendered in time units, aligned with the search
+    span), at most STATS_TRACK_MAX_SAMPLES samples a track. No-op when
+    tracing is off."""
+    if not obs.enabled():
+        return
+    widths = block["frontier-width"]
+    R = len(widths)
+    if not R or t1 <= t0:
+        return
+    stride = max(1, -(-R // STATS_TRACK_MAX_SAMPLES))
+    dt = (t1 - t0) / R
+    T = block.get("table-capacity")
+    for i in range(0, R, stride):
+        t = t0 + (i + 1) * dt
+        obs.counter_sample("engine.search.frontier_width", widths[i],
+                           t=t)
+        if T:
+            obs.counter_sample(
+                "engine.search.load_factor",
+                round(block["closure-peak"][i] / T, 4), t=t)
+
+
+def finish_stats_block(block: dict, t0: float, t1: float,
+                       key=None) -> dict:
+    """Fan a ready stats block into the always-on sinks (obs registry,
+    run-dir search-stats record) plus the counter tracks when tracing
+    is on — shared by the dense, sparse and sharded engines, so every
+    path feeds the same sinks. `t0`/`t1` are the search's host window
+    (perf_counter reads the engine makes anyway); `key` tags the
+    record (a batch's key index)."""
+    _publish_search_stats(block)
+    _emit_stats_tracks(block, t0, t1)
+    record_stats_block(block, key)
+    return block
+
+
+def record_stats_block(block: dict, key=None) -> None:
+    """The run directory's search-stats record of `block`, tagged with
+    `key` when there is one."""
+    rec = dict(block)
+    if key is not None:
+        rec["key"] = key
+    obs.record_search_stats(rec)
+
+
+def block_of(acc: SearchStats, engine: str = "sparse",
+             extra: Optional[dict] = None) -> dict:
+    """The stats block of `acc`, "engine" set and `extra`'s fields
+    added, not yet through the sinks (`finish_stats_block`; a mesh
+    batch's rank builds its keys' blocks, and every rank sinks every
+    key's after the gather)."""
     block = acc.block()
     if extra:
         block.update(extra)

@@ -54,19 +54,28 @@ outside the current rung wait and receive its carry by a broadcast.
 
 A device error raises on the rank it happens on (which breaks the
 collective): no chunk is retried and nothing falls back to the host.
+
+Telemetry, the reference's sites: the `sharded.search` span with one
+`sharded.tier` span a capacity tier (and the `sharded N{N} D{n}`
+profiler annotation around K3's launches), the `sharded.elastic` span
+around the elastic ladder, and the `engine.reshard_escalations`,
+`capacity_escalations`, `configs_stepped` and `host_fallbacks`
+counters; the stats block goes through the search-stats sinks. Every
+rank records its own spans and counts.
 """
 
 from __future__ import annotations
 
 import logging
+from time import perf_counter
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.checker import wgl
 from jepsen_tpu_torch.history import History
-from jepsen_tpu_torch.obs import metrics as obs_metrics
 from jepsen_tpu_torch.parallel import encode as enc_mod
 from jepsen_tpu_torch.parallel import engine
 from jepsen_tpu_torch.parallel import search_stats as st
@@ -559,26 +568,41 @@ def check_encoded_sharded(e: EncodedHistory, mesh, capacity: int = 8192,
     tag = sp._closure_tag(dedupe, plan.device)
     N = max(64 * n_dev, capacity)
     n_esc = 0
-    while True:
-        Nd = -(-N // n_dev)
-        scan = _ShardedScan(e, Nd, plan, exchange, dedupe, probe_limit, xs,
-                            pack, stats=ss).start()
-        valid, fail_r, overflow, maxf, stepped = scan.run_range(
-            0, e.n_returns).result()
-        if not overflow:
-            break
-        if N * 2 > max_capacity:
-            return {"valid?": "unknown",
-                    "error": f"frontier overflow at capacity {N}",
-                    "capacity": N, "dedupe": dedupe, "closure": tag}
-        N *= 2
-        n_esc += 1
+    t0 = perf_counter()
+    with obs.span("sharded.search", devices=n_dev, dedupe=dedupe,
+                  returns=e.n_returns) as span:
+        while True:
+            Nd = -(-N // n_dev)
+            # one span a capacity tier: the ladder renders as widening
+            # steps in the trace
+            with obs.span("sharded.tier", capacity=N, per_device=Nd), \
+                    obs.device_annotation(f"sharded N{N} D{n_dev}"):
+                scan = _ShardedScan(e, Nd, plan, exchange, dedupe,
+                                    probe_limit, xs, pack, stats=ss).start()
+                valid, fail_r, overflow, maxf, stepped = scan.run_range(
+                    0, e.n_returns).result()
+            if not overflow:
+                break
+            if N * 2 > max_capacity:
+                return {"valid?": "unknown",
+                        "error": f"frontier overflow at capacity {N}",
+                        "capacity": N, "dedupe": dedupe, "closure": tag}
+            N *= 2
+            n_esc += 1
+            obs.counter("engine.capacity_escalations").inc()
+        span.set(capacity=N)
+        if tag.startswith("cuda"):
+            # only when a kernel ran: the plain run's trace schema is
+            # the reference's with its kernel off
+            span.set(closure=tag)
+    obs.counter("engine.configs_stepped").inc(int(stepped))
     out = {"valid?": valid, "max-frontier": maxf, "capacity": N,
            "devices": n_dev, "dedupe": dedupe, "configs-stepped": stepped,
            "closure": tag}
     if ss:
-        out["stats"] = _sharded_stats_block(scan.stats_traj(), N, Nd,
-                                            n_dev, dedupe, n_esc)
+        out["stats"] = st.finish_stats_block(
+            _sharded_stats_block(scan.stats_traj(), N, Nd, n_dev, dedupe,
+                                 n_esc), t0, perf_counter())
     sp._tag_config_pack(out, pack, pack_req, e.slot_f.shape[1])
     if plan.hierarchical:
         out["mesh"] = f"{plan.n_slice}x{plan.n_chip} (hierarchical exchange)"
@@ -759,49 +783,56 @@ def check_encoded_sharded_elastic(e: EncodedHistory, mesh,
     events: list = []
     R = e.n_returns
     reshard = {"start-devices": start_devices, "events": events}
-    while cp.event_index < R and cp.ok:
-        plan = rungs[rung]
-        n_dev = plan.n_dev
-        lo, hi = cp.event_index, min(R, cp.event_index + checkpoint_every)
-        got = None
-        if plan.member:
-            try:
-                got = _run_chunk(e, plan, cp, lo, hi, dedupe, probe_limit,
-                                 xs, pack)
-            except Exception as err:
-                err.checkpoint = cp
-                raise
-        if n_dev < plan_full.n_dev:
-            # the ranks outside the rung wait for its result
-            box = [got]
-            dist.broadcast_object_list(box, src=int(plan.ranks.flat[0]),
-                                       group=plan_full.group)
-            got = box[0]
-        cp2, overflow = got
-        if overflow:
-            if rung + 1 < len(rungs):
-                rung += 1
-                new_n = rungs[rung].n_dev
-                N = Nd0 * new_n
-                events.append({"event": cp.event_index,
-                               "devices": [n_dev, new_n], "capacity": N})
-                obs_metrics.counter("engine.reshard_escalations").inc()
-                if N > cp.capacity:
-                    cp = cp.grown(N)
+    with obs.span("sharded.elastic", devices=plan_full.n_dev,
+                  dedupe=dedupe, returns=R) as span:
+        while cp.event_index < R and cp.ok:
+            plan = rungs[rung]
+            n_dev = plan.n_dev
+            lo = cp.event_index
+            hi = min(R, lo + checkpoint_every)
+            got = None
+            if plan.member:
+                try:
+                    got = _run_chunk(e, plan, cp, lo, hi, dedupe,
+                                     probe_limit, xs, pack)
+                except Exception as err:
+                    err.checkpoint = cp
+                    raise
+            if n_dev < plan_full.n_dev:
+                # the ranks outside the rung wait for its result
+                box = [got]
+                dist.broadcast_object_list(
+                    box, src=int(plan.ranks.flat[0]),
+                    group=plan_full.group)
+                got = box[0]
+            cp2, overflow = got
+            if overflow:
+                if rung + 1 < len(rungs):
+                    rung += 1
+                    new_n = rungs[rung].n_dev
+                    N = Nd0 * new_n
+                    events.append({"event": cp.event_index,
+                                   "devices": [n_dev, new_n],
+                                   "capacity": N})
+                    obs.counter("engine.reshard_escalations").inc()
+                    if N > cp.capacity:
+                        cp = cp.grown(N)
+                    continue
+                # the whole mesh is recruited: the table doubles
+                if N * 2 > max_capacity:
+                    return {"valid?": "unknown",
+                            "error": f"frontier overflow at capacity {N}",
+                            "capacity": N, "devices": n_dev,
+                            "dedupe": dedupe, "closure": tag,
+                            "checkpoint": cp, "reshard": reshard}
+                Nd0 *= 2
+                N *= 2
+                obs.counter("engine.capacity_escalations").inc()
+                cp = cp.grown(N)
                 continue
-            # the whole mesh is recruited: the table doubles
-            if N * 2 > max_capacity:
-                return {"valid?": "unknown",
-                        "error": f"frontier overflow at capacity {N}",
-                        "capacity": N, "devices": n_dev, "dedupe": dedupe,
-                        "closure": tag, "checkpoint": cp,
-                        "reshard": reshard}
-            Nd0 *= 2
-            N *= 2
-            obs_metrics.counter("engine.capacity_escalations").inc()
-            cp = cp.grown(N)
-            continue
-        cp = cp2
+            cp = cp2
+        span.set(capacity=N, devices=n_dev)
+    obs.counter("engine.configs_stepped").inc(int(cp.stepped))
     out = _final(e, cp, n_dev, dedupe, tag, pack, pack_req)
     out["reshard"] = reshard
     return out
@@ -820,6 +851,7 @@ def analysis(model, history, mesh, capacity: int = 8192,
     try:
         e = enc_mod.encode(model, h)
     except enc_mod.EncodeError as err:
+        obs.counter("engine.host_fallbacks").inc()
         _log.warning(
             "history not device-checkable (%s) — using the host WGL "
             "engine; expect it to be orders of magnitude slower", err)

@@ -29,15 +29,28 @@ closure peak, iterations, configurations stepped, the sort-equivalent
 work and the probe-length histogram: `parallel.search_stats`) into
 preallocated tensors on the device, read once after the scan; with it
 off the scan issues nothing more.
+
+Telemetry, the reference's sites and names (its `check_encoded` and
+sparse batch lived in `parallel.engine`): the `engine.search` span
+around a single check's capacity ladder, the `engine.sparse_batch` span
+around each tier of the batch, and the `engine.capacity_escalations`,
+`configs_stepped` and `overflow_redispatch` counters; a stats block goes
+through the search-stats sinks. The kernels' launches carry a
+`sparse single N{N} C{C}` or `sparse K{K} N{N} C{C}` profiler annotation
+(`obs.device_annotation`, a no-op without JEPSEN_TPU_TORCH_PROFILE): the
+reference's TPU capture names a program by its jit function, where a
+ctypes launch has no name on the host's side.
 """
 
 from __future__ import annotations
 
 import os
+from time import perf_counter
 
 import numpy as np
 import torch
 
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.parallel import search_stats as st
 from jepsen_tpu_torch.parallel import sparse_kernels as sk
 from jepsen_tpu_torch.parallel.bitdense import poll_cancel, resolve_device
@@ -1036,20 +1049,33 @@ def check_encoded(e: EncodedHistory, capacity: int = 1024,
     xs = _xs(e, dev)
     N = max(64, capacity)
     n_esc = 0
-    while True:
-        sc = _Scan(e, N, dedupe, probe_limit, dev, smem_budget, xs, pack,
-                   stats=ss, cancel=cancel)
-        valid, fail_r, overflow, maxf, steps_n, stepped = \
-            sc.run(e.n_returns).result()
-        if not overflow:
-            break
-        if N * 2 > max_capacity:
-            return {"valid?": "unknown",
-                    "error": f"frontier overflow at capacity {N}",
-                    "capacity": N, "dedupe": dedupe,
-                    "closure": _closure_tag(sc.closure, dev)}
-        N *= 2
-        n_esc += 1
+    C = e.slot_f.shape[1]
+    t0 = perf_counter()
+    with obs.span("engine.search", returns=e.n_returns,
+                  dedupe=dedupe) as sp:
+        while True:
+            sc = _Scan(e, N, dedupe, probe_limit, dev, smem_budget, xs,
+                       pack, stats=ss, cancel=cancel)
+            with obs.device_annotation(f"sparse single N{N} C{C}"):
+                valid, fail_r, overflow, maxf, steps_n, stepped = \
+                    sc.run(e.n_returns).result()
+            if not overflow:
+                break
+            if N * 2 > max_capacity:
+                return {"valid?": "unknown",
+                        "error": f"frontier overflow at capacity {N}",
+                        "capacity": N, "dedupe": dedupe,
+                        "closure": _closure_tag(sc.closure, dev)}
+            N *= 2
+            n_esc += 1
+            obs.counter("engine.capacity_escalations").inc()
+        sp.set(capacity=N)
+        tag = _closure_tag(sc.closure, dev)
+        if tag.startswith("cuda"):
+            # only when a kernel ran: the plain run's trace schema is
+            # the reference's with its kernel off
+            sp.set(closure=tag)
+    obs.counter("engine.configs_stepped").inc(int(stepped))
     out = {"valid?": valid, "max-frontier": maxf, "capacity": N,
            "dedupe": dedupe, "configs-stepped": stepped,
            "explored": steps_n * N * e.slot_f.shape[1],
@@ -1059,7 +1085,8 @@ def check_encoded(e: EncodedHistory, capacity: int = 1024,
         acc = st.SearchStats(dedupe)
         acc.escalations = n_esc
         acc.add_chunk(st.trajectories_np(sc.traj, sc.phist), N)
-        out["stats"] = st._finish_search_stats(acc)
+        out["stats"] = st.finish_stats_block(st.block_of(acc), t0,
+                                             perf_counter())
     if not valid:
         out.update(fail_op_fields(e, fail_r))
     return out
@@ -1270,7 +1297,9 @@ def check_batch_sparse(encs, capacity: int = 512,
     tier's keys and escalates the same keys, in input order, together.
     Every rank of the mesh calls it. `pad` (C, R) fixes every tier's
     padded dims and `pack` the layout (the stealing executor's rounds
-    pad to their bucket's)."""
+    pad to their bucket's). Each key's search-stats record carries its
+    index in `encs`, but under `pad`: a stealing round's keys are not
+    its batch's, and its records carry no key, as the reference's."""
     dev = resolve_device(device)
     dedupe = _resolve_dedupe(dedupe)
     probe_limit = _resolve_probe_limit(probe_limit)
@@ -1301,11 +1330,20 @@ def check_batch_sparse(encs, capacity: int = 512,
         if mesh is not None:
             mine = place_batch(len(pending), mesh, at)
         got = []
+        t0 = perf_counter()
+        with obs.span("engine.sparse_batch", keys=len(pending),
+                      capacity=N, dedupe=dedupe):
+            if mine:
+                sub = [encs_t[j] for j in mine]
+                with obs.device_annotation(
+                        f"sparse K{len(pending)} N{N} C{C_pad}"):
+                    sc = _BatchScan(sub, xs, state0, N, dedupe,
+                                    probe_limit, dev, smem_budget, pack,
+                                    stats=ss).run()
+                    res = sc.result()
+        t1 = perf_counter()
         if mine:
-            sub = [encs_t[j] for j in mine]
-            sc = _BatchScan(sub, xs, state0, N, dedupe, probe_limit, dev,
-                            smem_budget, pack, stats=ss).run()
-            valid, fail_r, overflow, maxf, stepped = sc.result()
+            valid, fail_r, overflow, maxf, stepped = res
             tag = _closure_tag(sc.closure, dev)
             ys = st.trajectories_np(sc.traj, sc.phist) if ss else None
             for j, e in enumerate(sub):
@@ -1322,7 +1360,8 @@ def check_batch_sparse(encs, capacity: int = 512,
                     acc.add_chunk({k: v[j] for k, v in ys.items()}, N)
                     waste = 1.0 - ((e.n_returns * e.slot_f.shape[1])
                                    / max(1, R_pad * C_pad))
-                    r["stats"] = st._finish_search_stats(
+                    # the sinks take it below, on every rank
+                    r["stats"] = st.block_of(
                         acc, extra={"pad-waste": round(waste, 6),
                                     "pad-events": int(R_pad - e.n_returns),
                                     "pad-slots": int(C_pad
@@ -1336,14 +1375,23 @@ def check_batch_sparse(encs, capacity: int = 512,
         for i, r in zip(pending, got):
             if r is None:
                 retry.append(i)
-            else:
-                out[i] = r
+                continue
+            # counted and recorded for every key of the mesh's batch on
+            # every rank, as the reference's one program does
+            obs.counter("engine.configs_stepped").inc(
+                int(r["configs-stepped"]))
+            if r.get("stats") is not None:
+                st.finish_stats_block(r["stats"], t0, t1,
+                                      key=i if pad is None else None)
+            out[i] = r
         if not retry:
             break
         if N * 2 > max_capacity:
             for i in retry:
                 out[i] = escalate(encs[i], N)
             break
+        # keys that overflowed run again at the doubled tier
+        obs.counter("engine.overflow_redispatch").inc(len(retry))
         pending = retry
         N *= 2
         n_tier += 1

@@ -5,7 +5,8 @@ nor the card tests the card runs without JAX
 (tests/test_torch_config_pack_kernels.py,
 tests/test_torch_sparse_batch_cuda.py, tests/test_torch_stream_cuda.py,
 tests/test_torch_serve_cuda.py, tests/test_torch_fleet_cuda.py,
-tests/test_torch_mesh_cuda.py, tests/test_torch_elle_cuda.py),
+tests/test_torch_mesh_cuda.py, tests/test_torch_elle_cuda.py,
+tests/test_torch_obs_cuda.py),
 imports JAX or anything of the JAX package (jepsen_tpu).
 Checked twice: by importing everything in a fresh interpreter and
 reading sys.modules, and by scanning the sources' import statements."""
@@ -30,7 +31,8 @@ SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "tests" / "test_torch_serve_cuda.py",
     ROOT / "tests" / "test_torch_fleet_cuda.py",
     ROOT / "tests" / "test_torch_mesh_cuda.py",
-    ROOT / "tests" / "test_torch_elle_cuda.py"]
+    ROOT / "tests" / "test_torch_elle_cuda.py",
+    ROOT / "tests" / "test_torch_obs_cuda.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
@@ -51,6 +53,7 @@ import test_torch_fleet_cuda
 import test_torch_mesh_cuda
 import torch_elle_cases
 import test_torch_elle_cuda
+import test_torch_obs_cuda
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.")
@@ -95,8 +98,9 @@ def test_port_and_smoke_import_without_jax():
             "tenancy", "wal")])), proc.stdout
     assert lines["OPS"] == str(sorted(
         [f"jepsen_tpu_torch.{m}" for m in (
-            "obs", "obs.httpd", "obs.metrics", "resilience",
-            "resilience.breaker")])), proc.stdout
+            "obs", "obs.capture", "obs.export", "obs.httpd", "obs.metrics",
+            "obs.tracer",
+            "resilience", "resilience.breaker")])), proc.stdout
     assert lines["SPARSE"] == str(["jepsen_tpu_torch.parallel.sparse",
                                    "jepsen_tpu_torch.parallel."
                                    "sparse_kernels"]), proc.stdout
@@ -114,6 +118,35 @@ def test_port_and_smoke_import_without_jax():
             "elle.txn", "probe", "workloads", "workloads.cycle")])), \
         proc.stdout
     assert lines["BAD"] == "[]", proc.stdout
+
+
+OBS_MODULES = ("obs", "obs.tracer", "obs.export", "obs.metrics",
+               "obs.httpd", "obs.capture")
+
+
+@pytest.mark.parametrize("module", OBS_MODULES)
+def test_obs_module_imports_no_torch(module):
+    """The telemetry modules load no torch (the profiler bridge imports
+    it inside its factories): the probe's parent and the ops server
+    keep working while a card is wedged. The disabled tracer's calls
+    and the bridge's no-op path load none either."""
+    code = ("import sys\n"
+            f"import jepsen_tpu_torch.{module}\n"
+            "from jepsen_tpu_torch import obs\n"
+            "with obs.span('x'), obs.maybe_torch_profile(), "
+            "obs.device_annotation('y'):\n"
+            "    obs.counter('c').inc()\n"
+            "print(sorted(m for m in sys.modules if m == 'torch'"
+            " or m.startswith('torch.') or m.split('.')[0] in "
+            "('jax', 'jaxlib', 'jepsen_tpu')))\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("JEPSEN_TPU_TORCH_")}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def test_probe_parent_imports_no_torch():

@@ -227,7 +227,11 @@ def test_ops_server_routes_equal_reference(tmp_path):
         try:
             out = [_doc(_request(_url(srv, "/healthz")))]
             svc.start_worker()
-            svc.submit("k", ops(pkg, h1[:10]), timeout=60)
+            # each delta waits for its verdict: the worker drains the
+            # first before the second is queued, so /status's
+            # max_pending_seen (30 of 40 ops) does not hang on when the
+            # worker thread wakes, which a loaded host delays
+            svc.submit("k", ops(pkg, h1[:10]), wait=True, timeout=120)
             svc.submit("k", ops(pkg, h1[10:]), wait=True, timeout=120)
             out += [_doc(_request(_url(srv, "/healthz/"))),
                     _doc(_request(_url(srv, "/status")))]
@@ -251,6 +255,7 @@ def test_ops_server_routes_equal_reference(tmp_path):
     assert port[0][0] == 503 and port[0][2]["ok"] is False
     assert port[1][0] == 200 and port[1][2]["ok"] is True
     assert port[2][2]["keys"]['"k"']["seq"] == 2
+    assert port[2][2]["max_pending_seen"] == len(h1) - 10
     assert port[3][2] == {"adopted": ["('moved', 1)"]}
     assert port[4][2] == {"adopted": []}
     assert pin(jsonable(port[5])) == pin(jsonable(one_shot(h2)))

@@ -250,7 +250,7 @@ def test_search_stats_accumulator_edges():
                    "iters": [2, 0, 1], "stepped": [4, 0, 3],
                    "swork": [8, 0, 3], "phist": [[1] * 7, [0] * 7,
                                                  [2] * 7]}, 64)
-    b = search_stats._finish_search_stats(acc, extra={"pad-waste": 0.5})
+    b = search_stats.block_of(acc, extra={"pad-waste": 0.5})
     assert b["engine"] == "sparse" and b["pad-waste"] == 0.5
     assert b["frontier-width"] == [3, 2] and b["probes"] == 21
     assert b["table-capacity"] == 128 and b["delta-split-ratio"] == 0.636364
