@@ -20,7 +20,7 @@ down both of its engines:
        its twin with an impossible read (invalid; the counterexample
        re-scans the device to a window before the failure) and a 1k-op
        history with 16 crashed writes. Shorter twins of the three
-       (2k ops, 600 ops with 6 crashed writes, the same 1k) are held
+       (1k ops, 600 ops with 6 crashed writes, the same 1k) are held
        against the check with the plain closure, field for field apart
        from `closure`. Small seeded histories are held against the host
        WGL search;
@@ -116,7 +116,7 @@ down both of its engines:
        its depth, `adversarial_register_history(2500, 12)` through
        `sharded.analysis` at capacity 2^17 (K3's table in device
        memory, its insert a cooperative grid), once, and the
-       impossible-read twin of `adversarial_register_history(2500, 12)`
+       impossible-read twin of `adversarial_register_history(600, 12)`
        (the same width: 12 crashed writes, K3's grid) through
        `check_encoded_sharded`, each with the dense engine's verdict, op
        and fail-event on the card;
@@ -173,8 +173,9 @@ down both of its engines:
        probe_limit 2 and 32 and on inputs kept from that path;
      * timing per launch, stats on against stats off on the same inputs;
      * the race: `Linearizable(model, "competition")` on the 10k-op
-       history, its twin and two golden invalid histories ("torch" among
-       the arms, the reference's verdicts, winner and wall printed), then
+       history, the main path's 600-op impossible-read twin and two
+       golden invalid histories ("torch" among the arms, the
+       reference's verdicts, winner and wall printed), then
        `"packed"` and `"linear"` on the golden invalid histories (the
        reference's final-paths from the WGL re-search, REF_CHECKERS) with
        linear.svg written into a temporary store. The race returns only
@@ -209,8 +210,8 @@ down both of its engines:
      over the sessions of item 9, no kernel of its own:
      * the entry point, `python -m jepsen_tpu_torch.serve --model
        cas-register --wal-dir D --host 127.0.0.1 --ingress-port 0`, as a
-       child process with two tenants: keys 0-38 of multikey-84 and the
-       six corrupted keys (45 keys, half to each tenant) POSTed to
+       child process with two tenants: keys 0-5 of multikey-84 and the
+       six corrupted keys (12 keys, half to each tenant) POSTed to
        /v1/deltas in four deltas a key with bearer tokens, the child
        SIGKILLed after every key's second delta and restarted on the
        same WAL (the restart replays it); a re-sent delta 2 answers
@@ -233,7 +234,7 @@ down both of its engines:
      * two replicas of the entry point as child processes with
        `--ops-port 0 --ingress-port 0`, A with
        JEPSEN_TPU_TORCH_SERVE_REPL=sync and `--repl-dir` B's WAL's repl/
-       mirror: 18 register keys (multikey-84's keys 42, 45, ..., 75 and
+       mirror: 12 register keys (multikey-84's keys 42, 45, ..., 57 and
        the six corrupted keys) routed by `HashRing(["A", "B"])` in four
        deltas; after delta 2 A is SIGKILLed and its WAL dir deleted, and
        `FleetSupervisor` over both ops endpoints (the real HTTP fetch,
@@ -263,8 +264,8 @@ down both of its engines:
        full-width pair's encoded valid history (not encoded again), a
        checkpoint every 256 events, each equal to the reference's
        (REF_SHARDED_RESUMABLE), the result equal to the pair's one-shot
-       check of this run, and a resume from the middle checkpoint via
-       .npz to the same result; K3's grid launched;
+       check of this run, and a resume from the last but one checkpoint
+       via .npz to the same result; K3's grid launched;
      * "sharded stats": `check_encoded_sharded(search_stats=True)` of
        `adversarial_register_history(600, 12)`: the block equal to the
        reference's (REF_SHARDED_STATS) but for the probe histogram, all
@@ -521,7 +522,7 @@ def phase_main_path(dev) -> dict:
          False, True, False),
         ("adv-1k-k16 valid", adv(n_ops=1000, k_crashed=16), True, True,
          True),
-        ("adv-2k-k12 valid", adv(n_ops=2000, k_crashed=12), True, False,
+        ("adv-1k-k12 valid", adv(n_ops=1000, k_crashed=12), True, False,
          True),
         ("adv-600-k6 impossible read", imp(adv(n_ops=600, k_crashed=6)),
          False, False, True),
@@ -1326,9 +1327,16 @@ def phase_sparse_parity(dev, rec) -> dict:
     return worst
 
 
+# the sparse checks whose dedupe="sort" re-check is left out: the valid
+# 1000-op FIFO's took 19.0 s (H100 80GB HBM3, 700 W); its corrupted twin
+# still takes the sort route at the tiled capacity tier
+SORT_SKIP = ("fifo-1000",)
+
+
 def phase_sparse_main(dev, cases) -> dict:
-    """The sparse checks; returns the K2 and K4 launches of the run, and
-    each check's wall ("walls") and result ("results")."""
+    """The sparse checks, each but SORT_SKIP's again with dedupe="sort";
+    returns the K2 and K4 launches of the run, and each check's wall
+    ("walls") and result ("results")."""
     from jepsen_tpu_torch.parallel import encode as enc
     from jepsen_tpu_torch.parallel import sparse
     total = {"K2": 0, "K4": 0, "walls": {}, "results": {}}
@@ -1360,6 +1368,8 @@ def phase_sparse_main(dev, cases) -> dict:
             _require(_paths_digest(r) == EMPTY_PATHS, f"{name}: paths")
         else:
             _require(bool(r.get("final-paths")), f"{name}: no final-paths")
+        if name in SORT_SKIP:
+            continue
         t0 = time.perf_counter()
         rs = sparse.check_encoded(enc.encode(model, h), dedupe="sort",
                                   device=dev)
@@ -1905,9 +1915,11 @@ REF_SHARDED = {
 # the service phase came (about 1,270 s at the hosts' 1.49x spread)
 FULL_OPS = 2500
 FULL_CAPACITY = 1 << 17
-# the impossible-read twin's depth: the full width at a quarter of the
-# bench's ops (a 10k-op twin took up to ~190 s of the smoke on a slow host)
-TWIN_OPS = 2500
+# the impossible-read twin's depth: the full width at 6% of the bench's
+# ops (a 10k-op twin took up to ~190 s of the smoke on a slow host, a
+# 2,500-op one 36.4 s and a 1,000-op one 17.6 s on an H100 80GB HBM3 at
+# 700 W)
+TWIN_OPS = 600
 K3_KEEP = 6             # K3 inputs recorded per table size
 
 
@@ -2463,10 +2475,10 @@ def phase_packed_main(dev, cases, mesh, swalls, sbatch) -> dict:
     REF_SHARDED_PACKED. Launch counts are zeroed just before each check
     and read just after; they are summed by kernel and lane count. Also
     the walls of the 1000-op FIFO and of the 28-key batch, packed against
-    unpacked, warm, in this run (findings, not claims): one more packed
-    run of each, beside the unpacked warm runs of the sparse phases
-    (`swalls`, `sbatch`). Keeps kernel inputs of packed rows for the
-    parity and timing phases."""
+    unpacked, in this run (findings, not claims): the FIFO's packed run
+    and one more packed run of the batch, beside the unpacked warm runs
+    of the sparse phases (`swalls`, `sbatch`). Keeps kernel inputs of
+    packed rows for the parity and timing phases."""
     from jepsen_tpu_torch import independent
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.history import History
@@ -2490,9 +2502,11 @@ def phase_packed_main(dev, cases, mesh, swalls, sbatch) -> dict:
         return True
 
     rec = _KeepPacked(keep, stride=7)
+    packed_walls = {}
     with rec:
         for name, model, h in _packed_cases(cases):
             r, secs, n = _sparse_check(model, h, dev, config_pack=True)
+            packed_walls[name] = secs
             want = REF_PACKED[name]
             L = _lanes_of(r)
             got = {k: v for k, v in r.items() if k not in (
@@ -2509,13 +2523,15 @@ def phase_packed_main(dev, cases, mesh, swalls, sbatch) -> dict:
                   f"{r['valid?']} closure={r['closure']} capacity="
                   f"{r['capacity']} == REF_PACKED, wall {secs:.3f} s, "
                   f"launches {n}")
-    # the 1000-op FIFO warm: the run above was its first packed one; the
-    # sparse main path's was its second unpacked one
-    name, model, h = cases[[c[0] for c in cases].index("fifo-1000")]
-    _, secs, _ = _sparse_check(model, h, dev, config_pack=True)
-    out["walls"]["fifo-1000 packed"] = secs
+    # the 1000-op FIFO: its packed run above (the input recorder's copies
+    # cost it nothing measurable: 11.898, 16.317 and 12.584 s against
+    # warm re-runs of 11.511, 16.334 and 13.254 s in three smokes on an
+    # H100 80GB HBM3 at 700 W); the sparse main path's was its second
+    # unpacked one
+    out["walls"]["fifo-1000 packed"] = packed_walls["fifo-1000"]
     out["walls"]["fifo-1000 unpacked"] = swalls["fifo-1000"]
-    print(f"packed main: fifo-1000 warm walls: {json.dumps(out['walls'])}")
+    print(f"packed main: fifo-1000 walls (packed: its run above): "
+          f"{json.dumps(out['walls'])}")
 
     # the 28-key batch
     hs = _sparse_batch_keys()
@@ -2925,7 +2941,7 @@ REF_STATS = {
 # The race's histories and the verdicts the reference gives them (the
 # impossible-read twin and the golden files are invalid: REF_BATCH,
 # REF and the manifest agree).
-REF_RACE = {"adv-10k-k12": True, "adv-10k-k12 impossible read": False,
+REF_RACE = {"adv-10k-k12": True, "adv-600-k6 impossible read": False,
             "register-invalid.edn": False, "fifo-invalid.edn": False}
 # The reference's `linear` and `packed` checkers on the golden invalid
 # histories: the analyzer and the digest of op, final-paths, configs and
@@ -3276,13 +3292,23 @@ def phase_stats_timing(dev, kept, launches) -> list:
     return out
 
 
+# the race's invalid history: the K1 main path's 600-op twin with 6
+# crashed writes. The 10k-op twin's counterexample window search (a host
+# WGL search bound by the 12 crashed writes' concurrency, not by the
+# ops) took 54.5-64.5 s of each of the race and the K1 main path at
+# 2,000-10,000 ops (H100 80GB HBM3, 700 W); it runs once, in the K1
+# main path, where its counterexample is checked
+RACE_TWIN = {"n_ops": 600, "k_crashed": 6}
+
+
 def phase_race(dev) -> dict:
     """The competition race on the card, through `Linearizable(model,
-    "competition")`: the 10k-op history, its impossible-read twin and
-    two golden invalid histories. "torch" must be among the arms and
-    every verdict the reference's (REF_RACE); the winner and each check's
-    wall print. Then `Linearizable(model, "packed")` and `"linear"` on
-    the golden invalid histories, each result's op, final-paths and
+    "competition")`: the 10k-op history, the K1 main path's 600-op
+    impossible-read twin (RACE_TWIN) and two golden invalid histories.
+    "torch" must be among the arms and every verdict the reference's
+    (REF_RACE); the winner and each check's wall print. Then
+    `Linearizable(model, "packed")` and `"linear"` on the golden invalid
+    histories, each result's op, final-paths and
     configs (from the WGL re-search) equal to the reference's
     (REF_CHECKERS), and linear.svg written into a temporary store. The
     race must return only once its device arm has stopped."""
@@ -3300,8 +3326,9 @@ def phase_race(dev) -> dict:
         for e in json.loads((GOLDEN / "manifest.json").read_text())
         if not e["valid"] and e["ops"] <= 500}
     races = [("adv-10k-k12", reg, adv),
-             ("adv-10k-k12 impossible read", reg,
-              histories.with_impossible_read(adv))]
+             ("adv-600-k6 impossible read", reg,
+              histories.with_impossible_read(
+                  histories.adversarial_register_history(**RACE_TWIN)))]
     races += [(f, *golden[f]) for f in ("register-invalid.edn",
                                         "fifo-invalid.edn")]
     out = {}
@@ -3795,14 +3822,23 @@ SERVE_TENANTS = {"tok-a": "smoke-a", "tok-b": "smoke-b"}
 SERVE_DELTAS = 4
 SERVE_EVICT_SECS = 0.5
 SERVE_CMD = [sys.executable, "-m", "jepsen_tpu_torch.serve"]
-# the register keys of the serve phase: multikey-84's keys 0-38 and the six
-# corrupted keys (cut from 90 keys to make room for the fleet phase)
-SERVE_VALID_KEYS = 39
+# the register keys of the serve phase: multikey-84's keys 0-5 and the six
+# corrupted keys (cut from 90 keys to make room for the fleet phase, then
+# from 45 when the armed tracing surface came: the child's replay and
+# worker took ~98 s of the 45 keys' 144.7 s phase on an H100 80GB HBM3 at
+# 700 W, in a smoke that ran past its limit on a slow host)
+SERVE_VALID_KEYS = 6
 # the capacity the register keys' frontiers (~12,000-13,250
 # configurations) settle at on the sparse engine: the one-shot checks
 # start there, sparing the ladder (the contract fields do not depend on
 # the capacity; a key that needs more still climbs)
 SERVE_ONE_SHOT_CAPACITY = 16384
+# the serve phase's child arms the tracing surface: delta ids on acks and
+# WAL records, spans on /trace, a slow-delta record for every delta (the
+# threshold is below any delta's latency) and the SLO burn rates
+SERVE_OBS_ENV = {"JEPSEN_TPU_TORCH_TRACE": "1",
+                 "JEPSEN_TPU_TORCH_SLOW_DELTA_SECS": "0.001",
+                 "JEPSEN_TPU_TORCH_SLO_ACK_SECS": "0.5"}
 
 
 def _serve_start(wal: str, args=(), env=None) -> tuple:
@@ -3863,12 +3899,86 @@ def _serve_ports(child: tuple, names=("ingress",)) -> dict:
 
 
 def _serve_child(wal: str) -> tuple:
-    """The serve phase's child on `wal` with two tenants -> (process,
-    ingress port)."""
+    """The serve phase's child on `wal` with two tenants, its tracing
+    surface armed (SERVE_OBS_ENV) -> (process, ingress port, ops
+    port)."""
     spec = ",".join(f"{name}:token={tok}"
                     for tok, name in SERVE_TENANTS.items())
-    child = _serve_start(wal, env={"JEPSEN_TPU_TORCH_TENANTS": spec})
-    return child[0], _serve_ports(child)["ingress"]
+    child = _serve_start(wal, ["--ops-port", "0"],
+                         env={"JEPSEN_TPU_TORCH_TENANTS": spec,
+                              **SERVE_OBS_ENV})
+    ports = _serve_ports(child, ("ingress", "ops"))
+    return child[0], ports["ingress"], ports["ops"]
+
+
+def _serve_obs(ops: int, replayed: set, acks: list) -> dict:
+    """The restarted serve child's tracing surface, over its ops
+    endpoint: `/trace`'s serve.apply spans carry every id of `replayed`
+    (the deltas acked before the SIGKILL, replayed from the WAL), and
+    each of `acks` (deltas 3-4) has its chain — serve.admit under the
+    ingress request span, serve.wal, a serve.apply naming it, then a
+    serve.advance and a serve.publish on the worker's thread; `/metrics`
+    has the ack histogram and the burn rates, `/healthz` the slo and
+    breakers checks, `/status` a slow-delta record for acked deltas ->
+    counts and sizes."""
+    import bisect
+    t0 = time.perf_counter()
+    code, text = _serve_http(ops, "/trace")
+    _require(code == 200, f"serve: GET /trace answered {code}")
+    trace_bytes = len(text)
+    doc = json.loads(text)
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    by_sid = {e["args"]["span_id"]: e for e in xs}
+    one = {}
+    applies = {}
+    later = {}
+    for e in xs:
+        a = e["args"]
+        if e["name"] in ("serve.admit", "serve.wal") and a.get("delta_id"):
+            one[e["name"], a["delta_id"]] = e
+        elif e["name"] == "serve.apply":
+            for i in a.get("delta_ids", ()):
+                applies.setdefault(i, e)
+        elif e["name"] in ("serve.advance", "serve.publish"):
+            later.setdefault((e["tid"], e["name"]), []).append(e["ts"])
+    for ts in later.values():
+        ts.sort()
+    missing = sorted(replayed - set(applies))
+    _require(not missing, f"serve: the restarted child's replay lost "
+                          f"{len(missing)} delta ids: {missing[:3]}")
+    for ack in acks:
+        did = ack["delta_id"]
+        admit = one.get(("serve.admit", did))
+        parent = by_sid.get((admit or {}).get("args", {}).get("parent_id"))
+        ap = applies.get(did)
+        _require(admit is not None and ("serve.wal", did) in one
+                 and parent is not None
+                 and parent["name"] == "serve.ingress.request"
+                 and ap is not None
+                 and all(bisect.bisect_left(
+                     later.get((ap["tid"], n), []), ap["ts"])
+                     < len(later.get((ap["tid"], n), []))
+                     for n in ("serve.advance", "serve.publish")),
+                 f"serve: delta {did} ({ack['key']}) has no admit -> wal "
+                 f"-> apply -> advance -> publish chain on /trace")
+    code, metrics = _serve_http(ops, "/metrics")
+    _require(code == 200 and "jepsen_serve_ack_secs_bucket" in metrics
+             and 'jepsen_serve_slo_ack_burn_rate{window="fast"}'
+             in metrics,
+             "serve: /metrics lacks serve.ack_secs or the burn rates")
+    _code, text = _serve_http(ops, "/healthz")
+    checks = json.loads(text)["checks"]
+    _require({"slo", "breakers"} <= set(checks),
+             f"serve: /healthz checks {sorted(checks)}")
+    code, text = _serve_http(ops, "/status")
+    slow = json.loads(text).get("slow_deltas") or []
+    known = replayed | {a["delta_id"] for a in acks}
+    _require(code == 200 and slow
+             and all(r["delta_id"] in known for r in slow),
+             f"serve: /status slow_deltas {slow[:2]}")
+    return {"spans": len(xs), "trace_bytes": trace_bytes,
+            "slow_deltas": len(slow), "obs_checks_s":
+            time.perf_counter() - t0}
 
 
 def _serve_http(port: int, path: str, body=None, token=None):
@@ -3901,8 +4011,8 @@ def _serve_post_lines(port: int, by_token: dict) -> list:
 
 
 def _serve_register(dev) -> dict:
-    """The entry point as a child process: keys 0-38 of multikey-84 and
-    the six corrupted keys of multikey-84+8 (45 keys, 240 op records each,
+    """The entry point as a child process: keys 0-5 of multikey-84 and
+    the six corrupted keys of multikey-84+8 (12 keys, 240 op records each,
     half to each tenant) in four deltas a key over HTTP, the child SIGKILLed after every key's
     second delta and restarted on the same WAL; a duplicate, a 401, the
     last two deltas, POST /v1/finalize for every key, and stop on stdin.
@@ -3959,21 +4069,23 @@ def _serve_register(dev) -> dict:
         wal = f"{tmp}/wal"
         try:
             t0 = time.perf_counter()
-            proc, port = _serve_child(wal)
+            proc, port, _ops = _serve_child(wal)
             children.append(proc)
             split["first_start_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             acks = _serve_post_lines(port, by_token(
                 lambda i: [delta(i, 0), delta(i, 1)]))
             split["admission_s"] += time.perf_counter() - t0
-            _require(len(acks) == 2 * len(keys)
-                     and all(a.get("accepted") for a in acks),
-                     f"serve: deltas 1-2 not all accepted: "
-                     f"{[a for a in acks if not a.get('accepted')][:3]}")
+            bad = [a for a in acks
+                   if not (a.get("accepted") and a.get("delta_id"))]
+            _require(len(acks) == 2 * len(keys) and not bad,
+                     f"serve: deltas 1-2 not all accepted with a "
+                     f"delta_id: {bad[:3]}")
+            acked_ids = {a["delta_id"] for a in acks}
             proc.send_signal(signal.SIGKILL)
             proc.wait()
             t0 = time.perf_counter()
-            proc, port = _serve_child(wal)
+            proc, port, ops = _serve_child(wal)
             children.append(proc)
             split["restart_s"] = time.perf_counter() - t0
             replayed = _serve_post_lines(port, by_token(
@@ -3999,8 +4111,9 @@ def _serve_register(dev) -> dict:
                 lambda i: [delta(i, 2), delta(i, 3)]))
             split["admission_s"] += time.perf_counter() - t0
             _require(len(acks) == 2 * len(keys)
-                     and all(a.get("accepted") for a in acks),
-                     "serve: deltas 3-4 not all accepted")
+                     and all(a.get("accepted") and a.get("delta_id")
+                             for a in acks),
+                     "serve: deltas 3-4 not all accepted with a delta_id")
             t0 = time.perf_counter()
             finals = []
             for k in keys:
@@ -4010,6 +4123,7 @@ def _serve_register(dev) -> dict:
                 _require(code == 200, f"serve: finalize {k}: {code}")
                 finals.append(json.loads(text))
             split["worker_s"] = time.perf_counter() - t0
+            split.update(_serve_obs(ops, acked_ids, acks))
             t0 = time.perf_counter()
             out, _ = proc.communicate('{"op": "stop"}\n', timeout=600)
             split["stop_s"] = time.perf_counter() - t0
@@ -4044,8 +4158,12 @@ def _serve_register(dev) -> dict:
           f"tenants in {SERVE_DELTAS} deltas over HTTP, SIGKILLed and "
           f"restarted after delta 2: == REF_BATCH's verdicts and failing "
           f"ops ({n_invalid} invalid) and the one-shot checks' "
-          f"{STREAM_KEYS}; duplicate, 401 and stop answered; split (s) "
-          f"{json.dumps(split)}")
+          f"{STREAM_KEYS}; duplicate, 401 and stop answered; traced "
+          f"({json.dumps(SERVE_OBS_ENV)}): every ack's delta_id, the "
+          f"replay's ids and each later delta's chain on /trace "
+          f"({split['spans']} spans), the burn rates, the slo and breakers "
+          f"checks and {split['slow_deltas']} slow-delta records; split "
+          f"(s) {json.dumps(split)}")
     return split
 
 
@@ -4180,9 +4298,10 @@ def phase_serve(dev) -> dict:
 
 # ------------------------------------------------------------ the fleet
 
-# multikey-84's keys the serve phase no longer uses (42, 45, ..., 75) and
-# the six corrupted keys of multikey-84+8
-FLEET_VALID_KEYS = tuple(range(42, 76, 3))
+# multikey-84's keys the serve phase does not use (42, 45, ..., 57) and
+# the six corrupted keys of multikey-84+8: A owns six of the twelve (cut
+# from 42, ..., 75 and A's eleven of 18 with the serve phase's keys)
+FLEET_VALID_KEYS = tuple(range(42, 60, 3))
 FLEET_INTERVAL = 0.2       # the supervisor's heartbeat seconds
 FLEET_THRESHOLD = 2        # consecutive misses before "dead"
 FLEET_WAIT_SECS = 300      # the bound on the supervisor's detect + rehome
@@ -4197,18 +4316,21 @@ FLEET_MIGRATED = (4, 11)
 
 def _fleet_processes(dev) -> dict:
     """Two replicas of the entry point on the card, A sync-shipping its WAL
-    segments to B's repl/ mirror: 18 register keys routed by
+    segments to B's repl/ mirror: 12 register keys routed by
     `HashRing(["A", "B"])` in four deltas; after delta 2, A is SIGKILLed
     and its WAL dir deleted; `FleetSupervisor` over both ops endpoints
     (the real HTTP fetch) declares A dead and re-homes its keys onto B
     from the mirror through B's `POST /adopt`. A's delta 2 re-sent to B
     answers duplicate; deltas 3-4 go to the supervisor's owner and each
     key is finalized there. Each key's verdict and failing op equal
-    REF_BATCH's."""
+    REF_BATCH's. This process's flight recorder is armed
+    (JEPSEN_TPU_TORCH_FLIGHT_RECORDER) while the supervisor runs: the
+    rehome must dump `fleet-rehome-A` with A's keys in its trigger."""
     import os
     import shutil
     import signal
     import tempfile
+    from jepsen_tpu_torch import obs
     from jepsen_tpu_torch.serve.fleet import FleetSupervisor, HttpReplica
     from jepsen_tpu_torch.serve.ring import REPL_SUBDIR, HashRing
     multikey, extra = _batch_keys()
@@ -4262,6 +4384,11 @@ def _fleet_processes(dev) -> dict:
             t_kill = time.perf_counter()
             shutil.rmtree(wals["A"])
             addr = {n: f"127.0.0.1:{p['ops']}" for n, p in ports.items()}
+            flight = f"{tmp}/flight"
+            os.environ["JEPSEN_TPU_TORCH_FLIGHT_RECORDER"] = "1"
+            obs.reset()
+            obs.flight_reset()
+            obs.set_flight_dir(flight)
             sup = FleetSupervisor(addr, wals,
                                   services={"B": HttpReplica(addr["B"])},
                                   interval=FLEET_INTERVAL,
@@ -4285,6 +4412,26 @@ def _fleet_processes(dev) -> dict:
             _require(pins == {keys[i]: "B" for i in owned["A"]},
                      f"fleet: the supervisor's pins {pins} are not A's "
                      f"keys on B")
+            # the supervisor's thread marks A rehomed, then dumps: wait
+            # for the file
+            t0 = time.perf_counter()
+            dumps = []
+            while not dumps and time.perf_counter() - t0 < 60:
+                dumps = sorted(f for f in (os.listdir(flight)
+                                           if os.path.isdir(flight)
+                                           else ())
+                               if f.startswith("flight_fleet-rehome-A_"))
+                time.sleep(0.02)
+            _require(len(dumps) == 1, f"fleet: the rehome's flight dumps "
+                                      f"{dumps}")
+            with open(os.path.join(flight, dumps[0])) as fh:
+                trig = json.load(fh)["flight"]["trigger"]
+            plan = trig.get("plan", {})
+            _require(trig.get("replica") == "A" and set(plan) == {"B"}
+                     and sorted(plan["B"])
+                     == sorted(keys[i] for i in owned["A"]),
+                     f"fleet: the rehome dump's trigger {trig}")
+            split["flight_dumps"] = sorted(os.listdir(flight))
             dup = _serve_post_lines(ports["B"]["ingress"], {None: [
                 delta(i, 1) for i in owned["A"]]})
             _require(dup == [{"duplicate": True, "seq": 2, "key": keys[i]}
@@ -4320,6 +4467,9 @@ def _fleet_processes(dev) -> dict:
         finally:
             if sup is not None:
                 sup.stop()
+            os.environ.pop("JEPSEN_TPU_TORCH_FLIGHT_RECORDER", None)
+            obs.reset()
+            obs.flight_reset()
             for p in children:
                 if p.poll() is None:
                     p.kill()
@@ -4338,7 +4488,8 @@ def _fleet_processes(dev) -> dict:
           f"SIGKILLed after delta 2 with its WAL dir deleted, re-homed by "
           f"the supervisor over HTTP from B's sync mirror: == REF_BATCH's "
           f"verdicts and failing ops ({n_invalid} invalid), A's delta 2 "
-          f"answered duplicate on B; split (s) {json.dumps(split)}")
+          f"answered duplicate on B, the rehome's flight dump written; "
+          f"split (s) {json.dumps(split)}")
     return split
 
 
@@ -4579,9 +4730,11 @@ def phase_sharded_resumable(dev, mesh, full) -> dict:
     """The resumable sharded arm at full width, on the pair's encoded valid
     history: a checkpoint every MESH_RESUME_EVERY events, each equal to
     the reference's (REF_SHARDED_RESUMABLE), the result equal to the
-    pair's one-shot check of this run; then a resume from the middle
-    checkpoint, saved to .npz and loaded, to the same result. K3's grid
-    runs."""
+    pair's one-shot check of this run; then a resume from the last but
+    one checkpoint, saved to .npz and loaded, to the same result. K3's
+    grid runs. (The resume from the middle checkpoint took 17.4 s on an
+    H100 80GB HBM3 at 700 W; the late one runs the same code over fewer
+    events.)"""
     import tempfile
     from jepsen_tpu_torch.parallel import engine, sharded
     from jepsen_tpu_torch.parallel import sparse_kernels as sk
@@ -4612,9 +4765,9 @@ def phase_sharded_resumable(dev, mesh, full) -> dict:
              f"resumable checkpoints != the reference's: {rows}")
     _require(_pin_mesh(r) == REF_SHARDED_RESUMABLE["result"],
              f"resumable {r} != the reference's")
-    mid = cps[len(cps) // 2]
+    late = cps[-2]
     with tempfile.TemporaryDirectory() as d:
-        path = mid.save(os.path.join(d, "mid"))
+        path = late.save(os.path.join(d, "late"))
         cp = engine.FrontierCheckpoint.load(path)
     t0 = time.perf_counter()
     r2 = sharded.check_encoded_sharded_resumable(e, mesh, resume=cp, **kw)
@@ -4624,7 +4777,7 @@ def phase_sharded_resumable(dev, mesh, full) -> dict:
           f"(.npz) in {resumed:.3f} s: "
           f"{ {k: r2.get(k) for k in keys} }")
     _require({k: r2.get(k) for k in keys} == {k: r.get(k) for k in keys},
-             f"resume from the middle checkpoint: {r2} != {r}")
+             f"resume from the last but one checkpoint: {r2} != {r}")
     return {"wall": wall, "resumed": resumed, "grid": grid,
             "launches": sk.launches["hash_insert"]}
 
@@ -4944,23 +5097,41 @@ def phase_probe(dev) -> dict:
     card's device count, the breaker's default probe True, and a
     ProbeWatch of interval 1 s ok after its first tick with its gauges
     at 1 and about 0."""
+    import threading
     from jepsen_tpu_torch import obs, probe
     from jepsen_tpu_torch.resilience import breaker
-    doc = probe.probe_json(timeout=60, retries=1, out=sys.stdout)
-    _require(doc["verdict"] == "healthy" and doc["exit"] == 0
-             and doc["platforms"] == ["cuda"]
-             and doc["n_devices"] == torch.cuda.device_count(),
-             f"probe: {doc}")
-    t0 = time.perf_counter()
-    healthy = breaker.CircuitBreaker("chip-smoke").probe()
-    t_breaker = time.perf_counter() - t0
-    _require(healthy is True, "probe: the breaker's default probe failed")
+    # the three probe children start together (each takes ~9 s to reach
+    # the card); this thread polls the watch
+    got: dict = {}
+
+    def json_probe():
+        got["doc"] = probe.probe_json(timeout=60, retries=1, out=sys.stdout)
+
+    def breaker_probe():
+        t = time.perf_counter()
+        got["healthy"] = breaker.CircuitBreaker("chip-smoke").probe()
+        got["t_breaker"] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=f, daemon=True)
+               for f in (json_probe, breaker_probe)]
+    for t in threads:
+        t.start()
     w = probe.ProbeWatch(1.0, timeout=60).start()
     t0 = time.perf_counter()
     while w.ticks == 0 and time.perf_counter() - t0 < 90:
         time.sleep(0.02)
     # stop inside the watch's 1 s wait, before a second probe child starts
     w.stop()
+    t_watch = time.perf_counter() - t0
+    for t in threads:
+        t.join(timeout=120)
+    doc, healthy = got.get("doc"), got.get("healthy")
+    _require(doc is not None and doc["verdict"] == "healthy"
+             and doc["exit"] == 0 and doc["platforms"] == ["cuda"]
+             and doc["n_devices"] == torch.cuda.device_count(),
+             f"probe: {doc}")
+    _require(healthy is True, "probe: the breaker's default probe failed")
+    t_breaker = got["t_breaker"]
     st = w.status()
     gauges = (obs.gauge("probe.chip_healthy").value,
               obs.gauge("probe.last_ok_age_secs").value)
@@ -4970,7 +5141,7 @@ def phase_probe(dev) -> dict:
     _require(gauges[0] == 1 and gauges[1] < 1.0, f"probe: gauges {gauges}")
     print(f"probe: json {doc['elapsed_secs']} s, breaker probe "
           f"{t_breaker:.3f} s, watch first tick "
-          f"{time.perf_counter() - t0:.3f} s, status {json.dumps(st)}, "
+          f"{t_watch:.3f} s (the three at once), status {json.dumps(st)}, "
           f"gauges {gauges}")
     return {"doc": doc, "watch": st}
 
@@ -5283,8 +5454,8 @@ def main() -> int:
                      packed["recorded"], packed["launches"])
     del packed["recorded"]
     # K1: one entry per timed shape, with the launches of the main-path
-    # check at that shape (the invalid twin's, at S=19, print above);
-    # K2 and K4: the launches of the whole sparse main path
+    # check at that shape; K2 and K4: the launches of the whole sparse
+    # main path
     kernels = [{
         "name": f"closure_fixpoint[S{t['S']},C{t['C']}]", "route": "cuda",
         "source": "jepsen_tpu_torch/kernels/closure.cu",
@@ -5359,7 +5530,8 @@ def main() -> int:
                   "K2 batch", "hash_insert": "K3", "tiled_insert": "K4",
                   "tiled_insert_batch": "K4 batch"}[key]
         kernels.append({**t, "max_abs_err": p_worst[(kernel, t["lanes"])]})
-    print(f"packed walls (warm, s): {json.dumps(packed['walls'])}")
+    print(f"packed walls (s; the unpacked ones warm): "
+          f"{json.dumps(packed['walls'])}")
     stats = _phase("stats main path", phase_stats_main, dev, cases)
     st_worst = _phase("K2 stats parity", phase_stats_parity, dev,
                       stats["kept"])

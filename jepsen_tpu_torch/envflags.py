@@ -9,9 +9,10 @@ from the reference's ``JEPSEN_TPU_*`` ones.
 The serve layer's flags (its queue bounds, WAL, tenants, ingress and
 ops ports, WAL replication), the mesh executors' (STEAL, STEAL_ROUND,
 RESHARD, and DIST with its three companions) and the device-health
-ones (PROBE_INTERVAL, BREAKER_THRESHOLD, BREAKER_BACKOFF) and the
-telemetry ones (TRACE, PROFILE, FLIGHT_RECORDER) go through these
-accessors. The flags the
+ones (PROBE_INTERVAL, BREAKER_THRESHOLD, BREAKER_BACKOFF), the
+telemetry ones (TRACE, PROFILE, FLIGHT_RECORDER) and the serve
+forensics ones (SLOW_DELTA_SECS, SLO_ACK_SECS, SLO_BURN_MAX) go through
+these accessors. The flags the
 port read before this module existed (dedupe, probe limit, bucket,
 config pack, search stats, pipeline) keep their own readers.
 """
@@ -48,6 +49,17 @@ HEALTH_FLAGS = tuple(PREFIX + n for n in (
 # of the last 256 closed spans, N >= 2 that many).
 TELEMETRY_FLAGS = tuple(PREFIX + n for n in (
     "TRACE", "PROFILE", "FLIGHT_RECORDER"))
+
+# The serve forensics flags, each `env_float` >= 0 with the reference's
+# default: SLOW_DELTA_SECS (0/unset = off; a delta whose ingest->verdict
+# latency crosses it lands a stage-breakdown record on /status, and it
+# arms delta ids like TRACE and FLIGHT_RECORDER do; serve.service),
+# SLO_ACK_SECS (unset/0 = off; the ack-latency target the two-window
+# burn rates and the /healthz "slo" check are taken against) and
+# SLO_BURN_MAX (0/unset = gauges only; a fast-window burn past it
+# degrades /healthz; obs.slo).
+FORENSICS_FLAGS = tuple(PREFIX + n for n in (
+    "SLOW_DELTA_SECS", "SLO_ACK_SECS", "SLO_BURN_MAX"))
 
 
 class EnvFlagError(ValueError):

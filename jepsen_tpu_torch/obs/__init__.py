@@ -19,9 +19,13 @@ A copy of `jepsen_tpu.obs`, under the reference's names:
             the flight recorder's dump (``JEPSEN_TPU_TORCH_FLIGHT_RECORDER``).
   httpd     the ops endpoint (import ``jepsen_tpu_torch.obs.httpd``
             explicitly): ``/metrics`` Prometheus text, ``/healthz``,
-            ``/status`` and ``POST /adopt``.
+            ``/status``, ``/trace`` and ``POST /adopt``.
+  slo       ``BurnRateTracker`` (``JEPSEN_TPU_TORCH_SLO_ACK_SECS``): the
+            two-window ack burn-rate gauges over ``serve.ack_secs``
+            and the /healthz ``slo`` check.
 
-Not here yet: the SLO tracker and the decision ledger.
+Not here yet: the decision ledger (``ledger``, ``advisor``) and the
+``jepsen status`` / ``report`` / ``trace`` renderers.
 
 Import-safe: no torch at import time, no device work — the probe's
 parent and the ops surface must answer while a card is wedged.
@@ -38,6 +42,7 @@ from jepsen_tpu_torch.obs.metrics import (  # noqa: F401
     BUCKET_LADDER, Counter, Gauge, Histogram, Registry, counter, gauge,
     hist_quantile, histogram, labeled, registry, split_labels,
 )
+from jepsen_tpu_torch.obs.slo import BurnRateTracker  # noqa: F401
 from jepsen_tpu_torch.obs.tracer import (  # noqa: F401
     Span, Tracer, configure, counter_sample, ctx_runner, current_span,
     device_annotation, enabled, flight_active, maybe_torch_profile,

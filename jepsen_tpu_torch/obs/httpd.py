@@ -1,6 +1,6 @@
-"""The replica's ops endpoint: ``/metrics``, ``/healthz``, ``/status``
-and ``POST /adopt`` over a stdlib HTTP daemon thread, and the client
-the fleet supervisor polls it with.
+"""The replica's ops endpoint: ``/metrics``, ``/healthz``, ``/status``,
+``/trace`` and ``POST /adopt`` over a stdlib HTTP daemon thread, and
+the client the fleet supervisor polls it with.
 
 A trimmed copy of `jepsen_tpu.obs.httpd`, with the reference's JSON
 documents and status codes:
@@ -12,17 +12,27 @@ documents and status codes:
     GET  /healthz   the service's health document; 200 when ``ok``,
                     503 when degraded
     GET  /status    the per-key service table
+    GET  /trace     this process's spans as a Chrome trace (the ring's
+                    alone when only the flight recorder is on;
+                    ``{"traceEvents": [], "trace": {"enabled": false,
+                    ...}}`` with tracing off), with the replica's
+                    address and the wall-clock epoch a fleet merge
+                    aligns by
+    GET  /          the endpoint list (also the 404's)
     POST /adopt     replay the WAL keys transferred into this replica's
                     WAL dir into live sessions (``adopt_keys``: a
                     re-encode and the checkpoint on this thread, host
                     work only; the scans run on the service's worker)
 
 The server holds no service state of its own: every request renders
-fresh from the registry and the injected callbacks. ``fetch_replica``
-is the one read of a replica both an operator script and
-``serve.fleet.FleetSupervisor`` use. Left out (items of a later
-slice): ``/trace``, ``/ledger``, ``/plan``, the refresh hook of
-computed gauges, and the ``jepsen status`` renderers.
+fresh from the registry and the injected callbacks; ``refresh_fn``
+(``CheckerService.refresh_gauges``) runs before ``/metrics``,
+``/healthz`` and ``/status``, so computed gauges (queue depth, live
+sessions, WAL lag, the SLO burn rates) read current levels.
+``fetch_replica`` is the one read of a replica both an operator script
+and ``serve.fleet.FleetSupervisor`` use. Left out (items of a later
+slice): ``/ledger`` and ``/plan`` (the decision ledger and the
+planner), and the ``jepsen status`` renderers.
 
 Import-safe: no torch, no engine imports.
 """
@@ -45,7 +55,7 @@ PROM_PREFIX = "jepsen_"
 #: HTTP content type for Prometheus text exposition format 0.0.4
 PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
-ENDPOINTS = ["/metrics", "/healthz", "/status"]
+ENDPOINTS = ["/metrics", "/healthz", "/status", "/trace"]
 
 
 def resolve_ops_port(cli_value: Optional[int] = None) -> Optional[int]:
@@ -180,6 +190,9 @@ class _Handler(BaseHTTPRequestHandler):
         ops = self.server.ops
         path = self.path.split("?", 1)[0].rstrip("/") or "/"
         try:
+            if path in ("/metrics", "/healthz", "/status") \
+                    and ops.refresh_fn is not None:
+                ops.refresh_fn()
             if path == "/metrics":
                 self._reply(200, render_prometheus().encode(),
                             PROM_CONTENT_TYPE)
@@ -190,6 +203,10 @@ class _Handler(BaseHTTPRequestHandler):
             elif path == "/status":
                 self._json(200, ops.status_fn() if ops.status_fn
                            is not None else {})
+            elif path == "/trace":
+                self._json(200, ops.trace_doc())
+            elif path == "/":
+                self._json(200, {"endpoints": ENDPOINTS})
             else:
                 self._json(404, {"error": f"unknown path {path!r}",
                                  "endpoints": ENDPOINTS})
@@ -222,6 +239,8 @@ class OpsServer:
 
     health_fn   -> {"ok": bool, "checks": {...}}; not ok answers 503
     status_fn   -> the /status document
+    refresh_fn  -> called before /metrics, /healthz and /status, so
+                   computed gauges are point-in-time fresh
     adopt_fn    -> the POST /adopt handler (``CheckerService.
                    adopt_keys``): the live handoff a fleet supervisor
                    drives on a survivor"""
@@ -229,15 +248,37 @@ class OpsServer:
     def __init__(self, port: int = 0, host: str = "127.0.0.1",
                  health_fn: Optional[Callable[[], dict]] = None,
                  status_fn: Optional[Callable[[], dict]] = None,
+                 refresh_fn: Optional[Callable[[], None]] = None,
                  adopt_fn: Optional[Callable[[], list]] = None):
         self.health_fn = health_fn
         self.status_fn = status_fn
+        self.refresh_fn = refresh_fn
         self.adopt_fn = adopt_fn
         self._httpd = _OpsHTTPServer((host, port), _Handler)
         self._httpd.ops = self
         self.host = self._httpd.server_address[0]
         self.port = self._httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
+
+    def trace_doc(self) -> dict:
+        """The /trace document: this process's Chrome-trace events (a
+        flight-only ring exports its retained spans) and the wall-clock
+        epoch a fleet merge aligns replicas by, the replica named by
+        its bound address. Tracing fully off answers an empty, still
+        valid, trace."""
+        # from the defining modules: the package attribute ``tracer`` is
+        # the accessor function, which shadows the submodule
+        from jepsen_tpu_torch.obs.export import chrome_trace
+        from jepsen_tpu_torch.obs.tracer import tracer
+        tr = tracer()
+        replica = f"{self.host}:{self.port}"
+        if tr is None:
+            return {"traceEvents": [],
+                    "trace": {"enabled": False, "replica": replica}}
+        spans = tr.ring_spans() if tr.flight_only else tr.spans()
+        return {"traceEvents": chrome_trace(tr, spans=spans),
+                "trace": {"enabled": True, "replica": replica,
+                          "epoch_unix": round(tr.epoch_unix, 6)}}
 
     def start(self) -> "OpsServer":
         if self._thread is None:

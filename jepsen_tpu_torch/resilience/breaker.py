@@ -1,7 +1,7 @@
-"""A circuit breaker over one health signal: the fleet supervisor's
-per-replica liveness state machine.
+"""Circuit breakers: one per backend in the process registry, and the
+fleet supervisor's one per peer replica.
 
-A trimmed copy of `jepsen_tpu.resilience.breaker.CircuitBreaker`:
+A port of `jepsen_tpu.resilience.breaker`:
 
     closed     calls flow; consecutive failures are counted
     open       after `threshold` consecutive failures: refused until
@@ -14,19 +14,25 @@ A trimmed copy of `jepsen_tpu.resilience.breaker.CircuitBreaker`:
 The jitter is seeded from the crc32 of the breaker's name, so under
 the same clock a breaker's ``open_until`` sequence equals the
 reference's. State changes set the ``resilience.breaker.<name>.state``
-gauge (0 closed / 1 half-open / 2 open) and count
-``resilience.breaker.opens``.
+gauge (0 closed / 1 half-open / 2 open) and its trace counter track;
+every open counts ``resilience.breaker.opens`` and, with the flight
+recorder armed, dumps it as ``breaker-open-<name>`` (outside the
+breaker's lock: the dump is file I/O).
+
+The registry (``breaker_for``, ``snapshots``, ``any_tripped``,
+``reset``) is what ``CheckerService.health()``'s ``breakers`` check
+reads. A breaker made with ``track_global=False`` — the fleet
+supervisor's, watching a PEER replica — stays out of the trip set.
 
 Defaults as the reference's: the recovery probe is the port's
 subprocess device probe (``probe.probe_json``: the card, healthy or
 not, in a child that takes any hang), ``threshold`` and
 ``backoff_base`` come from ``JEPSEN_TPU_TORCH_BREAKER_THRESHOLD`` (3)
-and ``JEPSEN_TPU_TORCH_BREAKER_BACKOFF`` (1.0 s). The fleet passes all
-three.
+and ``JEPSEN_TPU_TORCH_BREAKER_BACKOFF`` (1.0 s).
 
-Left out: the injectable jitter source, flight-recorder dumps, and the
-module-level registry and trip set — a fleet breaker watching a peer
-replica never touches this process's own health.
+Left out: the injectable jitter source and backoff cap, and the
+dispatch supervisor that would consult the registry before a launch (a
+device fault surfaces to the caller in the port).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import random
 import threading
 import time
 import zlib
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from jepsen_tpu_torch import envflags
 from jepsen_tpu_torch import obs
@@ -78,8 +84,13 @@ class CircuitBreaker:
                  probe: Optional[Callable[[], bool]] = None,
                  threshold: Optional[int] = None,
                  backoff_base: Optional[float] = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 track_global: bool = True):
         self.backend = backend
+        # track_global=False keeps this breaker out of the registry's
+        # trip set: a FLEET breaker watching a PEER replica must not
+        # read as this process's own health
+        self._track_global = track_global
         self.threshold = (threshold if threshold is not None
                           else _resolve_threshold())
         self.backoff_base = (backoff_base if backoff_base is not None
@@ -113,6 +124,10 @@ class CircuitBreaker:
     def _gauge(self):
         obs.gauge(f"resilience.breaker.{self.backend}.state").set(
             _STATE_GAUGE[self._state])
+        # the trace's counter track: flips line up with the spans that
+        # caused them (a no-op with tracing off)
+        obs.counter_sample(f"resilience.breaker.{self.backend}.state",
+                           _STATE_GAUGE[self._state])
 
     def _backoff(self) -> float:
         """Exponential in the re-open count, jittered, capped."""
@@ -121,13 +136,20 @@ class CircuitBreaker:
         return min(base * jitter, BACKOFF_CAP_SECS)
 
     def _open_locked(self):
+        """The one open transition (callers hold the lock and dump the
+        flight recorder after releasing it)."""
         self._state = OPEN
         self._opens += 1
         self._open_until = self.clock() + self._backoff()
         obs.counter("resilience.breaker.opens").inc()
         self._gauge()
 
+    def _note(self, tripped: bool) -> None:
+        if self._track_global:
+            _note_state(self.backend, tripped)
+
     def record_failure(self, reason: str = ""):
+        opened = False
         with self._lock:
             self._failures += 1
             self._last_reason = reason
@@ -137,8 +159,13 @@ class CircuitBreaker:
                 # the threshold is reached, or the probed call itself
                 # failed during half-open: (re-)open now
                 self._open_locked()
+                opened = True
             else:
                 self._gauge()
+            tripped = self._state != CLOSED
+        self._note(tripped)
+        if opened:
+            obs.flight_dump(f"breaker-open-{self.backend}")
 
     def record_success(self):
         with self._lock:
@@ -147,6 +174,7 @@ class CircuitBreaker:
             self._state = CLOSED   # at the base backoff
             self._last_reason = ""
             self._gauge()
+        self._note(False)
 
     def allow(self) -> Tuple[bool, str]:
         """Whether a call may proceed now. Closed: yes. Open: no until
@@ -169,6 +197,7 @@ class CircuitBreaker:
             self._state = HALF_OPEN
             self._gauge()
             probe = self.probe
+        self._note(True)
         try:
             healthy = bool(probe())
         except Exception:  # noqa: BLE001 — a crashed probe is not health
@@ -181,7 +210,56 @@ class CircuitBreaker:
                 self._gauge()
             else:
                 self._open_locked()
+        self._note(not healthy)
         if healthy:
             return True, ""
+        obs.flight_dump(f"breaker-open-{self.backend}")
         return False, (f"circuit breaker re-opened for backend "
                        f"{self.backend!r}: recovery probe unhealthy")
+
+
+# ------------------------------------------------------------ registry
+
+_registry_lock = threading.Lock()
+_breakers: Dict[str, CircuitBreaker] = {}
+# backends currently NOT closed: the fast-path check is one truthiness
+# read of this set
+_tripped: set = set()
+
+
+def _note_state(backend: str, tripped: bool):
+    with _registry_lock:
+        if tripped:
+            _tripped.add(backend)
+        else:
+            _tripped.discard(backend)
+
+
+def breaker_for(backend: str, **kw) -> CircuitBreaker:
+    """The process breaker for `backend` (made on first use)."""
+    backend = backend or "default"
+    with _registry_lock:
+        br = _breakers.get(backend)
+        if br is None:
+            br = _breakers[backend] = CircuitBreaker(backend, **kw)
+        return br
+
+
+def any_tripped() -> bool:
+    """Is any tracked backend's breaker not closed?"""
+    return bool(_tripped)
+
+
+def snapshots() -> list:
+    """Every registered breaker's :meth:`CircuitBreaker.snapshot` — what
+    /healthz's ``breakers`` check reads (empty: healthy)."""
+    with _registry_lock:
+        brs = list(_breakers.values())
+    return [b.snapshot() for b in brs]
+
+
+def reset():
+    """Drop every breaker (test isolation)."""
+    with _registry_lock:
+        _breakers.clear()
+        _tripped.clear()

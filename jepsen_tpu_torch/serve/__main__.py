@@ -8,8 +8,15 @@ Reads JSONL delta requests on stdin and answers on stdout
 ``JEPSEN_TPU_TORCH_INGRESS_PORT``) it also serves the HTTP ingress
 and prints ``delta ingress: http://HOST:PORT`` on stderr, and with
 ``--ops-port`` (or ``JEPSEN_TPU_TORCH_OPS_PORT``) the ops endpoint
-(``/metrics``, ``/healthz``, ``/status``, ``POST /adopt``) and prints
-``ops endpoint: http://HOST:PORT`` (port 0: an OS-assigned one).
+(``/metrics``, ``/healthz``, ``/status``, ``/trace``, ``POST /adopt``;
+the service's ``refresh_gauges`` runs before each of the first three)
+and prints ``ops endpoint: http://HOST:PORT`` (port 0: an OS-assigned
+one). The tracing surface is armed from the environment:
+``JEPSEN_TPU_TORCH_TRACE=1`` (spans, served on ``/trace``; delta ids on
+acks and WAL records), ``JEPSEN_TPU_TORCH_FLIGHT_RECORDER`` (a span ring
+and the dumps under ``<wal>/flight``), ``JEPSEN_TPU_TORCH_SLOW_DELTA_SECS``
+(slow-delta records on ``/status``) and ``JEPSEN_TPU_TORCH_SLO_ACK_SECS``
+/ ``_SLO_BURN_MAX`` (the burn-rate gauges and ``/healthz``'s ``slo``).
 ``--repl-dir PATH`` with ``JEPSEN_TPU_TORCH_SERVE_REPL=sync|async``
 ships every key's WAL segments to PATH (a successor's ``repl/``
 mirror); a mode without ``--repl-dir``, ``--repl-dir`` with the mode
@@ -67,7 +74,7 @@ def parser() -> argparse.ArgumentParser:
                         "JEPSEN_TPU_TORCH_SERVE_REPL (sync|async)")
     p.add_argument("--ops-port", type=int, default=None,
                    help="serve the ops endpoint (GET /metrics, /healthz, "
-                        "/status; POST /adopt) on this port (0 = "
+                        "/status, /trace; POST /adopt) on this port (0 = "
                         "OS-assigned; default: JEPSEN_TPU_TORCH_OPS_PORT, "
                         "unset = off)")
     p.add_argument("--ingress-port", type=int, default=None,
@@ -145,10 +152,10 @@ def main(argv=None) -> int:
             # WAL-backed service only (adopt_keys raises without one)
             ops = ops_httpd.OpsServer(
                 oport, host=args.host, health_fn=health,
-                status_fn=svc.status,
+                status_fn=svc.status, refresh_fn=svc.refresh_gauges,
                 adopt_fn=svc.adopt_keys if wal_dir else None).start()
             print(f"ops endpoint: http://{args.host}:{ops.port} "
-                  f"(/metrics /healthz /status, POST /adopt)",
+                  f"(/metrics /healthz /status /trace, POST /adopt)",
                   file=sys.stderr, flush=True)
         if iport is not None:
             ing = ingress_mod.start_ingress(svc, iport, host=args.host)

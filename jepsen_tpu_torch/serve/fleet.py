@@ -8,7 +8,8 @@ A port of `jepsen_tpu.serve.fleet`. Three pieces:
     and runs a circuit breaker PER REPLICA: ``threshold`` consecutive
     misses open it — the replica is declared dead and its keys are
     re-homed onto the survivors by :func:`serve.ring.
-    rehome_dead_replica`, with bounded retry and backoff. A dead
+    rehome_dead_replica`, with bounded retry and backoff and a
+    ``fleet-rehome-<name>`` flight-recorder dump a rehome. A dead
     replica that answers again is admitted back through the breaker's
     half-open probe, for NEW keys only: the keys it lost stay PINNED to
     their adopters, and the epoch fence refuses it those regardless.
@@ -31,10 +32,10 @@ its producers instead of acking deltas the new owner never replays.
 
 Every counter and gauge the reference bumps (``fleet.*``,
 ``serve.repl_*``, and through ring and breaker ``serve.ring.*`` and
-``resilience.breaker.*``) is bumped here under the same name. Left out:
-the tracing spans (``serve.repl_ship``) and the flight-recorder dump a
-rehome writes (the port has no tracer yet), and the compiled-program
-manifests of a warm handoff (the port has no program cache).
+``resilience.breaker.*``) is bumped here under the same name, and every
+ship runs under the ``serve.repl_ship`` span. Left out: the
+compiled-program manifests of a warm handoff (the port has no program
+cache).
 
 Import-safe: no torch — the supervisor is a coordinator that must run
 (and rehome) while a replica's device is wedged.
@@ -152,6 +153,13 @@ class SegmentReplicator:
             return self._ship_files(key, dst)
 
     def _ship_files(self, key, dst: str) -> int:
+        # the replication leg of a delta's chain: sync mode runs it in
+        # the producer's ack window (under serve.wal's parent), async
+        # mode on the shipper thread
+        with obs.span("serve.repl_ship", key=str(key)):
+            return self._copy_segments(key, dst)
+
+    def _copy_segments(self, key, dst: str) -> int:
         os.makedirs(dst, exist_ok=True)
         shipped = 0
         for src in self.wal.segments(key):
@@ -364,11 +372,14 @@ class FleetSupervisor:
         self._reps: Dict[str, _Replica] = {}
         for name in sorted(replicas):
             # one breaker a replica: the consecutive-miss threshold opens
-            # it (dead), its half-open probe is the rejoin
+            # it (dead), its half-open probe is the rejoin. Outside the
+            # registry's trip set: a PEER replica's health must not show
+            # on this process's own /healthz breaker check
             br = breaker_mod.CircuitBreaker(
                 f"fleet:{name}", threshold=self.threshold,
                 backoff_base=max(self.interval, 0.05), clock=clock,
-                probe=self._make_probe(name, replicas[name]))
+                probe=self._make_probe(name, replicas[name]),
+                track_global=False)
             self._reps[name] = _Replica(name, replicas[name], br)
             obs.gauge(f"fleet.replica.{name}.alive").set(1)
         self._gauges()
@@ -427,7 +438,8 @@ class FleetSupervisor:
 
     def _try_rehome(self, r: _Replica) -> Optional[Dict[str, list]]:
         """Bounded-retry rehome with exponential backoff; on success pins
-        the moved keys and counts ``fleet.rehomes``."""
+        the moved keys, counts ``fleet.rehomes`` and dumps the flight
+        recorder (the postmortem moment an armed ring exists for)."""
         survivors = self._survivors()
         if not survivors:
             _log.error("fleet: no survivors to rehome %r onto", r.name)
@@ -456,6 +468,10 @@ class FleetSupervisor:
                         self.pins[k] = node
             r.rehomed = True
             obs.counter("fleet.rehomes").inc()
+            obs.flight_dump(f"fleet-rehome-{r.name}", context={
+                "replica": r.name,
+                "plan": {n: [str(k) for k in ks]
+                         for n, ks in plan.items()}})
             _log.info("fleet: rehomed %d key(s) from %r: %s",
                       sum(len(v) for v in plan.values()), r.name,
                       {n: len(v) for n, v in plan.items()})

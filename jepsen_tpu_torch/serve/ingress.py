@@ -1,7 +1,7 @@
 """HTTP delta ingress for the streaming checker service — the
 network transport of ``python -m jepsen_tpu_torch.serve``.
 
-A port of `jepsen_tpu.serve.ingress` (its tracing spans left out). An
+A port of `jepsen_tpu.serve.ingress`. An
 asyncio, stdlib-only HTTP/1.1 server that wraps the same blocking
 :meth:`~jepsen_tpu_torch.serve.service.CheckerService.submit` the stdio
 transport drives — the blocking call **is** the backpressure: each
@@ -33,6 +33,13 @@ The server runs its event loop on a daemon thread (construct binds,
 so the synchronous entry point and tests drive it without owning a
 loop. The executor threads only call the service's blocking methods;
 they never touch a tensor (the service's worker owns the device).
+
+Every request counts ``serve.ingress.requests`` (a refused token
+``serve.ingress.unauthorized`` too), and every delta line runs under
+the ``serve.ingress.request`` span, which the service's
+``serve.admit``/``serve.wal`` spans nest under across the executor hop
+(``obs.ctx_runner``). A line's ``"delta_id"`` rides through to the
+service; the span carries the ack's id.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
-from jepsen_tpu_torch import envflags
+from jepsen_tpu_torch import envflags, obs
 from jepsen_tpu_torch.history import Op, _hashable
 from jepsen_tpu_torch.serve.stdio import jsonable as _jsonable
 from jepsen_tpu_torch.serve.stdio import wire_key as _key_of
@@ -155,10 +162,15 @@ class DeltaIngress:
 
     async def _call(self, fn, *args, **kw):
         """The blocking service call on an executor thread — the
-        backpressure parks HERE while the loop serves everyone else."""
+        backpressure parks HERE while the loop serves everyone else.
+        Executor threads do not inherit the request task's contextvars:
+        the per-call ``Context.copy()`` (``obs.ctx_runner``; the
+        identity wrap with tracing off) is what nests the service's
+        spans under the request's."""
         loop = asyncio.get_running_loop()
+        wrap = obs.ctx_runner()
         return await loop.run_in_executor(
-            self._pool, lambda: fn(*args, **kw))
+            self._pool, wrap(lambda: fn(*args, **kw)))
 
     @staticmethod
     def _response(writer, code: int, body: bytes,
@@ -248,9 +260,11 @@ class DeltaIngress:
                 break
             name, _, val = h.decode().partition(":")
             headers[name.strip().lower()] = val.strip()
+        obs.counter("serve.ingress.requests").inc()
         token, auth_err = self._auth(headers)
         clen = int(headers.get("content-length", 0) or 0)
         if auth_err is not None:
+            obs.counter("serve.ingress.unauthorized").inc()
             # drain the body so the connection stays framed
             if clen:
                 await reader.readexactly(min(clen, MAX_LINE_BYTES))
@@ -363,10 +377,18 @@ class DeltaIngress:
         except Exception as err:  # noqa: BLE001 — a malformed op map
             # is the producer's bug and must answer, not disconnect
             return {"error": f"bad ops: {type(err).__name__}: {err}"}
-        return await self._call(
-            self.service.submit, _key_of(req), ops,
-            seq=req.get("seq"), timeout=req.get("timeout"),
-            wait=bool(req.get("wait")), token=token)
+        # the ingress leg of the delta's chain: the service's admit and
+        # WAL spans parent under this one (the Context.copy in _call)
+        with obs.span("serve.ingress.request",
+                      key=str(req.get("key"))) as sp:
+            r = await self._call(
+                self.service.submit, _key_of(req), ops,
+                seq=req.get("seq"), timeout=req.get("timeout"),
+                wait=bool(req.get("wait")), token=token,
+                delta_id=req.get("delta_id"))
+            if isinstance(r, dict) and r.get("delta_id"):
+                sp.set(delta_id=r["delta_id"], seq=r.get("seq"))
+            return r
 
 
 def start_ingress(service, port: int, host: str = "127.0.0.1",

@@ -3,7 +3,7 @@ over serve replicas, and key migration built from the service's own
 primitives — ``CheckpointStore`` freeze/thaw as the frontier handoff
 and WAL **segment transfer** as the durable-op handoff.
 
-A port of `jepsen_tpu.serve.ring` (its tracing span left out). The
+A port of `jepsen_tpu.serve.ring`. The
 fleet is shared-nothing: each replica is one ``CheckerService`` (own
 WAL dir, own card, own ops endpoint), and :class:`HashRing` assigns
 every key an owner by hashing its EDN text onto a vnode ring — the
@@ -150,25 +150,29 @@ def transfer_key(src_wal_dir: str, dst_wal_dir: str, key) -> dict:
     reference's three files (``.json``, ``.npz``, ``.programs.json``):
     the port writes no ``.programs.json``, but one a reference replica
     wrote travels unchanged. Returns ``{"segments": n, "checkpoint":
-    bool, "manifest": bool}``."""
+    bool, "manifest": bool}``. The copied segments carry the delta ids
+    the old owner stamped, so the adopter's thaw and apply spans re-tag
+    the same ids: a migrated delta's chain reads across replicas."""
     os.makedirs(dst_wal_dir, exist_ok=True)
-    segs = DeltaWAL(src_wal_dir).segments(key)
-    for path in segs:
-        shutil.copy2(path, os.path.join(dst_wal_dir, os.path.basename(path)))
-    stem = _safe_name(key)
-    has_cp = False
-    has_manifest = False
-    src_cps = os.path.join(src_wal_dir, "checkpoints")
-    for ext in (".json", ".npz", ".programs.json"):
-        p = os.path.join(src_cps, stem + ext)
-        if os.path.exists(p):
-            dst_cps = os.path.join(dst_wal_dir, "checkpoints")
-            os.makedirs(dst_cps, exist_ok=True)
-            shutil.copy2(p, os.path.join(dst_cps, stem + ext))
-            if ext == ".programs.json":
-                has_manifest = True
-            else:
-                has_cp = True
+    with obs.span("serve.ring.transfer", key=str(key)):
+        segs = DeltaWAL(src_wal_dir).segments(key)
+        for path in segs:
+            shutil.copy2(path, os.path.join(dst_wal_dir,
+                                            os.path.basename(path)))
+        stem = _safe_name(key)
+        has_cp = False
+        has_manifest = False
+        src_cps = os.path.join(src_wal_dir, "checkpoints")
+        for ext in (".json", ".npz", ".programs.json"):
+            p = os.path.join(src_cps, stem + ext)
+            if os.path.exists(p):
+                dst_cps = os.path.join(dst_wal_dir, "checkpoints")
+                os.makedirs(dst_cps, exist_ok=True)
+                shutil.copy2(p, os.path.join(dst_cps, stem + ext))
+                if ext == ".programs.json":
+                    has_manifest = True
+                else:
+                    has_cp = True
     obs.counter("serve.ring.keys_transferred").inc()
     return {"segments": len(segs), "checkpoint": has_cp,
             "manifest": has_manifest}

@@ -36,7 +36,9 @@ of the same prefix.
   key-count / WAL-bytes quotas shed a flooding tenant *immediately*
   with ``{"shed": ..., "tenant": ...}`` while other tenants keep
   admitting; the worker drains tenants by deficit round-robin so device
-  time follows weights, not arrival order.
+  time follows weights, not arrival order; and the ``serve.ack_secs`` /
+  ``serve.verdict_secs`` SLO histograms grow per-tenant labeled twins,
+  whose p50 and p99 ``status()`` reports a tenant.
 
 * **WAL segment replication** (``replicator=``, a
   ``serve.fleet.SegmentReplicator``; mode ``JEPSEN_TPU_TORCH_SERVE_REPL``).
@@ -45,17 +47,34 @@ of the same prefix.
   land makes the ack (and a ``wait=True`` answer) carry
   ``"replicated": False``. ``close`` drains it.
 
-Left out of the port: the reference's serve spans, counters, gauges and
-histograms, slow-delta records and delta ids, flight dumps, the SLO
-tracker and decision ledger (so acks carry no ``delta_id``, WAL records
-no ``"id"``, and ``status()`` no ``slow_deltas``: the reference's
-unarmed behaviour); the compiled-program manifests (the port compiles
+* **Telemetry, always on.** Every ``serve.*`` counter, gauge and
+  histogram of the reference under its name (sheds, refusals, deltas,
+  ``ack_secs``, ``verdict_secs``, worker errors, evictions, ...), with
+  per-tenant ``labeled`` twins; ``refresh_gauges`` (the ops endpoint
+  calls it before each render); ``health()``'s ``breakers`` check over
+  the breaker registry; and the flight-recorder dumps ``serve-shed``
+  and ``serve-worker-error`` (a None check when the recorder is off).
+* **Delta tracing, armed only** (``JEPSEN_TPU_TORCH_TRACE``,
+  ``JEPSEN_TPU_TORCH_FLIGHT_RECORDER`` or
+  ``JEPSEN_TPU_TORCH_SLOW_DELTA_SECS``): each admitted delta gets a
+  ``delta_id`` (the producer's, or minted), returned on the ack, stamped
+  into its WAL record and carried through recovery, replay and
+  ``adopt_keys``; the spans ``serve.admit``, ``serve.wal``,
+  ``serve.thaw``, ``serve.apply``, ``serve.advance``, ``serve.publish``
+  and ``serve.evict`` tag it; with the slow-delta threshold, a delta
+  past it lands a stage-breakdown record on ``status()`` and the worst
+  so far a ``slow-delta`` flight dump. ``JEPSEN_TPU_TORCH_SLO_ACK_SECS``
+  arms the burn-rate tracker (``obs.slo``) and ``health()``'s ``slo``
+  check. Unarmed, acks, WAL bytes, ``status()`` and ``health()`` are
+  the reference's unarmed service's.
+
+Left out of the port: the decision ledger's publish record (the
+reference's ``led.record("publish", ...)``; it comes with the ledger
+and the planner), and the compiled-program manifests (the port compiles
 no programs at run time: its kernels are built once per source hash and
 loaded through ctypes, and a service on the card builds and loads them
 all when it starts, so its first delta pays no nvcc and no load — the
-counterpart of the reference's ``_prewarm_programs``); and
-``health()``'s breaker check (the port has no breaker registry: its only breakers are
-the fleet supervisor's, one per peer replica).
+counterpart of the reference's ``_prewarm_programs``).
 
 Threading: producers call ``submit``/``result`` from any thread; one
 worker thread owns every session and the device (the kernels launch
@@ -70,11 +89,13 @@ import logging
 import os
 import threading
 import time
+import uuid
 from collections import deque
 from typing import Dict, Optional
 
-from jepsen_tpu_torch import edn, envflags
+from jepsen_tpu_torch import edn, envflags, obs
 from jepsen_tpu_torch.history import TYPES
+from jepsen_tpu_torch.obs import slo as _slo
 from jepsen_tpu_torch.parallel import bitdense
 from jepsen_tpu_torch.parallel import extend as ext
 from jepsen_tpu_torch.serve import tenancy
@@ -121,6 +142,22 @@ def _resolve_evict_secs(v: Optional[float]) -> float:
                               what="eviction idle seconds")
 
 
+def _resolve_slow_delta(v: Optional[float]) -> float:
+    if v is not None:
+        return float(v)
+    return envflags.env_float("JEPSEN_TPU_TORCH_SLOW_DELTA_SECS",
+                              default=0.0, min_value=0.0,
+                              what="slow-delta threshold seconds") \
+        or 0.0
+
+
+def _mint_delta_id() -> str:
+    """A fleet-unique trace identity for one admitted delta: minted at
+    admission (whichever transport carried it), persisted in the WAL
+    record, and tagged on every span leg of the delta's chain."""
+    return uuid.uuid4().hex[:16]
+
+
 def default_wal_dir() -> Optional[str]:
     """The JEPSEN_TPU_TORCH_SERVE_WAL flag: unset/0 -> no WAL (in-memory
     service), 1 -> ``store/serve_wal``, path -> that directory."""
@@ -138,8 +175,9 @@ class _Key:
     __slots__ = ("key", "session", "pending", "enq_seq", "applied_seq",
                  "last_result", "last_activity", "finalized",
                  "finalize_requested", "needs_check", "pending_ops",
-                 "wal_next", "broken", "wal_dead", "acct", "tenant",
-                 "epoch", "fenced", "device")
+                 "wal_next", "broken", "wal_dead", "acct",
+                 "pending_times", "tenant", "epoch", "fenced",
+                 "delta_recs", "device")
 
     def __init__(self, key, tenant: str = tenancy.DEFAULT_TENANT):
         self.key = key
@@ -159,6 +197,16 @@ class _Key:
         # per-key accounting for /status: admitted deltas/ops, sheds
         # this key ate, WAL deltas replayed at recovery/thaw
         self.acct = {"deltas": 0, "ops": 0, "sheds": 0, "replays": 0}
+        # (seq, t_submit) of admitted-but-unapplied deltas — drained
+        # whenever applied_seq advances, feeding the ingest->verdict SLO
+        # histogram; bounded by the per-key queue bound
+        self.pending_times: deque = deque()
+        # per-delta trace records (delta tracing armed only, empty
+        # otherwise): {"id", "seq", "tenant", "ops", "t_in", ...stage
+        # stamps...}, seq-ordered because admission is; popped by the
+        # worker at take time, closed out at verdict publish (the
+        # slow-delta breakdown). Bounded by the per-key queue bound.
+        self.delta_recs: deque = deque()
         self.wal_next = 1   # next seq allowed to write the WAL (the
         # per-key seq-ordered handoff that keeps file order == seq
         # order without holding the service lock across an fsync)
@@ -225,8 +273,10 @@ class CheckerService:
                  high_water: Optional[int] = None,
                  evict_idle_secs: Optional[float] = None,
                  tenants=None, drr_quantum: Optional[int] = None,
-                 replicator=None, recover: bool = True,
-                 start_worker: bool = True, clock=time.monotonic):
+                 replicator=None,
+                 slow_delta_secs: Optional[float] = None,
+                 recover: bool = True, start_worker: bool = True,
+                 clock=time.monotonic):
         self.model = model
         self.capacity = capacity
         self.max_capacity = max_capacity
@@ -239,6 +289,19 @@ class CheckerService:
         self.high_water = _resolve_high_water(high_water,
                                               self.global_bound)
         self.evict_idle_secs = _resolve_evict_secs(evict_idle_secs)
+        self.slow_delta_secs = _resolve_slow_delta(slow_delta_secs)
+        # delta trace identity armed? Tracing on, a flight ring
+        # retaining spans, or the slow-delta threshold: each consumes
+        # per-delta ids and stage records. Unarmed (the default) keeps
+        # acks, WAL bytes and the /status schema those of the service
+        # without tracing.
+        self._delta_obs = bool(self.slow_delta_secs) \
+            or obs.enabled() or obs.flight_active()
+        # this service's identity in the process-wide slow-delta ring:
+        # two services in one process must not read each other's
+        # records or suppress each other's worst-offender dumps (a
+        # sentinel, not self: ring entries must not pin the sessions)
+        self._slow_scope = object()
         if tenants is None:
             tenants = tenancy.resolve_tenants()
         elif isinstance(tenants, (list, tuple)):
@@ -276,7 +339,13 @@ class CheckerService:
         self._repl = replicator
         self._cps = (CheckpointStore(wal_dir + "/checkpoints")
                      if wal_dir else None)
+        if wal_dir and obs.flight_active():
+            # postmortem dumps land next to the WAL they explain
+            obs.set_flight_dir(os.path.join(wal_dir, "flight"))
         self._keys: Dict = {}
+        # ack-latency SLO burn tracking (obs.slo): unarmed (the default,
+        # JEPSEN_TPU_TORCH_SLO_ACK_SECS unset) it mints nothing
+        self._slo = _slo.BurnRateTracker(clock=clock)
         self._cond = threading.Condition()
         self._pending_ops = 0
         self._inflight = 0
@@ -357,12 +426,14 @@ class CheckerService:
     def _shed_locked(ks: Optional["_Key"], ts: Optional[_TenantState],
                      reason: str, key) -> dict:
         """Build one structured shed answer + its accounting (callers
-        hold the service condition)."""
+        hold the service condition and dump outside it)."""
+        obs.counter("serve.sheds").inc()
         if ks is not None:
             ks.acct["sheds"] += 1
         out = {"shed": True, "reason": reason, "key": key}
         if ts is not None:
             ts.acct["sheds"] += 1
+            obs.counter(obs.labeled("serve.sheds", tenant=ts.name)).inc()
             out["tenant"] = ts.name
         return out
 
@@ -398,6 +469,7 @@ class CheckerService:
         """The structured split-brain refusal: this replica's
         ownership epoch is over — the producer must re-route to the
         owner the fence names."""
+        obs.counter("serve.fenced_refusals").inc()
         return {"error": "key ownership fenced: this replica's epoch "
                          "is over (it was rehomed while this replica "
                          "was presumed dead) — re-route to the "
@@ -428,13 +500,22 @@ class CheckerService:
     def submit(self, key, ops, seq: Optional[int] = None,
                timeout: Optional[float] = None,
                wait: bool = False, tenant: Optional[str] = None,
-               token: Optional[str] = None) -> dict:
+               token: Optional[str] = None,
+               delta_id: Optional[str] = None) -> dict:
         """Admit one delta for ``key``. Returns one of::
 
             {"accepted": True, "seq": n, "key": k}
             {"duplicate": True, "seq": n, "key": k}   idempotent replay
             {"shed": True, "reason": ..., "key": k}   overload
             {"error": ..., "key": k}                  malformed request
+
+        With delta tracing armed (``JEPSEN_TPU_TORCH_TRACE`` /
+        ``_FLIGHT_RECORDER`` / ``_SLOW_DELTA_SECS``) every admitted
+        delta gets a trace identity — ``delta_id`` (the caller's, or
+        minted here), returned on the ack, stamped into the WAL record
+        and tagged on each span leg of the delta's chain. Unarmed,
+        ``delta_id`` is ignored and every answer and byte is the
+        service's without tracing.
 
         Blocks (backpressure) while the key's queue or the global
         backlog is full, up to ``timeout`` seconds (then sheds). With
@@ -456,6 +537,7 @@ class CheckerService:
                                  f"{TYPES}", "key": key}
         tname, auth_err = self._resolve_tenant(tenant, token)
         if auth_err is not None:
+            obs.counter("serve.unauthorized").inc()
             return {**auth_err, "key": key}
         # epoch fence, first look (one stat, outside the lock): a
         # replica whose key was rehomed away while it was paused must
@@ -463,8 +545,16 @@ class CheckerService:
         fence = self._read_fence(key)
         t_in = self._clock()
         deadline = None if timeout is None else t_in + timeout
-        shed = None
-        with self._cond:
+        # the delta's trace identity (armed only): filled in and queued
+        # on the key at admission, closed out by the worker at verdict
+        # publish (the slow-delta stage breakdown)
+        rec = ({"id": str(delta_id) if delta_id else _mint_delta_id()}
+               if self._delta_obs else None)
+        shed = None   # set instead of returning inside the lock: the
+        # flight dump a shed triggers is file I/O and runs AFTER the
+        # service lock is released (as the WAL fsync below does)
+        with self._cond, \
+                obs.span("serve.admit", key=str(key)) as adm_sp:
             ts = self._tenant_state_locked(tname)
             ks = self._keys.get(key)
             f = self._fence_locked(ks, fence)
@@ -483,6 +573,7 @@ class CheckerService:
                     ks = self._keys[key] = _Key(key, tenant=tname)
                     if ts is not None:
                         ts.keys += 1
+                    obs.counter("serve.keys_admitted").inc()
             if shed is None and ks.tenant != tname:
                 # tenant isolation: a key belongs to the tenant that
                 # admitted it — no cross-tenant appends, no
@@ -507,6 +598,7 @@ class CheckerService:
                     return {"error": "key is finalized", "key": key}
                 my_seq = int(seq) if seq is not None else ks.enq_seq + 1
                 if my_seq <= ks.enq_seq:
+                    obs.counter("serve.duplicate_deltas").inc()
                     return {"duplicate": True, "seq": my_seq,
                             "key": key}
                 if my_seq != ks.enq_seq + 1:
@@ -578,15 +670,41 @@ class CheckerService:
                 ks.pending_ops += len(ops)
                 ks.acct["deltas"] += 1
                 ks.acct["ops"] += len(ops)
+                ks.pending_times.append((my_seq, t_in))
+                if rec is not None:
+                    rec.update(seq=my_seq, tenant=tname,
+                               ops=len(ops), t_in=t_in,
+                               t_admit=self._clock())
+                    ks.delta_recs.append(rec)
+                    adm_sp.set(delta_id=rec["id"], seq=my_seq,
+                               tenant=tname)
                 self._pending_ops += len(ops)
                 self.max_pending_seen = max(self.max_pending_seen,
                                             self._pending_ops)
+                obs.counter("serve.deltas").inc()
+                obs.counter("serve.delta_ops").inc(len(ops))
+                obs.gauge("serve.pending_ops").set(self._pending_ops)
                 if ts is not None:
                     ts.pending_ops += len(ops)
                     ts.acct["deltas"] += 1
                     ts.acct["ops"] += len(ops)
+                    obs.counter(obs.labeled(
+                        "serve.deltas", tenant=tname)).inc()
+                    obs.gauge(obs.labeled(
+                        "serve.pending_ops",
+                        tenant=tname)).set(ts.pending_ops)
+                # the trace's counter track: queue depth over time
+                # lines up with the spans (a no-op untraced)
+                obs.counter_sample("serve.pending_ops",
+                                   self._pending_ops)
                 self._cond.notify_all()
         if shed is not None:
+            # overload is the postmortem moment: an armed flight
+            # recorder dumps here, outside the service lock (file I/O;
+            # the per-process cap bounds a shed storm)
+            obs.flight_dump("serve-shed", context={
+                "key": str(key), "reason": shed.get("reason"),
+                "tenant": shed.get("tenant")})
             return shed
         durable = self._wal is not None
         durable_replica = None   # False: a sync ship of this ack's
@@ -621,24 +739,42 @@ class CheckerService:
                     ks.wal_dead = True
                     durable = False
                     self._cond.notify_all()
+                elif rec is not None:
+                    # the WAL stage's start stamp: a DURATION, not a
+                    # timeline split — the fsync below runs outside the
+                    # lock, concurrently with the queue and device
+                    # stages (the worker may take, even publish, this
+                    # delta while its fsync is in flight)
+                    rec["t_wal_start"] = self._clock()
             if durable:
                 try:
-                    nbytes = self._wal.append(
-                        key, my_seq, ops,
-                        tenant=(tname if ts is not None else None))
+                    with obs.span("serve.wal", key=str(key),
+                                  seq=my_seq,
+                                  delta_id=(rec or {}).get("id")):
+                        nbytes = self._wal.append(
+                            key, my_seq, ops,
+                            tenant=(tname if ts is not None else None),
+                            delta_id=(rec or {}).get("id"))
                 except Exception as err:  # noqa: BLE001 — a failed
                     # append must not hold the handoff or hide the
                     # durability loss from the producer
                     durable = False
+                    obs.counter("serve.wal_errors").inc()
                     _log.warning("WAL append failed for key %r seq "
                                  "%d (%r) — delta applies in-process "
                                  "only", key, my_seq, err)
                     with self._cond:
                         ks.wal_dead = True
+                        if rec is not None:
+                            rec["t_wal_end"] = self._clock()
                         self._cond.notify_all()
                 else:
                     with self._cond:
                         ks.wal_next = my_seq + 1
+                        if rec is not None:
+                            # the end stamp, under the condition
+                            # (_finish_recs_locked reads it there)
+                            rec["t_wal_end"] = self._clock()
                         if ts is not None:
                             # the WAL-bytes quota meter: the tenant
                             # pays for every byte its keys fsync
@@ -662,19 +798,36 @@ class CheckerService:
                         # mode answers False when the copy did not land
                         durable_replica = \
                             self._repl.after_append(key) is not False
+        # ingest->ack SLO: admission (backpressure wait included)
+        # through WAL durability — the producer-visible accept latency
+        ack = max(0.0, self._clock() - t_in)
+        obs.histogram("serve.ack_secs").observe(ack)
+        if ts is not None:
+            # the per-tenant twin (/metrics renders it as a real
+            # {tenant="..."} label on the same histogram name)
+            obs.histogram(obs.labeled("serve.ack_secs",
+                                      tenant=tname)).observe(ack)
         if wait:
             rem = None if deadline is None else deadline - self._clock()
             r = self.result(key, min_seq=my_seq, timeout=rem,
                             tenant=tname)
+            if rec is not None and isinstance(r, dict):
+                r.setdefault("delta_id", rec["id"])
             if not durable and self._wal is not None:
                 r["durable"] = False
             if durable_replica is False:
                 r["replicated"] = False
             return r
         out = {"accepted": True, "seq": my_seq, "key": key}
+        if rec is not None:
+            # the producer learns its delta's trace identity: the
+            # handle that cross-references spans, slow-delta records
+            # and flight dumps fleet-wide
+            out["delta_id"] = rec["id"]
         if ts is not None:
             out["tenant"] = tname
         if not durable and self._wal is not None:
+            obs.counter("serve.nondurable_acks").inc()
             out["durable"] = False
         if durable_replica is False:
             # the sync promise not met this ack: primary-durable only
@@ -694,6 +847,7 @@ class CheckerService:
             return ks, None
         tname, err = self._resolve_tenant(tenant, token)
         if err is not None:
+            obs.counter("serve.unauthorized").inc()
             return None, {**err, "key": key}
         if ks.tenant != tname:
             return None, {"error": f"key is owned by another tenant "
@@ -814,10 +968,40 @@ class CheckerService:
 
     # ----------------------------------------------- the ops surface
 
+    def refresh_gauges(self) -> None:
+        """Point-in-time refresh of the computed gauges (queue depth,
+        live sessions, WAL lag, the SLO burn rates): the ops endpoint
+        calls this before every render. The condition is held only to
+        copy; the gauges are set outside it, so a scrape never waits on
+        a worker's publish for longer than a copy."""
+        with self._cond:
+            pending = self._pending_ops
+            live = sum(1 for k in self._keys.values()
+                       if k.session is not None)
+            wal_lag = sum(ks.enq_seq - (ks.wal_next - 1)
+                          for ks in self._keys.values()) \
+                if self._wal is not None else 0
+            tpending = {name: ts.pending_ops
+                        for name, ts in self._tstate.items()} \
+                if self._tenants is not None else {}
+        obs.gauge("serve.pending_ops").set(pending)
+        obs.gauge("serve.keys_live").set(live)
+        for name, v in tpending.items():
+            obs.gauge(obs.labeled("serve.pending_ops",
+                                  tenant=name)).set(v)
+        if self._wal is not None:
+            # admitted deltas whose WAL bytes have not landed yet:
+            # nonzero is producers outrunning fsync, growing a sick disk
+            obs.gauge("serve.wal_lag_deltas").set(wal_lag)
+        # the burn rates ride the same refresh (a no-op returning None
+        # when the target flag is unset)
+        self._slo.sample()
+
     def status(self) -> dict:
         """The /status document: one row per key (seq, pending,
         frontier live/evicted, last verdict, WAL bytes, per-key
-        accounting) plus service totals."""
+        accounting) plus service totals, the retained slow-delta
+        records (armed only) and each tenant's ack and verdict p50/p99."""
         with self._cond:
             rows = []
             for ks in self._keys.values():
@@ -884,15 +1068,36 @@ class CheckerService:
                 row["wal_bytes"] = self._wal.size_bytes(key)
             keys[edn.dumps(key)] = row
         doc["keys"] = keys
+        if self.slow_delta_secs:
+            # slow-delta forensics (armed only: the key is absent, not
+            # empty, when the threshold is off): the retained ring,
+            # oldest first, each record a stage breakdown with its
+            # verdict context
+            doc["slow_delta_secs"] = self.slow_delta_secs
+            doc["slow_deltas"] = obs.slow_delta_records(
+                self._slow_scope)
         if trows is not None:
+            # the per-tenant SLO answer without a /metrics scrape:
+            # quantiles straight from the labeled histograms
+            snap = obs.registry().snapshot()
+            for name, t in trows.items():
+                for which in ("ack", "verdict"):
+                    h = snap.get(obs.labeled(f"serve.{which}_secs",
+                                             tenant=name))
+                    t[f"{which}_p50"] = (obs.hist_quantile(h, 0.5)
+                                         if h else None)
+                    t[f"{which}_p99"] = (obs.hist_quantile(h, 0.99)
+                                         if h else None)
             doc["tenants"] = trows
         return doc
 
     def health(self) -> dict:
         """The /healthz document: ``ok`` is READINESS (serve this
         instance traffic?), degraded by a dead worker, an unwritable/
-        dead WAL, a poisoned key, or the queue at/past the shed
-        high-water. Liveness is the answer itself."""
+        dead WAL, any registered circuit breaker not closed, a poisoned
+        key, the queue at/past the shed high-water, or (armed only) an
+        SLO burning past its threshold. Liveness is the answer
+        itself."""
         with self._cond:
             worker_ok = (self._worker is not None
                          and self._worker.is_alive()
@@ -914,8 +1119,20 @@ class CheckerService:
         checks["queue"] = {"ok": queue_ok, "pending_ops": pending,
                            "high_water": self.high_water,
                            "global_bound": self.global_bound}
+        # the breaker registry (imported here: an in-memory embedding
+        # need not pull the breaker machinery in)
+        from jepsen_tpu_torch.resilience import breaker as breaker_mod
+        snaps = breaker_mod.snapshots()
+        checks["breakers"] = {
+            "ok": all(s["state"] == breaker_mod.CLOSED for s in snaps),
+            "states": {s["backend"]: s["state"] for s in snaps}}
         checks["keys"] = {"ok": poisoned == 0, "total": n_keys,
                           "poisoned": poisoned}
+        if self._slo.armed:
+            # armed only: the key is absent, not ok:true, with
+            # JEPSEN_TPU_TORCH_SLO_ACK_SECS unset; with
+            # JEPSEN_TPU_TORCH_SLO_BURN_MAX=0 the check is informational
+            checks["slo"] = self._slo.check()
         return {"ok": all(c["ok"] for c in checks.values()),
                 "live": True, "checks": checks}
 
@@ -931,7 +1148,7 @@ class CheckerService:
         segments so its first append opens a fresh segment whose
         header carries the bump durably. A plain restart keeps the
         stored epoch (same owner, same epoch)."""
-        deltas = self._wal.replay(key)
+        deltas, wal_ids = self._wal.replay_with_ids(key)
         if not deltas:
             return None
         head = self._wal.header(key) or {}
@@ -964,11 +1181,22 @@ class CheckerService:
             # a stale fence from an earlier ownership generation (the
             # key migrated back here): our bumped epoch out-ranks it
             self._wal.clear_fence(key)
+        # delta ids ride the transferred segments: the ids the previous
+        # owner stamped (or synthesized stand-ins for records without
+        # one) re-tag this replica's thaw and apply spans, collected in
+        # the same segment scan as the deltas
+        ids = wal_ids if self._delta_obs else {}
         sess = self._new_session(key)
         if base:
             # host work only (the re-encode; the checkpoint stays host
             # arrays): the scan runs on the worker
-            sess.thaw(base, cp)
+            sp_kw = {"key": str(key), "ops": len(base)}
+            if ids:
+                bids = [ids[seq] for seq, _ops in deltas
+                        if seq <= applied and seq in ids]
+                sp_kw["delta_ids"] = bids[-32:]
+            with obs.span("serve.thaw", **sp_kw):
+                sess.thaw(base, cp)
             ks.applied_seq = applied
             ks.needs_check = True
         ks.session = sess
@@ -977,6 +1205,13 @@ class CheckerService:
         ks.enq_seq = deltas[-1][0]
         ks.wal_next = deltas[-1][0] + 1
         ks.pending.extend(rest)
+        if self._delta_obs:
+            now = self._clock()
+            for seq, dops in rest:
+                ks.delta_recs.append(
+                    {"id": ids.get(seq) or _mint_delta_id(),
+                     "seq": seq, "tenant": tname, "ops": len(dops),
+                     "t_in": now})
         ks.pending_ops = sum(len(ops) for _, ops in rest)
         ks.last_activity = self._clock()
         ks.acct["replays"] = len(deltas)
@@ -993,6 +1228,7 @@ class CheckerService:
             ts.keys += 1
             ts.pending_ops += ks.pending_ops
             ts.wal_bytes += wal_bytes
+        obs.counter("serve.replayed_deltas").inc(ks.acct["replays"])
 
     def _recover(self) -> None:
         """Rebuild every key from its WAL (synchronously, before the
@@ -1058,6 +1294,7 @@ class CheckerService:
                 self._install_recovered_locked(*built)
                 self._cond.notify_all()
             adopted.append(key)
+            obs.counter("serve.adopted_keys").inc()
         if adopted:
             _log.info("serve: adopted %d key(s) from transferred WAL "
                       "segments", len(adopted))
@@ -1081,12 +1318,19 @@ class CheckerService:
         sess = self._new_session(ks.key, device=ks.device)
         cp, _meta = (self._cps.load(ks.key)
                      if self._cps is not None else (None, None))
-        deltas = self._wal.replay(ks.key) if self._wal else []
+        deltas, ids = (self._wal.replay_with_ids(ks.key)
+                       if self._wal else ([], {}))
         applied = [(seq, dops) for seq, dops in deltas
                    if seq <= ks.applied_seq]
         ops = [op for _seq, dops in applied for op in dops]
         if ops:
-            sess.thaw(ops, cp)
+            sp_kw = {"key": str(ks.key)}
+            if self._delta_obs:
+                sp_kw["delta_ids"] = [ids[seq] for seq, _d in applied
+                                      if seq in ids][-32:]
+            with obs.span("serve.thaw", **sp_kw):
+                sess.thaw(ops, cp)
+            obs.counter("serve.thaws").inc()
             ks.acct["replays"] += len(applied)
         ks.session = sess
         return sess
@@ -1096,11 +1340,26 @@ class CheckerService:
                    or (ks.finalize_requested and not ks.finalized)
                    for ks in self._keys.values())
 
+    def _take_recs_locked(self, ks: _Key, last_seq) -> tuple:
+        """Pop the per-delta trace records this batch covers (callers
+        hold the condition) and stamp the queue->worker handoff time.
+        The records move with the batch and are closed out at verdict
+        publish. Empty when delta tracing is unarmed."""
+        if last_seq is None or not ks.delta_recs:
+            return ()
+        now = self._clock()
+        out = []
+        while ks.delta_recs and ks.delta_recs[0]["seq"] <= last_seq:
+            r = ks.delta_recs.popleft()
+            r["t_take"] = now
+            out.append(r)
+        return tuple(out)
+
     def _take_work_locked(self) -> list:
         """Pop pending deltas (coalesced, seq order) as ``(ks, ops,
-        last_seq, final)`` and settle the backpressure accounting HERE
-        — ops leave the queue exactly once, so no later error path can
-        double-decrement.
+        last_seq, final, recs)`` and settle the backpressure accounting
+        HERE — ops leave the queue exactly once, so no later error path
+        can double-decrement.
 
         Single-tenant mode takes everything (FIFO drain). Multi-tenant
         mode is deficit round-robin: every backlogged tenant banks
@@ -1124,8 +1383,12 @@ class CheckerService:
                 ks.pending_ops -= len(ops)
                 self._pending_ops -= len(ops)
                 final = ks.finalize_requested and not ks.finalized
-                batch.append((ks, ops, last_seq, final))
+                batch.append((ks, ops, last_seq, final,
+                              self._take_recs_locked(ks, last_seq)))
             if batch:
+                obs.gauge("serve.pending_ops").set(self._pending_ops)
+                obs.counter_sample("serve.pending_ops",
+                                   self._pending_ops)
                 self._cond.notify_all()   # queue space freed: release
                 # blocked producers now, not after the device work
             return batch
@@ -1145,6 +1408,7 @@ class CheckerService:
             start = self._drr_idx % len(names)
             self._drr_idx += 1
             names = names[start:] + names[:start]
+        took_ops = 0
         for tname in names:
             ts = self._tstate[tname]
             keys = by_tenant.get(tname, ())
@@ -1172,12 +1436,37 @@ class CheckerService:
                     ks.pending_ops -= len(ops)
                     self._pending_ops -= len(ops)
                     ts.pending_ops -= len(ops)
-                batch.append((ks, ops, last_seq, final))
+                    took_ops += len(ops)
+                    obs.gauge(obs.labeled(
+                        "serve.pending_ops",
+                        tenant=tname)).set(ts.pending_ops)
+                batch.append((ks, ops, last_seq, final,
+                              self._take_recs_locked(ks, last_seq)))
             if not any(ks.pending for ks in keys):
                 ts.deficit = 0
+        if took_ops:
+            obs.gauge("serve.pending_ops").set(self._pending_ops)
+            obs.counter_sample("serve.pending_ops", self._pending_ops)
         if batch:
             self._cond.notify_all()
         return batch
+
+    def _observe_verdicts_locked(self, ks: _Key) -> None:
+        """Drain the key's admitted-delta timestamps up to its applied
+        seq into the ingest->verdict SLO histogram (callers hold the
+        service condition)."""
+        now = self._clock()
+        h = obs.histogram("serve.verdict_secs")
+        ht = (obs.histogram(obs.labeled("serve.verdict_secs",
+                                        tenant=ks.tenant))
+              if self._tenants is not None else None)
+        while ks.pending_times and ks.pending_times[0][0] \
+                <= ks.applied_seq:
+            _seq, t_in = ks.pending_times.popleft()
+            v = max(0.0, now - t_in)
+            h.observe(v)
+            if ht is not None:
+                ht.observe(v)
 
     def _crashed_entry(self, ks: _Key, err) -> dict:
         """Per-entry failure isolation: a loud error verdict, and the
@@ -1185,9 +1474,15 @@ class CheckerService:
         the WAL instead of extending a session that may have missed
         acknowledged ops. Without a WAL there is nothing to replay —
         the key is POISONED (further deltas refused) rather than
-        silently rebuilt from a truncated history."""
+        silently rebuilt from a truncated history. The flight recorder
+        (armed or not: a None check) dumps the crash, its trigger
+        naming the key."""
+        obs.counter("serve.worker_errors").inc()
         _log.error("serve worker: key %r failed: %s: %s", ks.key,
                    type(err).__name__, err)
+        obs.flight_dump("serve-worker-error", context={
+            "key": str(ks.key), "tenant": ks.tenant,
+            "error": f"{type(err).__name__}: {err}"})
         ks.session = None
         if self._wal is None:
             ks.broken = True
@@ -1199,7 +1494,7 @@ class CheckerService:
         # phase 1 (no lock): apply deltas (host: the re-encode); a
         # crash costs ONE key
         entries = []
-        for ks, ops, last_seq, final in batch:
+        for ks, ops, last_seq, final, recs in batch:
             sess = err_r = None
             if ks.broken:
                 # poisoned (worker crash, no WAL): keep serving the
@@ -1207,22 +1502,30 @@ class CheckerService:
                 entries.append((ks, None, last_seq, final,
                                 dict(ks.last_result or {
                                     "valid?": "unknown",
-                                    "error": "key poisoned"})))
+                                    "error": "key poisoned"}), recs))
                 continue
             try:
                 sess = self._session_for(ks)
                 if ops:
-                    sess.extend(ops)
+                    sp_kw = {"key": str(ks.key), "ops": len(ops)}
+                    if recs:
+                        # the delta ids this apply advances: the
+                        # worker-side link of each delta's chain
+                        sp_kw["delta_ids"] = [r["id"] for r in recs]
+                        sp_kw["tenant"] = ks.tenant
+                    with obs.span("serve.apply", **sp_kw):
+                        sess.extend(ops)
             except Exception as err:  # noqa: BLE001 — isolate per key
                 err_r = self._crashed_entry(ks, err)
-            entries.append((ks, sess, last_seq, final, err_r))
+            entries.append((ks, sess, last_seq, final, err_r, recs))
         # phase 2 (no lock): one batched advance over the live ones.
         # A device error surfaces here (no host degradation in the
         # port): every key of the batch gets the loud verdict
         live = [e for e in entries if e[4] is None]
         try:
-            rs = ext.advance_sessions([e[1] for e in live],
-                                      bucket=self.bucket)
+            with obs.span("serve.advance", keys=len(live)):
+                rs = ext.advance_sessions([e[1] for e in live],
+                                          bucket=self.bucket)
             results = dict(zip((id(e[0]) for e in live), rs))
         except Exception as err:  # noqa: BLE001
             results = {id(e[0]): self._crashed_entry(e[0], err)
@@ -1230,25 +1533,107 @@ class CheckerService:
         # phase 3 (no lock): finalization — counterexample extraction
         # is device work and must not stall every other key's
         # submit/result behind the service lock
-        for ks, sess, _last_seq, final, err_r in entries:
+        for ks, sess, _last_seq, final, err_r, _recs in entries:
             if final and err_r is None and id(ks) in results \
                     and sess is not None:
                 try:
                     results[id(ks)] = sess.finalize()
                 except Exception as err:  # noqa: BLE001
                     results[id(ks)] = self._crashed_entry(ks, err)
-        # phase 4: publish under the lock
+        # phase 4: publish under the lock. t_dev_end splits each
+        # delta's device stage (apply/advance/finalize above) from its
+        # publish stage (this lock acquisition and the bookkeeping)
+        t_dev_end = self._clock()
+        dump_ctx = None
         with self._cond:
-            for ks, sess, last_seq, final, err_r in entries:
-                ks.last_result = (err_r if err_r is not None
-                                  else results[id(ks)])
-                ks.needs_check = False
-                if final:
-                    ks.finalized = True
-                if last_seq is not None:
-                    ks.applied_seq = last_seq
-                ks.last_activity = self._clock()
+            with obs.span("serve.publish", keys=len(entries)):
+                for ks, sess, last_seq, final, err_r, recs in entries:
+                    ks.last_result = (err_r if err_r is not None
+                                      else results[id(ks)])
+                    ks.needs_check = False
+                    if final:
+                        ks.finalized = True
+                    if last_seq is not None:
+                        ks.applied_seq = last_seq
+                    self._observe_verdicts_locked(ks)
+                    ctx = self._finish_recs_locked(ks, recs, t_dev_end)
+                    if ctx is not None:
+                        dump_ctx = ctx
+                    ks.last_activity = self._clock()
             self._cond.notify_all()
+        if dump_ctx is not None:
+            # the worst slow delta so far gets the flight ring dumped
+            # with it, outside the service lock (file I/O)
+            obs.flight_dump("slow-delta", context=dump_ctx)
+
+    def _finish_recs_locked(self, ks: _Key, recs,
+                            t_dev_end: float) -> Optional[dict]:
+        """Close out a batch's per-delta trace records at verdict
+        publish (callers hold the condition): each delta's stage
+        breakdown and, with ``JEPSEN_TPU_TORCH_SLOW_DELTA_SECS`` armed
+        and crossed, its record in the bounded newest-wins ring
+        (``obs.record_slow_delta``). Returns the record to flight-dump
+        when one is the new worst offender (the CALLER dumps, outside
+        the lock)."""
+        if not recs:
+            return None
+        now = self._clock()
+        worst_ctx = None
+        r0 = ks.last_result or {}
+        for r in recs:
+            t_in = r["t_in"]
+            t_admit = r.get("t_admit", t_in)
+            t_take = r.get("t_take", t_admit)
+            total = max(0.0, now - t_in)
+            if not self.slow_delta_secs \
+                    or total < self.slow_delta_secs:
+                continue
+            # the WAL stage is a measured fsync DURATION, concurrent
+            # with queue and device (the worker takes a delta without
+            # waiting for its fsync), so queue is the whole
+            # admission->take wait and the stages need not sum to the
+            # total. A verdict published while the fsync is in flight
+            # attributes the window so far (end stamp missing).
+            ws = r.get("t_wal_start")
+            we = r.get("t_wal_end")
+            # None checks, not truthiness: an injectable clock may
+            # stamp 0.0
+            wal_secs = (max(0.0, we - ws)
+                        if ws is not None and we is not None
+                        else max(0.0, now - ws) if ws is not None
+                        else 0.0)
+            stages = {
+                "backpressure": max(0.0, t_admit - t_in),
+                "wal": wal_secs,
+                "queue": max(0.0, t_take - t_admit),
+                "device": max(0.0, t_dev_end - t_take),
+                "publish": max(0.0, now - t_dev_end),
+            }
+            doc = {"delta_id": r["id"], "key": str(ks.key),
+                   "tenant": r.get("tenant"), "seq": r.get("seq"),
+                   "ops": r.get("ops"),
+                   "total_secs": round(total, 6),
+                   "stages": {k: round(v, 6)
+                              for k, v in stages.items()},
+                   "slowest_stage": max(stages, key=stages.get),
+                   "verdict": r0.get("valid?")}
+            if r0.get("error"):
+                doc["error"] = r0["error"]
+            if r0.get("resilience"):
+                doc["resilience"] = r0["resilience"]
+            if r0.get("stats"):
+                # the search-stats block (armed only): which device
+                # program the delta ran, sized
+                st = r0["stats"]
+                doc["stats"] = {k: st.get(k) for k in
+                                ("events", "frontier-peak",
+                                 "capacity", "capacity-tier",
+                                 "dedupe", "load-factor-peak",
+                                 "probe-hist", "pad-waste")
+                                if st.get(k) is not None}
+            if obs.record_slow_delta(doc, scope=self._slow_scope):
+                worst_ctx = doc
+        return worst_ctx
 
     def _freeze_session(self, ks: _Key, locked: bool = False) -> None:
         """Freeze one key's live frontier to the checkpoint store and
@@ -1257,7 +1642,8 @@ class CheckerService:
         migration (any thread — the caller HOLDS the condition for
         the whole freeze so the worker cannot pick the key up
         mid-write) share this. The checkpoints are host arrays."""
-        meta = ks.session.freeze(self._cps.checkpoint_path(ks.key))
+        with obs.span("serve.evict", key=str(ks.key)):
+            meta = ks.session.freeze(self._cps.checkpoint_path(ks.key))
         meta["applied_seq"] = ks.applied_seq
         meta["finalized"] = ks.finalized
         self._cps.save(ks.key, meta)
@@ -1266,6 +1652,7 @@ class CheckerService:
         else:
             with self._cond:
                 ks.session = None
+        obs.counter("serve.evictions").inc()
 
     def freeze_key(self, key) -> bool:
         """Freeze one key NOW (the graceful-migration primitive: the
@@ -1307,6 +1694,7 @@ class CheckerService:
                     ks.session.migrate(device if device is not None
                                        else self.device)
             ks.device = device
+        obs.counter("serve.keys_stolen").inc()
         return True
 
     def _maybe_evict(self) -> None:
@@ -1323,6 +1711,11 @@ class CheckerService:
                        > self.evict_idle_secs]
         for ks in victims:
             self._freeze_session(ks)
+        if victims:
+            with self._cond:
+                live = sum(1 for k in self._keys.values()
+                           if k.session is not None)
+            obs.gauge("serve.keys_live").set(live)
 
     def _run(self) -> None:
         poll = (min(0.25, max(0.01, self.evict_idle_secs / 4))
@@ -1348,15 +1741,28 @@ class CheckerService:
                 # survive it: publish loud error verdicts (accounting
                 # was settled at take time) and drop the sessions so
                 # the WAL replay recovers the truth on the next delta.
+                t_dev_end = self._clock()
+                dump_ctx = None
+                # the per-key dumps FIRST, outside the condition (file
+                # I/O): the lock below covers bookkeeping only
                 err_rs = {id(ks): self._crashed_entry(ks, err)
-                          for ks, _ops, _seq, _final in batch}
+                          for ks, _ops, _seq, _final, _recs in batch}
                 with self._cond:
-                    for ks, _ops, last_seq, _final in batch:
+                    for ks, _ops, last_seq, _final, recs in batch:
                         ks.last_result = err_rs[id(ks)]
                         ks.needs_check = False
                         if last_seq is not None:
                             ks.applied_seq = last_seq
+                        self._observe_verdicts_locked(ks)
+                        ctx = self._finish_recs_locked(ks, recs,
+                                                       t_dev_end)
+                        if ctx is not None:
+                            dump_ctx = ctx
                     self._cond.notify_all()
+                if dump_ctx is not None:
+                    # a crashed batch's worst offender still raised the
+                    # ring's high-water: dump it, outside the lock
+                    obs.flight_dump("slow-delta", context=dump_ctx)
             finally:
                 with self._cond:
                     self._inflight = 0

@@ -5,7 +5,8 @@ A port of `jepsen_tpu.serve.stdio`. One JSON request per input line,
 one JSON response per output line. Requests::
 
     {"key": K, "ops": [<op map>, ...], "seq": N?,
-     "wait": B?, "timeout": S?, "token": T?}        submit a delta
+     "wait": B?, "timeout": S?, "token": T?,
+     "delta_id": D?}                                submit a delta
     {"op": "result",   "key": K}                    current verdict
     {"op": "finalize", "key": K}                    drain + final check
     {"op": "drain"}                                 apply everything
@@ -23,6 +24,11 @@ submit/result/finalize line may carry ``"token": "<tenant token>"``
 (forwarded verbatim to the service, which resolves and enforces it);
 with tenants configured and no token, the request is refused with the
 service's structured error.
+
+Each delta line runs under the ``serve.stdio.request`` span, the same
+shape as the HTTP ingress's, so a trace reads alike whichever transport
+carried the delta; a line's ``"delta_id"`` rides through to the service
+(armed only), and the span carries the ack's id.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from __future__ import annotations
 import json
 import sys
 
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.history import Op, _hashable
 
 
@@ -84,12 +91,18 @@ def run_stdio(service, lines_in=None, out=None) -> int:
                                       timeout=req.get("timeout"),
                                       token=req.get("token")))
             elif "ops" in req:
-                emit(service.submit(wire_key(req),
-                                    [Op(o) for o in req["ops"]],
-                                    seq=req.get("seq"),
-                                    timeout=req.get("timeout"),
-                                    wait=bool(req.get("wait")),
-                                    token=req.get("token")))
+                with obs.span("serve.stdio.request",
+                              key=str(req.get("key"))) as sp:
+                    r = service.submit(wire_key(req),
+                                       [Op(o) for o in req["ops"]],
+                                       seq=req.get("seq"),
+                                       timeout=req.get("timeout"),
+                                       wait=bool(req.get("wait")),
+                                       token=req.get("token"),
+                                       delta_id=req.get("delta_id"))
+                    if isinstance(r, dict) and r.get("delta_id"):
+                        sp.set(delta_id=r["delta_id"], seq=r.get("seq"))
+                emit(r)
             else:
                 emit({"error": f"unknown request {req!r}"})
     finally:

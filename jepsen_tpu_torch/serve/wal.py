@@ -2,9 +2,10 @@
 
 A port of `jepsen_tpu.serve.wal`, byte for byte on disk: a WAL
 directory or a checkpoint pair written by either package replays in the
-other. Left out: the obs counters (torn lines and rotations are logged
-only), and the checkpoint store's compiled-program manifest (the port
-has no compiled-program cache).
+other, and counted under the reference's names (``serve.wal_torn``,
+``serve.wal_rotations``, ``serve.fences_written``). Left out: the
+checkpoint store's compiled-program manifest (the port has no
+compiled-program cache).
 
 The robustness contract (docs/streaming.md): a delta the service has
 ADMITTED is durable before the producer sees ``{"accepted": ...}`` —
@@ -73,7 +74,7 @@ import re
 import threading
 from typing import Dict, List, Optional, Tuple
 
-from jepsen_tpu_torch import edn, envflags
+from jepsen_tpu_torch import edn, envflags, obs
 from jepsen_tpu_torch.history import _hashable, op_from_edn, op_to_edn_str
 
 _log = logging.getLogger(__name__)
@@ -173,6 +174,7 @@ class DeltaWAL:
                 data = fh.read()
                 cut = data.rfind(b"\n")
                 fh.truncate(cut + 1 if cut >= 0 else 0)
+            obs.counter("serve.wal_torn").inc()
             _log.warning("WAL %s: truncated a torn trailing line "
                          "before appending (the delta was never "
                          "acknowledged)", path)
@@ -264,6 +266,7 @@ class DeltaWAL:
             idx = existing[-1]
         with self._lock:
             self._seg[stem] = idx + 1
+        obs.counter("serve.wal_rotations").inc()
 
     def rotate(self, key) -> None:
         """Seal the key's active segment now (replica handoff wants
@@ -408,6 +411,7 @@ class DeltaWAL:
             fh.flush()
             os.fsync(fh.fileno())
         os.replace(tmp, path)
+        obs.counter("serve.fences_written").inc()
         return doc
 
     def fence(self, key) -> Optional[dict]:
@@ -469,6 +473,7 @@ class DeltaWAL:
                     ops = [op_from_edn(edn.loads(s)) for s in rec["ops"]]
                 except Exception as err:  # noqa: BLE001 — decode failure
                     if i == len(lines):
+                        obs.counter("serve.wal_torn").inc()
                         _log.warning(
                             "WAL %s: torn trailing line ignored (the "
                             "delta was never acknowledged): %r", path,

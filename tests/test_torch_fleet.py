@@ -30,12 +30,20 @@ import torch
 
 from torch_fleet_cases import (
     PKGS, both, fleet_delta, one_shot, ops, pin, register_history, service,
+    unarmed,
 )
 from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 from jepsen_tpu_torch import envflags
 from jepsen_tpu_torch.serve import fleet
 from jepsen_tpu_torch.serve.stdio import jsonable
+
+
+@pytest.fixture(autouse=True)
+def _unarmed(monkeypatch):
+    unarmed(monkeypatch)
+    yield
+    unarmed(monkeypatch)
 
 
 @pytest.fixture(autouse=True)

@@ -99,7 +99,7 @@ def test_port_and_smoke_import_without_jax():
     assert lines["OPS"] == str(sorted(
         [f"jepsen_tpu_torch.{m}" for m in (
             "obs", "obs.capture", "obs.export", "obs.httpd", "obs.metrics",
-            "obs.tracer",
+            "obs.slo", "obs.tracer",
             "resilience", "resilience.breaker")])), proc.stdout
     assert lines["SPARSE"] == str(["jepsen_tpu_torch.parallel.sparse",
                                    "jepsen_tpu_torch.parallel."
@@ -121,7 +121,7 @@ def test_port_and_smoke_import_without_jax():
 
 
 OBS_MODULES = ("obs", "obs.tracer", "obs.export", "obs.metrics",
-               "obs.httpd", "obs.capture")
+               "obs.httpd", "obs.capture", "obs.slo")
 
 
 @pytest.mark.parametrize("module", OBS_MODULES)

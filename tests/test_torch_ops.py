@@ -27,7 +27,7 @@ import torch
 
 from torch_fleet_cases import (
     OBS_ONLY, PKGS, PORT_ONLY, fleet_delta, norm, one_shot, ops, pin,
-    register_history, service,
+    register_history, service, unarmed,
 )
 from torch_jax_cache import release_compiled_programs  # noqa: F401
 
@@ -36,6 +36,13 @@ from jepsen_tpu_torch.parallel import extend
 from jepsen_tpu_torch.resilience.breaker import CircuitBreaker
 from jepsen_tpu_torch.serve import service as svc_mod
 from jepsen_tpu_torch.serve.stdio import jsonable
+
+
+@pytest.fixture(autouse=True)
+def _unarmed(monkeypatch):
+    unarmed(monkeypatch)
+    yield
+    unarmed(monkeypatch)
 
 
 @pytest.fixture(autouse=True)
@@ -85,7 +92,7 @@ def _drive(pkg, script, threshold, base):
         br = PKGS["ref"].breaker.CircuitBreaker("fleet:r1",
                                                 track_global=False, **kw)
     else:
-        br = CircuitBreaker("fleet:r1", **kw)
+        br = CircuitBreaker("fleet:r1", track_global=False, **kw)
     before = PKGS[pkg].obs.registry().snapshot()
     out = [br.snapshot()]
     for op, arg in script:

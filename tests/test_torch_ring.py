@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from torch_fleet_cases import (
-    PKGS, both, one_shot, ops, pin, register_history, service,
+    PKGS, both, one_shot, ops, pin, register_history, service, unarmed,
 )
 from torch_jax_cache import release_compiled_programs  # noqa: F401
 
@@ -42,6 +42,13 @@ from jepsen_tpu_torch.serve.fleet import FleetSupervisor, HttpReplica
 from jepsen_tpu_torch.serve.stdio import jsonable
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _unarmed(monkeypatch):
+    unarmed(monkeypatch)
+    yield
+    unarmed(monkeypatch)
 
 
 @pytest.fixture(autouse=True)

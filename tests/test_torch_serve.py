@@ -5,10 +5,12 @@ on the CPU with the plain closures) against the reference's
 Each scenario runs once against each service, and every answer it
 collects (acks, sheds, errors, verdicts, finalize results, stats,
 status and health documents) must be equal, field for field and
-exactly, but for two named lists: OBS_ONLY, the reference's
-observability fields the port leaves out (delta ids, slow-delta records,
-the per-tenant SLO quantiles, the breaker and SLO health checks), and
-PORT_ONLY, the port's route tag ("closure"). Covered: stream parity,
+exactly, but for two named lists: TIMES, the fields measured in
+seconds (the per-tenant ack and verdict quantiles, a slow-delta record's
+total and stages, and the stage it names slowest), compared by presence,
+key set and type since they differ from run to run; and PORT_ONLY, the
+port's route tag ("closure"). OBS_ONLY, the reference's fields the port
+leaves out, is empty. Covered: stream parity,
 drain and accounting; duplicate, gap and finalized answers; restart
 replay and the torn tail; backpressure and the high-water shed;
 concurrent same-seq submitters; eviction and thaw mid-stream (the thaw
@@ -45,15 +47,24 @@ from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.serve import CheckerService, Tenant
 from jepsen_tpu_torch.serve import service as svc_mod
 from jepsen_tpu_torch.serve.stdio import jsonable
+from torch_fleet_cases import unarmed
 from torch_jax_cache import release_compiled_programs  # noqa: F401
 
-# the reference's observability fields, left out of the port (its
-# tracing, slow-delta forensics, SLO tracker and breaker registry)
-OBS_ONLY = ("delta_id", "slow_deltas", "slow_delta_secs", "ack_p50",
-            "ack_p99", "verdict_p50", "verdict_p99", "breakers", "slo")
+# the reference's fields the port leaves out: none
+OBS_ONLY = ()
+# the fields measured in seconds: compared by presence, key set and type
+TIMES = ("ack_p50", "ack_p99", "verdict_p50", "verdict_p99",
+         "total_secs", "stages", "slowest_stage")
 # the port's route tag: which closure ran ("torch" on the CPU)
 PORT_ONLY = ("closure",)
 PIN = ("valid?", "op", "fail-event", "max-frontier", "configs-stepped")
+
+
+@pytest.fixture(autouse=True)
+def _unarmed(monkeypatch):
+    unarmed(monkeypatch)
+    yield
+    unarmed(monkeypatch)
 
 
 @pytest.fixture(autouse=True)
@@ -64,9 +75,17 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _shape(v):
+    """A time field's presence, key set and type."""
+    if isinstance(v, dict):
+        return {k: type(x).__name__ for k, x in v.items()}
+    return type(v).__name__
+
+
 def _norm(x, drop):
     if isinstance(x, dict):
-        return {k: ("wal" if k == "dir" else _norm(v, drop))
+        return {k: ("wal" if k == "dir" else _shape(v) if k in TIMES
+                    else _norm(v, drop))
                 for k, v in x.items() if k not in drop}
     if isinstance(x, list):
         return [_norm(v, drop) for v in x]
@@ -606,10 +625,14 @@ def test_service_tenant_recovery_rehomes_ownership(tmp_path):
                               wait=True, timeout=120)]
         finally:
             svc.close()
-        svc2 = _service(pkg, tmp_path, tenants=TWO)
+        # the restarted service's status before its worker starts: the
+        # recovered key's row does not depend on whether the worker has
+        # published the replay's verdict yet
+        svc2 = _service(pkg, tmp_path, tenants=TWO, start_worker=False)
         try:
-            out += [svc2.status(),
-                    svc2.submit("rka", _ops(pkg, h1[12:]), token="tok-b"),
+            out.append(svc2.status())
+            svc2.start_worker()
+            out += [svc2.submit("rka", _ops(pkg, h1[12:]), token="tok-b"),
                     svc2.result("rka", timeout=120, token="tok-a")]
         finally:
             svc2.close()
@@ -734,7 +757,9 @@ def test_status_rows_and_health_checks(tmp_path):
     _, port = _both(scenario)
     assert port[0]["ok"] is False and port[0]["checks"]["worker"]["ok"] \
         is False
-    assert set(port[3]["checks"]) == {"worker", "wal", "queue", "keys"}
+    assert set(port[3]["checks"]) == {"worker", "wal", "queue", "breakers",
+                                      "keys"}
+    assert port[3]["checks"]["breakers"] == {"ok": True, "states": {}}
     assert port[5]["ok"] is True
     rows = port[4]["keys"]
     assert rows['"a1"']["state"] == "live" and rows['"b1"']["finalized"]

@@ -6,7 +6,8 @@ the shed carrying tenant and reason, an unknown endpoint and a bad key,
 a bad timeout and a missing Content-Length, the port flag, stdio's
 round trip and token passthrough; the entry point's --help, and its
 exit without a card. Every answer is compared exactly, but for
-test_torch_serve.py's OBS_ONLY and PORT_ONLY fields."""
+test_torch_serve.py's TIMES (compared by presence, key set and type) and
+PORT_ONLY fields."""
 
 import json
 import os
@@ -27,9 +28,17 @@ from jepsen_tpu_torch.serve import ingress as ingress_mod
 from jepsen_tpu_torch.serve import stdio as stdio_mod
 from jepsen_tpu_torch.serve.__main__ import SERVE_MODELS, parser
 from test_torch_serve import _service, _same
+from torch_fleet_cases import unarmed
 from torch_jax_cache import release_compiled_programs  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _unarmed(monkeypatch):
+    unarmed(monkeypatch)
+    yield
+    unarmed(monkeypatch)
 
 
 @pytest.fixture(autouse=True)

@@ -2,9 +2,10 @@
 one scenario runs against the reference's serve stack ("ref",
 jepsen_tpu.serve) and the port's ("port", jepsen_tpu_torch.serve, on the
 CPU), and the answers it returns are held equal, field for field and
-exactly, but for the reference's observability fields (OBS_ONLY) and the
-port's route tag (PORT_ONLY) — the same two lists as
-tests/test_torch_serve.py's."""
+exactly, but for the fields measured in seconds (TIMES: compared by
+presence, key set and type) and the port's route tag (PORT_ONLY) — the
+same lists as tests/test_torch_serve.py's. OBS_ONLY, the reference's
+fields the port leaves out, is empty."""
 
 import types
 
@@ -29,8 +30,9 @@ from jepsen_tpu_torch.serve import CheckerService, fleet, ring
 from jepsen_tpu_torch.serve.stdio import jsonable
 from jepsen_tpu_torch.serve.wal import DeltaWAL
 
-OBS_ONLY = ("delta_id", "slow_deltas", "slow_delta_secs", "ack_p50",
-            "ack_p99", "verdict_p50", "verdict_p99", "breakers", "slo")
+OBS_ONLY = ()
+TIMES = ("ack_p50", "ack_p99", "verdict_p50", "verdict_p99",
+         "total_secs", "stages", "slowest_stage")
 PORT_ONLY = ("closure",)
 PIN = ("valid?", "op", "fail-event", "max-frontier", "configs-stepped")
 #: the metric families the fleet states its behaviour in
@@ -64,9 +66,17 @@ def ops(pkg, op_dicts):
     return [PKGS[pkg].Op(o) for o in op_dicts]
 
 
+def shape(v):
+    """A time field's presence, key set and type."""
+    if isinstance(v, dict):
+        return {k: type(x).__name__ for k, x in v.items()}
+    return type(v).__name__
+
+
 def norm(x, drop):
     if isinstance(x, dict):
-        return {k: ("wal" if k == "dir" else norm(v, drop))
+        return {k: ("wal" if k == "dir" else shape(v) if k in TIMES
+                    else norm(v, drop))
                 for k, v in x.items() if k not in drop}
     if isinstance(x, list):
         return [norm(v, drop) for v in x]
@@ -85,6 +95,57 @@ def both(scenario, *args, **kw):
     port = scenario("port", *args, **kw)
     same(ref, port)
     return ref, port
+
+
+#: the tracing surface's flags, each package's spelling
+OBS_FLAGS = ("TRACE", "FLIGHT_RECORDER", "SLOW_DELTA_SECS", "SLO_ACK_SECS",
+             "SLO_BURN_MAX")
+
+
+def unarmed(monkeypatch):
+    """Both packages' tracing surface off (every flag unset, the tracers
+    re-read, no flight dumps counted), both breaker registries and both
+    metric registries empty: the state each unarmed parity case starts
+    from. The metric registries matter because the reference's own tests
+    reuse these tenant names: a labeled histogram an earlier test left
+    would show in one package's per-tenant quantiles and not the
+    other's."""
+    for P in PKGS.values():
+        for flag in OBS_FLAGS:
+            monkeypatch.delenv(P.FLAG + flag, raising=False)
+        P.obs.reset()
+        P.obs.flight_reset()
+        P.obs.registry().reset()
+        P.breaker.reset()
+
+
+def armed(monkeypatch, **flags):
+    """Both packages' tracing surface armed with ``flags`` (names
+    without the package prefix: ``TRACE="1"``, ...), the tracers
+    re-read."""
+    unarmed(monkeypatch)
+    for P in PKGS.values():
+        for flag, value in flags.items():
+            monkeypatch.setenv(P.FLAG + flag, value)
+        P.obs.reset()
+
+
+def serve_chain(pkg) -> set:
+    """`pkg`'s recorded ``serve.*`` spans as (name, parent's name,
+    delta id or ids) triples: the shape of every delta's chain, without
+    the raw span ids or times."""
+    spans = PKGS[pkg].obs.tracer().spans()
+    by_id = {s.sid: s for s in spans}
+    out = set()
+    for s in spans:
+        if not s.name.startswith("serve."):
+            continue
+        parent = by_id.get(s.parent)
+        ids = s.args.get("delta_id")
+        if ids is None and s.args.get("delta_ids") is not None:
+            ids = tuple(s.args["delta_ids"])
+        out.add((s.name, parent.name if parent is not None else None, ids))
+    return out
 
 
 def fleet_delta(pkg, before):
